@@ -1,0 +1,185 @@
+"""Buffer store: the paper's per-process B_n with policy-driven Algorithm-1 updates.
+
+The buffer stores *records*, dicts of tensors matching one training sample
+(images + label + task id for the paper's CNNs). Each leaf is stored as
+``[K, slots, *leaf_shape]``: K per-bucket sub-buffers R_n^i with ``slots``
+capacity each. Seen as ``[K*slots, L]`` it is the record table the rehearsal
+kernel scatters into and gathers from.
+
+Work is split in two, as in the reference: *which rows* (``local_update_rows``
+/ ``local_sample_rows``, driven by a ``torch.Generator`` through the policy)
+and *moving the bytes* (``local_update_sample``, one kernel call per record
+leaf). The split is the parity seam: the tests feed the reference's row
+vectors into the port's byte movement. Because the sample rows depend only on
+the updated counts, both row vectors exist before any byte moves, which is
+what lets one launch per leaf do the update and the sample together.
+
+Per-worker only; the cross-worker exchange lives in ``repro_torch.core.distributed``.
+Updates are in place: the buffer's tensors are the record table.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rehearsal_ops import rehearsal_update_sample
+
+
+class ItemSpec(NamedTuple):
+    """Shape (without the batch axis) and dtype of one record field."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+class BufferState(NamedTuple):
+    """Per-worker rehearsal buffer B_n (``data`` leaves are [K, slots, ...])."""
+
+    data: Dict[str, torch.Tensor]  # name -> [K, slots, *item_shape]
+    counts: torch.Tensor  # i32[K] filled slots per bucket
+    seen: torch.Tensor  # i32[K] candidates offered per bucket (stats)
+
+
+class UpdateSampleRows(NamedTuple):
+    """The row vectors of one update+sample: where each candidate goes, the
+    counts after the update, and which rows the sample reads."""
+
+    cand_rows: torch.Tensor  # i32[b]; K*slots (out of range) marks a dropped candidate
+    new_counts: torch.Tensor  # i32[K]
+    new_seen: torch.Tensor  # i32[K]
+    samp_rows: torch.Tensor  # i32[n], always in range
+    samp_valid: torch.Tensor  # bool[n]
+
+
+def init_buffer(item_spec: Dict[str, ItemSpec], num_buckets: int, slots: int,
+                policy=None, device="cpu") -> BufferState:
+    """An empty buffer on ``device``: zeroed leaves, zero counts."""
+    from repro_torch.buffer.policies import resolve_policy
+
+    resolve_policy(policy)  # raises for a policy the port does not have
+    data = {name: torch.zeros((num_buckets, slots) + tuple(s.shape), dtype=s.dtype,
+                              device=device)
+            for name, s in item_spec.items()}
+    zeros = torch.zeros((num_buckets,), dtype=torch.int32, device=device)
+    return BufferState(data, zeros, zeros.clone())
+
+
+def buffer_dims(state: BufferState) -> Tuple[int, int]:
+    leaf = next(iter(state.data.values()))
+    return leaf.shape[0], leaf.shape[1]  # (K, slots)
+
+
+def local_update_rows(state: BufferState, labels, gen, num_candidates: int,
+                      policy=None, accept_mask=None):
+    """Row-targeting core of Algorithm 1: which flat buffer rows this batch
+    writes, and the count bookkeeping, without touching the record bytes.
+
+    Returns ``(flat i32[b], accept bool[b], pos, slot, new_counts i32[K],
+    new_seen i32[K])`` where ``flat[i] == K*cap`` (out of range) marks a
+    dropped candidate. Draws the acceptance lottery, then the eviction slots,
+    from ``gen``.
+    """
+    from repro_torch.buffer.policies import resolve_policy
+
+    pol = resolve_policy(policy)
+    k_buckets, cap = buffer_dims(state)
+    labels = labels.long()
+    accept = (pol.select_candidates(state, labels, gen, num_candidates)
+              if accept_mask is None else accept_mask)
+    onehot_all = F.one_hot(labels, k_buckets)
+    onehot = onehot_all * accept[:, None].long()
+    # rank among *prior* accepted candidates of the same bucket within this batch
+    rank = (torch.cumsum(onehot, 0) - onehot).gather(1, labels[:, None])[:, 0]
+    pos = state.counts.long()[labels] + rank
+    slot = pol.evict(state, labels, pos, rank, gen)
+    flat = torch.where(accept, labels * cap + slot,
+                       torch.full_like(labels, k_buckets * cap))
+    new_counts = torch.clamp(state.counts.long() + onehot.sum(0), max=cap)
+    new_seen = state.seen.long() + onehot_all.sum(0)
+    return (flat.int(), accept, pos, slot, new_counts.int(), new_seen.int())
+
+
+def local_sample_rows(state: BufferState, gen, n: int, policy=None):
+    """Row-selection core of sampling: ``(flat i32[n], valid bool[n])`` with
+    ``flat`` always in range (validity travels as the mask)."""
+    from repro_torch.buffer.policies import resolve_policy
+
+    flat, valid = resolve_policy(policy).sample(state, gen, n)
+    return flat.int(), valid
+
+
+def plan_update_sample(state: BufferState, labels, gen, num_candidates: int,
+                       n: int, policy=None) -> UpdateSampleRows:
+    """Both row vectors of an update followed by a sample of ``n`` records:
+    the sample reads the counts the update leaves behind."""
+    flat, _, _, _, new_counts, new_seen = local_update_rows(
+        state, labels, gen, num_candidates, policy)
+    samp, valid = local_sample_rows(state._replace(counts=new_counts), gen, n, policy)
+    return UpdateSampleRows(flat, new_counts, new_seen, samp, valid)
+
+
+def _table(leaf: torch.Tensor) -> torch.Tensor:
+    """[K, slots, ...] -> the [K*slots, L] record-table view (no copy)."""
+    return leaf.view(leaf.shape[0] * leaf.shape[1], -1)
+
+
+def local_update_sample(state: BufferState, items: Dict[str, torch.Tensor],
+                        rows: UpdateSampleRows):
+    """Move the bytes of one update+sample: for every record leaf, ONE call of
+    the rehearsal kernel writes the candidates into the table in place and
+    gathers the sampled rows from the updated table.
+
+    Returns ``(new_state, reps {name: [n, ...]}, valid bool[n])``."""
+    reps = {}
+    for name, leaf in state.data.items():
+        table, item = _table(leaf), items[name]
+        cands = item.to(leaf.dtype).reshape(item.shape[0], table.shape[1]).contiguous()
+        _, got = rehearsal_update_sample(table, cands, rows.cand_rows, rows.samp_rows)
+        reps[name] = got.view((rows.samp_rows.shape[0],) + tuple(leaf.shape[2:]))
+    new_state = BufferState(state.data, rows.new_counts, rows.new_seen)
+    return new_state, reps, rows.samp_valid
+
+
+def local_update(state: BufferState, items, labels, gen, num_candidates: int,
+                 policy=None, accept_mask=None) -> BufferState:
+    """Algorithm 1: every sample enters its bucket with probability c/b; new
+    candidates fill empty slots in arrival order, a full bucket evicts a
+    uniformly random slot. ``accept_mask`` overrides the lottery."""
+    flat, _, _, _, new_counts, new_seen = local_update_rows(
+        state, labels, gen, num_candidates, policy, accept_mask)
+    none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
+    rows = UpdateSampleRows(flat, new_counts, new_seen, none, none.bool())
+    return local_update_sample(state, items, rows)[0]
+
+
+def local_sample(state: BufferState, gen, n: int, policy=None):
+    """Draw ``n`` records, uniform over *filled* slots under the reservoir rule
+    (with replacement). Returns ``(items {name: [n, ...]}, valid bool[n])``."""
+    flat, valid = local_sample_rows(state, gen, n, policy)
+    none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
+    rows = UpdateSampleRows(none, state.counts, state.seen, flat, valid)
+    empty = {k: v.new_zeros((0,) + tuple(v.shape[2:])) for k, v in state.data.items()}
+    _, reps, valid = local_update_sample(state, empty, rows)
+    return reps, valid
+
+
+def mask_invalid(items: Dict[str, torch.Tensor], valid, label_field: str = "labels"):
+    """Neutralise invalid records: set their loss labels to -1 (ignored by the CE)."""
+    out = dict(items)
+    for name in (label_field, "label"):
+        if name in out:
+            leaf = out[name]
+            mask = valid.reshape((leaf.shape[0],) + (1,) * (leaf.dim() - 1))
+            out[name] = torch.where(mask, leaf, torch.full_like(leaf, -1))
+    return out
+
+
+def augment_batch(batch, reps, valid, label_field: str = "labels"):
+    """Concatenate the incoming mini-batch (size b) with r representatives.
+
+    Invalid representatives (the empty buffer of the first step) contribute
+    zero loss through label masking, keeping shapes static."""
+    reps = mask_invalid(reps, valid, label_field)
+    return {k: torch.cat([v, reps[k].to(v.dtype)], 0) for k, v in batch.items()}

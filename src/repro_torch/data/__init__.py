@@ -1,0 +1,5 @@
+"""Data streams and the host prefetch pipeline of the port."""
+from repro_torch.data.pipeline import Cursor, Prefetcher
+from repro_torch.data.synthetic import ClassIncrementalImages, ImageStreamConfig
+
+__all__ = ["ClassIncrementalImages", "Cursor", "ImageStreamConfig", "Prefetcher"]

@@ -1,0 +1,19 @@
+"""Scenario-first continual-learning API of the port.
+
+    from repro_torch.configs.base import RunConfig, ScenarioConfig
+    from repro_torch.scenario import ContinualTrainer
+
+    result = ContinualTrainer(RunConfig(), device="cpu").fit()
+"""
+from repro_torch.scenario.base import (
+    Problem,
+    SCENARIOS,
+    Scenario,
+    get_scenario,
+    register_scenario,
+)
+from repro_torch.scenario.scenarios import ClassIncremental
+from repro_torch.scenario.trainer import ContinualTrainer
+
+__all__ = ["ClassIncremental", "ContinualTrainer", "Problem", "SCENARIOS",
+           "Scenario", "get_scenario", "register_scenario"]

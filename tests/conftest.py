@@ -91,6 +91,11 @@ except ModuleNotFoundError:
     sys.modules["hypothesis.strategies"] = _st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where no CUDA device is visible")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)

@@ -1,0 +1,134 @@
+"""The port's rehearsal update+sample (plain version on the CPU) against the
+JAX package: ``ops.rehearsal_update_sample`` in interpret mode (single-row
+and tiled forms) and the oracle ``ref.rehearsal_update_sample_ref``.
+
+Tolerance: bit-exact. Both sides copy bytes and compute nothing.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rehearsal_ops as tops
+
+DTYPES = {"f32": (np.float32, torch.float32), "i32": (np.int32, torch.int32)}
+
+
+def _inputs(seed, r, l, c, s, lo, hi, np_dtype):
+    rng = np.random.default_rng(seed)
+    buf = rng.normal(size=(r, l)) * 100
+    cands = rng.normal(size=(c, l)) * 100
+    cand_rows = rng.integers(lo, hi, size=c).astype(np.int32)
+    samp_rows = rng.integers(0, r, size=s).astype(np.int32)
+    return buf.astype(np_dtype), cands.astype(np_dtype), cand_rows, samp_rows
+
+
+def _port(buf, cands, cand_rows, samp_rows):
+    b, reps = tops.rehearsal_update_sample(
+        torch.from_numpy(buf.copy()), torch.from_numpy(cands),
+        torch.from_numpy(cand_rows), torch.from_numpy(samp_rows))
+    return b.numpy(), reps.numpy()
+
+
+def _jax(buf, cands, cand_rows, samp_rows, row_tile):
+    nb, reps = jops.rehearsal_update_sample(
+        jnp.asarray(buf), jnp.asarray(cands), jnp.asarray(cand_rows),
+        jnp.asarray(samp_rows), row_tile=row_tile)
+    return np.asarray(nb), np.asarray(reps)
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("seed,r,l,c,s", [(0, 8, 4, 6, 3), (2, 16, 3, 12, 7)])
+def test_plain_matches_jax_single_row_tiled_and_ref(dtype, seed, r, l, c, s):
+    """Rows in [-2, R): duplicates and dropped (< 0) candidates; last write
+    wins. Held against row_tile=1, row_tile=8 and the oracle."""
+    args = _inputs(seed, r, l, c, s, -2, r, DTYPES[dtype][0])
+    got = _port(*args)
+    _assert_bits(got, _jax(*args, row_tile=1))
+    _assert_bits(got, _jax(*args, row_tile=8))
+    _assert_bits(got, jref.rehearsal_update_sample_ref(*map(jnp.asarray, args)))
+    assert len(set(args[2][args[2] >= 0])) < (args[2] >= 0).sum()  # has duplicates
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("seed", [3, 4])
+def test_plain_drops_rows_past_the_table_like_tiled_form_and_ref(dtype, seed):
+    """Rows >= R are dropped. Only the tiled form and the oracle drop them;
+    the single-row form clamps them (a reference caveat, ROADMAP Queue 3)."""
+    r = 6
+    args = _inputs(seed, r, 5, 10, 6, -2, r + 4, DTYPES[dtype][0])
+    assert (args[2] >= r).any()
+    got = _port(*args)
+    _assert_bits(got, _jax(*args, row_tile=4))
+    _assert_bits(got, jref.rehearsal_update_sample_ref(*map(jnp.asarray, args)))
+
+
+def test_gather_sees_fresh_writes():
+    """Paper ordering: sampling reads the post-update buffer (write-then-read)."""
+    buf = torch.zeros((8, 4))
+    _, reps = tops.rehearsal_update_sample(
+        buf, torch.ones((2, 4)), torch.tensor([3, 5], dtype=torch.int32),
+        torch.tensor([3, 5, 0], dtype=torch.int32))
+    assert reps.tolist() == [[1.0] * 4, [1.0] * 4, [0.0] * 4]
+    assert buf[3].tolist() == [1.0] * 4  # in place
+
+
+def test_pipelined_step_is_one_step_stale():
+    """rehearsal_pipelined_step trains on the PREVIOUS call's gather while its
+    own gather observes this call's scatter."""
+    buf = torch.zeros((16, 8))
+    pending = torch.full((2, 8), -1.0)
+    for t in range(3):
+        cands = torch.full((4, 8), float(t + 1))
+        cand_rows = torch.arange(4, dtype=torch.int32) + 4 * t
+        samp_rows = torch.tensor([4 * t, 4 * t + 1], dtype=torch.int32)
+        buf, train_reps, pending = tops.rehearsal_pipelined_step(
+            buf, pending, cands, cand_rows, samp_rows)
+        assert float(train_reps[0, 0]) == (-1.0 if t == 0 else float(t))
+        assert float(pending[0, 0]) == float(t + 1)
+
+
+def test_launch_counter_counts_kernel_launches_only():
+    """On the CPU the wrapper takes the plain version: no launch is counted."""
+    before = tops.rehearsal_update_sample.launches
+    tops.rehearsal_update_sample(torch.zeros((4, 2)), torch.ones((1, 2)),
+                                 torch.tensor([1], dtype=torch.int32),
+                                 torch.tensor([1], dtype=torch.int32))
+    assert tops.rehearsal_update_sample.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows_dtype", "shape", "contiguity", "rows_len"])
+def test_wrapper_rejects_bad_inputs(bad):
+    buf, cands = torch.zeros((4, 6)), torch.ones((2, 6))
+    rows = torch.tensor([0, 1], dtype=torch.int32)
+    samp = torch.tensor([0], dtype=torch.int32)
+    if bad == "dtype":
+        cands = cands.double()
+    elif bad == "rows_dtype":
+        rows = rows.long()
+    elif bad == "shape":
+        cands = torch.ones((2, 5))
+    elif bad == "contiguity":
+        buf = torch.zeros((6, 4)).t()
+    else:
+        rows = rows[:1]
+    with pytest.raises((TypeError, ValueError)):
+        tops.rehearsal_update_sample(buf, cands, rows, samp)
+
+
+def test_plain_version_is_the_reference_loop():
+    """The plain version is a sequential loop: on duplicates the last wins."""
+    buf = torch.zeros((3, 1))
+    b, _ = tref.rehearsal_update_sample_ref(
+        buf, torch.tensor([[1.0], [2.0], [3.0]]),
+        torch.tensor([2, 2, -1], dtype=torch.int32), torch.zeros(0, dtype=torch.int32))
+    assert b[:, 0].tolist() == [0.0, 0.0, 2.0]

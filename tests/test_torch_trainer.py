@@ -1,0 +1,83 @@
+"""The port's entry point: ``ContinualTrainer`` on the CPU, and what it refuses."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import resnet50_cl
+from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
+from repro_torch.data import ClassIncrementalImages, Cursor, ImageStreamConfig, Prefetcher
+from repro_torch.scenario import ContinualTrainer
+
+RUN = RunConfig(
+    model=resnet50_cl.reduced(num_classes=20),
+    rehearsal=RehearsalConfig(slots_per_bucket=8, num_representatives=2,
+                              num_candidates=4, mode="async"),
+    scenario=ScenarioConfig(num_tasks=2, steps_per_epoch=3, batch_size=8))
+
+
+@pytest.mark.parametrize("strategy", ["rehearsal", "incremental"])
+def test_trainer_runs_reduced_two_tasks_on_cpu(strategy):
+    res = ContinualTrainer(RUN, device="cpu", strategy=strategy).fit()
+    acc = res.accuracy_matrix
+    assert acc.shape == (2, 2) and np.isfinite(acc).all()
+    assert len(res.losses) == 6 and np.isfinite(res.losses).all()
+    assert len(res.step_seconds) == len(res.prefetch_wait_seconds) == 6
+    if strategy == "rehearsal":
+        fills = [h["buffer_fill"] for h in res.history]
+        assert fills[-1] > fills[0] and res.history[0]["rep_checksum"] == 0.0
+    else:
+        assert "buffer_fill" not in res.history[0]
+
+
+def test_trainer_applies_scenario_defaults_and_cuts_tasks():
+    tr = ContinualTrainer(RUN, device="cpu")
+    assert tr.rcfg.num_buckets == 2 and tr.rcfg.label_field == "label"
+    assert tr.fit(num_tasks=1).accuracy_matrix.shape == (1, 1)
+    with pytest.raises(ValueError):
+        tr.fit(num_tasks=3)
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_unasked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    from repro_torch.strategy import init_carry
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinualTrainer(RUN)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_carry(None, None)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(mesh=object()), "item 13"), (dict(step_form="split"), "item 5"),
+    (dict(resilience=object()), "item 10"), (dict(ckpt_dir="/nonexistent"), "item 10"),
+    (dict(obs=object()), "item 14")])
+def test_unported_options_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ContinualTrainer(RUN, device="cpu", **kwargs)
+
+
+def test_unported_configs_raise():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ContinualTrainer(RUN.replace(rehearsal=dataclasses.replace(
+            RUN.rehearsal, tiering="host")), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ContinualTrainer(RUN, scenario="domain_incremental", device="cpu")
+
+
+def test_prefetcher_serves_the_stream_in_order_and_ends():
+    stream = ClassIncrementalImages(ImageStreamConfig(num_tasks=1, image_size=4))
+    pf = Prefetcher(lambda cur: stream.batch(0, 2, cur.step), cursor=Cursor(0, 5),
+                    convert=torch.as_tensor, limit=3).start()
+    try:
+        for step in (5, 6, 7):
+            cur, batch = pf.next()
+            assert cur.step == step
+            assert np.array_equal(batch["images"].numpy(),
+                                  stream.batch(0, 2, step)["images"])
+        with pytest.raises(StopIteration):
+            pf.next()
+    finally:
+        pf.stop()
