@@ -5,16 +5,29 @@
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch and CUDA versions, TF32 flags;
-  2. kernel build from the sources in this checkout (nvcc, timed);
+  2. kernel build from the sources in this checkout (one nvcc per source, all
+     started together, timed);
   3. every kernel against its plain PyTorch version on the card, bit for bit,
-     at the main path's shapes and over a seeded sweep; times and bounds;
+     at the main path's shapes and over a seeded sweep (int8 tables on the
+     card and in pinned host memory); times, bounds, and the host link's
+     measured rate, which bounds the kernels that touch pinned tables;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
-  5. the main path: ``ContinualTrainer`` on ``resnet50_cl.full()`` (224x224x3,
-     1000 classes, 4 tasks of 250 classes) with async rehearsal, reservoir
-     policy and a flat buffer of 4 x 500 records, for 2 tasks x 4 steps. It
-     checks that every buffer update+sample went through the CUDA kernel and
-     that losses, buffer fill and the accuracy matrix are sane.
+  5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
+     (224x224x3, 1000 classes, 4 tasks of 250 classes) with async rehearsal,
+     reservoir policy and a flat buffer of 4 x 500 records, for 2 tasks x 4
+     steps. It checks that every buffer update+sample went through the CUDA
+     kernel and that losses, buffer fill and the accuracy matrix are sane;
+  6. the tiered store driven directly at full row width (4 buckets x 4 hot
+     slots, 4 x 1000 int8 cold slots in pinned host memory, a stage of 8):
+     fused and unfused kernels on the card and the plain versions on the CPU,
+     fed the same rows, agree on every leaf and every sample bit for bit, and
+     the cold tier adds nothing to the card's allocated memory;
+  7. the tiered main path: the trainer of phase 5 with ``tiering="host"``
+     (that tiered store), once with the fused kernels and once without. Each
+     float-leaf kernel of the setting launches once per step, the histories
+     of ``rep_checksum`` and ``buffer_fill`` are identical, and the buffer
+     outgrows the hot tier.
 
 The second line from the end is a JSON object with one entry per kernel
 (time, launches, bound, plain and library times); the last line is
@@ -39,6 +52,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
+LINK_PROBE_BYTES = 256 << 20  # pinned <-> device copy that measures the host link
 
 # Data-scale cuts of the main path; the model's widths and the image size are
 # never cut.
@@ -46,6 +60,9 @@ TASKS_RUN = 2  # of the stream's 4 tasks
 STEPS_PER_TASK = 4
 EVAL_PER_CLASS = 2
 BATCH, REPS, CANDS, SLOTS = 16, 2, 4, 500  # b, r, c per worker; slots per bucket
+# The tiered store's cuts: 4 hot slots per bucket only so that 8 steps
+# overflow the hot tier and demote; a stage of 2c rows (the default).
+BUCKETS, HOT, COLD, STAGE = 4, 4, 1000, 2 * CANDS
 
 
 def phase(name: str):
@@ -89,8 +106,11 @@ def time_ms(fn, iters: int = 30, warmup: int = 3, hold: bool = True) -> float:
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype.is_floating_point:
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
     return bool(torch.equal(a, b))
 
 
@@ -230,6 +250,189 @@ def kernel_phase(ops, ref, image_len: int):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
 
 
+def link_rates():
+    """Host-link rate in bytes/s each way, from a large pinned <-> device
+    copy timed between CUDA events: (host to device, device to host)."""
+    host = torch.empty(LINK_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(LINK_PROBE_BYTES, dtype=torch.uint8, device="cuda")
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True), iters=10)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True), iters=10)
+    rates = (LINK_PROBE_BYTES / h2d * 1e3, LINK_PROBE_BYTES / d2h * 1e3)
+    print(f"host link, {LINK_PROBE_BYTES >> 20} MiB pinned <-> device copy: host to device "
+          f"{rates[0] / 1e9:.2f} GB/s ({h2d:.4f} ms), device to host {rates[1] / 1e9:.2f} "
+          f"GB/s ({d2h:.4f} ms)")
+    return rates
+
+
+def pinned_update_sample(ops, ref, link_d2h: float):
+    """The unfused cold scatter: rehearsal_update_sample on a pinned int8
+    table at the tiered path's shapes (4 accepted stage rows written over the
+    host link, 2 sampled rows read back). Printed, not in the kernels line."""
+    rows_total, width = BUCKETS * COLD, 150528
+    table = torch.zeros((rows_total, width), dtype=torch.int8, pin_memory=True)
+    cands = torch.randint(-127, 128, (STAGE, width), dtype=torch.int8, device="cuda")
+    cand_rows = torch.tensor([3, rows_total, 17, rows_total, 2500, rows_total, 3999,
+                              rows_total], dtype=torch.int32, device="cuda")
+    samp_rows = torch.tensor([17, 1000], dtype=torch.int32, device="cuda")
+    _, got = ops.rehearsal_update_sample(table, cands, cand_rows, samp_rows)
+    want_table = table.to("cuda")  # after the kernel's writes
+    torch.cuda.synchronize()
+    _, want = ref.rehearsal_update_sample_ref(want_table, cands, cand_rows, samp_rows)
+    if not same_bits(got, want):
+        raise AssertionError("pinned-table update+sample != plain version")
+    ms = time_ms(lambda: ops.rehearsal_update_sample(table, cands, cand_rows, samp_rows))
+    device_table = table.to("cuda")
+    dev_ms = time_ms(lambda: ops.rehearsal_update_sample(device_table, cands, cand_rows,
+                                                         samp_rows))
+    link_bytes = (4 + REPS) * width
+    print(f"rehearsal_update_sample, int8 [{rows_total}, {width}] table in pinned host "
+          f"memory, 4 rows written + {REPS} read: {ms:.4f} ms (same call on a device "
+          f"table {dev_ms:.4f} ms); link bound {link_bytes / link_d2h * 1e3:.5f} ms")
+
+
+def int8_sweep(qz, ops, ref, seed: int = 0):
+    """Seeded sweep of the four int8 kernels against their plain versions:
+    ragged widths (int8 rows not a multiple of 4 bytes), duplicates, rows < 0
+    and >= R, clamped samples, f32/bf16/f16 records, tables on the card and
+    in pinned host memory, offset input pointers."""
+    rng = np.random.default_rng(seed)
+    n = 0
+    for r in (1, 7, 300):
+        for width in (1, 3, 4, 37, 1024, 8195):
+            for where in ("device", "pinned"):
+                dtype = (torch.float32, torch.bfloat16, torch.float16)[n % 3]
+                c, s = int(rng.integers(0, 13)), int(rng.integers(0, 10))
+                q = torch.as_tensor(rng.integers(-127, 128, (r, width)), dtype=torch.int8)
+                scales = torch.as_tensor(rng.uniform(1e-4, 4.0, (r, 1)), dtype=torch.float32)
+                if where == "pinned":
+                    q, scales = q.pin_memory(), scales.pin_memory()
+                else:
+                    q, scales = q.cuda(), scales.cuda()
+                big = (torch.randn((c + 1, width), device="cuda") * 3).to(dtype)
+                x = big[1:] if n % 2 else big[:c]  # offset pointer every other case
+                rows = torch.as_tensor(rng.integers(-2, r + 2, c), dtype=torch.int32,
+                                       device="cuda")
+                samp = torch.as_tensor(rng.integers(-2, r + 2, s), dtype=torch.int32,
+                                       device="cuda")
+                want_q, want_s = q.to("cuda", copy=True), scales.to("cuda", copy=True)
+                ops.encode_scatter_rows(q, scales, x, rows)
+                ref.encode_scatter_rows_ref(want_q, want_s, x, rows)
+                got = ops.gather_dequant_rows(q, scales, samp, dtype)
+                want = ref.gather_dequant_rows_ref(want_q, want_s, samp, dtype)
+                kq, ks = qz.quantize_rows(x)
+                pq, ps = ref.quantize_rows_ref(x)
+                _, kr = ops.rehearsal_update_sample(q, kq, rows, samp)  # the byte path
+                _, pr = ref.rehearsal_update_sample_ref(want_q, kq, rows, samp)
+                torch.cuda.synchronize()
+                pairs = [(q, want_q), (scales, want_s), (got, want), (kq, pq), (ks, ps),
+                         (qz.dequantize_rows(kq, ks, dtype), ref.dequantize_rows_ref(pq, ps, dtype)),
+                         (kr, pr)]
+                for a, b in pairs:
+                    if not same_bits(a, b):
+                        raise AssertionError(
+                            f"int8 kernel != plain version: table [{r}, {width}] {where}, "
+                            f"{dtype}, C={c}, S={s}")
+                n += 1
+    print(f"int8 sweep: {n} cases, four kernels and the byte path bit-equal to the plain "
+          f"versions")
+
+
+def int8_kernel_phase(qz, ops, ref, link: tuple):
+    """The four int8 kernels at the tiered path's shapes (f32 image rows of
+    150,528 values, a stage of 8 rows of which 4 are written, 2 sampled rows,
+    cold tables [4000, 150528] int8 in pinned host memory); their times,
+    plain times and bounds. Returns their kernels-line entries."""
+    h2d, d2h = link
+    width, rows_total = 150528, BUCKETS * COLD
+    q_table = torch.zeros((rows_total, width), dtype=torch.int8, pin_memory=True)
+    s_table = torch.ones((rows_total, 1), dtype=torch.float32, pin_memory=True)
+    x = torch.randn((STAGE, width), device="cuda") * 3
+    # a steady-state flush: 4 staged evictions, 4 empty stage rows dropped
+    flush = torch.tensor([12, rows_total, 2017, rows_total, 1003, rows_total, 3998,
+                          rows_total], dtype=torch.int32, device="cuda")
+    samp = torch.tensor([2017, 12], dtype=torch.int32, device="cuda")
+    written, sampled = int(((flush >= 0) & (flush < rows_total)).sum()), samp.shape[0]
+
+    ops.encode_scatter_rows(q_table, s_table, x, flush)
+    got = ops.gather_dequant_rows(q_table, s_table, samp)
+    q_dev, s_dev = torch.zeros((rows_total, width), dtype=torch.int8, device="cuda"), \
+        torch.ones((rows_total, 1), device="cuda")
+    ref.encode_scatter_rows_ref(q_dev, s_dev, x, flush)
+    want = ref.gather_dequant_rows_ref(q_dev, s_dev, samp)
+    kq, ks = qz.quantize_rows(x)
+    pq, ps = ref.quantize_rows_ref(x)
+    kd = qz.dequantize_rows(kq[:REPS].contiguous(), ks[:REPS].contiguous())
+    pd = ref.dequantize_rows_ref(pq[:REPS], ps[:REPS])
+    torch.cuda.synchronize()
+    checks = {"encode_scatter_rows table": (q_table, q_dev),
+              "encode_scatter_rows scales": (s_table, s_dev),
+              "gather_dequant_rows": (got, want), "quantize_rows q": (kq, pq),
+              "quantize_rows scales": (ks, ps), "dequantize_rows": (kd, pd)}
+    for what, (a, b) in checks.items():
+        if not same_bits(a, b):
+            raise AssertionError(f"{what}: kernel != plain version at the path's shapes")
+    errs = {"gather_dequant_rows": abs_err(got, want), "quantize_rows": abs_err(kq, pq),
+            "dequantize_rows": abs_err(kd, pd), "encode_scatter_rows": abs_err(
+                q_table[flush[flush < rows_total].long().cpu()].cuda(),
+                q_dev[flush[flush < rows_total].long()])}
+    print(f"path shapes: stage f32 [{STAGE}, {width}] ({written} rows written), "
+          f"{sampled} sampled rows, cold tables [{rows_total}, {width}] int8 + "
+          f"[{rows_total}, 1] f32 in pinned host memory -- bit-equal")
+    int8_sweep(qz, ops, ref)
+
+    q2, s2 = kq[:REPS].contiguous(), ks[:REPS].contiguous()
+    timed = {
+        "quantize_rows": (lambda: qz.quantize_rows(x), lambda: ref.quantize_rows_ref(x)),
+        "dequantize_rows": (lambda: qz.dequantize_rows(q2, s2),
+                            lambda: ref.dequantize_rows_ref(q2, s2)),
+        "gather_dequant_rows": (lambda: ops.gather_dequant_rows(q_table, s_table, samp),
+                                lambda: ref.gather_dequant_rows_ref(q_dev, s_dev, samp)),
+        "encode_scatter_rows": (lambda: ops.encode_scatter_rows(q_table, s_table, x, flush),
+                                lambda: ref.encode_scatter_rows_ref(q_dev, s_dev, x, flush)),
+    }
+    # bytes each function must move: (HBM bytes, host-link bytes, link rate)
+    f32_row, i8_row = 4 * width, width
+    moved = {
+        "quantize_rows": (STAGE * (f32_row + i8_row + 4), 0, h2d),
+        "dequantize_rows": (REPS * (i8_row + 4 + f32_row), 0, h2d),
+        "gather_dequant_rows": (sampled * f32_row + 4 * sampled, sampled * (i8_row + 4), h2d),
+        "encode_scatter_rows": (written * f32_row + 4 * STAGE, written * (i8_row + 4), d2h),
+    }
+    replaces = {"quantize_rows": "src/repro/kernels/quantize.py:44",
+                "dequantize_rows": "src/repro/kernels/quantize.py:69",
+                "gather_dequant_rows": "src/repro/kernels/rehearsal_ops.py:283",
+                "encode_scatter_rows": "src/repro/kernels/rehearsal_ops.py:351"}
+    sources = {"quantize_rows": "src/repro_torch/kernels/csrc/quantize.cu",
+               "dequantize_rows": "src/repro_torch/kernels/csrc/quantize.cu",
+               "gather_dequant_rows": "src/repro_torch/kernels/csrc/rehearsal_ops.cu",
+               "encode_scatter_rows": "src/repro_torch/kernels/csrc/rehearsal_ops.cu"}
+    # dequantize_rows at the f32 record dtype is one PyTorch call: int8 [R, L]
+    # times f32 [R, 1] promotes to f32 and rounds once, the plain version's
+    # bits. The other three need more than one call (a row max, a division
+    # and a rounding; or an index on top), so they have no library time.
+    library = {"dequantize_rows": lambda: torch.mul(q2, s2)}
+    if not same_bits(torch.mul(q2, s2), ref.dequantize_rows_ref(q2, s2)):
+        raise AssertionError("torch.mul(q, scales) != dequantize_rows' plain version")
+    entries = []
+    for name, (kernel, plain) in timed.items():
+        ms, plain_ms, ms_again = time_ms(kernel), time_ms(plain), time_ms(kernel)
+        library_ms = time_ms(library[name]) if name in library else None
+        hbm, link_bytes, rate = moved[name]
+        hbm_ms, link_ms = hbm / HBM_BYTES_PER_S * 1e3, link_bytes / rate * 1e3
+        bound_ms = max(hbm_ms, link_ms)
+        at = "host link" if link_ms > hbm_ms else "HBM"
+        lib = (f"torch.mul {library_ms:.4f} ms" if library_ms is not None
+               else "no single PyTorch call computes it (library_ms null)")
+        print(f"{name}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms by bytes over the {at} (HBM {hbm} B = "
+              f"{hbm_ms:.5f} ms, link {link_bytes} B = {link_ms:.5f} ms); {lib}")
+        entries.append({"name": name, "route": "cuda", "source": sources[name],
+                        "replaces": replaces[name], "max_abs_err": errs[name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "bound_at": at, "library_ms": library_ms})
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -317,11 +520,164 @@ def main_path(ops, cfg, seed: int = 0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tiered store at full row width, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _state_leaves(st):
+    for part in ("hot", "cold"):
+        buf = getattr(st, part)
+        yield from _leaves({f"{part}.data": buf.data, f"{part}.counts": buf.counts,
+                            f"{part}.seen": buf.seen})
+    yield from _leaves({"stage": st.stage, "stage_labels": st.stage_labels,
+                        "stage_valid": st.stage_valid})
+
+
+def _on_cpu(rows):
+    """A (nested) tuple of row vectors, copied to the CPU."""
+    return type(rows)(*(_on_cpu(x) if isinstance(x, tuple) else x.cpu() for x in rows))
+
+
+def tiered_phase(cfg, steps: int = 6, seed: int = 3):
+    """Drive ``tiered_update_sample`` directly: the unfused and fused kernels
+    on the card and the plain versions on the CPU, fed the same planned rows
+    and batches, must agree on every leaf and every sample bit for bit."""
+    from repro_torch.buffer.state import ItemSpec
+    from repro_torch.buffer.tiered import init_tiered, plan_tiered, tiered_update_sample
+
+    spec = {"images": ItemSpec((cfg.image_size, cfg.image_size, cfg.channels), torch.float32),
+            "label": ItemSpec((), torch.int32), "task": ItemSpec((), torch.int32)}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    states = {fused: init_tiered(spec, BUCKETS, HOT, COLD, STAGE, device="cuda")
+              for fused in (False, True)}
+    grew = torch.cuda.memory_allocated() - before
+    cold_bytes = sum(leaf.numel() * leaf.element_size()
+                     for _, leaf in _leaves(states[False].cold.data))
+    pinned = all(leaf.device.type == "cpu" and leaf.is_pinned()
+                 for st in states.values() for _, leaf in _leaves(st.cold.data))
+    print(f"two tiered stores on the card: device memory grew {grew} B; each cold tier "
+          f"{cold_bytes} B in pinned host memory ({pinned}), hot tier "
+          f"{BUCKETS}x{HOT} + stage {STAGE} rows on the card")
+    if not pinned or grew >= cold_bytes:
+        raise AssertionError("the cold tier is not (only) in pinned host memory")
+    plain = init_tiered(spec, BUCKETS, HOT, COLD, STAGE, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for step in range(steps):
+        batch = {"images": torch.randn((BATCH,) + spec["images"].shape, device="cuda"),
+                 "label": torch.as_tensor(rng.integers(0, 1000, BATCH), dtype=torch.int32,
+                                          device="cuda"),
+                 "task": torch.as_tensor(rng.integers(0, BUCKETS, BATCH), dtype=torch.int32,
+                                         device="cuda")}
+        # every candidate accepted, so the hot tier overflows and demotes early
+        rows = plan_tiered(states[False], batch["task"], gen, BATCH, REPS)
+        outs = {}
+        for fused in (False, True):
+            states[fused], reps, valid = tiered_update_sample(states[fused], batch, rows,
+                                                              fused=fused)
+            outs[fused] = (reps, valid)
+        plain, reps, valid = tiered_update_sample(
+            plain, {k: v.cpu() for k, v in batch.items()}, _on_cpu(rows))
+        outs["plain"] = (reps, valid)
+        for what in (True, "plain"):
+            if not same_bits(outs[what][1], outs[False][1]) or not all(
+                    same_bits(outs[what][0][k], outs[False][0][k]) for k in spec):
+                raise AssertionError(f"step {step}: samples differ ({what} vs unfused)")
+    torch.cuda.synchronize()
+    ref_leaves = dict(_state_leaves(plain))
+    for name, st in (("unfused", states[False]), ("fused", states[True])):
+        for leaf_name, leaf in _state_leaves(st):
+            if not same_bits(leaf, ref_leaves[leaf_name]):
+                raise AssertionError(f"{name} tiered state leaf {leaf_name} differs from "
+                                     f"the plain versions on the CPU")
+    cold_fill = int(states[True].cold.counts.sum())
+    print(f"{steps} tiered steps at full row width: unfused and fused kernels == plain "
+          f"versions on the CPU on every leaf and sample, bit for bit; cold fill "
+          f"{cold_fill}, hot fill {int(states[True].hot.counts.sum())}")
+    if cold_fill == 0:
+        raise AssertionError("nothing was demoted into the cold tier")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the tiered main path
+# ---------------------------------------------------------------------------
+
+
+def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
+    """The trainer of phase 5 on the tiered store. Returns the launches of
+    each kernel, the fingerprints and the median step in ms."""
+    from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
+    from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
+    from repro_torch.scenario import ClassIncremental, ContinualTrainer
+
+    sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=cfg.image_size,
+                        batch_size=BATCH, epochs_per_task=1,
+                        steps_per_epoch=STEPS_PER_TASK, seed=seed)
+    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
+        num_representatives=REPS, num_candidates=CANDS, mode="async", policy="reservoir",
+        tiering="host", hot_slots=HOT, cold_slots=COLD, fused_kernels=fused))
+    stream = ClassIncrementalImages(ImageStreamConfig(
+        num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
+        image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
+        seed=1234 + seed))
+    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda")
+    rcfg = trainer.rcfg
+    print(f"tiered, fused_kernels={fused}: {rcfg.num_buckets} buckets x {rcfg.resolved_hot_slots}"
+          f" hot + {rcfg.resolved_cold_slots} cold slots, stage {rcfg.resolved_demote_stage}")
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    result = trainer.fit(num_tasks=TASKS_RUN)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = TASKS_RUN * STEPS_PER_TASK
+    fills = [h["buffer_fill"] for h in result.history]
+    prints = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    step_ms = statistics.median(result.step_seconds) * 1e3
+    print(f"losses {result.losses}")
+    print(f"buffer_fill {fills}")
+    print(f"rep_checksum {[h['rep_checksum'] for h in result.history]}")
+    print(f"median step {step_ms:.1f} ms (all steps "
+          f"{[round(t * 1e3, 1) for t in result.step_seconds]}), launches {launches}")
+    float_kernels = (("encode_scatter_rows", "gather_dequant_rows") if fused
+                     else ("quantize_rows", "dequantize_rows"))
+    # per step: the cold leaves' flush+sample (2 raw leaves fused; plus the
+    # int8 q and scale leaves unfused), the evicted gather and the hot
+    # push+sample of the 3 record leaves
+    update_sample = (2 if fused else 4) + 3 + 3
+    want = {name: (steps if name in float_kernels else 0) for name in counters}
+    want["rehearsal_update_sample"] = update_sample * steps
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, saw {launches}")
+    if len(result.losses) != steps or not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"non-finite or missing losses: {result.losses}")
+    if not fills[-1] > BUCKETS * HOT:
+        raise AssertionError(f"buffer_fill {fills[-1]} never outgrew the hot tier's "
+                             f"{BUCKETS * HOT} slots, so the cold tier holds nothing")
+    return launches, prints, step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
     from repro_torch.configs import resnet50_cl
     from repro_torch.kernels import build, ref, rehearsal_ops as ops
+    from repro_torch.kernels import quantize as qz
+
+    counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
+                "quantize_rows": qz.quantize_rows, "dequantize_rows": qz.dequantize_rows,
+                "gather_dequant_rows": ops.gather_dequant_rows,
+                "encode_scatter_rows": ops.encode_scatter_rows}
 
     phase("1 environment")
     card = gpu_name_and_power()
@@ -334,7 +690,7 @@ def main():
 
     phase("2 kernel build")
     t0 = time.perf_counter()
-    paths = build.build(["rehearsal_ops"])
+    paths = build.build(["rehearsal_ops", "quantize"])
     print(f"built {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in build.BUILD_LOG.items():
@@ -343,15 +699,38 @@ def main():
     cfg = resnet50_cl.full()
     phase("3 kernels against their plain versions")
     entry = kernel_phase(ops, ref, cfg.image_size * cfg.image_size * cfg.channels)
+    link = link_rates()
+    pinned_update_sample(ops, ref, link[1])
+    int8_entries = int8_kernel_phase(qz, ops, ref, link)
 
     phase("4 model on the card against the CPU")
     model_phase(cfg)
 
     phase("5 main path: ContinualTrainer on resnet50_cl.full()")
+    for fn in counters.values():
+        fn.launches = 0
     entry["launches"] = main_path(ops, cfg)
+    others = {name: fn.launches for name, fn in counters.items()
+              if name != "rehearsal_update_sample"}
+    if any(others.values()):
+        raise AssertionError(f"the flat path launched int8 kernels: {others}")
+
+    phase("6 tiered store at full row width: card against CPU")
+    tiered_phase(cfg)
+
+    phase("7 tiered main path: ContinualTrainer, tiering='host', unfused then fused")
+    runs = {fused: tiered_main_path(counters, cfg, fused) for fused in (False, True)}
+    if runs[False][1] != runs[True][1]:
+        raise AssertionError("fused and unfused tiered runs differ in rep_checksum / "
+                             f"buffer_fill: {runs[False][1]} vs {runs[True][1]}")
+    print(f"fused == unfused fingerprints over {len(runs[True][1])} steps; median step "
+          f"unfused {runs[False][2]:.1f} ms, fused {runs[True][2]:.1f} ms")
+    for e in int8_entries:
+        e["launches"] = runs[e["name"] in ("gather_dequant_rows", "encode_scatter_rows")][0][
+            e["name"]]
 
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry] + int8_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

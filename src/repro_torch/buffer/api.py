@@ -1,10 +1,12 @@
-"""Config-driven dispatch over the buffer subsystem (the flat branch).
+"""Config-driven dispatch over the buffer subsystem: the flat or the tiered
+store, under the policy ``RehearsalConfig.policy`` names.
 
-``repro_torch.core`` talks to the buffer through these functions; they pick
-the policy from ``RehearsalConfig.policy``. The tiered store is ROADMAP
-Queue 1 item 7: a config with ``tiering != 'off'`` raises.
+``repro_torch.core`` talks to the buffer through these functions only, so the
+step and the exchange do not know which store is configured.
 """
 from __future__ import annotations
+
+from typing import Union
 
 from repro_torch.buffer.policies import resolve_policy
 from repro_torch.buffer.state import (
@@ -14,49 +16,72 @@ from repro_torch.buffer.state import (
     local_update_sample,
     plan_update_sample,
 )
+from repro_torch.buffer.tiered import (
+    TieredState,
+    init_tiered,
+    plan_tiered,
+    tiered_fill,
+    tiered_sample,
+    tiered_update_sample,
+)
+
+AnyBufferState = Union[BufferState, TieredState]
 
 
 def _policy_of(rcfg):
     return resolve_policy(getattr(rcfg, "policy", None) if rcfg is not None else None)
 
 
+def _fused_of(rcfg) -> bool:
+    return bool(getattr(rcfg, "fused_kernels", False)) if rcfg is not None else False
+
+
 def check_supported(rcfg):
-    """Raise for a config the port cannot run yet: the tiered store or a
-    policy other than the reservoir."""
-    if rcfg is not None and getattr(rcfg, "tiered", False):
-        raise NotImplementedError(
-            "the tiered buffer store (tiering != 'off') is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+    """Raise for a config the port cannot run yet: a policy other than the
+    reservoir."""
     _policy_of(rcfg)
 
 
-def init_from_config(item_spec, rcfg, device) -> BufferState:
-    """Allocate the flat buffer the config describes on ``device``."""
-    check_supported(rcfg)
-    return init_buffer(item_spec, rcfg.num_buckets, rcfg.slots_per_bucket,
-                       _policy_of(rcfg), device)
+def init_from_config(item_spec, rcfg, device=None) -> AnyBufferState:
+    """Allocate the buffer the config describes, flat or tiered, on ``device``
+    (``None``: the card)."""
+    pol = _policy_of(rcfg)
+    if getattr(rcfg, "tiered", False):
+        return init_tiered(item_spec, rcfg.num_buckets, rcfg.resolved_hot_slots,
+                           rcfg.resolved_cold_slots, rcfg.resolved_demote_stage, pol,
+                           device)
+    return init_buffer(item_spec, rcfg.num_buckets, rcfg.slots_per_bucket, pol, device)
 
 
-def buffer_sample(state: BufferState, gen, n: int, rcfg=None):
+def buffer_sample(state: AnyBufferState, gen, n: int, rcfg=None):
     """Draw ``n`` representatives under the configured policy."""
-    check_supported(rcfg)
+    if isinstance(state, TieredState):
+        return tiered_sample(state, gen, n, _policy_of(rcfg), fused=_fused_of(rcfg))
     return local_sample(state, gen, n, _policy_of(rcfg))
 
 
-def plan_update_and_sample(state: BufferState, labels, gen, n: int, rcfg):
-    """The row vectors of an Alg-1 push followed by a draw of ``n`` records."""
-    check_supported(rcfg)
+def plan_update_and_sample(state: AnyBufferState, labels, gen, n: int, rcfg):
+    """The row vectors of an Alg-1 push followed by a draw of ``n`` records:
+    an ``UpdateSampleRows`` for the flat store, a ``TieredRows`` for the
+    tiered one."""
+    if isinstance(state, TieredState):
+        return plan_tiered(state, labels, gen, rcfg.num_candidates, n, _policy_of(rcfg))
     return plan_update_sample(state, labels, gen, rcfg.num_candidates, n,
                               _policy_of(rcfg))
 
 
-def buffer_update_sample(state: BufferState, items, rows):
-    """Move the bytes of a planned push + draw: one kernel call per leaf."""
+def buffer_update_sample(state: AnyBufferState, items, rows, rcfg=None):
+    """Move the bytes of a planned push + draw. Returns ``(new_state, reps,
+    valid)``."""
+    if isinstance(state, TieredState):
+        return tiered_update_sample(state, items, rows, fused=_fused_of(rcfg))
     return local_update_sample(state, items, rows)
 
 
-def buffer_fill(state: BufferState):
+def buffer_fill(state: AnyBufferState):
     """Total resident records (the ``buffer_fill`` training metric)."""
+    if isinstance(state, TieredState):
+        return tiered_fill(state)
     return state.counts.sum()
 
 

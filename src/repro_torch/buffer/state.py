@@ -1,10 +1,12 @@
 """Buffer store: the paper's per-process B_n with policy-driven Algorithm-1 updates.
 
 The buffer stores *records*, dicts of tensors matching one training sample
-(images + label + task id for the paper's CNNs). Each leaf is stored as
-``[K, slots, *leaf_shape]``: K per-bucket sub-buffers R_n^i with ``slots``
-capacity each. Seen as ``[K*slots, L]`` it is the record table the rehearsal
-kernel scatters into and gathers from.
+(images + label + task id for the paper's CNNs). A record field may itself be
+a dict (the tiered store's cold tier keeps ``{"q", "scale"}`` or ``{"raw"}``
+per field). Each tensor leaf is stored as ``[K, slots, *leaf_shape]``: K
+per-bucket sub-buffers R_n^i with ``slots`` capacity each. Seen as
+``[K*slots, L]`` it is the record table the rehearsal kernel scatters into
+and gathers from.
 
 Work is split in two, as in the reference: *which rows* (``local_update_rows``
 / ``local_sample_rows``, driven by a ``torch.Generator`` through the policy)
@@ -19,11 +21,12 @@ Updates are in place: the buffer's tensors are the record table.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.rehearsal_ops import rehearsal_update_sample
 
 
@@ -37,7 +40,7 @@ class ItemSpec(NamedTuple):
 class BufferState(NamedTuple):
     """Per-worker rehearsal buffer B_n (``data`` leaves are [K, slots, ...])."""
 
-    data: Dict[str, torch.Tensor]  # name -> [K, slots, *item_shape]
+    data: Dict[str, Any]  # name -> [K, slots, *item_shape] (or a dict of such)
     counts: torch.Tensor  # i32[K] filled slots per bucket
     seen: torch.Tensor  # i32[K] candidates offered per bucket (stats)
 
@@ -53,21 +56,42 @@ class UpdateSampleRows(NamedTuple):
     samp_valid: torch.Tensor  # bool[n]
 
 
-def init_buffer(item_spec: Dict[str, ItemSpec], num_buckets: int, slots: int,
-                policy=None, device="cpu") -> BufferState:
-    """An empty buffer on ``device``: zeroed leaves, zero counts."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of a dict tree (and the matching leaves of
+    ``rest``), keeping the dict structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def init_buffer(item_spec: Dict[str, Any], num_buckets: int, slots: int,
+                policy=None, device=None, *, pin_data: bool = False) -> BufferState:
+    """An empty buffer: zeroed leaves, zero counts, on ``device`` (``None``:
+    the card). ``pin_data`` puts the data leaves in pinned host memory
+    instead, with the counts still on ``device`` (the cold tier)."""
     from repro_torch.buffer.policies import resolve_policy
 
     resolve_policy(policy)  # raises for a policy the port does not have
-    data = {name: torch.zeros((num_buckets, slots) + tuple(s.shape), dtype=s.dtype,
-                              device=device)
-            for name, s in item_spec.items()}
+    device = resolve_device(device)
+
+    def alloc(s: ItemSpec):
+        shape = (num_buckets, slots) + tuple(s.shape)
+        if pin_data:
+            return torch.zeros(shape, dtype=s.dtype, pin_memory=True)
+        return torch.zeros(shape, dtype=s.dtype, device=device)
+
     zeros = torch.zeros((num_buckets,), dtype=torch.int32, device=device)
-    return BufferState(data, zeros, zeros.clone())
+    return BufferState(tree_map(alloc, item_spec), zeros, zeros.clone())
 
 
 def buffer_dims(state: BufferState) -> Tuple[int, int]:
-    leaf = next(iter(state.data.values()))
+    leaf = first_leaf(state.data)
     return leaf.shape[0], leaf.shape[1]  # (K, slots)
 
 
@@ -120,26 +144,57 @@ def plan_update_sample(state: BufferState, labels, gen, num_candidates: int,
     return UpdateSampleRows(flat, new_counts, new_seen, samp, valid)
 
 
-def _table(leaf: torch.Tensor) -> torch.Tensor:
+def evicted_mask(state: BufferState, labels, accept, pos, slot):
+    """Which accepted candidates displace a record filled BEFORE this batch
+    (the tiered store's demotion feed). A slot filled earlier in the same
+    batch held no pre-batch record, so its displacement is not reported."""
+    _, cap = buffer_dims(state)
+    return accept & (pos >= cap) & (slot < state.counts.long()[labels.long()])
+
+
+def table_view(leaf: torch.Tensor) -> torch.Tensor:
     """[K, slots, ...] -> the [K*slots, L] record-table view (no copy)."""
     return leaf.view(leaf.shape[0] * leaf.shape[1], -1)
 
 
-def local_update_sample(state: BufferState, items: Dict[str, torch.Tensor],
-                        rows: UpdateSampleRows):
+def local_update_sample(state: BufferState, items, rows: UpdateSampleRows):
     """Move the bytes of one update+sample: for every record leaf, ONE call of
     the rehearsal kernel writes the candidates into the table in place and
     gathers the sampled rows from the updated table.
 
     Returns ``(new_state, reps {name: [n, ...]}, valid bool[n])``."""
-    reps = {}
-    for name, leaf in state.data.items():
-        table, item = _table(leaf), items[name]
+    n = rows.samp_rows.shape[0]
+
+    def move(leaf, item):
+        table = table_view(leaf)
         cands = item.to(leaf.dtype).reshape(item.shape[0], table.shape[1]).contiguous()
         _, got = rehearsal_update_sample(table, cands, rows.cand_rows, rows.samp_rows)
-        reps[name] = got.view((rows.samp_rows.shape[0],) + tuple(leaf.shape[2:]))
+        return got.view((n,) + tuple(leaf.shape[2:]))
+
+    reps = tree_map(move, state.data, items)
     new_state = BufferState(state.data, rows.new_counts, rows.new_seen)
     return new_state, reps, rows.samp_valid
+
+
+def update_only(flat, new_counts, new_seen) -> UpdateSampleRows:
+    """The rows of an update that samples nothing."""
+    none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
+    return UpdateSampleRows(flat, new_counts, new_seen, none, none.bool())
+
+
+def sample_only(state: BufferState, samp_rows, samp_valid) -> UpdateSampleRows:
+    """The rows of a sample that writes nothing."""
+    none = torch.zeros((0,), dtype=torch.int32, device=samp_rows.device)
+    return UpdateSampleRows(none, state.counts, state.seen, samp_rows.int(), samp_valid)
+
+
+def gather_rows(state: BufferState, rows: torch.Tensor):
+    """The records at flat ``rows`` (clamped into range), one kernel call per
+    leaf and no writes. Returns ``{name: [len(rows), ...]}``."""
+    empty = tree_map(lambda v: torch.zeros((0,) + tuple(v.shape[2:]), dtype=v.dtype,
+                                           device=rows.device), state.data)
+    valid = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    return local_update_sample(state, empty, sample_only(state, rows, valid))[1]
 
 
 def local_update(state: BufferState, items, labels, gen, num_candidates: int,
@@ -149,20 +204,30 @@ def local_update(state: BufferState, items, labels, gen, num_candidates: int,
     uniformly random slot. ``accept_mask`` overrides the lottery."""
     flat, _, _, _, new_counts, new_seen = local_update_rows(
         state, labels, gen, num_candidates, policy, accept_mask)
-    none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
-    rows = UpdateSampleRows(flat, new_counts, new_seen, none, none.bool())
-    return local_update_sample(state, items, rows)[0]
+    return local_update_sample(state, items, update_only(flat, new_counts, new_seen))[0]
+
+
+def local_update_with_evicted(state: BufferState, items, labels, gen,
+                              num_candidates: int, policy=None):
+    """``local_update`` that also returns the records it overwrote:
+    ``(new_state, evicted {name: [b, ...]}, evicted_valid bool[b])``. The
+    evicted records are the PRE-batch occupants of the target rows (for
+    several candidates on one slot, each reports the pre-batch record). The
+    kernel gathers after it writes, so the evicted gather is its own launch,
+    ordered before the update's."""
+    flat, accept, pos, slot, new_counts, new_seen = local_update_rows(
+        state, labels, gen, num_candidates, policy)
+    evicted_valid = evicted_mask(state, labels, accept, pos, slot)
+    evicted = gather_rows(state, flat)
+    new_state = local_update_sample(state, items, update_only(flat, new_counts, new_seen))[0]
+    return new_state, evicted, evicted_valid
 
 
 def local_sample(state: BufferState, gen, n: int, policy=None):
     """Draw ``n`` records, uniform over *filled* slots under the reservoir rule
     (with replacement). Returns ``(items {name: [n, ...]}, valid bool[n])``."""
     flat, valid = local_sample_rows(state, gen, n, policy)
-    none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
-    rows = UpdateSampleRows(none, state.counts, state.seen, flat, valid)
-    empty = {k: v.new_zeros((0,) + tuple(v.shape[2:])) for k, v in state.data.items()}
-    _, reps, valid = local_update_sample(state, empty, rows)
-    return reps, valid
+    return gather_rows(state, flat), valid
 
 
 def mask_invalid(items: Dict[str, torch.Tensor], valid, label_field: str = "labels"):

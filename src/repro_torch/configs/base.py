@@ -25,7 +25,17 @@ class RehearsalConfig:
     # mode='async' implies it.
     pipelined: bool = False
     policy: str = "reservoir"  # the port has the reservoir policy only
-    tiering: str = "off"  # off | host (the tiered store is not ported yet)
+    # Tiered store: 'off' keeps the whole buffer on the device; 'host' adds an
+    # int8-quantized cold tier in pinned host memory (plain host memory on the
+    # CPU), so per-bucket capacity can exceed device memory.
+    tiering: str = "off"  # off | host
+    hot_slots: int = 0  # tiered: hot (device) slots/bucket; 0 -> slots_per_bucket
+    cold_slots: int = 0  # tiered: cold (host, int8) slots/bucket; 0 -> 3x hot
+    demote_stage: int = 0  # tiered: demotion staging rows; 0 -> 2x num_candidates
+    # Tiered hot path through the fused kernels: cold sampling dequantizes on
+    # the gather, demotion flushes quantize on the scatter. Bit-identical to
+    # the default quantize -> scatter / gather -> dequantize chain.
+    fused_kernels: bool = False
     label_field: str = "labels"
     task_field: str = "task"
 
@@ -52,6 +62,25 @@ class RehearsalConfig:
     @property
     def tiered(self) -> bool:
         return self.enabled and self.tiering != "off"
+
+    @property
+    def resolved_hot_slots(self) -> int:
+        return self.hot_slots or self.slots_per_bucket
+
+    @property
+    def resolved_cold_slots(self) -> int:
+        return self.cold_slots or 3 * self.resolved_hot_slots
+
+    @property
+    def resolved_demote_stage(self) -> int:
+        return self.demote_stage or 2 * self.num_candidates
+
+    @property
+    def total_slots_per_bucket(self) -> int:
+        """Effective per-bucket capacity: hot + cold when tiered, else the flat size."""
+        if self.tiered:
+            return self.resolved_hot_slots + self.resolved_cold_slots
+        return self.slots_per_bucket
 
 
 @dataclass(frozen=True)

@@ -9,8 +9,9 @@ both packages from the same carry. Nothing here imports the JAX package.
                             the port's layout (convolutions HWIO -> OIHW; the
                             head stays a [D, classes] matrix);
   * ``cnn_params_from_jax`` — load such a tree into a fresh ``CNN``;
-  * ``buffer_from_jax`` / ``opt_state_from_jax`` — the buffer and optimizer
-                            state of a carry.
+  * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` — the
+                            flat or tiered buffer and the optimizer state of
+                            a carry.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.buffer.state import BufferState
+from repro_torch.buffer.state import BufferState, tree_map
+from repro_torch.buffer.tiered import TieredState, resolve_cold_placement
+from repro_torch.device import resolve_device
 from repro_torch.models.resnet import init_cnn
 from repro_torch.optim.optimizers import OptState
 
@@ -43,8 +46,9 @@ def named_from_tree(tree) -> Dict[str, np.ndarray]:
     return out
 
 
-def cnn_params_from_jax(np_tree, cfg, device="cpu"):
-    """A ``CNN`` holding the weights of the JAX ``init_cnn`` tree ``np_tree``."""
+def cnn_params_from_jax(np_tree, cfg, device=None):
+    """A ``CNN`` holding the weights of the JAX ``init_cnn`` tree ``np_tree``,
+    on ``device`` (the card unless the caller asks for the CPU)."""
     model = init_cnn(torch.Generator().manual_seed(0), cfg, device)
     named = named_from_tree(np_tree)
     params = dict(model.named_parameters())
@@ -58,16 +62,45 @@ def cnn_params_from_jax(np_tree, cfg, device="cpu"):
     return model
 
 
-def buffer_from_jax(state, device="cpu") -> BufferState:
-    """A port ``BufferState`` from a JAX ``BufferState`` (flat, reservoir)."""
-    data = {k: torch.from_numpy(np.array(v)).to(device) for k, v in state.data.items()}
-    counts = torch.from_numpy(np.array(state.counts, dtype=np.int32)).to(device)
-    seen = torch.from_numpy(np.array(state.seen, dtype=np.int32)).to(device)
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def buffer_from_jax(state, device=None, *, pin_data: bool = False) -> BufferState:
+    """A port ``BufferState`` from a JAX ``BufferState`` (reservoir; the data
+    may be a dict of dicts, as the cold tier's) on ``device``, the card unless
+    the caller asks for the CPU. ``pin_data`` puts the data leaves in pinned
+    host memory, the counts on ``device``."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a)).pin_memory() if pin_data else _tensor(a, device)
+
+    data = tree_map(leaf, dict(state.data))
+    counts = _tensor(np.asarray(state.counts, dtype=np.int32), device)
+    seen = _tensor(np.asarray(state.seen, dtype=np.int32), device)
     return BufferState(data, counts, seen)
 
 
-def opt_state_from_jax(opt, device="cpu") -> OptState:
-    """A port ``OptState`` from a JAX SGD ``OptState`` (step, momentum tree)."""
+def tiered_from_jax(state, device=None) -> TieredState:
+    """A port ``TieredState`` from a JAX ``TieredState``: the hot tier and the
+    stage on ``device`` (the card unless the caller asks for the CPU), the
+    cold tier's ``{"q", "scale"}`` / ``{"raw"}`` leaves where
+    ``resolve_cold_placement`` puts them."""
+    device = resolve_device(device)
+    pinned = resolve_cold_placement(device) == "pinned_host"
+    return TieredState(buffer_from_jax(state.hot, device),
+                       buffer_from_jax(state.cold, device, pin_data=pinned),
+                       {k: _tensor(v, device) for k, v in state.stage.items()},
+                       _tensor(state.stage_labels, device),
+                       _tensor(state.stage_valid, device))
+
+
+def opt_state_from_jax(opt, device=None) -> OptState:
+    """A port ``OptState`` from a JAX SGD ``OptState`` (step, momentum tree) on
+    ``device``, the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+
     def tensors(tree):
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
                 for k, v in named_from_tree(tree).items()}

@@ -92,20 +92,21 @@ def sample_global(state, gen, r: int, group=None, exchange: str = "full",
 
 
 def issue_sample(state, items, labels, gen, rcfg, group=None,
-                 exchange: str = "full",
-                 rows: Optional[rb.UpdateSampleRows] = None):
+                 exchange: str = "full", rows=None):
     """Producer half of the paper's ``update`` primitive, per worker: push
     candidates from the incoming mini-batch (Alg. 1), then draw the next
-    global sample. The row vectors of both come first (``rows`` overrides
-    them: the parity seam), then ONE kernel call per record leaf moves the
-    bytes of the push and the local draw, then the exchange runs.
+    global sample. The row vectors of both come first (``rows``, an
+    ``UpdateSampleRows`` or for the tiered store a ``TieredRows``, overrides
+    them: the parity seam), then the kernels move the bytes of the push and
+    the local draw (for the flat store ONE call per record leaf), then the
+    exchange runs.
 
     Returns ``(new_state, PendingSample)``; the buffer is updated in place."""
     local = is_local(group, exchange)
     n = rcfg.num_representatives if local else _world(group)
     if rows is None:
         rows = buffer_api.plan_update_and_sample(state, labels, gen, n, rcfg)
-    new_state, reps, valid = buffer_api.buffer_update_sample(state, items, rows)
+    new_state, reps, valid = buffer_api.buffer_update_sample(state, items, rows, rcfg)
     if not local:
         recv, recv_valid = _exchange(reps, valid, group)
         reps, valid = _pick(recv, recv_valid, gen, rcfg.num_representatives)

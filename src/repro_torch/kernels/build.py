@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``kernels/_build/`` (listed in ``.gitignore``) and loaded with ``ctypes``. The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs at import
+library's file name carries a hash of its source, the shared headers and the
+flags, so an edited source is rebuilt and an unchanged one is reused. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
@@ -43,8 +43,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, the shared headers ``csrc/*.cuh`` and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -83,3 +87,20 @@ def load(name: str) -> ctypes.CDLL:
             path, = build([name])
             lib = _LOADED[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def c_function(library: str, name: str, argtypes):
+    """Entry point ``name`` of ``csrc/<library>.cu`` with its argument types
+    set. Every entry point returns ``cudaGetLastError()`` after its launch."""
+    fn = getattr(load(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launched(wrapper, err: int):
+    """Raise if a launch failed, else count it on ``wrapper.launches``."""
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1

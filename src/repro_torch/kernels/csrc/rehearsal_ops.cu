@@ -1,6 +1,8 @@
-// Rehearsal buffer update+sample for Hopper (sm_90a): scatter the accepted
-// candidates into the [R, row_bytes] record table in place, then gather the
-// sampled representatives from the updated table.
+// Rehearsal buffer kernels for Hopper (sm_90a).
+//
+// 1. rehearsal_update_sample: scatter the accepted candidates into the
+//    [R, row_bytes] record table in place, then gather the sampled
+//    representatives from the updated table.
 //
 // Replaces the TPU kernel src/repro/kernels/rehearsal_ops.py::
 // rehearsal_update_sample, both its single-row form (_update_sample_single /
@@ -28,10 +30,18 @@
 // sampled, 602,112-byte image rows) that is about 7 MB, about 2 us at
 // 3.35 TB/s, so launch latency dominates. Rows are split into 32 KB chunks
 // across grid.y so a handful of rows still spreads over many SMs, and each
-// thread moves 16 bytes per load where row width and pointers allow (4-byte
-// words otherwise), so one kernel serves f32 image rows and i32 scalar rows.
+// thread moves 16 bytes per load where row width and pointers allow, 4-byte
+// words where they allow that, and single bytes otherwise, so one kernel
+// serves f32 image rows, i32 scalar rows and int8 cold-tier rows of any
+// width. The table may be pinned host memory (the tiered store's cold tier):
+// its rows then cross the host link, which bounds the kernel instead of HBM.
+//
+// 2. gather_dequant_rows and 3. encode_scatter_rows: the fused kernels of the
+// tiered store's cold tier, see below.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_rows.cuh"
 
 namespace {
 
@@ -88,40 +98,98 @@ __global__ void update_sample_kernel(char* __restrict__ buffer,
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+template <typename V>
+void launch_update_sample(dim3 grid, cudaStream_t s, void* buffer, const void* cands,
+                          const void* cand_rows, const void* samp_rows, void* reps,
+                          long long n_rows, long long row_bytes, int n_cand) {
+  update_sample_kernel<V><<<grid, kThreads, 0, s>>>(
+      static_cast<char*>(buffer), static_cast<const char*>(cands),
+      static_cast<const int*>(cand_rows), static_cast<const int*>(samp_rows),
+      static_cast<char*>(reps), n_rows, row_bytes, n_cand);
 }
 
 }  // namespace
 
-// buffer [n_rows, row_bytes] (updated in place); cands [n_cand, row_bytes];
-// cand_rows i32[n_cand]; samp_rows i32[n_samp]; reps [n_samp, row_bytes].
-// row_bytes must be a multiple of 4 and every pointer 4-byte aligned.
+// buffer [n_rows, row_bytes] (updated in place; device or pinned host
+// memory); cands [n_cand, row_bytes]; cand_rows i32[n_cand]; samp_rows
+// i32[n_samp]; reps [n_samp, row_bytes]. Any row width and alignment.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int rehearsal_update_sample(void* buffer, const void* cands,
                                        const void* cand_rows,
                                        const void* samp_rows, void* reps,
                                        long long n_rows, long long row_bytes,
                                        int n_cand, int n_samp, void* stream) {
+  using int8rows::aligned;
   const int blocks = n_cand + n_samp;
   if (blocks <= 0 || row_bytes <= 0) return static_cast<int>(cudaSuccess);
-  if (row_bytes % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   long long chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
   if (chunks > kMaxGridY) chunks = kMaxGridY;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec16 = row_bytes % 16 == 0 && aligned16(buffer) &&
-                     aligned16(cands) && aligned16(reps);
-  if (vec16) {
-    update_sample_kernel<uint4><<<grid, kThreads, 0, s>>>(
-        static_cast<char*>(buffer), static_cast<const char*>(cands),
-        static_cast<const int*>(cand_rows), static_cast<const int*>(samp_rows),
-        static_cast<char*>(reps), n_rows, row_bytes, n_cand);
+  auto fits = [&](size_t w) {
+    return row_bytes % static_cast<long long>(w) == 0 && aligned(buffer, w) &&
+           aligned(cands, w) && aligned(reps, w);
+  };
+  if (fits(16)) {
+    launch_update_sample<uint4>(grid, s, buffer, cands, cand_rows, samp_rows, reps, n_rows,
+                                row_bytes, n_cand);
+  } else if (fits(4)) {
+    launch_update_sample<uint32_t>(grid, s, buffer, cands, cand_rows, samp_rows, reps,
+                                   n_rows, row_bytes, n_cand);
   } else {
-    update_sample_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-        static_cast<char*>(buffer), static_cast<const char*>(cands),
-        static_cast<const int*>(cand_rows), static_cast<const int*>(samp_rows),
-        static_cast<char*>(reps), n_rows, row_bytes, n_cand);
+    launch_update_sample<uint8_t>(grid, s, buffer, cands, cand_rows, samp_rows, reps,
+                                  n_rows, row_bytes, n_cand);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The fused cold-tier kernels (arithmetic in int8_rows.cuh).
+//
+// gather_dequant_rows replaces the TPU kernel src/repro/kernels/
+// rehearsal_ops.py::gather_dequant_rows (_gather_dequant_kernel) together
+// with its wrapper src/repro/kernels/ops.py::gather_dequant: it reads S int8
+// table rows and their scales (rows clamped into range) and writes them
+// dequantized, with no int8 or fp intermediate batch. The TPU kernel DMA'd
+// 8 rows at a time into VMEM; here S x chunks blocks of 128 threads each
+// dequantize one slice of one row in registers, 16 bytes a thread, so the
+// two sampled rows' reads are all in flight across the host link at once. The scales are read inside the kernel
+// rather than gathered beforehand, because the cold tier's scale table lives
+// in pinned host memory where no device-side indexing can reach it.
+//
+// encode_scatter_rows replaces src/repro/kernels/rehearsal_ops.py::
+// encode_scatter_rows (_encode_scatter_kernel) together with
+// src/repro/kernels/ops.py::encode_scatter: it quantizes staged fp rows and
+// writes each int8 row and its scale straight into its target table row,
+// with no encoded-batch intermediate. A target < 0 or >= R is dropped and
+// duplicates resolve to the last staged row (the TPU's serialised per-row
+// DMA); here, as in rehearsal_update_sample, the block of a row that a later
+// valid row also targets does nothing, so the blocks need no order, and an
+// all-invalid stage leaves the table untouched.
+//
+// Bound. On the tiered path both tables are pinned host memory, so the host
+// link bounds them, not HBM: gather_dequant reads S = 2 int8 rows of 150,528
+// bytes over it (and writes 1.2 MB f32 to HBM), encode_scatter writes up to
+// 8 int8 rows over it (and reads up to 4.8 MB f32 from HBM). Encode-scatter
+// runs one 8-block cluster per staged row (int8_rows.cuh), so a flush of 4
+// rows keeps 32 SMs writing across the link.
+
+// q_table [n_rows, len] int8, scales_table [n_rows] f32 (device or pinned
+// host); rows i32[n]; out [n, len] of `dtype` (0 f32, 1 bf16, 2 f16).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int gather_dequant_rows(const void* q_table, const void* scales_table,
+                                   const void* rows, void* out, long long n_rows,
+                                   long long len, int n, int dtype, void* stream) {
+  return int8rows::launch_dequantize(q_table, scales_table, static_cast<const int*>(rows),
+                                     out, n_rows, len, n, dtype, stream);
+}
+
+// x [n, len] of `dtype`; rows i32[n]; q_table [n_rows, len] int8 and
+// scales_table [n_rows] f32 updated in place (device or pinned host).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int encode_scatter_rows(const void* x, const void* rows, void* q_table,
+                                   void* scales_table, long long n_rows, long long len,
+                                   int n, int dtype, void* stream) {
+  return int8rows::launch_quantize(x, static_cast<const int*>(rows), q_table, scales_table,
+                                   n_rows, len, n, dtype, stream);
 }

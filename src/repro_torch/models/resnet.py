@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 
 def _same_pads(size: int, k: int, stride: int):
     out = -(-size // stride)
@@ -150,10 +152,11 @@ class CNN(nn.Module):
         return {"logits": x @ self.head.to(x.dtype), "embed": x}
 
 
-def init_cnn(gen: torch.Generator, cfg, device="cpu") -> CNN:
+def init_cnn(gen: torch.Generator, cfg, device=None) -> CNN:
     """Random weights drawn from ``gen`` (a CPU generator, so the same seed
-    gives the same model on every device), moved to ``device``."""
-    return CNN(cfg, gen).to(device)
+    gives the same model on every device), moved to ``device`` (``None``:
+    the card)."""
+    return CNN(cfg, gen).to(resolve_device(device))
 
 
 def cnn_outputs(model: CNN, images: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -2,15 +2,18 @@
 """Where the time of the port's main-path train step goes, on one GPU.
 
     PYTHONPATH=src python3 -m repro_torch.profile_main_path [--steps 3] [--out FILE]
+        [--tiered [--fused]]
 
 Builds the step ``chip_smoke.py`` drives (ResNet-50 at full width, 224x224x3,
-1000 classes, async rehearsal, b=16 r=2 c=4, 4 x 500 buffer slots) through the
-public API, warms it up, then runs ``--steps`` steps under ``torch.profiler``.
-Prints the median wall time of a step (timed without the profiler), the
-device-busy time and idle share of it, and device time by kernel group
-(convolution and matmul, GroupNorm, cuDNN layout transposes, elementwise,
-reductions, the rehearsal kernel, the rest), plus the top kernels; writes the
-same as JSON to ``--out``.
+1000 classes, async rehearsal, b=16 r=2 c=4, 4 x 500 buffer slots; with
+``--tiered`` the tiered store of its phase 7, 4 x 4 hot and 4 x 1000 int8
+cold slots in pinned host memory, ``--fused`` for the fused kernels) through
+the public API, warms it up, then runs ``--steps`` steps under
+``torch.profiler``. Prints the median wall time of a step (timed without the
+profiler), the device-busy time and idle share of it, and device time by
+kernel group (convolution and matmul, GroupNorm, cuDNN layout transposes,
+elementwise, reductions, the buffer's kernels, the rest), plus the top
+kernels; writes the same as JSON to ``--out``.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -22,7 +25,8 @@ import time
 
 import torch
 
-GROUPS = (("rehearsal kernel", ("update_sample_kernel",)),
+GROUPS = (("buffer kernels", ("update_sample_kernel", "quantize_rows_kernel",
+                               "dequantize_rows_kernel")),
           ("groupnorm", ("RowwiseMoments", "ComputeInternalGradients", "GroupNorm",
                          "group_norm", "ComputeFusedParams", "GammaBeta")),
           ("layout transpose", ("nchwToNhwc", "nhwcToNchw")),
@@ -45,6 +49,8 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--out", default="")
+    ap.add_argument("--tiered", action="store_true", help="the tiered store")
+    ap.add_argument("--fused", action="store_true", help="its fused kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile_main_path: needs a CUDA device")
@@ -61,9 +67,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     cfg = resnet50_cl.full()
     sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=224, batch_size=16)
+    tiering = (dict(tiering="host", hot_slots=4, cold_slots=1000, fused_kernels=args.fused)
+               if args.tiered else {})
     run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
         num_buckets=4, slots_per_bucket=500, num_representatives=2, num_candidates=4,
-        mode="async", label_field="label"))
+        mode="async", label_field="label", **tiering))
     scenario = ClassIncremental(sc)
     problem = scenario.build_problem(run, "cuda")
     init, update = make_optimizer(run.train)
@@ -108,13 +116,14 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    out = {"card": card, "steps": args.steps, "wall_ms_per_step": wall_ms,
+    out = {"card": card, "buffer": ("tiered, fused" if args.fused else "tiered")
+           if args.tiered else "flat", "steps": args.steps, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
            "device_ms_by_group": by_group,
            "top_kernels": [{"name": n[:120], "ms_per_step": t, "launches_per_step": c}
                            for n, t, c in kernels[:15]]}
-    print(f"card: {card}")
+    print(f"card: {card}; buffer: {out['buffer']}")
     print(f"per step: wall {wall_ms:.2f} ms (median, unprofiled), device busy "
           f"{device_ms:.2f} ms "
           f"(idle share {out['device_idle_share']:.3f})")

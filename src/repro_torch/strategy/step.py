@@ -52,7 +52,7 @@ class PipelinedRehearsalCarry(NamedTuple):
 class TrainCarry(NamedTuple):
     params: Any  # the model (nn.Module), updated in place
     opt: Any  # OptState
-    buffer: Any  # BufferState | None
+    buffer: Any  # BufferState | TieredState | None
     pipe: Optional[PipelinedRehearsalCarry]
 
 
@@ -60,7 +60,8 @@ def init_carry(params, opt_state, item_spec=None, rcfg=None,
                label_field: Optional[str] = None, seed: int = 0, device=None):
     """Fresh carry. With rehearsal on, the buffer starts empty and the
     in-flight representatives start invalid: the first iteration trains
-    un-augmented, the paper's bootstrap (§IV-D). The empty buffer holds only
+    un-augmented, the paper's bootstrap (§IV-D). The buffer is flat or
+    tiered, as the config says. The empty buffer holds only
     zero records, so the initial pending slot is the zero record with its
     label masked; no bytes need gathering. ``seed`` roots the sampling key
     lineage."""
@@ -117,8 +118,9 @@ def make_cl_step(
     ``group`` is a ``torch.distributed`` process group (one process per
     GPU), or None for a single process. ``key`` is this step's integer key;
     it becomes the lineage key the next step's issue half draws with.
-    ``rows`` (an ``UpdateSampleRows``) replaces the issue half's drawn row
-    vectors: the parity seam the tests feed the reference's rows through.
+    ``rows`` (an ``UpdateSampleRows``, or a ``TieredRows`` for the tiered
+    store) replaces the issue half's drawn row vectors: the parity seam the
+    tests feed the reference's rows through.
     """
     try:
         strat = resolve_strategy(strategy)

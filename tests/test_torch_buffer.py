@@ -62,7 +62,7 @@ def test_byte_movement_matches_jax_update_and_sample(seed):
     """Six pushes (so buckets fill and evict) + a draw after each: the JAX
     rows fed to the port give the JAX states and samples, bit for bit."""
     jbuf = jstate.init_buffer(_jspec(), K, CAP)
-    tbuf = tstate.init_buffer(_tspec(), K, CAP)
+    tbuf = tstate.init_buffer(_tspec(), K, CAP, device="cpu")
     key = jax.random.PRNGKey(seed)
     for step in range(6):
         batch = _batch(100 * seed + step)
@@ -90,7 +90,7 @@ def test_buffer_from_jax_roundtrip():
     jbuf = jstate.local_update(jstate.init_buffer(_jspec(), K, CAP),
                                {k: jnp.asarray(v) for k, v in _batch(9).items()},
                                jnp.asarray(_batch(9)["task"]), jax.random.PRNGKey(0), B)
-    _assert_state(buffer_from_jax(jbuf), jbuf)
+    _assert_state(buffer_from_jax(jbuf, "cpu"), jbuf)
 
 
 def _gen(seed):
@@ -105,7 +105,7 @@ def _items(b, value=None):
 
 
 def test_update_fills_in_order():
-    buf = tstate.init_buffer(_tspec(), 2, 4)
+    buf = tstate.init_buffer(_tspec(), 2, 4, device="cpu")
     items = _items(4)
     labels = torch.tensor([0, 0, 1, 0], dtype=torch.int32)
     buf = tstate.local_update(buf, items, labels, _gen(0), num_candidates=4)
@@ -118,7 +118,7 @@ def test_update_fills_in_order():
 def test_capacity_never_exceeded(seed):
     rng = np.random.default_rng(seed)
     k, cap, b = int(rng.integers(1, 5)), int(rng.integers(1, 8)), int(rng.integers(2, 16))
-    buf = tstate.init_buffer(_tspec(), k, cap)
+    buf = tstate.init_buffer(_tspec(), k, cap, device="cpu")
     gen = _gen(seed)
     for s in range(4):
         labels = torch.as_tensor(rng.integers(0, k, b), dtype=torch.int32)
@@ -133,7 +133,7 @@ def test_capacity_never_exceeded(seed):
 def test_acceptance_rate_matches_c_over_b():
     """Alg. 1: each sample enters with probability c/b."""
     b, c, trials = 64, 16, 200
-    empty = tstate.init_buffer(_tspec(), 1, 100000)
+    empty = tstate.init_buffer(_tspec(), 1, 100000, device="cpu")
     gen = _gen(42)
     labels = torch.zeros(b, dtype=torch.int32)
     accepted = sum(int(tstate.local_update_rows(empty, labels, gen, c)[4][0])
@@ -143,7 +143,7 @@ def test_acceptance_rate_matches_c_over_b():
 
 
 def test_eviction_keeps_class_balance():
-    buf = tstate.init_buffer(_tspec(), 2, 2)
+    buf = tstate.init_buffer(_tspec(), 2, 2, device="cpu")
     gen = _gen(0)
     for s in range(20):
         buf = tstate.local_update(buf, _items(4, s + 10),
@@ -152,7 +152,7 @@ def test_eviction_keeps_class_balance():
 
 
 def test_local_sample_uniform_over_filled():
-    buf = tstate.init_buffer({"x": ItemSpec((1,), torch.int32)}, 2, 8)
+    buf = tstate.init_buffer({"x": ItemSpec((1,), torch.int32)}, 2, 8, device="cpu")
     items = {"x": torch.arange(12, dtype=torch.int32)[:, None] + 1}
     labels = (torch.arange(12) % 2).to(torch.int32)
     buf = tstate.local_update(buf, items, labels, _gen(1), 12)
@@ -169,7 +169,7 @@ def test_local_sample_uniform_over_filled():
 
 
 def test_empty_buffer_sample_invalid_and_masked():
-    buf = tstate.init_buffer(_tspec(), 2, 4)
+    buf = tstate.init_buffer(_tspec(), 2, 4, device="cpu")
     s, valid = tstate.local_sample(buf, _gen(0), 3)
     assert not bool(valid.any())
     aug = tstate.augment_batch(_items(2), s, valid, "label")
@@ -178,8 +178,12 @@ def test_empty_buffer_sample_invalid_and_masked():
 
 
 def test_api_flat_branch_only():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tapi.init_from_config(_tspec(), RehearsalConfig(tiering="host"), "cpu")
+    """The flat branch for ``tiering='off'`` (the tiered one is held in
+    tests/test_torch_tiered.py); unported policies still raise."""
+    assert isinstance(tapi.init_from_config(_tspec(), RehearsalConfig(), "cpu"),
+                      tstate.BufferState)
+    assert not isinstance(tapi.init_from_config(_tspec(), RehearsalConfig(tiering="host"),
+                                                "cpu"), tstate.BufferState)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tapi.init_from_config(_tspec(), RehearsalConfig(policy="fifo"), "cpu")
 
@@ -190,8 +194,9 @@ def test_sample_global_without_peers_draws_r_filled_records():
     from repro_torch.core import distributed as tdist
 
     rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4)
-    buf = tstate.local_update(tstate.init_buffer(_tspec(), 2, 4), _items(4, 7),
-                              torch.tensor([0, 1, 0, 1], dtype=torch.int32), _gen(0), 4)
+    buf = tstate.local_update(tstate.init_buffer(_tspec(), 2, 4, device="cpu"),
+                              _items(4, 7), torch.tensor([0, 1, 0, 1], dtype=torch.int32),
+                              _gen(0), 4)
     reps, valid = tdist.sample_global(buf, _gen(1), 5, rcfg=rcfg)
     assert reps["images"].shape == (5, 2, 2, 3) and bool(valid.all())
     assert (reps["images"] == 7.0).all()  # never an empty (zero) slot

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref, rehearsal_ops as ops
 
 
@@ -23,6 +24,19 @@ def cuda():
 
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and torch.equal(_bits(a.cpu()), _bits(b.cpu()))
+
+
+def _table(rng, r, width, where, cuda):
+    """An int8 table and its f32 scales, on the card or in pinned host memory."""
+    q = torch.as_tensor(rng.integers(-127, 128, (r, width)), dtype=torch.int8)
+    scales = torch.as_tensor(rng.uniform(1e-4, 4.0, (r, 1)), dtype=torch.float32)
+    if where == "pinned":
+        return q.pin_memory(), scales.pin_memory()
+    return q.to(cuda), scales.to(cuda)
 
 
 @pytest.mark.cuda
@@ -63,7 +77,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                                     dtype=torch.float64), rows, rows)
     with pytest.raises(ValueError):
         ops.rehearsal_update_sample(buf, torch.ones((1, 4)), rows, rows)
-    with pytest.raises(ValueError):  # 2-byte rows: not a whole 4-byte word
-        ops.rehearsal_update_sample(torch.zeros((8, 1), dtype=torch.float16, device=cuda),
-                                    torch.ones((1, 1), dtype=torch.float16, device=cuda),
+    with pytest.raises(ValueError):  # a table in unpinned host memory
+        ops.rehearsal_update_sample(torch.zeros((8, 4)), torch.ones((1, 4), device=cuda),
                                     rows, rows)
+    with pytest.raises(ValueError):
+        ops.gather_dequant_rows(torch.zeros((8, 4), dtype=torch.int8), torch.ones((8, 1)),
+                                rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("r,width,c,s", [(8, 5, 6, 3), (33, 37, 16, 2), (300, 150528, 8, 2),
+                                         (4, 1, 12, 7)])
+def test_byte_path_and_pinned_tables_bit_equal_to_plain_version(cuda, where, r, width, c, s):
+    """int8 rows of any width (the 1-byte path) in a table on the card or in
+    pinned host memory: kernel == plain version on a device copy."""
+    rng = np.random.default_rng(r + width)
+    table, _ = _table(rng, r, width, where, cuda)
+    want_table = table.to(cuda, copy=True)
+    cands = torch.as_tensor(rng.integers(-127, 128, (c, width)), dtype=torch.int8,
+                            device=cuda)
+    cand_rows = torch.as_tensor(rng.integers(-2, r + 2, c), dtype=torch.int32, device=cuda)
+    samp_rows = torch.as_tensor(rng.integers(-2, r + 2, s), dtype=torch.int32, device=cuda)
+    _, got = ops.rehearsal_update_sample(table, cands, cand_rows, samp_rows)
+    _, want = ref.rehearsal_update_sample_ref(want_table, cands, cand_rows, samp_rows)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and _same(got, want) and _same(table, want_table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("r,width", [(8, 150528), (13, 37), (1, 1), (5, 4096), (3, 6)])
+def test_quantize_kernels_bit_equal_to_plain_version(cuda, dtype, r, width):
+    x = (torch.as_tensor(np.random.default_rng(width).normal(size=(r, width)) * 3)
+         .to(dtype).to(cuda))
+    before = (qz.quantize_rows.launches, qz.dequantize_rows.launches)
+    q, scales = qz.quantize_rows(x)
+    wq, ws = ref.quantize_rows_ref(x)
+    out = qz.dequantize_rows(q, scales, dtype)
+    want = ref.dequantize_rows_ref(wq, ws, dtype)
+    torch.cuda.synchronize()
+    assert (qz.quantize_rows.launches, qz.dequantize_rows.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    assert _same(q, wq) and _same(scales, ws) and _same(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("r,width,c", [(64, 150528, 8), (40, 37, 16), (9, 8, 12), (3, 6, 5)])
+def test_encode_scatter_bit_equal_to_plain_version(cuda, where, r, width, c):
+    """Duplicates, -1 and past-the-table targets; an all-dropped stage."""
+    rng = np.random.default_rng(r * 7 + width)
+    q, scales = _table(rng, r, width, where, cuda)
+    want_q, want_s = q.to(cuda, copy=True), scales.to(cuda, copy=True)
+    x = torch.as_tensor(rng.normal(size=(c, width)) * 3, dtype=torch.float32, device=cuda)
+    rows = torch.as_tensor(rng.integers(-1, min(r, 2 * c) + 2, c), dtype=torch.int32,
+                           device=cuda)
+    before = ops.encode_scatter_rows.launches
+    ops.encode_scatter_rows(q, scales, x, rows)
+    ref.encode_scatter_rows_ref(want_q, want_s, x, rows)
+    torch.cuda.synchronize()
+    assert ops.encode_scatter_rows.launches == before + 1
+    assert _same(q, want_q) and _same(scales, want_s)
+    frozen = (q.clone(), scales.clone())
+    ops.encode_scatter_rows(q, scales, x, torch.full((c,), -1, dtype=torch.int32,
+                                                     device=cuda))
+    torch.cuda.synchronize()
+    assert _same(q, frozen[0]) and _same(scales, frozen[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,width,s", [(64, 150528, 2), (40, 37, 16), (1, 1, 3)])
+def test_gather_dequant_bit_equal_to_plain_version(cuda, where, dtype, r, width, s):
+    rng = np.random.default_rng(r + 3 * width)
+    q, scales = _table(rng, r, width, where, cuda)
+    rows = torch.as_tensor(rng.integers(-2, r + 2, s), dtype=torch.int32, device=cuda)
+    before = ops.gather_dequant_rows.launches
+    got = ops.gather_dequant_rows(q, scales, rows, dtype)
+    want = ref.gather_dequant_rows_ref(q.to(cuda), scales.to(cuda), rows, dtype)
+    torch.cuda.synchronize()
+    assert ops.gather_dequant_rows.launches == before + 1
+    assert got.device.type == "cuda" and _same(got, want)

@@ -47,14 +47,14 @@ from repro_torch.strategy import init_carry, make_cl_step
 cfg = resnet50_cl.CNNConfig("t", "resnet18", num_classes=8, width=4,
                             stage_blocks=(1, 1), bottleneck=False, image_size=8)
 rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
-                       num_candidates=4, mode="async", label_field="label")
+                       num_candidates=4, mode="async", label_field="label", **TIERING)
 init, update = make_optimizer(TrainConfig(peak_lr=0.1, warmup_steps=1), n_workers=world)
 
 def loss_fn(model, batch):
     logits = apply_cnn(model, batch["images"])
     return cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
 
-model = init_cnn(torch.Generator().manual_seed(0), cfg)
+model = init_cnn(torch.Generator().manual_seed(0), cfg, device="cpu")
 spec = {"images": ItemSpec((8, 8, 3), torch.float32), "label": ItemSpec((), torch.int32),
         "task": ItemSpec((), torch.int32)}
 carry = init_carry(model, init(dict(model.named_parameters())), spec, rcfg,
@@ -73,8 +73,12 @@ gathered = [torch.zeros_like(flat) for _ in range(world)]
 dist.all_gather(gathered, flat)
 print(json.dumps({"rank": rank, "losses": losses, "pending_rows": pending_rows,
                   "params_equal": all(torch.equal(g, gathered[0]) for g in gathered),
-                  "fill": float(m["buffer_fill"]), "valid": carry.pipe.valid.tolist()}))
+                  "fill": float(m["buffer_fill"]), "valid": carry.pipe.valid.tolist(),
+                  "cold": int(getattr(carry.buffer, "cold", carry.buffer).counts.sum())}))
 """
+FLAT = "TIERING = {}\n"
+TIERED = ("TIERING = dict(tiering='host', hot_slots=2, cold_slots=4, demote_stage=4, "
+          "fused_kernels=True)\n")
 
 
 def _free_port() -> int:
@@ -84,8 +88,9 @@ def _free_port() -> int:
 
 
 def _run(body: str):
+    # both ranks leave their collectives before either tears gloo down
     code = textwrap.dedent(PRELUDE) + textwrap.dedent(body) + \
-        "\ndist.destroy_process_group()\n"
+        "\ndist.barrier()\ndist.destroy_process_group()\n"
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(WORLD), str(port)],
@@ -122,10 +127,23 @@ def test_data_parallel_step_keeps_replicas_equal():
     replicas stay bit-identical; with fewer peers than representatives
     (2 < r = 3) the pending slot holds one row per peer, as the reference's
     ``argsort(scores)[:r]`` does."""
-    res = _run(STEP)
+    res = _run(FLAT + STEP)
     for r in res:
         assert r["params_equal"]
         assert r["pending_rows"] == [WORLD] * 4
         assert all(x == x and abs(x) < 1e6 for x in r["losses"])  # finite
         assert r["fill"] > 0 and all(r["valid"])
     assert res[0]["losses"] == res[1]["losses"]  # loss is mean-reduced too
+
+
+def test_tiered_data_parallel_step_keeps_replicas_equal():
+    """The same two-rank pipelined step with the tiered store (fused
+    kernels): demotions reach each rank's cold tier, the exchange carries
+    the decoded records, and the replicas stay bit-identical."""
+    res = _run(TIERED + STEP)
+    for r in res:
+        assert r["params_equal"]
+        assert r["pending_rows"] == [WORLD] * 4
+        assert all(x == x and abs(x) < 1e6 for x in r["losses"])
+        assert r["fill"] > 2 * 2 and r["cold"] > 0 and all(r["valid"])
+    assert res[0]["losses"] == res[1]["losses"]

@@ -55,7 +55,7 @@ def _setup(name, batch=3, seed=0):
     rng = np.random.default_rng(seed)
     images = rng.normal(size=(batch, size, size, 3)).astype(np.float32)
     labels = rng.integers(0, jcfg.num_classes, batch).astype(np.int32)
-    return jcfg, tcfg, params, cnn_params_from_jax(np_params, tcfg), images, labels
+    return jcfg, tcfg, params, cnn_params_from_jax(np_params, tcfg, "cpu"), images, labels
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -99,7 +99,7 @@ def test_one_sgd_step_matches_jax(name):
     _close(float(tm["grad_norm"]), float(jm["grad_norm"]))
     assert tm["lr"] == float(jm["lr"])
     want_params = named_from_tree(jax.tree_util.tree_map(np.asarray, jparams))
-    want_mu = opt_state_from_jax(jax.tree_util.tree_map(np.asarray, jopt)).mu
+    want_mu = opt_state_from_jax(jax.tree_util.tree_map(np.asarray, jopt), "cpu").mu
     assert topt.step == int(jopt.step) == 1
     for k, p in named.items():
         _close(p.detach().numpy(), want_params[k])

@@ -83,9 +83,9 @@ def _port_carry(jc):
     pipe = PipelinedRehearsalCarry(
         {k: torch.from_numpy(np.array(v)) for k, v in jc.pipe.reps.items()},
         torch.from_numpy(np.array(jc.pipe.valid)), 3)
-    return TrainCarry(cnn_params_from_jax(np_tree, TCFG),
-                      opt_state_from_jax(jax.tree_util.tree_map(np.asarray, jc.opt)),
-                      buffer_from_jax(jc.buffer), pipe)
+    return TrainCarry(cnn_params_from_jax(np_tree, TCFG, "cpu"),
+                      opt_state_from_jax(jax.tree_util.tree_map(np.asarray, jc.opt), "cpu"),
+                      buffer_from_jax(jc.buffer, "cpu"), pipe)
 
 
 def _port_step(pipelined):
@@ -141,7 +141,7 @@ def test_port_step_matches_jax_make_cl_step(pipelined):
 
 def _port_run(pipelined, steps=6):
     tstep = _port_step(pipelined)
-    model = tresnet.init_cnn(torch.Generator().manual_seed(0), TCFG)
+    model = tresnet.init_cnn(torch.Generator().manual_seed(0), TCFG, device="cpu")
     opt = make_optimizer(TrainConfig(**RECIPE))[0](dict(model.named_parameters()))
     spec = {"images": ItemSpec((8, 8, 3), torch.float32),
             "label": ItemSpec((), torch.int32), "task": ItemSpec((), torch.int32)}
@@ -181,7 +181,7 @@ def test_issue_consume_composition_equals_update_and_sample():
             "label": ItemSpec((), torch.int32), "task": ItemSpec((), torch.int32)}
     stream = ClassIncrementalImages(ImageStreamConfig(**STREAM))
     batch = {k: torch.from_numpy(v) for k, v in stream.batch(1, B, 0).items()}
-    buf1, buf2 = (init_buffer(spec, 2, 4) for _ in range(2))
+    buf1, buf2 = (init_buffer(spec, 2, 4, device="cpu") for _ in range(2))
     s1, pending = tdist.issue_sample(buf1, batch, batch["task"],
                                      generator(fold_in(42, 0), "cpu"), rcfg)
     r1, v1 = tdist.consume_reps(pending, "label")

@@ -50,6 +50,31 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
         init_carry(None, None)
 
 
+@pytest.mark.parametrize("name", [
+    "init_buffer", "init_tiered", "init_cnn", "cnn_params_from_jax", "buffer_from_jax",
+    "tiered_from_jax", "opt_state_from_jax"])
+def test_constructors_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    from repro_torch import convert
+    from repro_torch.buffer.state import ItemSpec, init_buffer
+    from repro_torch.buffer.tiered import init_tiered
+    from repro_torch.models.resnet import init_cnn
+
+    spec = {"x": ItemSpec((3,), torch.float32)}
+    make = {
+        "init_buffer": lambda: init_buffer(spec, 2, 4),
+        "init_tiered": lambda: init_tiered(spec, 2, 2, 4, 4),
+        "init_cnn": lambda: init_cnn(torch.Generator(), RUN.model),
+        "cnn_params_from_jax": lambda: convert.cnn_params_from_jax({}, RUN.model),
+        "buffer_from_jax": lambda: convert.buffer_from_jax(None),
+        "tiered_from_jax": lambda: convert.tiered_from_jax(None),
+        "opt_state_from_jax": lambda: convert.opt_state_from_jax(None),
+    }[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 13"), (dict(step_form="split"), "item 5"),
     (dict(resilience=object()), "item 10"), (dict(ckpt_dir="/nonexistent"), "item 10"),
@@ -60,9 +85,9 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         ContinualTrainer(RUN.replace(rehearsal=dataclasses.replace(
-            RUN.rehearsal, tiering="host")), device="cpu")
+            RUN.rehearsal, policy="fifo")), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         ContinualTrainer(RUN, scenario="domain_incremental", device="cpu")
 
