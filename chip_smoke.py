@@ -28,6 +28,21 @@ Phases (any failure exits non-zero):
      float-leaf kernel of the setting launches once per step, the histories
      of ``rep_checksum`` and ``buffer_fill`` are identical, and the buffer
      outgrows the hot tier.
+Phases 8-12 are the language-model inference path, with TF32 off:
+  8. flash attention against its plain version at SmolLM-135M's prefill
+     shapes (f32 and bf16) and over a seeded sweep (the JAX kernel tests'
+     cases and an H2O-Danube case, hd 80, window 4096, S 8192); times beside
+     ``F.scaled_dot_product_attention`` and the bound;
+  9. the SSD scan against its plain version and the model's ``ssd_chunked``
+     at Mamba2-370M's prefill shapes and over a sweep; times and the bound;
+ 10. SmolLM-135M and Mamba2-370M at full width on the card against the CPU
+     (same seed, B 1, S 128);
+ 11. prefill at full width (B 4, S 2048): ``build_model(cfg).forward`` with
+     the kernels (exactly one launch per layer: 30 and 48) against the plain
+     path; median time, tokens/s, peak memory;
+ 12. greedy serving (batch 4, prompt 32, gen 16) for both models through
+     ``repro_torch.launch.serve`` and ``DecodeEngine``, decode logits against
+     the teacher-forced forward.
 
 The second line from the end is a JSON object with one entry per kernel
 (time, launches, bound, plain and library times); the last line is
@@ -51,6 +66,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
 LINK_PROBE_BYTES = 256 << 20  # pinned <-> device copy that measures the host link
 
@@ -63,6 +80,11 @@ BATCH, REPS, CANDS, SLOTS = 16, 2, 4, 500  # b, r, c per worker; slots per bucke
 # The tiered store's cuts: 4 hot slots per bucket only so that 8 steps
 # overflow the hot tier and demote; a stage of 2c rows (the default).
 BUCKETS, HOT, COLD, STAGE = 4, 4, 1000, 2 * CANDS
+# The LM path: prefill of B sequences of S tokens at full width; serving at
+# the reference CLI's defaults. Widths and depths are the published ones.
+LM_ARCHS = ("smollm-135m", "mamba2-370m")
+PREFILL_B, PREFILL_S = 4, 2048
+SERVE_B, PROMPT, GEN = 4, 32, 16
 
 
 def phase(name: str):
@@ -667,17 +689,324 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
     return launches, prints, step_ms
 
 
+# ---------------------------------------------------------------------------
+# phases 8-12: the language-model inference path
+# ---------------------------------------------------------------------------
+
+
+def tf32_off():
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"TF32 off: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def close(got, want, atol, rtol, what):
+    """Assert |got - want| <= atol + rtol |want| everywhere; return max |err|."""
+    err = (got.double() - want.double()).abs()
+    bad = err > atol + rtol * want.double().abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    if bool(bad.any()) or not math.isfinite(worst):
+        raise AssertionError(f"{what}: max abs err {worst:.3e} beyond atol {atol} rtol {rtol}")
+    return worst
+
+
+def _randn(shape, gen, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dtype).to("cuda")
+
+
+def flash_phase(fa, ref):
+    """Flash attention against its plain version; times at SmolLM-135M's
+    prefill shapes. Returns its kernels-line entry."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(8)
+    b, s, h, kv, hd = PREFILL_B, PREFILL_S, 9, 3, 64
+    # (atol, rtol). f32 as tests/test_kernels.py:34. bf16: the kernel and the
+    # plain version both compute in f32 from the same inputs and round once,
+    # so they differ by at most one bf16 ulp (2**-7 relative)
+    tol = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2 ** -7)}
+    runs, worst = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((b, s, h, hd), gen, dtype)
+        k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
+        got = fa.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = close(got.float(), want.float(), *tol[dtype], f"flash {dtype}")
+        if dtype == torch.float32:
+            worst = err
+        runs[dtype] = (q, k, v)
+        print(f"SmolLM-135M prefill shapes q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, {kv}, {hd}] "
+              f"{dtype}: max abs err {err:.3e} (atol, rtol {tol[dtype]})")
+    # the JAX kernel tests' cases (test_kernels.py:17-24, 39-45) and H2O-Danube
+    sweep = [(1, 64, 2, 2, 32, 0, torch.float32), (2, 128, 4, 2, 32, 0, torch.float32),
+             (1, 128, 8, 1, 64, 0, torch.float32), (2, 128, 6, 3, 64, 64, torch.float32),
+             (1, 256, 4, 4, 128, 128, torch.float32), (2, 64, 4, 2, 32, 0, torch.bfloat16),
+             (1, 128, 2, 2, 32, 0, torch.float32), (1, 8192, 32, 8, 80, 4096, torch.float32)]
+    for cb, cs, ch, ckv, chd, win, dtype in sweep:
+        q = _randn((cb, cs, ch, chd), gen, dtype)
+        k, v = _randn((cb, cs, ckv, chd), gen, dtype), _randn((cb, cs, ckv, chd), gen, dtype)
+        got = fa.flash_attention(q, k, v, window=win)
+        want = ref.flash_attention_ref(q, k, v, window=win)
+        torch.cuda.synchronize()
+        close(got.float(), want.float(), *tol[dtype],
+              f"flash sweep {(cb, cs, ch, ckv, chd, win, dtype)}")
+        del q, k, v, got, want
+    print(f"sweep: {len(sweep)} cases within tolerance (incl. H2O-Danube: H 32, KV 8, hd 80, "
+          f"window 4096, S 8192)")
+
+    entry = None
+    for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+        q, k, v = runs[dtype]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, hd] views
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        lib = library().transpose(1, 2)
+        torch.cuda.synchronize()
+        lib_tol = 2e-2 if dtype == torch.bfloat16 else 2e-5  # SDPA rounds P to bf16
+        lib_err = close(lib.float(), ref.flash_attention_ref(q, k, v).float(), lib_tol,
+                        lib_tol, f"SDPA {dtype}")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10)
+        library_ms = time_ms(library)
+        ms_again = time_ms(lambda: fa.flash_attention(q, k, v))
+        flops = 2 * b * h * s * s * hd  # the causal half of QK^T and PV
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"flash_attention {dtype}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max abs err vs plain "
+              f"{lib_err:.3e}); bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:g} TFLOP/s{' f32 outside the tensor cores' if peak == F32_FLOPS else ''}"
+              f" = {ops_ms:.4f} ms; {nbytes} B = {bytes_ms:.4f} ms); kernel at "
+              f"{flops / ms / 1e9:.2f} TFLOP/s")
+        if dtype == torch.float32:
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention.py:73",
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+    del runs
+    return entry
+
+
+def ssd_plain(ref, x, dt, a_head, bmat, cmat, chunk):
+    """The SSD wrapper's steps with the plain chunked scan, on the card."""
+    b, s, h, p = x.shape
+    n, q = bmat.shape[-1], min(chunk, s)
+    nc = s // q
+    cum = torch.cumsum((dt.float() * a_head.float()).reshape(b, nc, q, h), dim=2)
+    y = ref.ssd_scan_chunked_ref(x.reshape(b, nc, q, h, p), dt.float().reshape(b, nc, q, h),
+                                 cum, bmat.reshape(b, nc, q, n), cmat.reshape(b, nc, q, n))
+    return y.reshape(b, s, h, p)
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype=torch.float32):
+    x = _randn((b, s, h, p), gen, dtype, 0.5)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen)).cuda()
+    a = -torch.exp(torch.randn((h,), generator=gen) * 0.3).cuda()
+    return x, dt, a, _randn((b, s, n), gen, dtype, 0.5), _randn((b, s, n), gen, dtype, 0.5)
+
+
+def ssd_phase(ssd, ref):
+    """The SSD scan against its plain version and the model's chunked path
+    at Mamba2-370M's prefill shapes. Returns its kernels-line entry."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator().manual_seed(9)
+    b, s, h, p, n, q = PREFILL_B, PREFILL_S, 32, 64, 128, 128
+    args = _ssd_inputs(gen, b, s, h, p, n)
+    got = ssd.ssd_scan(*args, chunk=q)
+    want = ssd_plain(ref, *args, q)
+    model, _ = ssd_chunked(*args, chunk=q)
+    torch.cuda.synchronize()
+    worst = close(got, want, 5e-4, 1e-3, "ssd vs plain")  # tests/test_kernels.py:71
+    err_model = close(got, model, 5e-4, 1e-3, "ssd vs ssd_chunked")
+    print(f"Mamba2-370M prefill shapes x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, {n}], chunk "
+          f"{q}: max abs err {worst:.3e} vs plain, {err_model:.3e} vs the model's ssd_chunked "
+          f"(atol 5e-4, rtol 1e-3)")
+    sweep = [(1, 32, 4, 16, 8, 8, torch.float32), (2, 64, 8, 16, 16, 16, torch.float32),
+             (1, 64, 8, 32, 8, 64, torch.float32), (1, 128, 16, 64, 128, 32, torch.float32),
+             (2, 256, 32, 64, 128, 128, torch.bfloat16)]  # test_kernels.py:52-57, bf16
+    for cb, cs, ch, cp, cn, cq, dtype in sweep:
+        cargs = _ssd_inputs(gen, cb, cs, ch, cp, cn, dtype)
+        tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+        close(ssd.ssd_scan(*cargs, chunk=cq).float(), ssd_plain(ref, *cargs, cq).float(), *tol,
+              f"ssd sweep {(cb, cs, ch, cp, cn, cq, dtype)}")
+    print(f"sweep: {len(sweep)} cases within tolerance")
+
+    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=q))
+    plain_ms = time_ms(lambda: ssd_plain(ref, *args, q), iters=10)
+    model_ms = time_ms(lambda: ssd_chunked(*args, chunk=q), iters=10)
+    ms_again = time_ms(lambda: ssd.ssd_scan(*args, chunk=q))
+    nc = s // q
+    # the products the function needs: the lower triangle of C.B^T once per
+    # (batch, chunk); per head the lower-triangular W.x, C.state and the
+    # state update
+    flops = b * nc * (q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * n * p))
+    nbytes = (2 * args[0].numel() * 4 + 2 * args[1].numel() * 4 + 2 * args[3].numel() * 4)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"ssd_scan: kernel {ms:.4f} ms (repeat {ms_again:.4f}; includes the wrapper's "
+          f"cumsum), plain {plain_ms:.4f} ms, the model's ssd_chunked {model_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32 = "
+          f"{ops_ms:.4f} ms; x, y, dt, cum, B, C {nbytes} B = {bytes_ms:.4f} ms); no single "
+          f"PyTorch call computes the scan (library_ms null); kernel at "
+          f"{flops / ms / 1e9:.2f} TFLOP/s")
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:70", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def lm_model_phase(seed: int = 10):
+    """Both models at full width on the card against the CPU, same seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import StackCtx, build_model
+
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            params = model.init(torch.Generator().manual_seed(seed), 128, device="cpu")
+            want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=True))
+            del params
+            params = model.init(torch.Generator().manual_seed(seed), 128, device="cuda")
+            got, _ = model.forward(params, {"tokens": toks.cuda()}, StackCtx(cfg, use_kernel=True))
+            got = got.cpu()
+        del params
+        scale = float(want.abs().max())
+        tol = 1e-4 * scale + 1e-5  # f32 both sides, other kernels and summation orders
+        err = close(got, want, tol, 0.0, f"{arch} card vs cpu")
+        print(f"{arch} full width ({cfg.param_count() / 1e6:.1f} M parameters), B 1, S 128, "
+              f"kernels on the card vs plain versions on the CPU: logits {tuple(got.shape)}, "
+              f"max |card - cpu| {err:.3e} (tolerance {tol:.3e}, |logit| max {scale:.3f})")
+
+
+def prefill_phase(counters, seed: int = 11):
+    """Prefill at full width with the kernels (the LM main path) against the
+    plain path. Returns the kernels' launches per forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import StackCtx, build_model
+
+    launches = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(seed), PREFILL_S, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                             generator=torch.Generator().manual_seed(2)).cuda()
+        fast, slow = StackCtx(cfg, use_kernel=True), StackCtx(cfg, use_kernel=False)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            got, _ = model.forward(params, {"tokens": toks}, fast)
+            torch.cuda.synchronize()
+            seen = {name: fn.launches for name, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            want, _ = model.forward(params, {"tokens": toks}, slow)
+            torch.cuda.synchronize()
+            kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+            expect = {name: (cfg.num_layers if name == kernel else 0) for name in counters}
+            if seen != expect:
+                raise AssertionError(f"{arch}: expected launches {expect}, saw {seen}")
+            launches[kernel] = seen[kernel]
+            scale = float(want.abs().max())
+            # f32 both paths; the kernels sum attention / the scan in another
+            # order than cuBLAS and the plain path's einsums. The CPU parity
+            # tests show ~1e-6 of the largest logit between the packages; 1e-4
+            # leaves a factor of 100 for 30 and 48 layers of compounding.
+            tol = 1e-4 * scale + 1e-5
+            err = close(got, want, tol, 0.0, f"{arch} prefill kernels vs plain path")
+            if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size):
+                raise AssertionError(f"bad logits shape {tuple(got.shape)}")
+            del got, want
+            times = {}
+            for name, ctx in (("kernels", fast), ("plain", slow), ("kernels again", fast)):
+                runs = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.forward(params, {"tokens": toks}, ctx)
+                    torch.cuda.synchronize()
+                    runs.append(time.perf_counter() - t0)
+                times[name] = statistics.median(runs[1:])
+        tokens = PREFILL_B * PREFILL_S
+        print(f"{arch} prefill B {PREFILL_B} x S {PREFILL_S}: {seen[kernel]} {kernel} launches "
+              f"per forward (one per layer), logits max |kernels - plain| {err:.3e} (tolerance "
+              f"{tol:.3e}); median forward with kernels {times['kernels'] * 1e3:.1f} ms (again "
+              f"{times['kernels again'] * 1e3:.1f}) = {tokens / times['kernels']:.0f} tokens/s, "
+              f"plain path {times['plain'] * 1e3:.1f} ms = {tokens / times['plain']:.0f} tokens/s; "
+              f"peak memory with kernels {peak / 2**30:.2f} GiB")
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serving_phase(seed: int = 12):
+    """Greedy serving at full width: the CLI's path, and DecodeEngine's decode
+    logits at every prompt position against the teacher-forced forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.serving import DecodeEngine
+
+    for arch in LM_ARCHS:
+        res = serve.main(["--arch", arch, "--batch", str(SERVE_B), "--prompt-len", str(PROMPT),
+                          "--gen-len", str(GEN), "--seed", str(seed)])
+        if res.tokens.shape != (SERVE_B, GEN) or res.tokens.device.type != "cuda":
+            raise AssertionError(f"bad generation {tuple(res.tokens.shape)} {res.tokens.device}")
+        print(f"{arch} serve (CLI path): prefill {res.prefill_seconds:.3f} s for {PROMPT} "
+              f"tokens x {SERVE_B}, decode {res.decode_seconds:.3f} s = "
+              f"{res.tokens_per_second:.1f} tok/s per sequence")
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        gen = torch.Generator().manual_seed(seed + 1)
+        params = model.init(gen, PROMPT + GEN, device="cuda")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT), generator=gen).cuda()
+        ctx = StackCtx(cfg)
+        res = DecodeEngine(model, ctx).generate(params, prompts, GEN)
+        with torch.no_grad():
+            full, _ = model.forward(params, {"tokens": prompts}, StackCtx(cfg, use_kernel=True))
+            caches = model.init_cache(params, SERVE_B, PROMPT + GEN, dtype=torch.float32)
+            outs = []
+            for t in range(PROMPT):
+                logits, caches = model.decode(params, {"token": prompts[:, t:t + 1]}, caches, t,
+                                              ctx)
+                outs.append(logits)
+            dec = torch.cat(outs, dim=1)
+            first = torch.argmax(dec[:, -1], dim=-1)
+        err = close(dec, full, 2e-3, 2e-3, f"{arch} decode vs teacher-forced forward")
+        if not torch.equal(first, res.tokens[:, 0]):
+            raise AssertionError(f"{arch}: the engine's first token differs from the decode loop's")
+        print(f"{arch} DecodeEngine: decode logits at all {PROMPT} prompt positions vs the "
+              f"teacher-forced forward (kernels): max abs err {err:.3e} (atol = rtol = 2e-3); "
+              f"prefill {res.prefill_seconds:.3f} s, {res.tokens_per_second:.1f} tok/s per "
+              f"sequence")
+        del params, caches
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
     from repro_torch.configs import resnet50_cl
     from repro_torch.kernels import build, ref, rehearsal_ops as ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ssd_scan as ssd
 
     counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
                 "quantize_rows": qz.quantize_rows, "dequantize_rows": qz.dequantize_rows,
                 "gather_dequant_rows": ops.gather_dequant_rows,
-                "encode_scatter_rows": ops.encode_scatter_rows}
+                "encode_scatter_rows": ops.encode_scatter_rows,
+                "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
 
     phase("1 environment")
     card = gpu_name_and_power()
@@ -690,7 +1019,7 @@ def main():
 
     phase("2 kernel build")
     t0 = time.perf_counter()
-    paths = build.build(["rehearsal_ops", "quantize"])
+    paths = build.build(["rehearsal_ops", "quantize", "flash_attention", "ssd_scan"])
     print(f"built {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in build.BUILD_LOG.items():
@@ -713,7 +1042,7 @@ def main():
     others = {name: fn.launches for name, fn in counters.items()
               if name != "rehearsal_update_sample"}
     if any(others.values()):
-        raise AssertionError(f"the flat path launched int8 kernels: {others}")
+        raise AssertionError(f"the flat path launched other kernels: {others}")
 
     phase("6 tiered store at full row width: card against CPU")
     tiered_phase(cfg)
@@ -729,8 +1058,26 @@ def main():
         e["launches"] = runs[e["name"] in ("gather_dequant_rows", "encode_scatter_rows")][0][
             e["name"]]
 
+    phase("8 flash attention against its plain version")
+    tf32_off()
+    flash_entry = flash_phase(fa, ref)
+
+    phase("9 SSD scan against its plain version")
+    ssd_entry = ssd_phase(ssd, ref)
+
+    phase("10 SmolLM-135M and Mamba2-370M at full width on the card against the CPU")
+    lm_model_phase()
+
+    phase("11 LM main path: prefill at full width, kernels against the plain path")
+    launches = prefill_phase(counters)
+    flash_entry["launches"] = launches["flash_attention"]
+    ssd_entry["launches"] = launches["ssd_scan"]
+
+    phase("12 LM serving: greedy decode at full width")
+    serving_phase()
+
     print(card)
-    print(json.dumps({"kernels": [entry] + int8_entries}))
+    print(json.dumps({"kernels": [entry] + int8_entries + [flash_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,43 @@
-"""Configs of the port: ``base`` (run, rehearsal, scenario, training) and the
-model config of the paper's ResNet (``resnet50_cl``)."""
-from repro_torch.configs import resnet50_cl
+"""Configs of the port: ``base`` (LM architecture, run, rehearsal, scenario,
+training), the paper's ResNet (``resnet50_cl``) and the ported LM
+architectures, resolved by ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
+"""
+from repro_torch.configs import h2o_danube_1_8b, mamba2_370m, resnet50_cl, smollm_135m
 from repro_torch.configs.base import (
+    ModelConfig,
     RehearsalConfig,
     RunConfig,
     ScenarioConfig,
     TrainConfig,
+    reduce_model,
 )
 
-__all__ = ["RehearsalConfig", "RunConfig", "ScenarioConfig", "TrainConfig",
+REGISTRY = {m.ARCH_ID: m for m in (smollm_135m, h2o_danube_1_8b, mamba2_370m)}
+ARCHS = tuple(REGISTRY)
+# Architectures the JAX package registers that the port does not have yet
+# (ROADMAP Queue 1 item 11: MoE, hybrid, enc-dec and VLM stacks).
+UNPORTED = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "stablelm-3b", "gemma-2b",
+            "whisper-tiny", "jamba-v0.1-52b", "qwen2-vl-72b")
+
+
+def _module(arch_id: str):
+    if arch_id in REGISTRY:
+        return REGISTRY[arch_id]
+    if arch_id in UNPORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 11); the port "
+            f"has {sorted(REGISTRY)}")
+    raise KeyError(f"unknown arch {arch_id!r}; the port has {sorted(REGISTRY)}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).full()
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    return _module(arch_id).reduced()
+
+
+__all__ = ["ARCHS", "REGISTRY", "ModelConfig", "RehearsalConfig", "RunConfig",
+           "ScenarioConfig", "TrainConfig", "get_config", "get_reduced", "reduce_model",
            "resnet50_cl"]

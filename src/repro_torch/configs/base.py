@@ -1,15 +1,172 @@
-"""Run configuration: rehearsal, scenario, training and the run itself.
+"""Model and run configuration: LM architecture, rehearsal, scenario,
+training and the run itself.
 
-The port's own copy of the fields of ``repro.configs.base`` that the
-class-incremental rehearsal slice reads. Field names, defaults and validation
-match the reference, so a ``RunConfig`` written for one package reads the same
-in the other.
+The port's own copy of the fields of ``repro.configs.base`` that the ported
+slices read: the class-incremental rehearsal trainer, and the language-model
+inference path (``ModelConfig``, ``reduce_model``). Field names, defaults and
+validation match the reference, so a config written for one package reads
+the same in the other.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model architecture
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description covering dense / MoE / SSM / hybrid / enc-dec /
+    VLM LMs. The port runs the dense and SSM decoders; the other families'
+    fields are kept so configs read the same in both packages."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    activation: str = "swiglu"  # swiglu | geglu | gelu
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    m_rope: bool = False  # qwen2-vl 3D multimodal rope
+    m_rope_sections: Tuple[int, ...] = (16, 24, 24)  # (t, h, w) split of head_dim/2
+    sliding_window: int = 0  # 0 = full attention
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_layer_period: int = 1  # MoE every k-th layer (jamba: 2), dense FFN otherwise
+    capacity_factor: float = 1.25
+    expert_sharding: str = "auto"  # auto | ep | tp
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_dim: int = 4
+    ssm_chunk: int = 128
+    # --- hybrid (jamba) ---
+    attn_layer_period: int = 0  # attention every k-th layer; 0 = per-family default
+    attn_layer_offset: int = 4
+    # --- enc-dec (whisper) ---
+    num_encoder_layers: int = 0
+    # --- modality frontend stubs ---
+    frontend: str = "none"  # none | patch_stub (vlm) | frame_stub (audio)
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    source: str = ""  # provenance note ([arXiv/hf ref; tier])
+
+    def __post_init__(self):
+        if self.num_heads and not self.head_dim:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """SWA-bounded or (partially) attention-free."""
+        return self.sliding_window > 0 or self.family in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def layer_kind(self, i: int) -> str:
+        """Mixer kind for layer i: 'attn' or 'ssm' (hybrid interleave support)."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            period = self.attn_layer_period or 8
+            return "attn" if (i % period) == self.attn_layer_offset else "ssm"
+        return "attn"
+
+    def layer_is_moe(self, i: int) -> bool:
+        return self.is_moe and (i % self.moe_layer_period) == (self.moe_layer_period - 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + per-layer blocks), total (all experts)."""
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        return _param_count(self, active_only=True)
+
+
+def _ffn_params(cfg: ModelConfig, d_ff: int) -> int:
+    mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    return mats * cfg.d_model * d_ff
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    q = cfg.d_model * cfg.num_heads * cfg.head_dim
+    kv = 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
+    o = cfg.num_heads * cfg.head_dim * cfg.d_model
+    return q + kv + o
+
+
+def _ssm_params(cfg: ModelConfig) -> int:
+    d_in = cfg.ssm_expand * cfg.d_model
+    nheads = d_in // cfg.ssm_head_dim
+    # in_proj: z, x, B, C, dt ; out_proj ; conv ; A, D, dt_bias, norm
+    in_proj = cfg.d_model * (2 * d_in + 2 * cfg.ssm_state + nheads)
+    out_proj = d_in * cfg.d_model
+    conv = (d_in + 2 * cfg.ssm_state) * cfg.ssm_conv_dim
+    extras = 3 * nheads + d_in
+    return in_proj + out_proj + conv + extras
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    for i in range(cfg.num_layers):
+        total += 2 * cfg.d_model  # norms
+        if cfg.layer_kind(i) == "ssm":
+            total += _ssm_params(cfg)
+        else:
+            total += _attn_params(cfg)
+        if cfg.layer_is_moe(i):
+            e = cfg.num_experts_per_tok if active_only else cfg.num_experts
+            total += e * _ffn_params(cfg, cfg.d_ff) + cfg.d_model * cfg.num_experts
+        elif cfg.d_ff:
+            total += _ffn_params(cfg, cfg.d_ff)
+    for _ in range(cfg.num_encoder_layers):
+        total += 2 * cfg.d_model + _attn_params(cfg) + _ffn_params(cfg, cfg.d_ff)
+        total += _attn_params(cfg)  # decoder cross-attention (paired with encoder layers)
+    return total
+
+
+def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Shrink a config for CPU smoke tests while preserving family structure."""
+    small = dict(
+        num_layers=min(cfg.num_layers, 4 if cfg.family != "hybrid" else 8),
+        d_model=128,
+        num_heads=4 if cfg.num_heads else 0,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=32 if cfg.num_heads else 0,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        num_experts=min(cfg.num_experts, 4) if cfg.num_experts else 0,
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2) if cfg.num_experts else 0,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_head_dim=32 if cfg.ssm_state else 64,
+        ssm_chunk=16 if cfg.ssm_state else 128,
+        num_encoder_layers=min(cfg.num_encoder_layers, 2),
+        name=cfg.name + "-reduced",
+    )
+    if cfg.num_kv_heads == 1:  # preserve MQA structure (gemma)
+        small["num_kv_heads"] = 1
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)
 
 
 @dataclass(frozen=True)
@@ -127,7 +284,7 @@ class RunConfig:
     """Everything one run needs. ``model=None`` lets the scenario supply its
     default model (the reduced CNN)."""
 
-    model: Optional[Any] = None  # CNNConfig | None
+    model: Optional[Any] = None  # CNNConfig | None (the LM path takes a ModelConfig directly)
     train: TrainConfig = TrainConfig()
     rehearsal: RehearsalConfig = RehearsalConfig()
     scenario: ScenarioConfig = ScenarioConfig()

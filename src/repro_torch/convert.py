@@ -9,6 +9,11 @@ both packages from the same carry. Nothing here imports the JAX package.
                             the port's layout (convolutions HWIO -> OIHW; the
                             head stays a [D, classes] matrix);
   * ``cnn_params_from_jax`` — load such a tree into a fresh ``CNN``;
+  * ``lm_params_from_jax``  — the JAX ``init_decoder`` tree (dense or SSM)
+                            into a fresh ``Decoder``, its stacked
+                            ``units.layer0.*`` leaves split into
+                            ``layers.{i}.*``; ``load_named`` loads any
+                            module from ``{name: array}``;
   * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` — the
                             flat or tiered buffer and the optimizer state of
                             a carry.
@@ -24,6 +29,7 @@ from repro_torch.buffer.state import BufferState, tree_map
 from repro_torch.buffer.tiered import TieredState, resolve_cold_placement
 from repro_torch.device import resolve_device
 from repro_torch.models.resnet import init_cnn
+from repro_torch.models.transformer import init_decoder, unit_period
 from repro_torch.optim.optimizers import OptState
 
 
@@ -49,9 +55,14 @@ def named_from_tree(tree) -> Dict[str, np.ndarray]:
 def cnn_params_from_jax(np_tree, cfg, device=None):
     """A ``CNN`` holding the weights of the JAX ``init_cnn`` tree ``np_tree``,
     on ``device`` (the card unless the caller asks for the CPU)."""
-    model = init_cnn(torch.Generator().manual_seed(0), cfg, device)
-    named = named_from_tree(np_tree)
-    params = dict(model.named_parameters())
+    return load_named(init_cnn(torch.Generator().manual_seed(0), cfg, device),
+                      named_from_tree(np_tree))
+
+
+def load_named(module: torch.nn.Module, named: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """Copy ``named`` arrays into ``module``'s parameters of the same names,
+    after checking that the names and shapes match exactly."""
+    params = dict(module.named_parameters())
     if set(named) != set(params):
         raise ValueError(f"parameter names differ: {sorted(set(named) ^ set(params))}")
     with torch.no_grad():
@@ -59,7 +70,25 @@ def cnn_params_from_jax(np_tree, cfg, device=None):
             if tuple(named[name].shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {named[name].shape} != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(named[name], dtype=np.float32)))
-    return model
+    return module
+
+
+def lm_params_from_jax(np_tree, cfg, device=None):
+    """A ``Decoder`` holding the weights of the JAX ``init_decoder`` tree
+    ``np_tree`` (dense or SSM), on ``device`` (the card unless the caller asks
+    for the CPU). Dense weights keep their ``[d_in, d_out]`` layout."""
+    model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
+    period = unit_period(cfg)
+    named = {}
+    for name, a in _walk(np_tree):
+        if name.startswith("units."):
+            _, unit_layer, rest = name.split(".", 2)
+            i = int(unit_layer[len("layer"):])
+            for u in range(a.shape[0]):
+                named[f"layers.{u * period + i}.{rest}"] = a[u]
+        else:
+            named[name] = a
+    return load_named(model, named)
 
 
 def _tensor(a, device) -> torch.Tensor:

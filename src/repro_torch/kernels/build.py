@@ -16,12 +16,17 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dtype codes of the kernels' C interfaces (csrc/int8_rows.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # What ptxas reported for each library built in this process (registers,
 # shared memory, spills), for the build log of chip_smoke.py.
@@ -97,6 +102,37 @@ def c_function(library: str, name: str, argtypes):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def on_card(tables: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> bool:
+    """Whether a call launches its kernel: True when ``inputs`` lie on one
+    CUDA device, whose ``tables`` are then on that device or in pinned host
+    memory; False when everything lies on the CPU. Raises otherwise."""
+    devices = {t.device for t in inputs}
+    if len(devices) != 1:
+        raise ValueError(f"inputs must share one device, got {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        if any(t.device.type != "cpu" for t in tables):
+            raise ValueError("a table on the card needs its inputs on the card")
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in tables:
+        if t.device != dev and not (t.device.type == "cpu" and t.is_pinned()):
+            raise ValueError(f"with inputs on {dev} a table must be on {dev} or in "
+                             f"pinned host memory, not on {t.device} unpinned")
+    return True
+
+
+def check_contiguous(name: str, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def stream(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current CUDA stream, for a C entry point."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def launched(wrapper, err: int):

@@ -21,8 +21,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import DTYPE_CODES, check_contiguous, on_card, stream
 from repro_torch.kernels.ref import dequantize_rows_ref, quantize_rows_ref
-from repro_torch.kernels.rehearsal_ops import DTYPE_CODES, check_contiguous, on_card, stream
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
 

@@ -5,8 +5,10 @@ The kernel wrappers take it for tensors on the CPU, the CPU tests hold it
 against the JAX package's oracles, and ``chip_smoke.py`` holds each CUDA
 kernel against it on the card.
 
-The plain versions index their tables with torch, so they take tables on the
-device or in ordinary host memory; the kernels also take pinned host tables.
+The rehearsal plain versions index their tables with torch, so they take
+tables on the device or in ordinary host memory; the kernels also take pinned
+host tables. ``ssd_scan_ref`` is no kernel's plain version: it is the
+sequential recurrence the tests hold the chunked scan against.
 """
 from __future__ import annotations
 
@@ -75,3 +77,97 @@ def encode_scatter_rows_ref(q_table: torch.Tensor, scales_table: torch.Tensor,
             q_table[row] = q[i]
             scales_table[row] = s[i]
     return q_table, scales_table
+
+
+NEG_INF = -1e30  # the masked score of the reference's attention and its kernel
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int = 0, causal: bool = True) -> torch.Tensor:
+    """Attention in the flash kernel's semantics, materialising the scores.
+
+    q [B,S,H,hd]; k/v [B,T,KV,hd] (GQA: H % KV == 0, query head h reads KV head
+    ``h // (H // KV)``). Everything is f32 inside: ``q`` is cast and scaled by
+    ``hd ** -0.5`` before the dot, masked scores are ``NEG_INF``, and the output
+    is cast to q's dtype. Query i and key j sit at positions i and j; ``causal``
+    keeps ``j <= i`` and ``window`` keeps ``j > i - window``, applied whether or
+    not ``causal`` is set, as the TPU kernel does (its oracle applies the window
+    only under ``causal``). A row whose keys are all masked averages V, as
+    the kernel's uniform softmax over ``NEG_INF`` does.
+    """
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = (q.float() * hd ** -0.5).reshape(b, s, kvh, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(scores.masked_fill_(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:
+    """The SSD chunked scan, chunk by chunk, as the TPU kernel computes it.
+
+    Kernel layout: x [B,nc,Q,H,P]; dt and cum (the within-chunk cumulative sum
+    of ``dt * A``) [B,nc,Q,H]; bmat/cmat [B,nc,Q,N]. Per chunk, in f32:
+    ``y_i = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i·state``,
+    then ``state <- exp(cum_last) state + Σ_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j``.
+    The f32 state [B,H,N,P] is carried across chunks by the loop. Returns y
+    [B,nc,Q,H,P] in x's dtype.
+    """
+    b, nc, q, h, p = x.shape
+    n = bmat.shape[-1]
+    f32 = torch.float32
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, cumc = x[:, c].to(f32), dt[:, c].to(f32), cum[:, c].to(f32)
+        bc, cc = bmat[:, c].to(f32), cmat[:, c].to(f32)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)  # [B, Qi, Qj]
+        diff = cumc[:, :, None, :] - cumc[:, None, :, :]  # [B, Qi, Qj, H]
+        # exp only where j <= i: above the diagonal cum_i - cum_j > 0 can
+        # overflow to inf, and inf * 0 is NaN
+        upper = ~tri[None, :, :, None]
+        decay = torch.exp(diff.masked_fill(upper, 0.0)).masked_fill(upper, 0.0)
+        w = cb[..., None] * decay * dtc[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xc)
+        y_inter = torch.einsum("bin,bhnp,bih->bihp", cc, state, torch.exp(cumc))
+        ys.append(y_intra + y_inter)
+        lam = torch.exp(cumc[:, -1, :])  # [B, H]
+        sdecay = torch.exp(cumc[:, -1:, :] - cumc) * dtc  # [B, Q, H]
+        state = lam[:, :, None, None] * state + torch.einsum("bjn,bjh,bjhp->bhnp", bc,
+                                                             sdecay, xc)
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, initial_state=None):
+    """Sequential SSM recurrence (the SSD semantics, O(S) steps).
+
+    x [B,S,H,P]; dt [B,S,H]; a_head [H]; bmat/cmat [B,S,N].
+    ``h_t = exp(dt_t·A)·h_{t-1} + dt_t·(B_t ⊗ x_t); y_t = C_t·h_t``.
+    Returns (y [B,S,H,P] in x's dtype, final_state [B,H,N,P] f32).
+    """
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    f32 = torch.float32
+    state = (torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    a = a_head.to(f32)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].to(f32)
+        lam = torch.exp(dtt * a)  # [B, H]
+        inject = torch.einsum("bn,bhp,bh->bhnp", bmat[:, t].to(f32), x[:, t].to(f32), dtt)
+        state = lam[:, :, None, None] * state + inject
+        ys.append(torch.einsum("bn,bhnp->bhp", cmat[:, t].to(f32), state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

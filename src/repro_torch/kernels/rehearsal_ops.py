@@ -28,11 +28,11 @@ used: on CUDA it is nondeterministic for duplicate indices.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import DTYPE_CODES, check_contiguous, on_card, stream
 from repro_torch.kernels.ref import (
     encode_scatter_rows_ref,
     gather_dequant_rows_ref,
@@ -45,42 +45,10 @@ _C_ARGTYPES = {
     "gather_dequant_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
     "encode_scatter_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
 }
-# record dtype codes of csrc/int8_rows.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _function(name: str):
     return build.c_function("rehearsal_ops", name, _C_ARGTYPES[name])
-
-
-def on_card(tables: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> bool:
-    """Whether a call launches its kernel: True when ``inputs`` lie on one
-    CUDA device, whose ``tables`` are then on that device or in pinned host
-    memory; False when everything lies on the CPU. Raises otherwise."""
-    devices = {t.device for t in inputs}
-    if len(devices) != 1:
-        raise ValueError(f"inputs must share one device, got {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        if any(t.device.type != "cpu" for t in tables):
-            raise ValueError("a table on the card needs its inputs on the card")
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for t in tables:
-        if t.device != dev and not (t.device.type == "cpu" and t.is_pinned()):
-            raise ValueError(f"with inputs on {dev} a table must be on {dev} or in "
-                             f"pinned host memory, not on {t.device} unpinned")
-    return True
-
-
-def check_contiguous(name: str, *tensors):
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-
-
-def stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check(buffer, cands, cand_rows, samp_rows):

@@ -1,0 +1,188 @@
+"""Attention: GQA / MQA, causal + sliding-window masking, KV caches for decode.
+
+Three entry points:
+  * ``attend_full``   — prefill over a whole sequence: the naive path, the
+    blocked online-softmax path, or the hand-written flash kernel
+    (``repro_torch.kernels.flash_attention``) under ``use_kernel``.
+  * ``attend_decode`` — one new token against a (possibly ring-buffered) KV cache.
+  * ``init_attention`` / ``make_kv_cache``.
+
+Shapes: x [B, S, d]; q [B, S, H, hd]; k/v [B, T, KV, hd]; GQA groups G = H // KV
+are kept factored (no repeated KV heads): scores are grouped einsums.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.layers import apply_rope, dense_init
+
+
+class Attention(nn.Module):
+    """``wq`` [d, H*hd], ``wk``/``wv`` [d, KV*hd], ``wo`` [H*hd, d]."""
+
+    def __init__(self, gen: torch.Generator, cfg):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.wq = dense_init(gen, d, h * hd)
+        self.wk = dense_init(gen, d, kv * hd)
+        self.wv = dense_init(gen, d, kv * hd)
+        self.wo = dense_init(gen, h * hd, d)
+
+
+def init_attention(gen: torch.Generator, cfg) -> Attention:
+    return Attention(gen, cfg)
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def qkv(params: Attention, x: torch.Tensor, cfg, kv_input=None):
+    """Project to q [B,S,H,hd], k/v [B,T,KV,hd]. ``kv_input`` overrides for cross-attn."""
+    kv_src = x if kv_input is None else kv_input
+    q = _split_heads(x @ params.wq.to(x.dtype), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(kv_src @ params.wk.to(x.dtype), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(kv_src @ params.wv.to(x.dtype), cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[B,S,H,hd] x [B,T,KV,hd] -> [B, KV, G, S, T] without repeating KV heads."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
+    return torch.einsum("bskgd,btkd->bkgst", qg, k)
+
+
+def _grouped_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B,KV,G,S,T] x [B,T,KV,hd] -> [B,S,H,hd]."""
+    b, kvh, g, s, t = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, kvh * g, -1)
+
+
+def causal_mask(s: int, t: int, window: int = 0, q_offset: int = 0, device=None):
+    """[S, T] bool mask; query i (global pos i+q_offset) sees keys j <= pos, within window."""
+    qpos = torch.arange(s, device=device)[:, None] + q_offset
+    kpos = torch.arange(t, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+# Attention implementation knobs, as in the reference: 'auto' switches to the
+# blocked online-softmax path when the KV length reaches ``block_threshold``,
+# where naive [S, T] scores cost too much memory. 'naive' and 'blocked' force
+# one path. The kernel path is chosen by ``use_kernel``, not here.
+ATTN_IMPL = {"mode": "auto", "block_k": 1024, "block_threshold": 8192}
+
+
+def attend_blocked(q, k, v, cfg, causal: bool = True, block_k: int = 1024):
+    """Blocked attention in plain torch: a loop over KV blocks with an online
+    softmax; no [S, T] tensor is materialised."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    block_k = min(block_k, t)
+    if t % block_k:
+        raise ValueError(f"KV length {t} not divisible by block {block_k}")
+    qg = (q * hd ** -0.5).reshape(b, s, kvh, g, hd)
+    qpos = torch.arange(s, device=q.device)
+    f32 = torch.float32
+    m = torch.full((b, kvh, g, s), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, kvh, g, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, kvh, g, s, hd), dtype=f32, device=q.device)
+    for jb in range(t // block_k):
+        kc = k[:, jb * block_k:(jb + 1) * block_k]
+        vc = v[:, jb * block_k:(jb + 1) * block_k]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, kc).to(f32)
+        kpos = jb * block_k + torch.arange(block_k, device=q.device)
+        mask = torch.ones((s, block_k), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if cfg.sliding_window:
+            mask &= kpos[None, :] > qpos[:, None] - cfg.sliding_window
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(vc.dtype), vc).to(f32)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)  # [B,KV,G,S,hd] -> [B,S,H,hd]
+    return out.to(q.dtype)
+
+
+def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bool = True,
+                kv_input=None, kv_angles=None, use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence attention (prefill / encoder). Returns [B, S, d]."""
+    q, k, v = qkv(params, x, cfg, kv_input=kv_input)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles if kv_angles is None else kv_angles)
+    mode = ATTN_IMPL["mode"]
+    blocked = mode == "blocked" or (mode == "auto" and k.shape[1] >= ATTN_IMPL["block_threshold"])
+    if use_kernel and causal and kv_input is None:
+        out = flash_attention(q, k, v, window=cfg.sliding_window)
+    elif blocked:
+        out = attend_blocked(q, k, v, cfg, causal=causal, block_k=ATTN_IMPL["block_k"])
+    else:
+        scores = _grouped_scores(q * cfg.head_dim ** -0.5, k).float()
+        if causal:
+            m = causal_mask(q.shape[1], k.shape[1], cfg.sliding_window, device=x.device)
+            scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _grouped_out(probs, v)
+    return out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode path — one token against a cache
+# ---------------------------------------------------------------------------
+
+
+def make_kv_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device=None):
+    """Preallocated cache. A sliding-window arch gets a ring buffer bounded by
+    the window (a context of any length costs ``window`` slots)."""
+    size = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attend_decode(params: Attention, x: torch.Tensor, cache, index: int, cfg, angles=None):
+    """One-step decode. ``x`` [B, 1, d]; ``index`` the global position of the
+    new token; the cache holds all previous tokens. Returns (out [B,1,d],
+    cache). The cache's slot is written in place (the reference returns a
+    new cache), so the returned dict is the one passed in."""
+    q, k_new, v_new = qkv(params, x, cfg)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k_new = apply_rope(k_new, angles)
+    size = cache["k"].shape[1]
+    slot = index % size  # ring position (== index when the cache is full-length)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+
+    scores = _grouped_scores(q * cfg.head_dim ** -0.5, k.to(q.dtype)).float()  # [B,KV,G,1,T]
+    # Ring slot t holds global position p(t) = index - ((index - t) mod size),
+    # the most recent position congruent to t; it is visible iff p(t) >= 0.
+    # Positions older than index - size + 1 were overwritten, which is the
+    # window. With a full-length cache this reduces to t <= index.
+    t = torch.arange(size, device=x.device)
+    pos = index - torch.remainder(index - t, size)
+    scores = torch.where(pos >= 0, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _grouped_out(probs, v.to(x.dtype))
+    return out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(x.dtype), cache
+
+
+def cache_logical_len(cfg, index: int) -> int:
+    return min(index, cfg.sliding_window) if cfg.sliding_window else index

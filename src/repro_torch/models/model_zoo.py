@@ -1,7 +1,26 @@
-"""Loss shared by the port's models."""
+"""Loss shared by the port's models, and the language models' bundle.
+
+``build_model(cfg)`` returns an ``LM`` of functions with the reference's
+surface (``models/model_zoo.py``), for the dense and SSM decoders:
+  * ``init(gen, max_seq, device=None)``          -> params (a ``Decoder``)
+  * ``forward(params, batch, ctx)``              -> (logits, aux_loss)   (prefill)
+  * ``loss(params, batch, ctx)``                 -> (scalar, metrics)
+  * ``outputs(params, batch, ctx)``              -> {"logits", "embed", "aux"}
+  * ``init_cache(params, batch_size, seq_len)``  -> per-layer decode caches
+  * ``decode(params, batch, caches, index, ctx)``-> (logits, new_caches)
+"""
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Callable
+
 import torch
+
+from repro_torch.models import transformer as tf
+
+# MoE load-balance aux-loss weight, as in the reference (0 aux for the ported
+# families).
+DEFAULT_AUX_WEIGHT = 0.01
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -17,3 +36,47 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     nll = logz - gold
     denom = valid.sum().clamp(min=1)
     return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+
+
+@dataclass(frozen=True)
+class LM:
+    cfg: Any
+    init: Callable
+    forward: Callable
+    loss: Callable
+    init_cache: Callable
+    decode: Callable
+    outputs: Callable
+
+
+def build_model(cfg) -> LM:
+    """The bundle for a dense or SSM decoder; other families raise
+    ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+    tf.check_ported(cfg)
+
+    def init(gen: torch.Generator, max_seq: int, device=None):
+        return tf.init_decoder(gen, cfg, max_seq, device)
+
+    def forward(params, batch, ctx):
+        return tf.forward_decoder(params, batch, cfg, ctx)
+
+    def loss(params, batch, ctx, aux_weight: float = DEFAULT_AUX_WEIGHT):
+        logits, aux = forward(params, batch, ctx)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+    def outputs(params, batch, ctx):
+        hidden, aux = tf.hidden_decoder(params, batch, cfg, ctx)
+        logits = tf.logits_from(params, hidden, cfg, ctx)
+        # per-record embedding: the mean over positions of the post-final-norm
+        # hidden state (the activations the head consumes)
+        return {"logits": logits, "embed": hidden.float().mean(dim=1), "aux": aux}
+
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16):
+        return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device)
+
+    def decode(params, batch, caches, index: int, ctx):
+        return tf.decode_step(params, batch, caches, index, cfg, ctx)
+
+    return LM(cfg=cfg, init=init, forward=forward, loss=loss, init_cache=init_cache,
+              decode=decode, outputs=outputs)

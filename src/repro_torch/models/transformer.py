@@ -1,0 +1,247 @@
+"""Decoder-stack assembly for the dense and SSM language models.
+
+The reference stacks each scan unit's weights on a leading axis and iterates
+them with ``lax.scan``; here the stack is an ``nn.ModuleList`` of per-layer
+modules walked by a Python loop (``unit_period`` is 1 for the ported
+families). Mixture-of-experts, hybrid, encoder-decoder and VLM stacks are not
+ported (ROADMAP Queue 1 item 11) and raise ``NotImplementedError``; nor are
+the reference's sharding hook, remat policies and ``scan_layers``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import torch
+import torch.nn as nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (
+    apply_learned_pos,
+    apply_mlp,
+    apply_norm,
+    embed_init,
+    init_learned_pos,
+    init_mlp,
+    init_norm,
+    rope_angles,
+)
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+@dataclass
+class StackCtx:
+    """Forward context: the config, whether the mixers run the hand-written
+    kernels, and the activations' dtype."""
+
+    cfg: Any
+    use_kernel: bool = False
+    compute_dtype: Any = torch.float32
+
+
+def check_ported(cfg) -> None:
+    """Raise for the families and options the port does not have yet."""
+    if cfg.family not in PORTED_FAMILIES or cfg.is_moe or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (experts {cfg.num_experts}, frontend "
+            f"{cfg.frontend!r}) is not ported yet (ROADMAP Queue 1 item 11); the port "
+            f"runs the dense and SSM decoders")
+
+
+# ---------------------------------------------------------------------------
+# Unit structure
+# ---------------------------------------------------------------------------
+
+
+def unit_period(cfg) -> int:
+    p = 1
+    if cfg.family == "hybrid":
+        p = cfg.attn_layer_period or 8
+    if cfg.is_moe:
+        p = p * cfg.moe_layer_period // math.gcd(p, cfg.moe_layer_period)
+    return p
+
+
+def num_units(cfg) -> int:
+    p = unit_period(cfg)
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.num_layers} layers are not a multiple of the unit {p}")
+    return cfg.num_layers // p
+
+
+# ---------------------------------------------------------------------------
+# Single layer
+# ---------------------------------------------------------------------------
+
+
+class Layer(nn.Module):
+    """``norm1`` + mixer (``attn`` or ``ssm``), then ``norm2`` + ``mlp`` when the
+    config has a feed-forward width."""
+
+    def __init__(self, gen: torch.Generator, cfg, i: int):
+        super().__init__()
+        if cfg.layer_is_moe(i):
+            raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 11)")
+        self.norm1 = init_norm(cfg)
+        if cfg.layer_kind(i) == "attn":
+            self.attn = attn.init_attention(gen, cfg)
+        else:
+            self.ssm = ssm_lib.init_ssm(gen, cfg)
+        if cfg.d_ff:
+            self.norm2 = init_norm(cfg)
+            self.mlp = init_mlp(gen, cfg)
+
+
+def init_layer(gen: torch.Generator, cfg, i: int) -> Layer:
+    return Layer(gen, cfg, i)
+
+
+def _ffn(params: Layer, x: torch.Tensor, cfg) -> torch.Tensor:
+    if hasattr(params, "norm2"):
+        x = x + apply_mlp(params.mlp, apply_norm(params.norm2, x), cfg.activation)
+    return x
+
+
+def apply_layer(params: Layer, x: torch.Tensor, i: int, ctx: StackCtx, angles=None,
+                causal: bool = True):
+    """Full-sequence layer application. Returns (x, aux_loss)."""
+    cfg = ctx.cfg
+    h = apply_norm(params.norm1, x)
+    if hasattr(params, "attn"):
+        h = attn.attend_full(params.attn, h, cfg, angles=angles, causal=causal,
+                             use_kernel=ctx.use_kernel)
+    else:
+        h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel)
+    x = _ffn(params, x + h, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int,
+                       ctx: StackCtx, angles=None):
+    """One-token layer step. Returns (x, new_cache, aux)."""
+    cfg = ctx.cfg
+    h = apply_norm(params.norm1, x)
+    if hasattr(params, "attn"):
+        h, new_cache = attn.attend_decode(params.attn, h, cache, index, cfg, angles=angles)
+    else:
+        h, new_cache = ssm_lib.apply_ssm_decode(params.ssm, h, cache, cfg)
+    x = _ffn(params, x + h, cfg)
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_layer_cache(cfg, i: int, batch: int, seq_len: int, dtype=torch.bfloat16,
+                     device=None):
+    """``dtype`` is the attention K/V storage; the SSM conv history starts in
+    bf16 and the SSM state is f32, as in the reference."""
+    if cfg.layer_kind(i) == "attn":
+        return attn.make_kv_cache(cfg, batch, seq_len, dtype, device)
+    return ssm_lib.make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Full decoder stack
+# ---------------------------------------------------------------------------
+
+
+class Decoder(nn.Module):
+    """``embed`` [V, d], ``layers.{i}``, ``final_norm``; ``lm_head`` [V, d]
+    unless the embeddings are tied; ``pos`` for learned positions."""
+
+    def __init__(self, gen: torch.Generator, cfg, max_seq: int):
+        super().__init__()
+        check_ported(cfg)
+        num_units(cfg)
+        self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
+        self.layers = nn.ModuleList(init_layer(gen, cfg, i) for i in range(cfg.num_layers))
+        self.final_norm = init_norm(cfg)
+        if not cfg.tie_embeddings:
+            self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
+        if not cfg.use_rope and cfg.family not in ("ssm", "hybrid"):
+            self.pos = init_learned_pos(gen, max_seq, cfg.d_model)
+
+
+def init_decoder(gen: torch.Generator, cfg, max_seq: int, device=None) -> Decoder:
+    """Random weights drawn from ``gen`` (a CPU generator, so the same seed
+    gives the same model on every device), moved to ``device`` (``None``: the
+    card)."""
+    return Decoder(gen, cfg, max_seq).to(resolve_device(device))
+
+
+def _angles_for(cfg, positions: torch.Tensor):
+    if not cfg.use_rope or cfg.num_heads == 0:
+        return None
+    sections = cfg.m_rope_sections if cfg.m_rope else None
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta, m_rope_sections=sections)
+
+
+def embed_inputs(params: Decoder, batch: Dict[str, torch.Tensor], cfg,
+                 ctx: StackCtx) -> torch.Tensor:
+    """Token ids or precomputed embeddings -> [B,S,d]."""
+    if "embeddings" in batch:
+        x = batch["embeddings"].to(ctx.compute_dtype)
+    else:
+        x = params.embed[batch["tokens"].long()].to(ctx.compute_dtype)
+    if hasattr(params, "pos"):
+        x = apply_learned_pos(params.pos, x)
+    return x
+
+
+def logits_from(params: Decoder, x: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
+    table = params.lm_head if hasattr(params, "lm_head") else params.embed
+    return x @ table.to(x.dtype).t()
+
+
+def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
+                   causal: bool = True):
+    """The stack minus the head: (hidden [B,S,D] after the final norm, aux_loss)."""
+    x = embed_inputs(params, batch, cfg, ctx)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        if cfg.m_rope:  # text only: (t, h, w) all follow the sequence index
+            positions = positions[..., None].expand(b, s, 3)
+    angles = _angles_for(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(params.layers):
+        x, a = apply_layer(layer, x, i, ctx, angles=angles, causal=causal)
+        aux = aux + a
+    return apply_norm(params.final_norm, x), aux
+
+
+def forward_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
+                    causal: bool = True):
+    """Full-sequence forward. Returns (logits [B,S,V], aux_loss)."""
+    x, aux = hidden_decoder(params, batch, cfg, ctx, positions=positions, causal=causal)
+    return logits_from(params, x, cfg, ctx), aux
+
+
+def init_decoder_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
+                       device=None) -> List[Dict[str, torch.Tensor]]:
+    """One cache per layer (the reference stacks them per unit)."""
+    device = resolve_device(device)
+    return [init_layer_cache(cfg, i, batch, seq_len, dtype, device)
+            for i in range(cfg.num_layers)]
+
+
+def decode_step(params: Decoder, batch, caches, index: int, cfg, ctx: StackCtx):
+    """One-token decode. ``batch`` has 'token' [B,1] (or 'embedding' [B,1,d]);
+    ``index`` is the global position. Returns (logits [B,1,V], new caches)."""
+    bb = {"tokens": batch["token"]} if "token" in batch else {"embeddings": batch["embedding"]}
+    x = embed_inputs(params, bb, cfg, ctx)
+    b = x.shape[0]
+    positions = torch.full((b, 1), index, dtype=torch.long, device=x.device)
+    if cfg.m_rope:
+        positions = positions[..., None].expand(b, 1, 3)
+    angles = _angles_for(cfg, positions)
+    new_caches = []
+    for i, layer in enumerate(params.layers):
+        x, cache, _ = apply_layer_decode(layer, x, caches[i], index, i, ctx, angles=angles)
+        new_caches.append(cache)
+    x = apply_norm(params.final_norm, x)
+    return logits_from(params, x, cfg, ctx), new_caches

@@ -1,0 +1,67 @@
+"""Batched prefill + greedy decode engine.
+
+The token math is the reference's loop (``repro/serving/engine.py``): prefill
+feeds the prompt one position at a time through the decode step
+(cache-building prefill), then greedy argmax generation continues to
+``prompt_len + gen_len``. On the same weights and prompts it gives the
+reference's token ids. Neither phase runs a hand-written kernel: the decode
+step is one token against the cache.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+
+class GenResult(NamedTuple):
+    tokens: torch.Tensor  # [batch, gen_len] greedy continuation ids
+    prefill_seconds: float
+    decode_seconds: float
+    tokens_per_second: float  # per-sequence decode throughput
+
+
+def _wait(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class DecodeEngine:
+    """Holds the model and its forward context (whose compute dtype is the
+    serving dtype). Stateless across calls: params are an argument."""
+
+    def __init__(self, model, ctx, cache_dtype=torch.float32):
+        self.model = model
+        self.ctx = ctx
+        self.cache_dtype = cache_dtype
+
+    @torch.inference_mode()
+    def generate(self, params, prompts: torch.Tensor, gen_len: int) -> GenResult:
+        """Prefill ``prompts`` [batch, prompt_len] (on the params' device), then
+        greedily decode ``gen_len`` tokens. Each phase's time ends when the
+        card has finished its work (the reference blocks only after decode)."""
+        batch, prompt_len = prompts.shape
+        max_len = prompt_len + gen_len
+        device = prompts.device
+        caches = self.model.init_cache(params, batch, max_len, dtype=self.cache_dtype)
+        decode = self.model.decode
+        t0 = time.perf_counter()
+        logits = None
+        for t in range(prompt_len):
+            logits, caches = decode(params, {"token": prompts[:, t:t + 1]}, caches, t, self.ctx)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        _wait(device)
+        t_prefill = time.perf_counter() - t0
+
+        out = [tok]
+        t0 = time.perf_counter()
+        for t in range(prompt_len, max_len - 1):
+            logits, caches = decode(params, {"token": tok}, caches, t, self.ctx)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            out.append(tok)
+        _wait(device)
+        t_gen = time.perf_counter() - t0
+        gen = torch.cat(out, dim=1)
+        return GenResult(tokens=gen, prefill_seconds=t_prefill, decode_seconds=t_gen,
+                         tokens_per_second=gen.shape[1] / max(t_gen, 1e-9))

@@ -160,3 +160,105 @@ def test_gather_dequant_bit_equal_to_plain_version(cuda, where, dtype, r, width,
     torch.cuda.synchronize()
     assert ops.gather_dequant_rows.launches == before + 1
     assert got.device.type == "cuda" and _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the language-model kernels: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+
+def _qkv(seed, b, s, t, h, kv, hd, dtype, cuda):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((b, s, h, hd), generator=g).to(dtype).to(cuda),
+            torch.randn((b, t, kv, hd), generator=g).to(dtype).to(cuda),
+            torch.randn((b, t, kv, hd), generator=g).to(dtype).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,window,causal", [
+    (1, 64, 64, 2, 2, 32, 0, True), (2, 128, 128, 6, 3, 64, 64, True),
+    (1, 128, 128, 8, 1, 64, 0, True), (1, 256, 256, 4, 4, 128, 128, True),
+    (1, 256, 256, 4, 2, 80, 100, True), (2, 37, 37, 3, 1, 32, 0, True),
+    (1, 100, 100, 2, 2, 64, 0, False), (1, 64, 32, 4, 2, 32, 8, False),
+    (1, 640, 640, 9, 3, 64, 0, True)])
+def test_flash_kernel_matches_plain_version(cuda, dtype, b, s, t, h, kv, hd, window, causal):
+    """GQA, MQA, windows, ragged tiles (S = 37, 100), no causal mask, rows
+    without keys (64 queries, 32 keys, window 8)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(s + hd, b, s, t, h, kv, hd, dtype, cuda)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=window, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.dtype == dtype
+    # both sides compute in f32 from the same inputs and round once: bf16
+    # outputs differ by at most one bf16 ulp (2**-7 relative)
+    atol, rtol = (1e-4, 2 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 32, 4, 16, 8, 8), (2, 64, 8, 16, 16, 16), (1, 64, 8, 32, 8, 64),
+    (1, 128, 16, 64, 128, 32), (2, 512, 4, 64, 128, 128), (1, 48, 3, 20, 40, 48)])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, b, s, h, p, n, chunk):
+    from repro_torch.kernels import ssd_scan as ssd
+
+    g = torch.Generator().manual_seed(s + n)
+    x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dtype).to(cuda)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g)).to(cuda)
+    a = (-torch.exp(torch.randn((h,), generator=g) * 0.3)).to(cuda)
+    bm = (torch.randn((b, s, n), generator=g) * 0.5).to(dtype).to(cuda)
+    cm = (torch.randn((b, s, n), generator=g) * 0.5).to(dtype).to(cuda)
+    before = ssd.ssd_scan.launches
+    got = ssd.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    want = ssd.ssd_scan(x.cpu(), dt.cpu(), a.cpu(), bm.cpu(), cm.cpu(), chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1 and got.dtype == dtype
+    tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m", "h2o-danube-1.8b"])
+def test_use_kernel_on_the_card_launches_once_per_layer(cuda, arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import StackCtx, build_model
+
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), 128, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
+    counter = ssd.ssd_scan if cfg.family == "ssm" else fa.flash_attention
+    before = counter.launches
+    with torch.no_grad():
+        got, _ = model.forward(params, {"tokens": toks.to(cuda)}, StackCtx(cfg, use_kernel=True))
+        assert counter.launches == before + cfg.num_layers
+        want, _ = model.forward(params, {"tokens": toks.to(cuda)}, StackCtx(cfg))
+    torch.cuda.synchronize()
+    assert counter.launches == before + cfg.num_layers
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    q = torch.zeros((1, 64, 2, 48), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)  # head dim 48
+    with pytest.raises(ValueError):  # k on the CPU
+        fa.flash_attention(torch.zeros((1, 64, 2, 32), device=cuda), torch.zeros((1, 64, 2, 32)),
+                           torch.zeros((1, 64, 2, 32), device=cuda))
+    x = torch.zeros((1, 256, 2, 16), device=cuda)
+    dt, a = torch.zeros((1, 256, 2), device=cuda), torch.zeros((2,), device=cuda)
+    bm = torch.zeros((1, 256, 8), device=cuda)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, a, bm, bm, chunk=256)  # chunks up to 128 only

@@ -1,0 +1,178 @@
+"""The port's Mamba-2 mixer against the JAX package: the SSD kernel's plain
+version against ``ops.ssd_scan`` in interpret mode and the sequential oracle
+``ref.ssd_scan_ref``, the model's chunked path, and ``apply_ssm`` /
+``apply_ssm_decode``.
+
+Inputs are made with numpy from a seed and fed to both packages.
+Tolerances: ``tests/test_kernels.py``'s (atol 5e-4, rtol 1e-3 against the
+sequential recurrence, whose sums run in another order over up to 128
+steps; 5e-5 / 1e-4 between the two chunked forms); 1e-5 for the mixer.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_reduced
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import ssm as JS
+from repro_torch.configs import get_reduced
+from repro_torch.convert import load_named
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.models import ssm as TS
+
+SSD_CASES = [
+    # (b, s, h, p, n, chunk, hblock), test_kernels.py:52-57
+    (1, 32, 4, 16, 8, 8, 2),
+    (2, 64, 8, 16, 16, 16, 4),
+    (1, 64, 8, 32, 8, 64, 8),  # single chunk
+    (1, 128, 16, 64, 128, 32, 8),  # mamba2-370m-like dims
+]
+
+
+def _inputs(seed, b, s, h, p, n, dt_scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, s, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)) * dt_scale)).astype(np.float32)  # softplus
+    a = (-np.exp(rng.normal(size=(h,)) * 0.3)).astype(np.float32)
+    bm = (rng.normal(size=(b, s, n)) * 0.5).astype(np.float32)
+    cm = (rng.normal(size=(b, s, n)) * 0.5).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hb", SSD_CASES)
+def test_ssd_plain_matches_jax_kernel_and_sequential_ref(b, s, h, p, n, chunk, hb):
+    args = _inputs(s + n, b, s, h, p, n)
+    got = tssd.ssd_scan(*_t(args), chunk=chunk).numpy()
+    want_kernel = np.asarray(jops.ssd_scan(*_j(args), chunk=chunk, head_block=hb))
+    want_seq, _ = jref.ssd_scan_ref(*_j(args))
+    port_seq, port_state = tref.ssd_scan_ref(*_t(args))
+    np.testing.assert_allclose(got, want_kernel, atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(want_seq), atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(port_seq.numpy(), np.asarray(want_seq), atol=1e-5, rtol=1e-5)
+    assert port_state.shape == (b, h, n, p)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_plain_matches_model_chunked_paths(chunk):
+    """As ``tests/test_kernels.py::test_ssd_matches_model_chunked_path``: the
+    kernel's plain version == the port's ``ssd_chunked`` == JAX's."""
+    args = _inputs(3, 1, 64, 4, 16, 8)
+    got = tssd.ssd_scan(*_t(args), chunk=chunk).numpy()
+    y_model, state = TS.ssd_chunked(*_t(args), chunk=chunk)
+    y_jax, jstate = JS.ssd_chunked(*_j(args), chunk=chunk)
+    np.testing.assert_allclose(got, y_model.numpy(), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(y_model.numpy(), np.asarray(y_jax), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_plain_is_finite_where_the_decay_overflows_above_the_diagonal():
+    """With steep decays cum_i - cum_j > 88 above the diagonal, where exp is
+    inf in f32. The plain version takes exp only for j <= i."""
+    x, dt, a, bm, cm = _inputs(11, 1, 64, 4, 16, 8, dt_scale=3.0)
+    a = np.full_like(a, -8.0)
+    cum = np.cumsum(dt * a, axis=1)
+    assert (cum[:, :1] - cum[:, 63:]).max() > 88.0  # exp(cum_0 - cum_63) would be inf
+    got = tssd.ssd_scan(*_t((x, dt, a, bm, cm)), chunk=64)
+    want, _ = tref.ssd_scan_ref(*_t((x, dt, a, bm, cm)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bad", ["ragged", "shape", "dtype", "f16", "mixed"])
+def test_ssd_wrapper_rejects_bad_inputs(bad):
+    x, dt, a, bm, cm = _t(_inputs(0, 1, 64, 4, 16, 8))
+    chunk = 16
+    if bad == "ragged":
+        chunk = 48  # 64 % 48 != 0
+    elif bad == "shape":
+        dt = dt[:, :32]
+    elif bad == "f16":  # the kernel is built for f32 and bf16
+        x, bm, cm = x.half(), bm.half(), cm.half()
+    elif bad == "mixed":  # x, B and C share one dtype
+        x = x.bfloat16()
+    else:
+        x = x.double()
+    with pytest.raises((ValueError, TypeError)):
+        tssd.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+
+
+def test_ssd_counts_no_launch_on_the_cpu():
+    before = tssd.ssd_scan.launches
+    tssd.ssd_scan(*_t(_inputs(0, 1, 32, 2, 16, 8)), chunk=16)
+    assert tssd.ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the mixer
+# ---------------------------------------------------------------------------
+
+
+def _mixer_pair(seed=0):
+    jcfg, cfg = jax_reduced("mamba2-370m"), get_reduced("mamba2-370m")
+    jp = JS.init_ssm(jax.random.PRNGKey(seed), jcfg)
+    tp = load_named(TS.init_ssm(torch.Generator(), cfg), {k: np.asarray(v) for k, v in jp.items()})
+    return jcfg, cfg, jp, tp
+
+
+def test_init_matches_the_reference_constants():
+    jcfg, cfg, jp, tp = _mixer_pair()
+    fresh = TS.init_ssm(torch.Generator().manual_seed(0), cfg)
+    for name in ("A_log", "D", "dt_bias", "norm_scale", "conv_bias_x"):
+        np.testing.assert_allclose(getattr(fresh, name).detach().numpy(), np.asarray(jp[name]),
+                                   rtol=1e-6)
+    assert TS.ssm_dims(cfg) == JS.ssm_dims(jcfg)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_apply_ssm_matches_jax(use_kernel):
+    jcfg, cfg, jp, tp = _mixer_pair()
+    u = (np.random.default_rng(1).normal(size=(2, 64, cfg.d_model)) * 0.5).astype(np.float32)
+    want = JS.apply_ssm(jp, jnp.asarray(u), jcfg, use_kernel=use_kernel)
+    with torch.no_grad():
+        got = TS.apply_ssm(tp, torch.from_numpy(u), cfg, use_kernel=use_kernel)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_apply_ssm_decode_matches_jax_and_the_full_sequence():
+    """Token by token from the reference's cache layout (conv history in bf16
+    zeros, f32 state): every step's output and state match JAX's, and the
+    steps together match the full-sequence mixer."""
+    jcfg, cfg, jp, tp = _mixer_pair()
+    b, s = 2, 16
+    u = (np.random.default_rng(2).normal(size=(b, s, cfg.d_model)) * 0.5).astype(np.float32)
+    jcache = JS.make_ssm_cache(jcfg, b, dtype=jnp.bfloat16)
+    cache = TS.make_ssm_cache(cfg, b, dtype=torch.bfloat16, device="cpu")
+    outs = []
+    with torch.no_grad():
+        for t in range(s):
+            jy, jcache = JS.apply_ssm_decode(jp, jnp.asarray(u[:, t:t + 1]), jcache, jcfg)
+            y, cache = TS.apply_ssm_decode(tp, torch.from_numpy(u[:, t:t + 1]), cache, cfg)
+            np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(cache["state"].numpy(), np.asarray(jcache["state"]),
+                                       atol=1e-5, rtol=1e-5)
+            assert cache["conv_x"].dtype == torch.float32  # promoted, as in the reference
+            outs.append(y)
+        full = TS.apply_ssm(tp, torch.from_numpy(u), cfg)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_causal_conv_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 9, 6)).astype(np.float32)
+    w = rng.normal(size=(4, 6)).astype(np.float32)
+    bias = rng.normal(size=(6,)).astype(np.float32)
+    want = JS.causal_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias))
+    got = TS.causal_conv(*_t((x, w, bias)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
