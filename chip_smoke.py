@@ -30,16 +30,20 @@ Phases (any failure exits non-zero):
      outgrows the hot tier.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's prefill
-     shapes (f32 and bf16) and over a seeded sweep (the JAX kernel tests'
-     cases and an H2O-Danube case, hd 80, window 4096, S 8192); times beside
-     ``F.scaled_dot_product_attention`` and the bound;
+     shapes (f32 on the FMA kernel, bf16 on the wgmma kernel) and over a
+     seeded sweep (the JAX kernel tests' cases, an H2O-Danube case, hd 80,
+     window 4096, S 8192, in both dtypes, and the bf16 kernel's edges); times
+     beside ``F.scaled_dot_product_attention`` and the bound;
   9. the SSD scan against its plain version and the model's ``ssd_chunked``
-     at Mamba2-370M's prefill shapes and over a sweep; times and the bound;
+     at Mamba2-370M's prefill shapes and over a sweep (bf16 among it, at the
+     path's shapes too), and each of its three kernels against its plain
+     stage; times and the bound;
  10. SmolLM-135M and Mamba2-370M at full width on the card against the CPU
      (same seed, B 1, S 128);
  11. prefill at full width (B 4, S 2048): ``build_model(cfg).forward`` with
-     the kernels (exactly one launch per layer: 30 and 48) against the plain
-     path; median time, tokens/s, peak memory;
+     the kernels (30 flash launches; 48 scans of 3 kernels each) against the
+     plain path, in f32 and in bf16 (``StackCtx(compute_dtype=bfloat16)``,
+     held against the f32 plain path); median time, tokens/s, peak memory;
  12. greedy serving (batch 4, prompt 32, gen 16) for both models through
      ``repro_torch.launch.serve`` and ``DecodeEngine``, decode logits against
      the teacher-forced forward.
@@ -714,6 +718,27 @@ def _randn(shape, gen, dtype=torch.float32, scale=1.0):
     return (torch.randn(shape, generator=gen) * scale).to(dtype).to("cuda")
 
 
+# (atol, rtol) of the flash kernel against its plain version. f32 as
+# tests/test_kernels.py:34. bf16: rtol 2**-7 is one bf16 ulp of the output;
+# the tensor-core kernel also rounds P to bf16 before P.V, as SDPA does, where
+# the plain version keeps it f32. That rounding (2**-9 of each p) shows most
+# where a few large terms p.v cancel to a small output: the least atol that
+# passes at rtol 2**-7 read 3.03e-3 at SmolLM-135M's prefill shapes and at
+# most 2.84e-3 over the sweep below (NVIDIA H100 80GB HBM3), so atol is 4e-3.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (4e-3, 2 ** -7)}
+
+
+def small_outputs(got, want, rtol):
+    """The flash error where outputs are small, which the absolute tolerance
+    alone bounds: the largest error over |want| < 0.1, and the least atol
+    that would pass with this rtol."""
+    err = (got.double() - want.double()).abs()
+    small = want.double().abs() < 0.1
+    worst_small = float(err[small].max()) if bool(small.any()) else 0.0
+    need = float((err - rtol * want.double().abs()).max())
+    return f"over |want| < 0.1: max abs err {worst_small:.3e}; least atol at rtol {rtol:g}: {need:.3e}"
+
+
 def flash_phase(fa, ref):
     """Flash attention against its plain version; times at SmolLM-135M's
     prefill shapes. Returns its kernels-line entry."""
@@ -721,41 +746,52 @@ def flash_phase(fa, ref):
 
     gen = torch.Generator().manual_seed(8)
     b, s, h, kv, hd = PREFILL_B, PREFILL_S, 9, 3, 64
-    # (atol, rtol). f32 as tests/test_kernels.py:34. bf16: the kernel and the
-    # plain version both compute in f32 from the same inputs and round once,
-    # so they differ by at most one bf16 ulp (2**-7 relative)
-    tol = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2 ** -7)}
-    runs, worst = {}, 0.0
+    runs, errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn((b, s, h, hd), gen, dtype)
         k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
         got = fa.flash_attention(q, k, v)
         want = ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
-        err = close(got.float(), want.float(), *tol[dtype], f"flash {dtype}")
-        if dtype == torch.float32:
-            worst = err
+        errs[dtype] = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash {dtype}")
         runs[dtype] = (q, k, v)
         print(f"SmolLM-135M prefill shapes q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, {kv}, {hd}] "
-              f"{dtype}: max abs err {err:.3e} (atol, rtol {tol[dtype]})")
-    # the JAX kernel tests' cases (test_kernels.py:17-24, 39-45) and H2O-Danube
-    sweep = [(1, 64, 2, 2, 32, 0, torch.float32), (2, 128, 4, 2, 32, 0, torch.float32),
-             (1, 128, 8, 1, 64, 0, torch.float32), (2, 128, 6, 3, 64, 64, torch.float32),
-             (1, 256, 4, 4, 128, 128, torch.float32), (2, 64, 4, 2, 32, 0, torch.bfloat16),
-             (1, 128, 2, 2, 32, 0, torch.float32), (1, 8192, 32, 8, 80, 4096, torch.float32)]
-    for cb, cs, ch, ckv, chd, win, dtype in sweep:
+              f"{dtype}: max abs err {errs[dtype]:.3e} (atol, rtol {FLASH_TOL[dtype]}); "
+              f"{small_outputs(got, want, FLASH_TOL[dtype][1])}")
+    # the JAX kernel tests' cases (test_kernels.py:17-24, 39-45), H2O-Danube
+    # (hd 80, window 4096, S 8192) in both dtypes, and the bf16 kernel's edges:
+    # hd 32 at S 64 (less than one 128-query tile), a window without causal
+    # where rows see no key (64 queries, 32 keys, window 8)
+    sweep = [(1, 64, 64, 2, 2, 32, 0, True, torch.float32),
+             (2, 128, 128, 4, 2, 32, 0, True, torch.float32),
+             (1, 128, 128, 8, 1, 64, 0, True, torch.float32),
+             (2, 128, 128, 6, 3, 64, 64, True, torch.float32),
+             (1, 256, 256, 4, 4, 128, 128, True, torch.float32),
+             (2, 64, 64, 4, 2, 32, 0, True, torch.bfloat16),
+             (1, 128, 128, 2, 2, 32, 0, True, torch.float32),
+             (1, 8192, 8192, 32, 8, 80, 4096, True, torch.float32),
+             (1, 8192, 8192, 32, 8, 80, 4096, True, torch.bfloat16),
+             (1, 64, 32, 4, 2, 32, 8, False, torch.bfloat16),
+             (2, 256, 256, 4, 2, 128, 0, True, torch.bfloat16)]
+    for cb, cs, ct, ch, ckv, chd, win, causal, dtype in sweep:
         q = _randn((cb, cs, ch, chd), gen, dtype)
-        k, v = _randn((cb, cs, ckv, chd), gen, dtype), _randn((cb, cs, ckv, chd), gen, dtype)
-        got = fa.flash_attention(q, k, v, window=win)
-        want = ref.flash_attention_ref(q, k, v, window=win)
+        k, v = _randn((cb, ct, ckv, chd), gen, dtype), _randn((cb, ct, ckv, chd), gen, dtype)
+        got = fa.flash_attention(q, k, v, window=win, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, window=win, causal=causal)
         torch.cuda.synchronize()
-        close(got.float(), want.float(), *tol[dtype],
-              f"flash sweep {(cb, cs, ch, ckv, chd, win, dtype)}")
+        case = (cb, cs, ct, ch, ckv, chd, win, causal, dtype)
+        err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash sweep {case}")
+        if dtype == torch.bfloat16:
+            print(f"  {case}: max abs err {err:.3e}; {small_outputs(got, want, FLASH_TOL[dtype][1])}")
         del q, k, v, got, want
     print(f"sweep: {len(sweep)} cases within tolerance (incl. H2O-Danube: H 32, KV 8, hd 80, "
-          f"window 4096, S 8192)")
+          f"window 4096, S 8192, f32 and bf16)")
 
-    entry = None
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "source_bf16": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:73",
+             "max_abs_err": errs[torch.float32], "max_abs_err_bf16": errs[torch.bfloat16]}
     for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
         q, k, v = runs[dtype]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, hd] views
@@ -764,10 +800,13 @@ def flash_phase(fa, ref):
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
         lib = library().transpose(1, 2)
+        want = ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         lib_tol = 2e-2 if dtype == torch.bfloat16 else 2e-5  # SDPA rounds P to bf16
-        lib_err = close(lib.float(), ref.flash_attention_ref(q, k, v).float(), lib_tol,
-                        lib_tol, f"SDPA {dtype}")
+        lib_err = close(lib.float(), want.float(), lib_tol, lib_tol, f"SDPA {dtype}")
+        print(f"SDPA {dtype} against the plain version: max abs err {lib_err:.3e}; "
+              f"{small_outputs(lib, want, FLASH_TOL[dtype][1])}")
+        del lib, want
         ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=10)
         library_ms = time_ms(library)
@@ -778,17 +817,15 @@ def flash_phase(fa, ref):
         bound_ms = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
         print(f"flash_attention {dtype}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max abs err vs plain "
-              f"{lib_err:.3e}); bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
-              f"{peak / 1e12:g} TFLOP/s{' f32 outside the tensor cores' if peak == F32_FLOPS else ''}"
-              f" = {ops_ms:.4f} ms; {nbytes} B = {bytes_ms:.4f} ms); kernel at "
-              f"{flops / ms / 1e9:.2f} TFLOP/s")
-        if dtype == torch.float32:
-            entry = {"name": "flash_attention", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "replaces": "src/repro/kernels/flash_attention.py:73",
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; max abs err vs plain: kernel "
+              f"{errs[dtype]:.3e}, SDPA {lib_err:.3e}; bound {bound_ms:.4f} ms by {by} "
+              f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s"
+              f"{' f32 outside the tensor cores' if peak == F32_FLOPS else ''} = {ops_ms:.4f} ms; "
+              f"{nbytes} B = {bytes_ms:.4f} ms); kernel at {flops / ms / 1e9:.2f} TFLOP/s")
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                      f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
+                      f"library_ms{suffix}": library_ms})
     del runs
     return entry
 
@@ -811,32 +848,77 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype=torch.float32):
     return x, dt, a, _randn((b, s, n), gen, dtype, 0.5), _randn((b, s, n), gen, dtype, 0.5)
 
 
+def ssd_stages(ssd, ref, x, dt, a_head, bmat, cmat, q):
+    """Each CUDA stage of the scan against its plain stage on the same inputs
+    (kernel layout); returns the largest error."""
+    b, s, h, p = x.shape
+    n, nc = bmat.shape[-1], s // q
+    xk, dtk = x.reshape(b, nc, q, h, p), dt.float().reshape(b, nc, q, h)
+    bk, ck = bmat.reshape(b, nc, q, n), cmat.reshape(b, nc, q, n)
+    cum = torch.cumsum(dtk * a_head.float(), dim=2)
+    before = ssd.ssd_scan.launches
+    states = ssd.chunk_states(xk, dtk, cum, bk)
+    want_states = ref.ssd_chunk_states_ref(xk, dtk, cum, bk)
+    want_in, _ = ref.ssd_pass_states_ref(states, cum)
+    state_in = ssd.pass_states(states.clone(), cum)
+    y = ssd.chunk_output(xk, dtk, cum, bk, ck, state_in)
+    want_y = ref.ssd_chunk_output_ref(xk, dtk, cum, bk, ck, state_in)
+    torch.cuda.synchronize()
+    if ssd.ssd_scan.launches != before + ssd.KERNELS_PER_CALL:
+        raise AssertionError("the scan's stages did not launch one kernel each")
+    # the state sums run over up to 128 steps in another order: the scan's
+    # own tolerance (tests/test_kernels.py:71) holds for each stage. The
+    # states are f32 from the same inputs in either dtype; only bf16 y is
+    # rounded to bf16, on both sides
+    tol = (5e-4, 1e-3)
+    tol_y = tol if x.dtype == torch.float32 else (2e-2, 2e-2)
+    return max(close(states, want_states, *tol, f"ssd chunk_states vs plain {x.dtype}"),
+               close(state_in, want_in, *tol, f"ssd pass_states vs plain {x.dtype}"),
+               close(y.float(), want_y.float(), *tol_y, f"ssd chunk_output vs plain {x.dtype}"))
+
+
 def ssd_phase(ssd, ref):
-    """The SSD scan against its plain version and the model's chunked path
-    at Mamba2-370M's prefill shapes. Returns its kernels-line entry."""
+    """The SSD scan and each of its three kernels against their plain versions
+    and the model's chunked path at Mamba2-370M's prefill shapes. Returns its
+    kernels-line entry."""
     from repro_torch.models.ssm import ssd_chunked
 
     gen = torch.Generator().manual_seed(9)
     b, s, h, p, n, q = PREFILL_B, PREFILL_S, 32, 64, 128, 128
     args = _ssd_inputs(gen, b, s, h, p, n)
+    before = ssd.ssd_scan.launches
     got = ssd.ssd_scan(*args, chunk=q)
     want = ssd_plain(ref, *args, q)
     model, _ = ssd_chunked(*args, chunk=q)
     torch.cuda.synchronize()
+    if ssd.ssd_scan.launches != before + ssd.KERNELS_PER_CALL:
+        raise AssertionError(f"one scan launched {ssd.ssd_scan.launches - before} kernels, "
+                             f"expected {ssd.KERNELS_PER_CALL}")
     worst = close(got, want, 5e-4, 1e-3, "ssd vs plain")  # tests/test_kernels.py:71
     err_model = close(got, model, 5e-4, 1e-3, "ssd vs ssd_chunked")
+    stage_err = ssd_stages(ssd, ref, *args, q)
     print(f"Mamba2-370M prefill shapes x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, {n}], chunk "
           f"{q}: max abs err {worst:.3e} vs plain, {err_model:.3e} vs the model's ssd_chunked "
-          f"(atol 5e-4, rtol 1e-3)")
+          f"(atol 5e-4, rtol 1e-3); chunk_states, pass_states and chunk_output each against "
+          f"its plain stage: max abs err {stage_err:.3e}")
     sweep = [(1, 32, 4, 16, 8, 8, torch.float32), (2, 64, 8, 16, 16, 16, torch.float32),
              (1, 64, 8, 32, 8, 64, torch.float32), (1, 128, 16, 64, 128, 32, torch.float32),
-             (2, 256, 32, 64, 128, 128, torch.bfloat16)]  # test_kernels.py:52-57, bf16
+             (1, 48, 3, 20, 40, 48, torch.float32),
+             (2, 256, 32, 64, 128, 128, torch.bfloat16),
+             # test_kernels.py:52-57, ragged, bf16; bf16 at the path's shapes
+             (PREFILL_B, PREFILL_S, 32, 64, 128, 128, torch.bfloat16)]
     for cb, cs, ch, cp, cn, cq, dtype in sweep:
         cargs = _ssd_inputs(gen, cb, cs, ch, cp, cn, dtype)
         tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
-        close(ssd.ssd_scan(*cargs, chunk=cq).float(), ssd_plain(ref, *cargs, cq).float(), *tol,
-              f"ssd sweep {(cb, cs, ch, cp, cn, cq, dtype)}")
-    print(f"sweep: {len(sweep)} cases within tolerance")
+        case = (cb, cs, ch, cp, cn, cq, dtype)
+        err = close(ssd.ssd_scan(*cargs, chunk=cq).float(), ssd_plain(ref, *cargs, cq).float(),
+                    *tol, f"ssd sweep {case}")
+        stage_err = ssd_stages(ssd, ref, *cargs, min(cq, cs))
+        if dtype == torch.bfloat16:
+            print(f"  {case}: max abs err {err:.3e} (the scan, atol, rtol {tol}), "
+                  f"{stage_err:.3e} (its stages)")
+        del cargs
+    print(f"sweep: {len(sweep)} cases within tolerance, the whole scan and each stage")
 
     ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=q))
     plain_ms = time_ms(lambda: ssd_plain(ref, *args, q), iters=10)
@@ -851,15 +933,16 @@ def ssd_phase(ssd, ref):
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"ssd_scan: kernel {ms:.4f} ms (repeat {ms_again:.4f}; includes the wrapper's "
-          f"cumsum), plain {plain_ms:.4f} ms, the model's ssd_chunked {model_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32 = "
-          f"{ops_ms:.4f} ms; x, y, dt, cum, B, C {nbytes} B = {bytes_ms:.4f} ms); no single "
-          f"PyTorch call computes the scan (library_ms null); kernel at "
+    print(f"ssd_scan ({ssd.KERNELS_PER_CALL} kernels): {ms:.4f} ms (repeat {ms_again:.4f}; "
+          f"includes the wrapper's cumsum), plain {plain_ms:.4f} ms, the model's ssd_chunked "
+          f"{model_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at 67 "
+          f"TFLOP/s f32 = {ops_ms:.4f} ms; x, y, dt, cum, B, C {nbytes} B = {bytes_ms:.4f} ms); "
+          f"no single PyTorch call computes the scan (library_ms null); kernels at "
           f"{flops / ms / 1e9:.2f} TFLOP/s")
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:70", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "kernels_per_call": ssd.KERNELS_PER_CALL}
 
 
 def lm_model_phase(seed: int = 10):
@@ -887,9 +970,35 @@ def lm_model_phase(seed: int = 10):
               f"max |card - cpu| {err:.3e} (tolerance {tol:.3e}, |logit| max {scale:.3f})")
 
 
-def prefill_phase(counters, seed: int = 11):
+def _timed_forward(model, params, toks, ctx, reps: int = 4):
+    """Median host time of a synchronised forward over reps - 1 runs after one."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.forward(params, {"tokens": toks}, ctx)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs[1:])
+
+
+def _counted_forward(model, params, toks, ctx, counters):
+    """One forward with every launch count set to 0 just before it: (logits,
+    launches by kernel, peak device memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    out, _ = model.forward(params, {"tokens": toks}, ctx)
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in counters.items()}, \
+        torch.cuda.max_memory_allocated()
+
+
+def prefill_phase(counters, ssd, seed: int = 11):
     """Prefill at full width with the kernels (the LM main path) against the
-    plain path. Returns the kernels' launches per forward."""
+    plain path, in f32 and in bf16. Returns the kernels' launches per f32
+    forward."""
     from repro_torch.configs import get_config
     from repro_torch.models import StackCtx, build_model
 
@@ -900,50 +1009,54 @@ def prefill_phase(counters, seed: int = 11):
         params = model.init(torch.Generator().manual_seed(seed), PREFILL_S, device="cuda")
         toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
                              generator=torch.Generator().manual_seed(2)).cuda()
-        fast, slow = StackCtx(cfg, use_kernel=True), StackCtx(cfg, use_kernel=False)
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
-            got, _ = model.forward(params, {"tokens": toks}, fast)
-            torch.cuda.synchronize()
-            seen = {name: fn.launches for name, fn in counters.items()}
-            peak = torch.cuda.max_memory_allocated()
-            want, _ = model.forward(params, {"tokens": toks}, slow)
-            torch.cuda.synchronize()
-            kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-            expect = {name: (cfg.num_layers if name == kernel else 0) for name in counters}
-            if seen != expect:
-                raise AssertionError(f"{arch}: expected launches {expect}, saw {seen}")
-            launches[kernel] = seen[kernel]
-            scale = float(want.abs().max())
-            # f32 both paths; the kernels sum attention / the scan in another
-            # order than cuBLAS and the plain path's einsums. The CPU parity
-            # tests show ~1e-6 of the largest logit between the packages; 1e-4
-            # leaves a factor of 100 for 30 and 48 layers of compounding.
-            tol = 1e-4 * scale + 1e-5
-            err = close(got, want, tol, 0.0, f"{arch} prefill kernels vs plain path")
-            if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size):
-                raise AssertionError(f"bad logits shape {tuple(got.shape)}")
-            del got, want
-            times = {}
-            for name, ctx in (("kernels", fast), ("plain", slow), ("kernels again", fast)):
-                runs = []
-                for _ in range(4):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    model.forward(params, {"tokens": toks}, ctx)
-                    torch.cuda.synchronize()
-                    runs.append(time.perf_counter() - t0)
-                times[name] = statistics.median(runs[1:])
+        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+        per_layer = ssd.KERNELS_PER_CALL if kernel == "ssd_scan" else 1
+        expect = {name: (cfg.num_layers * per_layer if name == kernel else 0) for name in counters}
         tokens = PREFILL_B * PREFILL_S
-        print(f"{arch} prefill B {PREFILL_B} x S {PREFILL_S}: {seen[kernel]} {kernel} launches "
-              f"per forward (one per layer), logits max |kernels - plain| {err:.3e} (tolerance "
-              f"{tol:.3e}); median forward with kernels {times['kernels'] * 1e3:.1f} ms (again "
-              f"{times['kernels again'] * 1e3:.1f}) = {tokens / times['kernels']:.0f} tokens/s, "
-              f"plain path {times['plain'] * 1e3:.1f} ms = {tokens / times['plain']:.0f} tokens/s; "
-              f"peak memory with kernels {peak / 2**30:.2f} GiB")
+        with torch.no_grad():
+            want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
+            scale = float(want.abs().max())
+            for dtype in (torch.float32, torch.bfloat16):
+                fast = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
+                slow = StackCtx(cfg, use_kernel=False, compute_dtype=dtype)
+                got, seen, peak = _counted_forward(model, params, toks, fast, counters)
+                if seen != expect:
+                    raise AssertionError(f"{arch} {dtype}: expected launches {expect}, saw {seen}")
+                if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or got.dtype != dtype:
+                    raise AssertionError(f"bad logits {tuple(got.shape)} {got.dtype}")
+                if dtype == torch.float32:
+                    launches[kernel] = seen[kernel]
+                    # f32 both paths; the kernels sum attention / the scan in
+                    # another order than cuBLAS and the plain path's einsums.
+                    # The CPU parity tests show ~1e-6 of the largest logit
+                    # between the packages; 1e-4 leaves a factor of 100 for 30
+                    # and 48 layers of compounding.
+                    tol = 1e-4 * scale + 1e-5
+                    err = close(got, want, tol, 0.0, f"{arch} prefill kernels vs plain path")
+                    check = f"max |kernels - plain| {err:.3e} (tolerance {tol:.3e})"
+                else:
+                    # bf16 against the f32 plain path: the kernel path may stray
+                    # at most twice as far as the bf16 plain path does, plus
+                    # 1e-3 of the largest logit (the bf16 flash kernel rounds
+                    # P to bf16 where the plain path keeps f32 probabilities)
+                    plain16, _ = model.forward(params, {"tokens": toks}, slow)
+                    ref_err = abs_err(plain16.float(), want)
+                    tol = 2 * ref_err + 1e-3 * scale
+                    err = close(got.float(), want, tol, 0.0, f"{arch} bf16 prefill kernels vs f32")
+                    check = (f"max |kernels - f32 plain| {err:.3e}, bf16 plain path's "
+                             f"{ref_err:.3e} (tolerance {tol:.3e})")
+                    del plain16
+                del got
+                t_fast = _timed_forward(model, params, toks, fast)
+                t_slow = _timed_forward(model, params, toks, slow)
+                t_again = _timed_forward(model, params, toks, fast)
+                print(f"{arch} prefill {str(dtype)[6:]} B {PREFILL_B} x S {PREFILL_S}: "
+                      f"{seen[kernel]} {kernel} launches per forward ({per_layer} per layer); "
+                      f"logits {check}; median forward with kernels {t_fast * 1e3:.1f} ms (again "
+                      f"{t_again * 1e3:.1f}) = {tokens / t_fast:.0f} tokens/s, plain path "
+                      f"{t_slow * 1e3:.1f} ms = {tokens / t_slow:.0f} tokens/s; peak memory with "
+                      f"kernels {peak / 2**30:.2f} GiB")
+            del want
         del params
         torch.cuda.empty_cache()
     return launches
@@ -1019,7 +1132,8 @@ def main():
 
     phase("2 kernel build")
     t0 = time.perf_counter()
-    paths = build.build(["rehearsal_ops", "quantize", "flash_attention", "ssd_scan"])
+    paths = build.build(["rehearsal_ops", "quantize", "flash_attention",
+                         "flash_attention_sm90", "ssd_scan"])
     print(f"built {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in build.BUILD_LOG.items():
@@ -1069,9 +1183,9 @@ def main():
     lm_model_phase()
 
     phase("11 LM main path: prefill at full width, kernels against the plain path")
-    launches = prefill_phase(counters)
+    launches = prefill_phase(counters, ssd)
     flash_entry["launches"] = launches["flash_attention"]
-    ssd_entry["launches"] = launches["ssd_scan"]
+    ssd_entry["launches"] = launches["ssd_scan"]  # num_layers x KERNELS_PER_CALL
 
     phase("12 LM serving: greedy decode at full width")
     serving_phase()

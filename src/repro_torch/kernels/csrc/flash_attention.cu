@@ -1,17 +1,18 @@
-// Flash attention for Hopper (sm_90a): causal and sliding-window attention
-// with GQA, online softmax, f32 inside.
+// Flash attention for Hopper (sm_90a), f32 inputs: causal and sliding-window
+// attention with GQA, online softmax, f32 inside. bf16 inputs run the tensor
+// core kernel of csrc/flash_attention_sm90.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_bhsd (_flash_kernel); the plain version is
 // src/repro_torch/kernels/ref.py::flash_attention_ref. The model calls it from
 // src/repro_torch/models/attention.py::attend_full under use_kernel.
 //
-// What it computes, as the TPU kernel: q is cast to f32 and scaled by
-// hd^-0.5, scores s = q.k in f32; a key j is masked for query i when j > i
+// What it computes, as the TPU kernel: q is scaled by hd^-0.5, scores
+// s = q.k in f32; a key j is masked for query i when j > i
 // (causal) or j <= i - window (window > 0, applied with or without causal);
 // masked scores are -1e30; per k-tile m_new = max(m, rowmax(s)),
 // p = exp(s - m_new), corr = exp(m - m_new), l = l*corr + sum(p),
-// acc = acc*corr + p.v; out = acc / max(l, 1e-30) in q's dtype.
+// acc = acc*corr + p.v; out = acc / max(l, 1e-30).
 //
 // Design. The TPU grid (B, H, nQ, nK) ran its nK steps in order over one
 // output block, with m, l and acc in VMEM scratch. Here one thread block owns
@@ -42,9 +43,8 @@
 // on purpose: TF32 mma.sync would break the 2e-5 tolerance against the plain
 // version. The inner products read both operands from shared memory (two
 // loads per four FMAs in the score loop), so this simple version is expected
-// to run well below the FMA rate; register tiles fed by wgmma on bf16 inputs
-// are the redesign (ROADMAP Queue 2).
-#include <cuda_bf16.h>
+// to run well below the FMA rate; 3xTF32 on the tensor cores or a larger FMA
+// micro-tile is its redesign (ROADMAP Queue 2).
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,15 +53,6 @@ constexpr int BQ = 64;         // queries per block
 constexpr int BK = 64;         // keys per k-tile
 constexpr int THREADS = 256;   // 16 x 16
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 struct Strides {  // element strides of the batch, sequence and head dims
   long long b, s, h;
@@ -72,10 +63,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int S, int Tk, int group, Strides qs, Strides ks, Strides vs,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, int S, int Tk, int group, Strides qs, Strides ks, Strides vs,
           Strides os, float scale, int window, int causal) {
   constexpr int HP = HD + 1;   // padded rows: a column walk hits 32 banks
   constexpr int PP = BK + 1;
@@ -88,13 +79,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + (h / group) * ks.h;
-  const T* vb = v + b * vs.b + (h / group) * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / group) * ks.h;
+  const float* vb = v + b * vs.b + (h / group) * vs.h;
 
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
     const int i = idx / HD, d = idx % HD;
-    Qs[i * HP + d] = q0 + i < S ? to_f32(qb[(q0 + i) * qs.s + d]) * scale : 0.f;
+    Qs[i * HP + d] = q0 + i < S ? qb[(q0 + i) * qs.s + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -122,8 +113,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int j = idx / HD, d = idx % HD;
       const bool in = k0 + j < Tk;
-      Ks[j * HP + d] = in ? to_f32(kb[(k0 + j) * ks.s + d]) : 0.f;
-      Vs[j * HD + d] = in ? to_f32(vb[(k0 + j) * vs.s + d]) : 0.f;
+      Ks[j * HP + d] = in ? kb[(k0 + j) * ks.s + d] : 0.f;
+      Vs[j * HD + d] = in ? vb[(k0 + j) * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -195,64 +186,58 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + ty * 4 + r;
     if (i >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[i * os.s + tx + 16 * c] = from_f32<T>(acc[r][c] / denom);
+    for (int c = 0; c < NC; ++c) ob[i * os.s + tx + 16 * c] = acc[r][c] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
            int H, int KV, Strides qs, Strides ks, Strides vs, Strides os, float scale,
            int window, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, H / KV, qs, ks, vs, os, scale, window, causal);
+  flash_fwd<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, Tk, H / KV, qs, ks, vs, os, scale, window, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B, int S,
                 int Tk, int H, int KV, Strides qs, Strides ks, Strides vs, Strides os,
                 float scale, int window, int causal, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
+    case 32: return launch<32>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
+    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
+    case 80: return launch<80>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
+    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q [B, S, H, hd], k/v [B, T, KV, hd], o [B, S, H, hd], each with unit stride
-// over hd and the given element strides over batch, sequence and head; dtype
-// 0 f32, 1 bf16 (all four tensors alike); hd in {32, 64, 80, 128};
-// scale = hd^-0.5 rounded to f32 by the caller.
+// f32 q [B, S, H, hd], k/v [B, T, KV, hd], o [B, S, H, hd], each with unit
+// stride over hd and the given element strides over batch, sequence and
+// head; hd in {32, 64, 80, 128}; scale = hd^-0.5 rounded to f32 by the caller.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int S, int Tk, int H, int KV, int hd, long long q_sb,
                                long long q_ss, long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                long long o_sb, long long o_ss, long long o_sh, float scale,
-                               int window, int causal, int dtype, void* stream) {
+                               int window, int causal, void* stream) {
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_hd<float>(hd, q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
-    case 1: return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_hd(hd, q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -3,20 +3,26 @@ model's layout.
 
 ``flash_attention`` takes q [B,S,H,hd] and k/v [B,T,KV,hd], as the reference's
 ``ops.flash_attention`` does, and returns [B,S,H,hd]. On CUDA tensors it
-launches its hand-written kernel (``csrc/flash_attention.cu``, built for
-``sm_90a`` on first use, loaded with ``ctypes``), which reads KV head
-``h // (H // KV)`` through the tensors' strides (no repeated or transposed
-copy), and raises if the launch fails. On CPU tensors it takes the plain
-version ``ref.flash_attention_ref``. There is no fallback from one to the
-other.
+launches a hand-written kernel, built for ``sm_90a`` on first use and loaded
+with ``ctypes``: for f32 ``csrc/flash_attention.cu`` (f32 FMA), for bf16
+``csrc/flash_attention_sm90.cu`` (wgmma tensor cores fed by TMA). Both read
+KV head ``h // (H // KV)`` through the tensors' strides (no repeated or
+transposed copy), and the wrapper raises if the launch fails, if the head
+dim's stride is not 1, or, for bf16, if a base is not 16-byte aligned or a
+stride is not a multiple of 8 elements (the TMA rule). On CPU tensors
+it takes the plain version ``ref.flash_attention_ref``. There is no fallback
+from one to the other.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention_bhsd`` with its ``ops.py`` wrapper. Its semantics, including
 the window applied without ``causal``, are the kernel's (see the plain
 version). It keeps the reference wrapper's shape check at its default tiles
 (``S`` and ``T`` divisible by ``min(128, S)`` and ``min(128, T)``); the CUDA
-kernel itself tiles by 64 queries and 64 keys and masks a ragged edge. It
-takes f32 and bf16, as the TPU kernel does.
+kernels tile by 64 (f32) or 128 (bf16) queries and 64 keys and mask a ragged
+edge. It takes f32 and bf16, as the TPU kernel does. The bf16 kernel rounds
+the probabilities to bf16 before P.V, as SDPA does, where the plain version
+keeps them f32: beyond one bf16 ulp of the output, the two differ by up to
+about 3e-3 on unit-normal inputs.
 """
 from __future__ import annotations
 
@@ -25,14 +31,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.build import DTYPE_CODES, on_card, stream
+from repro_torch.kernels.build import on_card, stream
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 80, 128)  # the head dims the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)  # the dtypes it is built for
 BLOCK = 128  # the reference wrapper's default tile: S and T are multiples of min(BLOCK, len)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [ctypes.c_float, _I, _I, _P]
+# each dtype's library (csrc/<name>.cu) and C entry point
+_ENTRY = {torch.float32: ("flash_attention", "flash_attention"),
+          torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16")}
+
+
+def _check_tma(x: torch.Tensor) -> None:
+    """Raise unless ``x``'s TMA map is legal: a 16-byte aligned base and
+    strides that are multiples of 8 bf16 elements (16 bytes)."""
+    if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+        raise ValueError(f"the bf16 kernel's TMA loads need a 16-byte aligned base and strides "
+                         f"that are multiples of 8 elements; got base {x.data_ptr()} % 16 = "
+                         f"{x.data_ptr() % 16}, strides {x.stride()}")
 
 
 def _check(q, k, v):
@@ -66,15 +84,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
         return flash_attention_ref(q, k, v, window=window, causal=causal)
     if not (q.stride(-1) == k.stride(-1) == v.stride(-1) == 1):
         raise ValueError("flash_attention needs unit stride over the head dim")
+    if q.dtype == torch.bfloat16:
+        for x in (q, k, v):
+            _check_tma(x)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
-    fn = build.c_function("flash_attention", "flash_attention", _ARGTYPES)
+    fn = build.c_function(*_ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kvh, hd,
-                 *strides, hd ** -0.5, int(window), int(causal), DTYPE_CODES[q.dtype],
-                 stream(q.device))
+                 *strides, hd ** -0.5, int(window), int(causal), stream(q.device))
     build.launched(flash_attention, err)
     return out
 

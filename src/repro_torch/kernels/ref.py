@@ -149,6 +149,55 @@ def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
+# The chunked scan as the CUDA kernel chain computes it, one plain function
+# per kernel (csrc/ssd_scan.cu). Kernel layout as ``ssd_scan_chunked_ref``;
+# ``ssd_chunk_output_ref(..., ssd_pass_states_ref(ssd_chunk_states_ref(...))[0])``
+# is ``ssd_scan_chunked_ref``.
+
+
+def ssd_chunk_states_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                         bmat: torch.Tensor) -> torch.Tensor:
+    """Each chunk's own contribution to the state, as if it started from zero:
+    ``Sc = Σ_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j``. Returns [B,nc,H,N,P] f32."""
+    f32 = torch.float32
+    cum = cum.to(f32)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dt.to(f32)  # [B, nc, Q, H]
+    return torch.einsum("bcjn,bcjh,bcjhp->bchnp", bmat.to(f32), w, x.to(f32))
+
+
+def ssd_pass_states_ref(states: torch.Tensor, cum: torch.Tensor):
+    """Walk the chunks: ``state_in[c] = s``, then ``s = exp(cum_last[c]) s + Sc[c]``.
+    states [B,nc,H,N,P] f32 (``ssd_chunk_states_ref``); cum [B,nc,Q,H].
+    Returns (state_in [B,nc,H,N,P], the final state [B,H,N,P]), f32."""
+    lam = torch.exp(cum[:, :, -1, :].to(torch.float32))  # [B, nc, H]
+    s = torch.zeros_like(states[:, 0])
+    state_in = torch.empty_like(states)
+    for c in range(states.shape[1]):
+        state_in[:, c] = s
+        s = lam[:, c, :, None, None] * s + states[:, c]
+    return state_in, s
+
+
+def ssd_chunk_output_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                         bmat: torch.Tensor, cmat: torch.Tensor,
+                         state_in: torch.Tensor) -> torch.Tensor:
+    """Every chunk's output from its own inputs and the state passed into it:
+    ``y_i = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i·state_in``.
+    Returns y [B,nc,Q,H,P] in x's dtype."""
+    f32 = torch.float32
+    q = x.shape[2]
+    cumf, dtf, cf = cum.to(f32), dt.to(f32), cmat.to(f32)
+    cb = torch.einsum("bcin,bcjn->bcij", cf, bmat.to(f32))  # [B, nc, Qi, Qj]
+    upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))[:, :, None]
+    diff = cumf[:, :, :, None, :] - cumf[:, :, None, :, :]  # [B, nc, Qi, Qj, H]
+    # exp only where j <= i: above the diagonal it can overflow to inf
+    decay = torch.exp(diff.masked_fill(upper, 0.0)).masked_fill(upper, 0.0)
+    w = cb[..., None] * decay * dtf[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", w, x.to(f32))
+    y = y + torch.einsum("bcin,bchnp,bcih->bcihp", cf, state_in, torch.exp(cumf))
+    return y.to(x.dtype)
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor,
                  bmat: torch.Tensor, cmat: torch.Tensor, initial_state=None):
     """Sequential SSM recurrence (the SSD semantics, O(S) steps).

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's LM prefill and decode goes, on one GPU.
 
-    PYTHONPATH=src python3 -m repro_torch.profile_lm [--arch smollm-135m] [--out FILE]
+    PYTHONPATH=src python3 -m repro_torch.profile_lm [--arch smollm-135m]
+        [--dtype {float32,bfloat16}] [--out FILE]
 
-Builds the model at full width (random weights from a seed, f32, TF32 off)
-and profiles two things with ``torch.profiler`` at ``chip_smoke.py``'s
+Builds the model at full width (random weights from a seed, f32, TF32 off),
+runs it with activations in ``--dtype`` (``StackCtx.compute_dtype``) and
+profiles two things with ``torch.profiler`` at ``chip_smoke.py``'s
 shapes: one prefill forward of 4 x 2048 tokens with the hand-written
 kernels (phase 11), and 8 greedy decode steps of 4 sequences against a
 cache of 48 slots (phase 12's prompt 32 + gen 16). For each it prints the
@@ -25,8 +27,9 @@ import torch
 
 BATCH, SEQ = 4, 2048  # the prefill of chip_smoke.py phase 11
 CACHE_LEN, STEPS = 48, 8  # decode against phase 12's cache (prompt 32 + gen 16)
-GROUPS = (("flash_attention", ("flash_fwd",)), ("ssd_scan", ("ssd_scan_kernel",)),
-          ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "dot_kernel")),
+GROUPS = (("flash_attention", ("flash_fwd",)),
+          ("ssd_scan", ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_output")),
+          ("matmul", ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "dot_kernel", "nvjet")),
           ("softmax/reduction", ("softmax", "Softmax", "reduce", "Reduce")),
           ("elementwise/copy", ("elementwise", "copy", "Memcpy", "memset", "fill",
                                 "CatArrayBatched", "index", "gather", "scatter")))
@@ -79,6 +82,7 @@ def _profile(fn, reps: int):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -93,8 +97,9 @@ def main():
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, SEQ, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen).cuda()
-    ctx = StackCtx(cfg, use_kernel=True)
-    caches = model.init_cache(params, BATCH, CACHE_LEN, dtype=torch.float32)
+    dtype = getattr(torch, args.dtype)
+    ctx = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
+    caches = model.init_cache(params, BATCH, CACHE_LEN, dtype=dtype)
     state = {"t": 0}
 
     def decode_step():
@@ -107,8 +112,8 @@ def main():
                "decode_step": _profile(decode_step, STEPS)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    out.update(card=card, arch=args.arch, batch=BATCH, seq=SEQ)
-    print(f"card: {card}; {args.arch}, batch {BATCH}, prefill of {SEQ} tokens, "
+    out.update(card=card, arch=args.arch, dtype=args.dtype, batch=BATCH, seq=SEQ)
+    print(f"card: {card}; {args.arch} in {args.dtype}, batch {BATCH}, prefill of {SEQ} tokens, "
           f"{STEPS} decode steps against {CACHE_LEN} cache slots")
     for name in ("prefill", "decode_step"):
         r = out[name]

@@ -77,6 +77,63 @@ def test_ssd_plain_matches_model_chunked_paths(chunk):
     np.testing.assert_allclose(state.numpy(), np.asarray(jstate), atol=1e-5, rtol=1e-5)
 
 
+def _stage_inputs(args, chunk):
+    """The wrapper's kernel-layout inputs and cum, as torch tensors."""
+    x, dt, a, bm, cm = _t(args)
+    b, s, h, p = x.shape
+    n, nc = bm.shape[-1], s // chunk
+    dtk = dt.reshape(b, nc, chunk, h)
+    cum = torch.cumsum(dtk * a, dim=2)
+    return (x.reshape(b, nc, chunk, h, p), dtk, cum, bm.reshape(b, nc, chunk, n),
+            cm.reshape(b, nc, chunk, n))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hb", SSD_CASES)
+def test_ssd_plain_stages_compose_to_the_scan(b, s, h, p, n, chunk, hb):
+    """The CUDA chain's three plain stages, composed, equal the whole plain
+    scan, JAX ``ops.ssd_scan`` (interpret mode) and both packages'
+    ``ssd_chunked``; the stage wrappers take the plain stages on the CPU."""
+    args = _inputs(s + n, b, s, h, p, n)
+    x, dt, cum, bm, cm = _stage_inputs(args, chunk)
+    states = tref.ssd_chunk_states_ref(x, dt, cum, bm)
+    state_in, final = tref.ssd_pass_states_ref(states, cum)
+    got = tref.ssd_chunk_output_ref(x, dt, cum, bm, cm, state_in)
+    assert states.shape == state_in.shape == (b, s // chunk, h, n, p)
+    np.testing.assert_allclose(got.numpy(), tref.ssd_scan_chunked_ref(x, dt, cum, bm, cm).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    wrapped = tssd.chunk_output(x, dt, cum, bm, cm,
+                                tssd.pass_states(tssd.chunk_states(x, dt, cum, bm), cum))
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+    y = got.reshape(b, s, h, p).numpy()
+    want_kernel = np.asarray(jops.ssd_scan(*_j(args), chunk=chunk, head_block=hb))
+    np.testing.assert_allclose(y, want_kernel, atol=5e-5, rtol=1e-4)
+    y_model, model_state = TS.ssd_chunked(*_t(args), chunk=chunk)
+    y_jax, jax_state = JS.ssd_chunked(*_j(args), chunk=chunk)
+    np.testing.assert_allclose(y, y_model.numpy(), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(y, np.asarray(y_jax), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jax_state), atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hb", SSD_CASES)
+def test_ssd_passed_states_match_the_sequential_oracle(b, s, h, p, n, chunk, hb):
+    """The state passed into the last chunk is JAX's sequential recurrence run
+    to the end of the chunk before it, and the pass's final state is the
+    recurrence's final state (the scan's tolerance: sums in another order
+    over up to 128 steps)."""
+    args = _inputs(s + n, b, s, h, p, n)
+    x, dt, cum, bm, _ = _stage_inputs(args, chunk)
+    state_in, final = tref.ssd_pass_states_ref(tref.ssd_chunk_states_ref(x, dt, cum, bm), cum)
+    _, want_final = jref.ssd_scan_ref(*_j(args))
+    np.testing.assert_allclose(final.numpy(), np.asarray(want_final), atol=5e-4, rtol=1e-3)
+    head = s - chunk
+    if head:
+        _, want_last_in = jref.ssd_scan_ref(*_j([a[:, :head] if a.ndim > 1 else a for a in args]))
+        np.testing.assert_allclose(state_in[:, -1].numpy(), np.asarray(want_last_in), atol=5e-4,
+                                   rtol=1e-3)
+    else:  # a single chunk starts from zero
+        assert not state_in.any()
+
+
 def test_ssd_plain_is_finite_where_the_decay_overflows_above_the_diagonal():
     """With steep decays cum_i - cum_j > 88 above the diagonal, where exp is
     inf in f32. The plain version takes exp only for j <= i."""
@@ -106,6 +163,49 @@ def test_ssd_wrapper_rejects_bad_inputs(bad):
         x = x.double()
     with pytest.raises((ValueError, TypeError)):
         tssd.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+
+
+def test_ssd_pass_states_writes_in_place():
+    """pass_states overwrites each chunk's own state with the state passed
+    into it and returns the same tensor, on the CPU as on the card."""
+    x, dt, cum, bm, _ = _stage_inputs(_inputs(3, 1, 32, 4, 8, 8), 16)
+    states = tssd.chunk_states(x, dt, cum, bm)
+    want, _ = tref.ssd_pass_states_ref(states, cum)
+    got = tssd.pass_states(states, cum)
+    assert got is states
+    torch.testing.assert_close(states, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("stage,bad", [
+    ("chunk_states", "mixed"), ("chunk_states", "dt_bf16"), ("chunk_states", "B_shape"),
+    ("pass_states", "states_bf16"), ("pass_states", "cum_shape"),
+    ("chunk_output", "mixed"), ("chunk_output", "states_shape"), ("chunk_output", "x_dims")])
+def test_ssd_stage_wrappers_reject_bad_inputs(stage, bad):
+    """Each stage checks its operands' dtypes and shapes on every device
+    before it hands raw pointers to a kernel."""
+    x, dt, cum, bm, cm = _stage_inputs(_inputs(3, 1, 32, 4, 8, 8), 16)
+    states = tssd.chunk_states(x, dt, cum, bm)
+    if bad == "mixed":  # x, B and C share one dtype
+        x = x.bfloat16()
+    elif bad == "dt_bf16":
+        dt = dt.bfloat16()
+    elif bad == "B_shape":
+        bm = bm[:, :, :8]  # 8 of the chunk's 16 steps
+    elif bad == "states_bf16":
+        states = states.bfloat16()
+    elif bad == "cum_shape":
+        cum = cum[:, :1]
+    elif bad == "states_shape":
+        states = states[:, :, :2]
+    else:
+        x = x[0]
+    with pytest.raises((ValueError, TypeError)):
+        if stage == "chunk_states":
+            tssd.chunk_states(x, dt, cum, bm)
+        elif stage == "pass_states":
+            tssd.pass_states(states, cum)
+        else:
+            tssd.chunk_output(x, dt, cum, bm, cm, states)
 
 
 def test_ssd_counts_no_launch_on_the_cpu():
