@@ -9,15 +9,19 @@ Phases (any failure exits non-zero):
      started together, timed);
   3. every kernel against its plain PyTorch version on the card, bit for bit,
      at the main path's shapes and over a seeded sweep (int8 tables on the
-     card and in pinned host memory); times, bounds, and the host link's
-     measured rate, which bounds the kernels that touch pinned tables;
+     card and in pinned host memory; update+sample in its single-leaf form
+     and in its list form, every leaf of a record in one launch); times
+     (the one-launch flat step beside the three single-leaf launches it
+     replaced), bounds, and the host link's measured rate, which bounds the
+     kernels that touch pinned tables;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
   5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
      (224x224x3, 1000 classes, 4 tasks of 250 classes) with async rehearsal,
      reservoir policy and a flat buffer of 4 x 500 records, for 2 tasks x 4
      steps. It checks that every buffer update+sample went through the CUDA
-     kernel and that losses, buffer fill and the accuracy matrix are sane;
+     kernel, one launch a step for the record's three leaves, and that
+     losses, buffer fill and the accuracy matrix are sane;
   6. the tiered store driven directly at full row width (4 buckets x 4 hot
      slots, 4 x 1000 int8 cold slots in pinned host memory, a stage of 8):
      fused and unfused kernels on the card and the plain versions on the CPU,
@@ -25,19 +29,22 @@ Phases (any failure exits non-zero):
      the cold tier adds nothing to the card's allocated memory;
   7. the tiered main path: the trainer of phase 5 with ``tiering="host"``
      (that tiered store), once with the fused kernels and once without. Each
-     float-leaf kernel of the setting launches once per step, the histories
-     of ``rep_checksum`` and ``buffer_fill`` are identical, and the buffer
-     outgrows the hot tier.
+     float-leaf kernel of the setting launches once per step, update+sample
+     as often as the tiered step's callers ask (3 a step unfused, 4 fused),
+     the histories of ``rep_checksum`` and ``buffer_fill`` are identical,
+     and the buffer outgrows the hot tier.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's prefill
-     shapes (f32 on the FMA kernel, bf16 on the wgmma kernel) and over a
-     seeded sweep (the JAX kernel tests' cases, an H2O-Danube case, hd 80,
-     window 4096, S 8192, in both dtypes, and the bf16 kernel's edges); times
-     beside ``F.scaled_dot_product_attention`` and the bound;
+     shapes (f32 on the 3xTF32 wgmma kernel, bf16 on the bf16 wgmma kernel)
+     and over a seeded sweep (the JAX kernel tests' cases, an H2O-Danube
+     case, hd 80, window 4096, S 8192, in both dtypes, and the bf16 kernel's
+     edges); times beside ``F.scaled_dot_product_attention`` and the bound
+     (for f32 the 3xTF32 tensor-core bound, the FMA bound beside it);
   9. the SSD scan against its plain version and the model's ``ssd_chunked``
      at Mamba2-370M's prefill shapes and over a sweep (bf16 among it, at the
      path's shapes too), and each of its three kernels against its plain
-     stage; times and the bound;
+     stage; times and bounds of the f32 and bf16 instances at the path's
+     shapes;
  10. SmolLM-135M and Mamba2-370M at full width on the card against the CPU
      (same seed, B 1, S 128);
  11. prefill at full width (B 4, S 2048): ``build_model(cfg).forward`` with
@@ -71,6 +78,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 L2_FLUSH_BYTES = 64 << 20  # larger than the 50 MB L2
 LINK_PROBE_BYTES = 256 << 20  # pinned <-> device copy that measures the host link
@@ -193,6 +201,57 @@ def sweep(ops, ref, seed: int = 0) -> float:
     return worst
 
 
+def check_leaves(ops, ref, tables, cands, cand_rows, samp_rows):
+    """The list form (one launch for every leaf) against the plain version
+    leaf by leaf, on clones of the same inputs; asserts bit equality and one
+    launch."""
+    got_tables = [t.clone() for t in tables]
+    before = ops.rehearsal_update_sample.launches
+    got = ops.rehearsal_update_sample_leaves(got_tables, cands, cand_rows, samp_rows)
+    launched = ops.rehearsal_update_sample.launches - before
+    for i, (table, cand) in enumerate(zip(tables, cands)):
+        pb, pr = ref.rehearsal_update_sample_ref(table.clone(), cand, cand_rows, samp_rows)
+        torch.cuda.synchronize()
+        if not (same_bits(got_tables[i], pb) and same_bits(got[i], pr)):
+            raise AssertionError(
+                f"list form != plain version on leaf {i}: table {tuple(table.shape)} "
+                f"{table.dtype}, C={cand.shape[0]}, S={samp_rows.shape[0]}")
+    moves = cand_rows.shape[0] + samp_rows.shape[0] > 0
+    if launched != int(moves):
+        raise AssertionError(f"the list form launched {launched} kernels, expected {int(moves)}")
+
+
+def leaves_sweep(ops, ref, seed: int = 2):
+    """Seeded sweep of the list form: 1 to 5 leaves of f32, i32 and int8 rows
+    of mixed widths (the 16-, 4- and 1-byte paths in one launch), shared
+    duplicates, drops, clamped samples and empty candidate sets."""
+    rng = np.random.default_rng(seed)
+    n = 0
+    for r in (1, 7, 300):
+        for n_leaves in (1, 3, 5):
+            for c in (0, 5, 33):
+                tables, cands = [], []
+                for i in range(n_leaves):
+                    width = int(rng.choice([1, 3, 4, 37, 1024, 8195, 150528]))
+                    dtype = (torch.float32, torch.int32, torch.int8)[(i + n) % 3]
+                    lo, hi = (-127, 128) if dtype == torch.int8 else (-2**31, 2**31 - 1)
+                    tables.append(torch.randint(lo, hi, (r, width), dtype=dtype, device="cuda")
+                                  if dtype != torch.float32
+                                  else torch.randn((r, width), device="cuda"))
+                    big = (torch.randint(lo, hi, (c + 1, width), dtype=dtype, device="cuda")
+                           if dtype != torch.float32 else torch.randn((c + 1, width),
+                                                                      device="cuda"))
+                    cands.append(big[1:] if (n + i) % 2 else big[:c])  # offset pointers
+                cand_rows = torch.as_tensor(rng.integers(-3, r + 3, size=c), dtype=torch.int32,
+                                            device="cuda")
+                samp_rows = torch.as_tensor(rng.integers(-2, r + 2, size=int(rng.integers(0, 6))),
+                                            dtype=torch.int32, device="cuda")
+                check_leaves(ops, ref, tables, cands, cand_rows, samp_rows)
+                n += 1
+    print(f"list-form sweep: {n} cases, one launch each, bit-equal to the plain version "
+          f"leaf by leaf")
+
+
 def main_path_inputs(rows_total: int, seed: int = 1):
     """Row vectors at the main path's shapes: C = b = 16 candidates of which
     c = 4 are accepted (distinct rows; the rest carry the out-of-range drop
@@ -225,10 +284,22 @@ def kernel_phase(ops, ref, image_len: int):
                                       cand_rows, samp_rows))
     print(f"main-path shapes: images {tuple(leaves['images'].shape)} f32, label/task "
           f"{tuple(leaves['label'].shape)} i32 -- bit-equal")
+    check_leaves(ops, ref, list(leaves.values()), list(cands.values()), cand_rows, samp_rows)
+    print("main-path shapes, list form: the three leaves in one launch -- bit-equal")
     worst = max(worst, sweep(ops, ref))
+    leaves_sweep(ops, ref)
 
-    # the work of one step: 3 calls (one per record leaf)
+    # the work of one step: one launch for the record's three leaves
+    tables, batches = list(leaves.values()), list(cands.values())
+
     def kernel_step():
+        ops.rehearsal_update_sample_leaves(tables, batches, cand_rows, samp_rows)
+
+    def single(name):  # one leaf through the single-leaf form: one launch
+        return lambda: ops.rehearsal_update_sample(leaves[name], cands[name], cand_rows,
+                                                   samp_rows)
+
+    def three_launch_step():  # the step before the list form: one launch per leaf
         for name in leaves:
             ops.rehearsal_update_sample(leaves[name], cands[name], cand_rows, samp_rows)
 
@@ -251,29 +322,37 @@ def kernel_phase(ops, ref, image_len: int):
             leaves[name].index_select(0, samp_long)
 
     ms = time_ms(kernel_step)
+    three_ms = time_ms(three_launch_step)
+    per_leaf = {name: time_ms(single(name)) for name in leaves}
     plain_ms = time_ms(plain_step)
     library_ms = time_ms(library_step)
     ms_again = time_ms(kernel_step)
+    three_again = time_ms(three_launch_step)
     host_ms = time_ms(kernel_step, hold=False)
+    three_host_ms = time_ms(three_launch_step, hold=False)
     library_host_ms = time_ms(library_step, hold=False)
     accepted = len(winners)
     moved_rows = 2 * accepted + 2 * REPS  # read + write of each accepted and sampled row
     row_bytes = sum(v.shape[1] * v.element_size() for v in leaves.values())
-    index_bytes = len(leaves) * 4 * (BATCH + REPS)
+    index_bytes = 4 * (BATCH + REPS)  # one launch reads the row vectors once
     total_bytes = moved_rows * row_bytes + index_bytes
     bound_ms = total_bytes / HBM_BYTES_PER_S * 1e3
     print(f"one step (3 leaves, {accepted} accepted + {REPS} sampled rows, "
-          f"{total_bytes} bytes), device time: kernel {ms:.4f} ms (repeat "
-          f"{ms_again:.4f}), plain {plain_ms:.4f} ms, index_copy_+index_select "
-          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s)")
-    print(f"same step with the GPU waiting on the host's launches: kernel "
-          f"{host_ms:.4f} ms, index_copy_+index_select {library_host_ms:.4f} ms")
+          f"{total_bytes} bytes), device time: kernel, one launch {ms:.4f} ms (repeat "
+          f"{ms_again:.4f}) = {total_bytes / ms / 1e6:.1f} GB/s; three single-leaf launches "
+          f"{three_ms:.4f} ms (repeat {three_again:.4f}), of which alone: "
+          + ", ".join(f"{name} {t:.4f} ms" for name, t in per_leaf.items())
+          + f"; plain {plain_ms:.4f} ms, index_copy_+index_select {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms (bytes at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    print(f"same step with the GPU waiting on the host's launches: kernel, one launch "
+          f"{host_ms:.4f} ms, three launches {three_host_ms:.4f} ms, "
+          f"index_copy_+index_select {library_host_ms:.4f} ms")
     return {"name": "rehearsal_update_sample", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rehearsal_ops.cu",
             "replaces": "src/repro/kernels/rehearsal_ops.py:225",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "ms_three_launches": three_ms}
 
 
 def link_rates():
@@ -534,9 +613,10 @@ def main_path(ops, cfg, seed: int = 0):
     print(f"median step {step_ms:.1f} ms (all steps {[round(t * 1e3, 1) for t in result.step_seconds]}), "
           f"prefetch wait {wait_share:.4f} of step time, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, fit wall {wall:.1f} s")
-    print(f"kernel launches on the main path: {launches} (3 leaves x {steps} steps)")
-    if launches != 3 * steps:
-        raise AssertionError(f"expected {3 * steps} kernel launches, saw {launches}")
+    print(f"kernel launches on the main path: {launches} (one for the 3 leaves x {steps} "
+          f"steps)")
+    if launches != steps:
+        raise AssertionError(f"expected {steps} kernel launches, saw {launches}")
     if len(result.losses) != steps or not all(math.isfinite(x) for x in result.losses):
         raise AssertionError(f"non-finite or missing losses: {result.losses}")
     if not fills[-1] > fills[0]:
@@ -677,10 +757,11 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
           f"{[round(t * 1e3, 1) for t in result.step_seconds]}), launches {launches}")
     float_kernels = (("encode_scatter_rows", "gather_dequant_rows") if fused
                      else ("quantize_rows", "dequantize_rows"))
-    # per step: the cold leaves' flush+sample (2 raw leaves fused; plus the
-    # int8 q and scale leaves unfused), the evicted gather and the hot
-    # push+sample of the 3 record leaves
-    update_sample = (2 if fused else 4) + 3 + 3
+    # per step: the cold leaves' flush+sample (fused: one launch per raw
+    # leaf, label and task; unfused: one launch for the int8 q and scale
+    # leaves and the raw leaves together), the evicted gather (one launch for
+    # the 3 record leaves) and the hot push+sample (one launch)
+    update_sample = (2 if fused else 1) + 1 + 1
     want = {name: (steps if name in float_kernels else 0) for name in counters}
     want["rehearsal_update_sample"] = update_sample * steps
     if launches != want:
@@ -790,9 +871,10 @@ def flash_phase(fa, ref):
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "source_bf16": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "design": "3xTF32 wgmma", "design_bf16": "wgmma + TMA",
              "replaces": "src/repro/kernels/flash_attention.py:73",
              "max_abs_err": errs[torch.float32], "max_abs_err_bf16": errs[torch.bfloat16]}
-    for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+    for dtype in (torch.float32, torch.bfloat16):
         q, k, v = runs[dtype]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, hd] views
 
@@ -813,19 +895,32 @@ def flash_phase(fa, ref):
         ms_again = time_ms(lambda: fa.flash_attention(q, k, v))
         flops = 2 * b * h * s * s * hd  # the causal half of QK^T and PV
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
-        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if dtype == torch.float32:
+            # 3xTF32: three TF32 products per f32 product on the tensor cores;
+            # the f32 function's own rate (FMA pipes) is printed beside it
+            ops_ms = 3 * flops / TF32_FLOPS * 1e3
+            fma_ms = flops / F32_FLOPS * 1e3
+            rate = (f"3 x {flops / 1e9:.2f} GFLOP at {TF32_FLOPS / 1e12:g} TFLOP/s TF32 = "
+                    f"{ops_ms:.4f} ms; FMA bound {fma_ms:.4f} ms at {F32_FLOPS / 1e12:g} "
+                    f"TFLOP/s f32")
+        else:
+            ops_ms = flops / BF16_FLOPS * 1e3
+            rate = f"{flops / 1e9:.2f} GFLOP at {BF16_FLOPS / 1e12:g} TFLOP/s = {ops_ms:.4f} ms"
         bound_ms = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        print(f"flash_attention {dtype}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; max abs err vs plain: kernel "
-              f"{errs[dtype]:.3e}, SDPA {lib_err:.3e}; bound {bound_ms:.4f} ms by {by} "
-              f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s"
-              f"{' f32 outside the tensor cores' if peak == F32_FLOPS else ''} = {ops_ms:.4f} ms; "
-              f"{nbytes} B = {bytes_ms:.4f} ms); kernel at {flops / ms / 1e9:.2f} TFLOP/s")
+        design = entry["design" if dtype == torch.float32 else "design_bf16"]
+        print(f"flash_attention {dtype} ({design}): kernel {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; max abs err "
+              f"vs plain: kernel {errs[dtype]:.3e}, SDPA {lib_err:.3e}; bound {bound_ms:.4f} ms "
+              f"by {by} ({rate}; {nbytes} B = {bytes_ms:.4f} ms); kernel at "
+              f"{flops / ms / 1e9:.2f} TFLOP/s of f32 products, {bound_ms / ms:.3f} of its bound")
         suffix = "" if dtype == torch.float32 else "_bf16"
         entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
                       f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
                       f"library_ms{suffix}": library_ms})
+        if dtype == torch.float32:
+            entry["bound_ms_fma"] = max(fma_ms, bytes_ms)
     del runs
     return entry
 
@@ -920,29 +1015,40 @@ def ssd_phase(ssd, ref):
         del cargs
     print(f"sweep: {len(sweep)} cases within tolerance, the whole scan and each stage")
 
-    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=q))
-    plain_ms = time_ms(lambda: ssd_plain(ref, *args, q), iters=10)
-    model_ms = time_ms(lambda: ssd_chunked(*args, chunk=q), iters=10)
-    ms_again = time_ms(lambda: ssd.ssd_scan(*args, chunk=q))
+    entry = {"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan.py:70", "max_abs_err": worst,
+             "library_ms": None, "kernels_per_call": ssd.KERNELS_PER_CALL}
     nc = s // q
     # the products the function needs: the lower triangle of C.B^T once per
     # (batch, chunk); per head the lower-triangular W.x, C.state and the
     # state update
     flops = b * nc * (q * (q + 1) * n + h * (q * (q + 1) * p + 4 * q * n * p))
-    nbytes = (2 * args[0].numel() * 4 + 2 * args[1].numel() * 4 + 2 * args[3].numel() * 4)
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"ssd_scan ({ssd.KERNELS_PER_CALL} kernels): {ms:.4f} ms (repeat {ms_again:.4f}; "
-          f"includes the wrapper's cumsum), plain {plain_ms:.4f} ms, the model's ssd_chunked "
-          f"{model_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at 67 "
-          f"TFLOP/s f32 = {ops_ms:.4f} ms; x, y, dt, cum, B, C {nbytes} B = {bytes_ms:.4f} ms); "
-          f"no single PyTorch call computes the scan (library_ms null); kernels at "
-          f"{flops / ms / 1e9:.2f} TFLOP/s")
-    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:70", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "kernels_per_call": ssd.KERNELS_PER_CALL}
+    bf16_args = _ssd_inputs(gen, b, s, h, p, n, torch.bfloat16)  # the bf16 prefill's instance
+    for dtype, targs, peak in ((torch.float32, args, F32_FLOPS),
+                               (torch.bfloat16, bf16_args, BF16_FLOPS)):
+        ms = time_ms(lambda: ssd.ssd_scan(*targs, chunk=q))
+        plain_ms = time_ms(lambda: ssd_plain(ref, *targs, q), iters=10)
+        model_ms = time_ms(lambda: ssd_chunked(*targs, chunk=q), iters=10)
+        ms_again = time_ms(lambda: ssd.ssd_scan(*targs, chunk=q))
+        # x and y, B and C at the input's width; dt and cum f32
+        width = targs[0].element_size()
+        nbytes = (2 * targs[0].numel() * width + 2 * targs[1].numel() * 4
+                  + 2 * targs[3].numel() * width)
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        where = "f32" if dtype == torch.float32 else "bf16 tensor cores"
+        print(f"ssd_scan {dtype} ({ssd.KERNELS_PER_CALL} kernels): {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}; includes the wrapper's cumsum), plain {plain_ms:.4f} ms, the "
+              f"model's ssd_chunked {model_ms:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+              f"({flops / 1e9:.2f} GFLOP at {peak / 1e12:g} TFLOP/s {where} = {ops_ms:.4f} ms; "
+              f"x, y, dt, cum, B, C {nbytes} B = {bytes_ms:.4f} ms); no single PyTorch call "
+              f"computes the scan (library_ms null); kernels at {flops / ms / 1e9:.2f} TFLOP/s")
+        suffix = "" if dtype == torch.float32 else "_bf16"
+        entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                      f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by})
+    return entry
 
 
 def lm_model_phase(seed: int = 10):

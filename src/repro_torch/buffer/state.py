@@ -10,11 +10,12 @@ and gathers from.
 
 Work is split in two, as in the reference: *which rows* (``local_update_rows``
 / ``local_sample_rows``, driven by a ``torch.Generator`` through the policy)
-and *moving the bytes* (``local_update_sample``, one kernel call per record
-leaf). The split is the parity seam: the tests feed the reference's row
-vectors into the port's byte movement. Because the sample rows depend only on
-the updated counts, both row vectors exist before any byte moves, which is
-what lets one launch per leaf do the update and the sample together.
+and *moving the bytes* (``local_update_sample``, one kernel launch for all
+the record's leaves). The split is the parity seam: the tests feed the
+reference's row vectors into the port's byte movement. Because the sample
+rows depend only on the updated counts, both row vectors exist before any
+byte moves, which is what lets one launch do the update and the sample
+together.
 
 Per-worker only; the cross-worker exchange lives in ``repro_torch.core.distributed``.
 Updates are in place: the buffer's tensors are the record table.
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.rehearsal_ops import rehearsal_update_sample
+from repro_torch.kernels.rehearsal_ops import rehearsal_update_sample_leaves
 
 
 class ItemSpec(NamedTuple):
@@ -158,20 +159,24 @@ def table_view(leaf: torch.Tensor) -> torch.Tensor:
 
 
 def local_update_sample(state: BufferState, items, rows: UpdateSampleRows):
-    """Move the bytes of one update+sample: for every record leaf, ONE call of
-    the rehearsal kernel writes the candidates into the table in place and
-    gathers the sampled rows from the updated table.
+    """Move the bytes of one update+sample: ONE launch of the rehearsal
+    kernel writes the candidates into every leaf's table in place and gathers
+    the sampled rows from the updated tables.
 
     Returns ``(new_state, reps {name: [n, ...]}, valid bool[n])``."""
     n = rows.samp_rows.shape[0]
+    tables, cands = [], []
 
-    def move(leaf, item):
+    def collect(leaf, item):
         table = table_view(leaf)
-        cands = item.to(leaf.dtype).reshape(item.shape[0], table.shape[1]).contiguous()
-        _, got = rehearsal_update_sample(table, cands, rows.cand_rows, rows.samp_rows)
-        return got.view((n,) + tuple(leaf.shape[2:]))
+        tables.append(table)
+        cands.append(item.to(leaf.dtype).reshape(item.shape[0], table.shape[1]).contiguous())
+        return len(tables) - 1
 
-    reps = tree_map(move, state.data, items)
+    index = tree_map(collect, state.data, items)
+    got = rehearsal_update_sample_leaves(tables, cands, rows.cand_rows, rows.samp_rows)
+    reps = tree_map(lambda i, leaf: got[i].view((n,) + tuple(leaf.shape[2:])), index,
+                    state.data)
     new_state = BufferState(state.data, rows.new_counts, rows.new_seen)
     return new_state, reps, rows.samp_valid
 
@@ -189,8 +194,8 @@ def sample_only(state: BufferState, samp_rows, samp_valid) -> UpdateSampleRows:
 
 
 def gather_rows(state: BufferState, rows: torch.Tensor):
-    """The records at flat ``rows`` (clamped into range), one kernel call per
-    leaf and no writes. Returns ``{name: [len(rows), ...]}``."""
+    """The records at flat ``rows`` (clamped into range), one kernel launch
+    and no writes. Returns ``{name: [len(rows), ...]}``."""
     empty = tree_map(lambda v: torch.zeros((0,) + tuple(v.shape[2:]), dtype=v.dtype,
                                            device=rows.device), state.data)
     valid = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)

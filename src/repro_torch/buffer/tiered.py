@@ -21,14 +21,16 @@ Rows first, then bytes, as in the flat store: ``plan_tiered`` computes every
 row vector of a step (a ``TieredRows``), drawing from the generator in the
 fixed order flush, push, hot sample, cold sample, mix; ``tiered_update_sample``
 then moves the bytes in this order on one stream:
-  1. the cold tier, one pass per leaf: flush the old stage and draw the cold
-     sample from the result (``fused_kernels``: ``encode_scatter_rows`` then
-     ``gather_dequant_rows`` per float leaf; otherwise ``quantize_rows``, one
-     ``rehearsal_update_sample`` per stored leaf and ``dequantize_rows``);
+  1. the cold tier: flush the old stage and draw the cold sample from the
+     result (``fused_kernels``: ``encode_scatter_rows`` then
+     ``gather_dequant_rows`` per float leaf and one ``rehearsal_update_sample``
+     per integer leaf; otherwise ``quantize_rows``, one
+     ``rehearsal_update_sample_leaves`` launch for every stored leaf, and
+     ``dequantize_rows``);
   2. the evicted gather: the pre-push records of the hot rows the push will
-     overwrite, copied into a new stage before the push writes them;
-  3. the hot tier: push the candidates and draw the hot sample, one
-     ``rehearsal_update_sample`` per leaf.
+     overwrite, copied into a new stage before the push writes them (one
+     launch);
+  3. the hot tier: push the candidates and draw the hot sample (one launch).
 Telemetry gauges (``tiered_obs``) are ROADMAP Queue 1 item 14; placing a
 distributed tiered state on a mesh (``cold_shardings``) is item 13.
 """

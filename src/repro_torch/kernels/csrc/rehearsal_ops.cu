@@ -1,17 +1,21 @@
 // Rehearsal buffer kernels for Hopper (sm_90a).
 //
-// 1. rehearsal_update_sample: scatter the accepted candidates into the
-//    [R, row_bytes] record table in place, then gather the sampled
-//    representatives from the updated table.
+// 1. rehearsal_update_sample_leaves: for every leaf of one record, scatter
+//    the accepted candidates into the leaf's [R, row_bytes] record table in
+//    place, then gather the sampled representatives from the updated table;
+//    all leaves in ONE launch.
 //
 // Replaces the TPU kernel src/repro/kernels/rehearsal_ops.py::
 // rehearsal_update_sample, both its single-row form (_update_sample_single /
-// _kernel) and its tiled form (_update_sample_tiled / _tiled_kernel); the
-// oracle is src/repro/kernels/ref.py::rehearsal_update_sample_ref.
+// _kernel) and its tiled form (_update_sample_tiled / _tiled_kernel), which
+// the reference calls once per leaf; the oracle is
+// src/repro/kernels/ref.py::rehearsal_update_sample_ref, leaf by leaf.
 //
-// Semantics: candidate i with cand_rows[i] < 0 or >= R is dropped; when
-// several candidates target one row the last one wins; representative j is
-// row clamp(samp_rows[j], 0, R-1) of the table AFTER the writes.
+// Semantics, for each leaf: candidate i with cand_rows[i] < 0 or >= R is
+// dropped; when several candidates target one row the last one wins;
+// representative j is row clamp(samp_rows[j], 0, R-1) of the table AFTER
+// the writes. The leaves share R, cand_rows and samp_rows, and may differ in
+// dtype and row width.
 //
 // Ordering. On the TPU the sequential grid is the lock: every scatter step
 // runs before any gather step, and duplicate targets resolve in candidate
@@ -25,19 +29,27 @@
 // No block reads a row that another block writes, so one launch with every
 // block in parallel gives the sequential result bit for bit.
 //
+// Design. The grid is one dimension over (leaf, candidate or sample, 32 KB
+// chunk of the row); a block finds its leaf in a descriptor table passed by
+// value (__grid_constant__: base pointers, row bytes, access width). Each
+// thread of 256 issues 8 independent loads before it stores them, so a 32 KB
+// chunk of 16-byte rows is in flight at once: one round trip to memory per
+// chunk, where one load at a time per thread held the card near 0.5 TB/s.
+// Rows move 16 bytes per access where row width and pointers allow, 4-byte
+// words where they allow that, and single bytes otherwise, so one launch
+// serves f32 image rows, i32 scalar rows and int8 cold-tier rows together.
+//
 // Bound. The kernel does no arithmetic: it moves (2 * accepted + 2 * sampled)
-// rows of row_bytes each. On the main path (c = 4 expected accepted, r = 2
-// sampled, 602,112-byte image rows) that is about 7 MB, about 2 us at
-// 3.35 TB/s, so launch latency dominates. Rows are split into 32 KB chunks
-// across grid.y so a handful of rows still spreads over many SMs, and each
-// thread moves 16 bytes per load where row width and pointers allow, 4-byte
-// words where they allow that, and single bytes otherwise, so one kernel
-// serves f32 image rows, i32 scalar rows and int8 cold-tier rows of any
-// width. The table may be pinned host memory (the tiered store's cold tier):
-// its rows then cross the host link, which bounds the kernel instead of HBM.
+// rows of each leaf. On the main path (c = 4 expected accepted, r = 2
+// sampled, a 602,112-byte image row and two 4-byte scalar rows) that is
+// about 7.2 MB, 2.2 us at 3.35 TB/s, so launch latency and one round trip
+// to memory are most of its time. The tables may be pinned host memory (the
+// tiered store's cold tier): their rows then cross the host link, which
+// bounds the kernel instead of HBM.
 //
 // 2. gather_dequant_rows and 3. encode_scatter_rows: the fused kernels of the
 // tiered store's cold tier, see below.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,100 +58,133 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kChunkBytes = 32 * 1024;
-constexpr long long kMaxGridY = 65535;
+constexpr int kUnroll = 8;  // loads in flight per thread
+constexpr long long kChunkBytes = 16LL * kThreads * kUnroll;  // 32 KB
+constexpr int kMaxLeaves = 16;
 
+struct Leaf {
+  char* table;            // [n_rows, row_bytes], updated in place
+  const char* cands;      // [n_cand, row_bytes]
+  char* reps;             // [n_samp, row_bytes]
+  long long row_bytes;
+  long long chunks;       // chunks of kChunkBytes per row
+  long long first_block;  // the leaf's first block of the grid
+  int width;              // bytes per access: 16, 4 or 1
+};
+
+struct Leaves {
+  Leaf leaf[kMaxLeaves];
+  int count;
+};
+
+// Copy n elements of V: each thread loads kUnroll elements, then stores
+// them. The loads come first in program order and src and dst may alias for
+// all the compiler knows, so it keeps them first: kUnroll loads in flight.
 template <typename V>
-__device__ __forceinline__ void copy_range(char* dst, const char* src,
-                                           long long begin, long long end) {
-  const V* s = reinterpret_cast<const V*>(src + begin);
-  V* d = reinterpret_cast<V*>(dst + begin);
-  const long long n = (end - begin) / static_cast<long long>(sizeof(V));
-  for (long long k = threadIdx.x; k < n; k += blockDim.x) d[k] = s[k];
+__device__ __forceinline__ void copy_chunk(char* dst, const char* src, long long n) {
+  const V* s = reinterpret_cast<const V*>(src);
+  V* d = reinterpret_cast<V*>(dst);
+  for (long long base = threadIdx.x; base < n; base += kUnroll * kThreads) {
+    V r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + u * kThreads;
+      if (i < n) r[u] = s[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + u * kThreads;
+      if (i < n) d[i] = r[u];
+    }
+  }
 }
 
-template <typename V>
-__global__ void update_sample_kernel(char* __restrict__ buffer,
-                                     const char* __restrict__ cands,
-                                     const int* __restrict__ cand_rows,
-                                     const int* __restrict__ samp_rows,
-                                     char* __restrict__ reps,
-                                     long long n_rows, long long row_bytes,
-                                     int n_cand) {
-  const int i = blockIdx.x;
+__global__ void __launch_bounds__(kThreads)
+update_sample_kernel(const __grid_constant__ Leaves leaves, const int* __restrict__ cand_rows,
+                     const int* __restrict__ samp_rows, long long n_rows, int n_cand) {
+  const long long blk = blockIdx.x;
+  int li = 0;
+  while (li + 1 < leaves.count && leaves.leaf[li + 1].first_block <= blk) ++li;
+  const Leaf& leaf = leaves.leaf[li];
+  const long long local = blk - leaf.first_block;
+  const long long slot = local / leaf.chunks, chunk = local % leaf.chunks;
   const char* src;
   char* dst;
-  if (i < n_cand) {  // scatter candidate i
+  if (slot < n_cand) {  // scatter candidate slot
+    const int i = static_cast<int>(slot);
     const int row = cand_rows[i];
     if (row < 0 || row >= n_rows) return;  // dropped
     for (int k = i + 1; k < n_cand; ++k) {
       if (cand_rows[k] == row) return;  // a later candidate wins this row
     }
-    src = cands + static_cast<long long>(i) * row_bytes;
-    dst = buffer + static_cast<long long>(row) * row_bytes;
-  } else {  // gather sample j from the post-update table
-    const int j = i - n_cand;
+    src = leaf.cands + static_cast<long long>(i) * leaf.row_bytes;
+    dst = leaf.table + static_cast<long long>(row) * leaf.row_bytes;
+  } else {  // gather sample slot - n_cand from the post-update table
+    const long long j = slot - n_cand;
     long long row = samp_rows[j];
     row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
-    src = buffer + row * row_bytes;
+    src = leaf.table + row * leaf.row_bytes;
     for (int k = n_cand - 1; k >= 0; --k) {
       if (cand_rows[k] == row) {  // this step's write to the row
-        src = cands + static_cast<long long>(k) * row_bytes;
+        src = leaf.cands + static_cast<long long>(k) * leaf.row_bytes;
         break;
       }
     }
-    dst = reps + static_cast<long long>(j) * row_bytes;
+    dst = leaf.reps + j * leaf.row_bytes;
   }
-  for (long long c = blockIdx.y; c * kChunkBytes < row_bytes; c += gridDim.y) {
-    const long long begin = c * kChunkBytes;
-    const long long end =
-        begin + kChunkBytes < row_bytes ? begin + kChunkBytes : row_bytes;
-    copy_range<V>(dst, src, begin, end);
+  const long long begin = chunk * kChunkBytes;
+  const long long bytes = min(kChunkBytes, leaf.row_bytes - begin);
+  switch (leaf.width) {
+    case 16: copy_chunk<uint4>(dst + begin, src + begin, bytes / 16); break;
+    case 4: copy_chunk<uint32_t>(dst + begin, src + begin, bytes / 4); break;
+    default: copy_chunk<uint8_t>(dst + begin, src + begin, bytes); break;
   }
-}
-
-template <typename V>
-void launch_update_sample(dim3 grid, cudaStream_t s, void* buffer, const void* cands,
-                          const void* cand_rows, const void* samp_rows, void* reps,
-                          long long n_rows, long long row_bytes, int n_cand) {
-  update_sample_kernel<V><<<grid, kThreads, 0, s>>>(
-      static_cast<char*>(buffer), static_cast<const char*>(cands),
-      static_cast<const int*>(cand_rows), static_cast<const int*>(samp_rows),
-      static_cast<char*>(reps), n_rows, row_bytes, n_cand);
 }
 
 }  // namespace
 
-// buffer [n_rows, row_bytes] (updated in place; device or pinned host
-// memory); cands [n_cand, row_bytes]; cand_rows i32[n_cand]; samp_rows
-// i32[n_samp]; reps [n_samp, row_bytes]. Any row width and alignment.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int rehearsal_update_sample(void* buffer, const void* cands,
-                                       const void* cand_rows,
-                                       const void* samp_rows, void* reps,
-                                       long long n_rows, long long row_bytes,
-                                       int n_cand, int n_samp, void* stream) {
+// For each of n_leaves leaves: tables[i] [n_rows, row_bytes[i]] (updated in
+// place; device or pinned host memory), cands[i] [n_cand, row_bytes[i]],
+// reps[i] [n_samp, row_bytes[i]]; cand_rows i32[n_cand] and samp_rows
+// i32[n_samp] shared by all leaves. Any row width and alignment; at most
+// 16 leaves. The pointer and width arrays are host memory. Returns
+// cudaGetLastError() after the launch (0 on success; 0 without a launch when
+// there is nothing to move).
+extern "C" int rehearsal_update_sample_leaves(int n_leaves, void* const* tables,
+                                              const void* const* cands, void* const* reps,
+                                              const long long* row_bytes,
+                                              const void* cand_rows, const void* samp_rows,
+                                              long long n_rows, int n_cand, int n_samp,
+                                              void* stream) {
   using int8rows::aligned;
-  const int blocks = n_cand + n_samp;
-  if (blocks <= 0 || row_bytes <= 0) return static_cast<int>(cudaSuccess);
-  long long chunks = (row_bytes + kChunkBytes - 1) / kChunkBytes;
-  if (chunks > kMaxGridY) chunks = kMaxGridY;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto fits = [&](size_t w) {
-    return row_bytes % static_cast<long long>(w) == 0 && aligned(buffer, w) &&
-           aligned(cands, w) && aligned(reps, w);
-  };
-  if (fits(16)) {
-    launch_update_sample<uint4>(grid, s, buffer, cands, cand_rows, samp_rows, reps, n_rows,
-                                row_bytes, n_cand);
-  } else if (fits(4)) {
-    launch_update_sample<uint32_t>(grid, s, buffer, cands, cand_rows, samp_rows, reps,
-                                   n_rows, row_bytes, n_cand);
-  } else {
-    launch_update_sample<uint8_t>(grid, s, buffer, cands, cand_rows, samp_rows, reps,
-                                  n_rows, row_bytes, n_cand);
+  if (n_leaves < 0 || n_leaves > kMaxLeaves || n_cand < 0 || n_samp < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  Leaves leaves{};
+  const long long slots = static_cast<long long>(n_cand) + n_samp;
+  long long blocks = 0;
+  for (int i = 0; i < n_leaves && slots > 0; ++i) {
+    if (row_bytes[i] <= 0) continue;
+    Leaf& leaf = leaves.leaf[leaves.count++];
+    leaf.table = static_cast<char*>(tables[i]);
+    leaf.cands = static_cast<const char*>(cands[i]);
+    leaf.reps = static_cast<char*>(reps[i]);
+    leaf.row_bytes = row_bytes[i];
+    leaf.chunks = (row_bytes[i] + kChunkBytes - 1) / kChunkBytes;
+    leaf.first_block = blocks;
+    blocks += slots * leaf.chunks;
+    auto fits = [&](size_t w) {
+      return row_bytes[i] % static_cast<long long>(w) == 0 && aligned(tables[i], w) &&
+             aligned(cands[i], w) && aligned(reps[i], w);
+    };
+    leaf.width = fits(16) ? 16 : (fits(4) ? 4 : 1);
+  }
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  update_sample_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      leaves, static_cast<const int*>(cand_rows), static_cast<const int*>(samp_rows), n_rows,
+      n_cand);
   return static_cast<int>(cudaGetLastError());
 }
 

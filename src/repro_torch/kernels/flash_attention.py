@@ -4,7 +4,8 @@ model's layout.
 ``flash_attention`` takes q [B,S,H,hd] and k/v [B,T,KV,hd], as the reference's
 ``ops.flash_attention`` does, and returns [B,S,H,hd]. On CUDA tensors it
 launches a hand-written kernel, built for ``sm_90a`` on first use and loaded
-with ``ctypes``: for f32 ``csrc/flash_attention.cu`` (f32 FMA), for bf16
+with ``ctypes``: for f32 ``csrc/flash_attention.cu`` (wgmma tensor cores in
+3xTF32: each f32 product as three TF32 products of split operands), for bf16
 ``csrc/flash_attention_sm90.cu`` (wgmma tensor cores fed by TMA). Both read
 KV head ``h // (H // KV)`` through the tensors' strides (no repeated or
 transposed copy), and the wrapper raises if the launch fails, if the head
@@ -18,8 +19,7 @@ flash_attention_bhsd`` with its ``ops.py`` wrapper. Its semantics, including
 the window applied without ``causal``, are the kernel's (see the plain
 version). It keeps the reference wrapper's shape check at its default tiles
 (``S`` and ``T`` divisible by ``min(128, S)`` and ``min(128, T)``); the CUDA
-kernels tile by 64 (f32) or 128 (bf16) queries and 64 keys and mask a ragged
-edge. It takes f32 and bf16, as the TPU kernel does. The bf16 kernel rounds
+kernels tile by 64 or 128 queries and 32 or 64 keys and mask a ragged edge. It takes f32 and bf16, as the TPU kernel does. The bf16 kernel rounds
 the probabilities to bf16 before P.V, as SDPA does, where the plain version
 keeps them f32: beyond one bf16 ulp of the output, the two differ by up to
 about 3e-3 on unit-normal inputs.

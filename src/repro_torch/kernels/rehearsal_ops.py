@@ -4,9 +4,11 @@ cold-tier pair.
 ``rehearsal_update_sample`` scatters the accepted candidates into a buffer
 leaf's ``[R, L]`` record table in place, then gathers the sampled
 representatives from the updated table: the paper's ``update`` primitive,
-replacing its fine-grain locks. ``gather_dequant_rows`` reads int8 rows of a
-cold-tier table and dequantizes them on the way out; ``encode_scatter_rows``
-quantizes staged rows straight into their cold-tier target rows.
+replacing its fine-grain locks. ``rehearsal_update_sample_leaves`` does the
+same for every leaf of a record in one launch. ``gather_dequant_rows`` reads
+int8 rows of a cold-tier table and dequantizes them on the way out;
+``encode_scatter_rows`` quantizes staged rows straight into their cold-tier
+target rows.
 
 Each wrapper launches its hand-written kernel (``csrc/rehearsal_ops.cu``,
 built for ``sm_90a`` on first use, loaded with ``ctypes``) when its inputs --
@@ -40,32 +42,81 @@ from repro_torch.kernels.ref import (
 )
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_PP, _PLL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _C_ARGTYPES = {
-    "rehearsal_update_sample": [_P] * 5 + [_LL, _LL, _I, _I, _P],
+    "rehearsal_update_sample_leaves": [_I, _PP, _PP, _PP, _PLL, _P, _P, _LL, _I, _I, _P],
     "gather_dequant_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
     "encode_scatter_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
 }
+MAX_LEAVES = 16  # kMaxLeaves of csrc/rehearsal_ops.cu: the leaves one launch takes
 
 
 def _function(name: str):
     return build.c_function("rehearsal_ops", name, _C_ARGTYPES[name])
 
 
-def _check(buffer, cands, cand_rows, samp_rows):
+def _check_leaf(buffer, cands):
     if buffer.dim() != 2 or cands.dim() != 2 or cands.shape[1] != buffer.shape[1]:
         raise ValueError(f"expected buffer [R, L] and cands [C, L], got "
                          f"{tuple(buffer.shape)} and {tuple(cands.shape)}")
     if cands.dtype != buffer.dtype:
         raise TypeError(f"cands dtype {cands.dtype} != buffer dtype {buffer.dtype}")
+    check_contiguous("rehearsal_update_sample", buffer, cands)
+    if buffer.shape[0] == 0:
+        raise ValueError("the buffer table has no rows")
+
+
+def _check_rows(cands, cand_rows, samp_rows):
     if cand_rows.shape != (cands.shape[0],) or samp_rows.dim() != 1:
         raise ValueError(f"expected cand_rows [{cands.shape[0]}] and samp_rows [S], "
                          f"got {tuple(cand_rows.shape)} and {tuple(samp_rows.shape)}")
     if cand_rows.dtype != torch.int32 or samp_rows.dtype != torch.int32:
         raise TypeError("cand_rows and samp_rows must be int32")
-    check_contiguous("rehearsal_update_sample", buffer, cands, cand_rows, samp_rows)
-    if buffer.shape[0] == 0:
-        raise ValueError("the buffer table has no rows")
-    return on_card([buffer], [cands, cand_rows, samp_rows])
+    check_contiguous("rehearsal_update_sample", cand_rows, samp_rows)
+
+
+def rehearsal_update_sample_leaves(tables, cands, cand_rows: torch.Tensor,
+                                   samp_rows: torch.Tensor):
+    """Every leaf of one record in ONE launch: for each i, scatter cands[i]
+    [C, L_i] (of tables[i]'s dtype) into tables[i] [R, L_i] in place, then
+    gather the sampled rows from the updated table. The leaves share R,
+    cand_rows i32[C] (``< 0`` or ``>= R`` drops; the last duplicate wins) and
+    samp_rows i32[S] (clamped), and may differ in dtype and width; at most
+    ``MAX_LEAVES``. Returns ``[reps_i [S, L_i]]`` on the inputs' device.
+
+    ``rehearsal_update_sample.launches`` counts the kernel's launches, by
+    either form."""
+    tables, cands = list(tables), list(cands)
+    if not tables or len(tables) != len(cands):
+        raise ValueError(f"expected one candidate batch per table, got {len(tables)} "
+                         f"tables and {len(cands)} batches")
+    if len(tables) > MAX_LEAVES:
+        raise ValueError(f"one launch takes at most {MAX_LEAVES} leaves, got {len(tables)}")
+    for table, cand in zip(tables, cands):
+        _check_leaf(table, cand)
+        _check_rows(cand, cand_rows, samp_rows)
+    n_rows = tables[0].shape[0]
+    if any(t.shape[0] != n_rows for t in tables):
+        raise ValueError(f"the leaves' tables must share R, got "
+                         f"{[t.shape[0] for t in tables]}")
+    if not on_card(tables, cands + [cand_rows, samp_rows]):
+        return [rehearsal_update_sample_ref(t, c, cand_rows, samp_rows)[1]
+                for t, c in zip(tables, cands)]
+    dev = cand_rows.device
+    n_cand, n_samp = cand_rows.shape[0], samp_rows.shape[0]
+    reps = [torch.empty((n_samp, t.shape[1]), dtype=t.dtype, device=dev) for t in tables]
+    row_bytes = [t.shape[1] * t.element_size() for t in tables]
+    if n_cand + n_samp == 0 or not any(row_bytes):
+        return reps
+    n = len(tables)
+    pointers = [(ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
+                for xs in (tables, cands, reps)]
+    fn = _function("rehearsal_update_sample_leaves")
+    with torch.cuda.device(dev):
+        err = fn(n, *pointers, (ctypes.c_longlong * n)(*row_bytes), cand_rows.data_ptr(),
+                 samp_rows.data_ptr(), n_rows, n_cand, n_samp, stream(dev))
+    build.launched(rehearsal_update_sample, err)
+    return reps
 
 
 def rehearsal_update_sample(buffer: torch.Tensor, cands: torch.Tensor,
@@ -73,23 +124,10 @@ def rehearsal_update_sample(buffer: torch.Tensor, cands: torch.Tensor,
     """buffer [R, L] (updated in place); cands [C, L] of buffer's dtype;
     cand_rows i32[C] (``< 0`` or ``>= R`` drops; the last duplicate wins);
     samp_rows i32[S] (clamped). Returns ``(buffer, reps [S, L])``, reps on the
-    inputs' device.
+    inputs' device: the list form with one leaf.
 
     ``rehearsal_update_sample.launches`` counts kernel launches."""
-    if not _check(buffer, cands, cand_rows, samp_rows):
-        return rehearsal_update_sample_ref(buffer, cands, cand_rows, samp_rows)
-    dev = cand_rows.device
-    row_bytes = buffer.shape[1] * buffer.element_size()
-    n_cand, n_samp = cands.shape[0], samp_rows.shape[0]
-    reps = torch.empty((n_samp, buffer.shape[1]), dtype=buffer.dtype, device=dev)
-    if n_cand + n_samp == 0 or row_bytes == 0:
-        return buffer, reps
-    fn = _function("rehearsal_update_sample")
-    with torch.cuda.device(dev):
-        err = fn(buffer.data_ptr(), cands.data_ptr(), cand_rows.data_ptr(),
-                 samp_rows.data_ptr(), reps.data_ptr(), buffer.shape[0], row_bytes,
-                 n_cand, n_samp, stream(dev))
-    build.launched(rehearsal_update_sample, err)
+    reps, = rehearsal_update_sample_leaves([buffer], [cands], cand_rows, samp_rows)
     return buffer, reps
 
 

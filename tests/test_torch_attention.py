@@ -120,6 +120,91 @@ def test_flash_counts_no_launch_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the arithmetic of the f32 kernel: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+    ``cvt.rna.tf32.f32`` as integer arithmetic on the f32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, three=True):
+    """a @ b with each f32 operand split into hi = tf32(x), lo = tf32(x - hi)
+    and the products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in f32, small terms
+    first; ``three=False`` keeps the single TF32 product a_hi.b_hi."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if not three:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _flash_3xtf32(q, k, v, window, causal, three=True, block_k=64):
+    """The f32 kernel's arithmetic on the CPU: q scaled by hd^-0.5 in f32, both
+    products in 3xTF32, the online softmax over k-tiles of 64 keys in order."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qs = (q * hd ** -0.5).transpose(1, 2)  # [B, H, S, hd]
+    kh, vh = (x.transpose(1, 2).repeat_interleave(g, dim=1) for x in (k, v))
+    m = torch.full((b, h, s, 1), tref.NEG_INF)
+    l, acc = torch.zeros((b, h, s, 1)), torch.zeros((b, h, s, hd))
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, k.shape[1], block_k):
+        kt, vt = kh[:, :, k0:k0 + block_k], vh[:, :, k0:k0 + block_k]
+        scores = _mm_3xtf32(qs, kt.transpose(-1, -2), three)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        masked = torch.zeros((s, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            masked |= kpos > qpos
+        if window:
+            masked |= kpos <= qpos - window
+        scores = scores.masked_fill(masked, tref.NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(scores - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm_3xtf32(p, vt, three)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+TF32X3_CASES = [
+    # (b, s, h, kv, hd, window, causal): test_kernels.py:17-22 in f32, then
+    # hd 128 and hd 80 with a window at S 1024
+    (1, 64, 2, 2, 32, 0, True), (2, 128, 4, 2, 32, 0, True), (1, 128, 8, 1, 64, 0, True),
+    (2, 128, 6, 3, 64, 64, True), (1, 256, 4, 4, 128, 128, True), (2, 64, 4, 2, 32, 0, True),
+    (1, 1024, 4, 2, 128, 0, True), (1, 1024, 4, 2, 80, 256, True),
+    (1, 512, 3, 1, 64, 100, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,win,causal", TF32X3_CASES)
+def test_3xtf32_scheme_holds_the_f32_tolerance(b, s, h, kv, hd, win, causal):
+    """The 3xTF32 split of the f32 kernel, emulated in torch, against the
+    plain version at the f32 tolerance (2e-5, 2e-5). This bounds the scheme,
+    not the kernel: how the tensor cores accumulate inside one mma is
+    checked only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(s + hd, b, s, h, kv, hd))
+    got = _flash_3xtf32(q, k, v, win, causal)
+    want = tref.flash_attention_ref(q, k, v, window=win, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,win,causal", [TF32X3_CASES[2], TF32X3_CASES[6]])
+def test_single_tf32_product_misses_the_f32_tolerance(b, s, h, kv, hd, win, causal):
+    """The same emulation with one TF32 product (hi.hi) per f32 product does
+    not hold (2e-5, 2e-5): the split is what makes the tensor cores f32-exact
+    enough."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(s + hd, b, s, h, kv, hd))
+    got = _flash_3xtf32(q, k, v, win, causal, three=False)
+    want = tref.flash_attention_ref(q, k, v, window=win, causal=causal)
+    assert not np.allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
 # attend_full, attend_blocked, attend_decode
 # ---------------------------------------------------------------------------
 

@@ -105,6 +105,50 @@ def test_byte_path_and_pinned_tables_bit_equal_to_plain_version(cuda, where, r, 
     assert got.device.type == "cuda" and _same(got, want) and _same(table, want_table)
 
 
+def _record_leaves(rng, r, where, cuda):
+    """A record's leaves sharing R: on the card, f32 image rows and i32 and
+    int8 scalar and ragged rows; pinned, the cold tier's int8 q rows, f32
+    scales and i32 raw labels in pinned host memory."""
+    if where == "pinned":
+        specs = [(torch.int8, 150528), (torch.float32, 1), (torch.int32, 1)]
+    else:
+        specs = [(torch.float32, 3072), (torch.int32, 1), (torch.int32, 1), (torch.int8, 37),
+                 (torch.float32, 5)]
+    leaves = []
+    for dtype, width in specs:
+        x = torch.as_tensor(rng.integers(-127, 128, (r, width))).to(dtype)
+        leaves.append(x.pin_memory() if where == "pinned" else x.to(cuda))
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("r,c,s", [(8, 12, 5), (300, 16, 2), (5, 0, 4), (40, 9, 0)])
+def test_list_form_is_one_launch_bit_equal_to_plain_version(cuda, where, r, c, s):
+    """Every leaf of a record in one launch, on a device table and on a
+    pinned int8 cold tier: each table and each sample bit-equal to the plain
+    version applied leaf by leaf on device copies; the launch counter moves
+    by exactly 1 a call."""
+    rng = np.random.default_rng(r * 31 + c)
+    tables = _record_leaves(rng, r, where, cuda)
+    want_tables = [t.to(cuda, copy=True) for t in tables]
+    cands = [torch.as_tensor(rng.integers(-127, 128, (c, t.shape[1]))).to(t.dtype).to(cuda)
+             for t in tables]
+    cand_rows = torch.as_tensor(rng.integers(-2, r + 3, c), dtype=torch.int32, device=cuda)
+    samp_rows = torch.as_tensor(rng.integers(-2, r + 2, s), dtype=torch.int32, device=cuda)
+    for step in range(2):
+        before = ops.rehearsal_update_sample.launches
+        got = ops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows)
+        assert ops.rehearsal_update_sample.launches == before + 1
+        want = [ref.rehearsal_update_sample_ref(t, x, cand_rows, samp_rows)[1]
+                for t, x in zip(want_tables, cands)]
+        torch.cuda.synchronize()
+        for table, want_table, reps, want_reps in zip(tables, want_tables, got, want):
+            assert reps.device.type == "cuda" and _same(reps, want_reps)
+            assert _same(table, want_table)
+        cands = [x.flip(0).contiguous() for x in cands]  # a second step on the updated tables
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("r,width", [(8, 150528), (13, 37), (1, 1), (5, 4096), (3, 6)])

@@ -132,3 +132,84 @@ def test_plain_version_is_the_reference_loop():
         buf, torch.tensor([[1.0], [2.0], [3.0]]),
         torch.tensor([2, 2, -1], dtype=torch.int32), torch.zeros(0, dtype=torch.int32))
     assert b[:, 0].tolist() == [0.0, 0.0, 2.0]
+
+
+# ---------------------------------------------------------------------------
+# the list form: every leaf of a record in one launch
+# ---------------------------------------------------------------------------
+
+LEAVES = [(torch.float32, 37), (torch.int32, 1), (torch.int8, 150), (torch.float32, 4),
+          (torch.int32, 3)]
+
+
+def _leaves(seed, r, c, s):
+    """Tables of f32, i32 and int8 rows of different widths sharing R, their
+    candidates, and row vectors with duplicates, drops (< 0 and >= R) and
+    samples to clamp."""
+    rng = np.random.default_rng(seed)
+    tables, cands = [], []
+    for dtype, width in LEAVES:
+        if dtype == torch.float32:
+            make = lambda n, w=width: torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32))
+        else:
+            info = torch.iinfo(dtype)
+            make = lambda n, w=width, i=info, d=dtype: torch.from_numpy(
+                rng.integers(i.min, i.max, (n, w))).to(d)
+        tables.append(make(r))
+        cands.append(make(c))
+    cand_rows = torch.from_numpy(rng.integers(-2, r + 3, c).astype(np.int32))
+    samp_rows = torch.from_numpy(rng.integers(-2, r + 2, s).astype(np.int32))
+    return tables, cands, cand_rows, samp_rows
+
+
+@pytest.mark.parametrize("seed,r,c,s", [(0, 8, 12, 5), (1, 5, 0, 4), (2, 16, 20, 0),
+                                        (3, 1, 6, 3), (4, 30, 40, 9)])
+def test_list_form_equals_plain_version_leaf_by_leaf(seed, r, c, s):
+    """``rehearsal_update_sample_leaves`` on CPU tensors: every table and
+    every sample bit-equal to ``rehearsal_update_sample_ref`` applied leaf by
+    leaf (the port's plain version) and to the JAX oracle, with no launch
+    counted. Covers an empty candidate set and a sample-free update."""
+    tables, cands, cand_rows, samp_rows = _leaves(seed, r, c, s)
+    want = [tref.rehearsal_update_sample_ref(t.clone(), x, cand_rows, samp_rows)
+            for t, x in zip(tables, cands)]
+    before = tops.rehearsal_update_sample.launches
+    got_tables = [t.clone() for t in tables]
+    got = tops.rehearsal_update_sample_leaves(got_tables, cands, cand_rows, samp_rows)
+    assert tops.rehearsal_update_sample.launches == before
+    for table, reps, (want_table, want_reps), orig, x in zip(got_tables, got, want, tables,
+                                                             cands):
+        _assert_bits((table.numpy(), reps.numpy()), (want_table.numpy(), want_reps.numpy()))
+        _assert_bits((table.numpy(), reps.numpy()), jref.rehearsal_update_sample_ref(
+            *map(jnp.asarray, (orig.numpy(), x.numpy(), cand_rows.numpy(), samp_rows.numpy()))))
+    if seed == 0:  # the case the others lean on: duplicates and both drops
+        rows = cand_rows.tolist()
+        valid = [x for x in rows if 0 <= x < r]
+        assert len(set(valid)) < len(valid) and min(rows) < 0 and max(rows) >= r
+
+
+def test_single_leaf_form_is_the_list_form_with_one_leaf():
+    tables, cands, cand_rows, samp_rows = _leaves(5, 9, 7, 4)
+    a, b = tables[0].clone(), tables[0].clone()
+    _, reps = tops.rehearsal_update_sample(a, cands[0], cand_rows, samp_rows)
+    got, = tops.rehearsal_update_sample_leaves([b], cands[:1], cand_rows, samp_rows)
+    assert torch.equal(a, b) and torch.equal(reps, got)
+
+
+@pytest.mark.parametrize("bad", ["rows_of_tables", "count", "too_many", "none", "dtype",
+                                 "cand_rows"])
+def test_list_form_rejects_bad_inputs(bad):
+    tables, cands, cand_rows, samp_rows = _leaves(6, 6, 3, 2)
+    if bad == "rows_of_tables":  # the leaves share R
+        tables[1] = torch.zeros((7, 1), dtype=torch.int32)
+    elif bad == "count":
+        cands = cands[:-1]
+    elif bad == "too_many":
+        tables, cands = tables * 4, cands * 4
+    elif bad == "none":
+        tables, cands = [], []
+    elif bad == "dtype":
+        cands[2] = cands[2].to(torch.int16)
+    else:
+        cand_rows = cand_rows.long()
+    with pytest.raises((TypeError, ValueError)):
+        tops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows)
