@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE ...]
 
 Phases (any failure exits non-zero):
   1. environment: card name and power limit, torch and CUDA versions, TF32 flags;
@@ -13,7 +13,9 @@ Phases (any failure exits non-zero):
      and in its list form, every leaf of a record in one launch); times
      (the one-launch flat step beside the three single-leaf launches it
      replaced), bounds, and the host link's measured rate, which bounds the
-     kernels that touch pinned tables;
+     kernels that touch pinned tables; the rate at which gather_dequant_rows
+     reads pinned memory beside the copy engine's, from 2 to 128 rows, and
+     the same gather on device copies of the tables;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
   5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
@@ -30,7 +32,7 @@ Phases (any failure exits non-zero):
   7. the tiered main path: the trainer of phase 5 with ``tiering="host"``
      (that tiered store), once with the fused kernels and once without. Each
      float-leaf kernel of the setting launches once per step, update+sample
-     as often as the tiered step's callers ask (3 a step unfused, 4 fused),
+     as often as the tiered step's callers ask (3 a step, fused or not),
      the histories of ``rep_checksum`` and ``buffer_fill`` are identical,
      and the buffer outgrows the hot tier.
 Phases 8-12 are the language-model inference path, with TF32 off:
@@ -42,9 +44,10 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      (for f32 the 3xTF32 tensor-core bound, the FMA bound beside it);
   9. the SSD scan against its plain version and the model's ``ssd_chunked``
      at Mamba2-370M's prefill shapes and over a sweep (bf16 among it, at the
-     path's shapes too), and each of its three kernels against its plain
-     stage; times and bounds of the f32 and bf16 instances at the path's
-     shapes;
+     path's shapes too, its error beside one bf16 ulp of the output), and
+     each of its three kernels against its plain stage (bf16: stages 1 and 3
+     on the bf16 tensor cores); times and bounds of the f32 and bf16
+     instances at the path's shapes, whole and kernel by kernel;
  10. SmolLM-135M and Mamba2-370M at full width on the card against the CPU
      (same seed, B 1, S 128);
  11. prefill at full width (B 4, S 2048): ``build_model(cfg).forward`` with
@@ -57,11 +60,13 @@ Phases 8-12 are the language-model inference path, with TF32 off:
 
 The second line from the end is a JSON object with one entry per kernel
 (time, launches, bound, plain and library times); the last line is
-``{"ok": true, "device": {...}}``. The script needs ``src/repro_torch`` beside
+``{"ok": true, "device": {...}}``. ``--only`` runs phases 1, 2 and the named
+ones and prints neither line. The script needs ``src/repro_torch`` beside
 it and a visible CUDA device; without either it fails before printing a result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -95,6 +100,8 @@ BUCKETS, HOT, COLD, STAGE = 4, 4, 1000, 2 * CANDS
 # The LM path: prefill of B sequences of S tokens at full width; serving at
 # the reference CLI's defaults. Widths and depths are the published ones.
 LM_ARCHS = ("smollm-135m", "mamba2-370m")
+SOURCES = ("rehearsal_ops", "quantize", "flash_attention", "flash_attention_sm90", "ssd_scan",
+           "ssd_scan_sm90")
 PREFILL_B, PREFILL_S = 4, 2048
 SERVE_B, PROMPT, GEN = 4, 32, 16
 
@@ -442,6 +449,21 @@ def int8_sweep(qz, ops, ref, seed: int = 0):
           f"versions")
 
 
+def pinned_read_curve(ops, q_table, s_table):
+    """How fast a kernel reads pinned host memory as the bytes grow: the
+    gather of n distinct cold-tier rows against the copy engine moving the
+    same bytes (n consecutive rows) from pinned memory to the card."""
+    width = q_table.shape[1]
+    for n in (2, 8, 32, 128):
+        rows = torch.arange(0, n * 7, 7, dtype=torch.int32, device="cuda")
+        dst = torch.empty((n, width), dtype=torch.int8, device="cuda")
+        kernel = time_ms(lambda: ops.gather_dequant_rows(q_table, s_table, rows))
+        copy = time_ms(lambda: dst.copy_(q_table[:n], non_blocking=True))
+        print(f"  pinned read of {n} int8 rows ({n * width} B): gather_dequant_rows {kernel:.4f} ms "
+              f"= {n * width / kernel / 1e6:.2f} GB/s; copy engine {copy:.4f} ms = "
+              f"{n * width / copy / 1e6:.2f} GB/s")
+
+
 def int8_kernel_phase(qz, ops, ref, link: tuple):
     """The four int8 kernels at the tiered path's shapes (f32 image rows of
     150,528 values, a stage of 8 rows of which 4 are written, 2 sampled rows,
@@ -518,6 +540,11 @@ def int8_kernel_phase(qz, ops, ref, link: tuple):
     library = {"dequantize_rows": lambda: torch.mul(q2, s2)}
     if not same_bits(torch.mul(q2, s2), ref.dequantize_rows_ref(q2, s2)):
         raise AssertionError("torch.mul(q, scales) != dequantize_rows' plain version")
+    # gather_dequant_rows' plain version gathers from device copies of the
+    # tables (q_dev, s_dev), so it never crosses the host link; the kernel on
+    # those device copies shows the link's share of the kernel's time
+    gather_dev_ms = time_ms(lambda: ops.gather_dequant_rows(q_dev, s_dev, samp))
+    pinned_read_curve(ops, q_table, s_table)
     entries = []
     for name, (kernel, plain) in timed.items():
         ms, plain_ms, ms_again = time_ms(kernel), time_ms(plain), time_ms(kernel)
@@ -528,13 +555,24 @@ def int8_kernel_phase(qz, ops, ref, link: tuple):
         at = "host link" if link_ms > hbm_ms else "HBM"
         lib = (f"torch.mul {library_ms:.4f} ms" if library_ms is not None
                else "no single PyTorch call computes it (library_ms null)")
-        print(f"{name}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms by bytes over the {at} (HBM {hbm} B = "
+        plain_what = (" (a gather from device copies of the tables: no host link)"
+                      if name == "gather_dequant_rows" else "")
+        print(f"{name}: kernel {ms:.4f} ms (repeat {ms_again:.4f}), plain {plain_ms:.4f} ms"
+              f"{plain_what}, bound {bound_ms:.5f} ms by bytes over the {at} (HBM {hbm} B = "
               f"{hbm_ms:.5f} ms, link {link_bytes} B = {link_ms:.5f} ms); {lib}")
         entries.append({"name": name, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], "max_abs_err": errs[name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": "bytes", "bound_at": at, "library_ms": library_ms})
+        if name == "gather_dequant_rows":
+            rate = link_bytes / ms / 1e6
+            print(f"gather_dequant_rows reads pinned host memory at {rate:.2f} GB/s "
+                  f"({link_bytes} B in {ms:.4f} ms, launch included) against the copy "
+                  f"engine's {h2d / 1e9:.2f} GB/s host to device; the same kernel on device "
+                  f"copies of the tables {gather_dev_ms:.4f} ms, so the link costs "
+                  f"{ms - gather_dev_ms:.4f} ms of it")
+            entries[-1].update({"ms_device_tables": gather_dev_ms, "pinned_read_GBps": rate,
+                                "copy_engine_GBps": h2d / 1e9})
     return entries
 
 
@@ -757,11 +795,11 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
           f"{[round(t * 1e3, 1) for t in result.step_seconds]}), launches {launches}")
     float_kernels = (("encode_scatter_rows", "gather_dequant_rows") if fused
                      else ("quantize_rows", "dequantize_rows"))
-    # per step: the cold leaves' flush+sample (fused: one launch per raw
-    # leaf, label and task; unfused: one launch for the int8 q and scale
+    # per step: the cold leaves' flush+sample (fused: one launch for the raw
+    # leaves, label and task; unfused: one launch for the int8 q and scale
     # leaves and the raw leaves together), the evicted gather (one launch for
     # the 3 record leaves) and the hot push+sample (one launch)
-    update_sample = (2 if fused else 1) + 1 + 1
+    update_sample = 1 + 1 + 1
     want = {name: (steps if name in float_kernels else 0) for name in counters}
     want["rehearsal_update_sample"] = update_sample * steps
     if launches != want:
@@ -950,10 +988,9 @@ def ssd_stages(ssd, ref, x, dt, a_head, bmat, cmat, q):
     n, nc = bmat.shape[-1], s // q
     xk, dtk = x.reshape(b, nc, q, h, p), dt.float().reshape(b, nc, q, h)
     bk, ck = bmat.reshape(b, nc, q, n), cmat.reshape(b, nc, q, n)
-    cum = torch.cumsum(dtk * a_head.float(), dim=2)
     before = ssd.ssd_scan.launches
-    states = ssd.chunk_states(xk, dtk, cum, bk)
-    want_states = ref.ssd_chunk_states_ref(xk, dtk, cum, bk)
+    states, cum = ssd.chunk_states(xk, dtk, a_head, bk)
+    want_states, want_cum = ref.ssd_chunk_states_ref(xk, dtk, a_head, bk)
     want_in, _ = ref.ssd_pass_states_ref(states, cum)
     state_in = ssd.pass_states(states.clone(), cum)
     y = ssd.chunk_output(xk, dtk, cum, bk, ck, state_in)
@@ -967,9 +1004,37 @@ def ssd_stages(ssd, ref, x, dt, a_head, bmat, cmat, q):
     # rounded to bf16, on both sides
     tol = (5e-4, 1e-3)
     tol_y = tol if x.dtype == torch.float32 else (2e-2, 2e-2)
+    close(cum, want_cum, 1e-5, 1e-5, f"ssd chunk_states' cum vs plain {x.dtype}")
+    if x.dtype == torch.bfloat16 and not same_bits(cum, want_cum):
+        print(f"  note: the bf16 chain's cum differs from torch.cumsum's by up to "
+              f"{abs_err(cum, want_cum):.3e}")
     return max(close(states, want_states, *tol, f"ssd chunk_states vs plain {x.dtype}"),
                close(state_in, want_in, *tol, f"ssd pass_states vs plain {x.dtype}"),
                close(y.float(), want_y.float(), *tol_y, f"ssd chunk_output vs plain {x.dtype}"))
+
+
+def ssd_stage_times(ssd, x, dt, a_head, bmat, cmat, q):
+    """Device ms of each kernel of one ``ssd_scan`` call on these inputs, each
+    timed alone with what its wrapper launches besides (f32: ``chunk_states``
+    computes cum in torch, ``dt * A`` and a cumsum, before its kernel)."""
+    b, s, h, p = x.shape
+    n, nc = bmat.shape[-1], s // q
+    xk, dtk = x.reshape(b, nc, q, h, p), dt.float().reshape(b, nc, q, h)
+    bk, ck = bmat.reshape(b, nc, q, n), cmat.reshape(b, nc, q, n)
+    states, cum = ssd.chunk_states(xk, dtk, a_head, bk)
+    scratch = states.clone()  # pass_states works in place: time it on a copy
+    state_in = ssd.pass_states(states, cum)
+    parts = {"chunk_states": time_ms(lambda: ssd.chunk_states(xk, dtk, a_head, bk)),
+             "pass_states": time_ms(lambda: ssd.pass_states(scratch, cum)),
+             "chunk_output": time_ms(lambda: ssd.chunk_output(xk, dtk, cum, bk, ck, state_in))}
+    if x.dtype == torch.float32:  # the torch cumsum inside chunk_states, alone
+        parts["of_which_cumsum"] = time_ms(lambda: torch.cumsum(dtk * a_head, dim=2))
+    return parts
+
+
+def bf16_ulp(t: torch.Tensor) -> float:
+    """One bf16 ulp at the largest |t|: 2**(floor(log2 max|t|) - 7)."""
+    return 2.0 ** (math.floor(math.log2(float(t.abs().max()))) - 7)
 
 
 def ssd_phase(ssd, ref):
@@ -1002,22 +1067,32 @@ def ssd_phase(ssd, ref):
              (2, 256, 32, 64, 128, 128, torch.bfloat16),
              # test_kernels.py:52-57, ragged, bf16; bf16 at the path's shapes
              (PREFILL_B, PREFILL_S, 32, 64, 128, 128, torch.bfloat16)]
+    entry_err_bf16 = None  # the scan's max abs err in bf16 at the path's shapes
     for cb, cs, ch, cp, cn, cq, dtype in sweep:
         cargs = _ssd_inputs(gen, cb, cs, ch, cp, cn, dtype)
         tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
         case = (cb, cs, ch, cp, cn, cq, dtype)
-        err = close(ssd.ssd_scan(*cargs, chunk=cq).float(), ssd_plain(ref, *cargs, cq).float(),
-                    *tol, f"ssd sweep {case}")
+        want_case = ssd_plain(ref, *cargs, cq).float()
+        got_case = ssd.ssd_scan(*cargs, chunk=cq).float()
+        err = close(got_case, want_case, *tol, f"ssd sweep {case}")
         stage_err = ssd_stages(ssd, ref, *cargs, min(cq, cs))
         if dtype == torch.bfloat16:
-            print(f"  {case}: max abs err {err:.3e} (the scan, atol, rtol {tol}), "
+            moved = int((got_case != want_case).sum())
+            print(f"  {case}: max abs err {err:.3e} (the scan, atol, rtol {tol}; one bf16 ulp "
+                  f"at max |y| {float(want_case.abs().max()):.3f} is {bf16_ulp(want_case):.4e}; "
+                  f"{moved} of {got_case.numel()} outputs differ from the plain version's), "
                   f"{stage_err:.3e} (its stages)")
-        del cargs
+            if cs == s and cb == b:
+                entry_err_bf16 = err
+        del cargs, want_case, got_case
     print(f"sweep: {len(sweep)} cases within tolerance, the whole scan and each stage")
 
     entry = {"name": "ssd_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "source_bf16": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
+             "design": "f32 FMA, 3 kernels", "design_bf16": "wgmma stages 1 and 3, split f32 operands",
              "replaces": "src/repro/kernels/ssd_scan.py:70", "max_abs_err": worst,
+             "max_abs_err_bf16": entry_err_bf16,
              "library_ms": None, "kernels_per_call": ssd.KERNELS_PER_CALL}
     nc = s // q
     # the products the function needs: the lower triangle of C.B^T once per
@@ -1048,6 +1123,12 @@ def ssd_phase(ssd, ref):
         suffix = "" if dtype == torch.float32 else "_bf16"
         entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
                       f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by})
+        parts = ssd_stage_times(ssd, *targs, q)
+        stages = sum(v for k, v in parts.items() if not k.startswith("of_which"))
+        print(f"ssd_scan {dtype} by kernel, each timed alone: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+              + f"; sum of the three {stages:.4f} ms against the whole call's {ms:.4f}")
+        entry.update({f"ms_{k}{suffix}": v for k, v in parts.items()})
     return entry
 
 
@@ -1212,7 +1293,11 @@ def serving_phase(seed: int = 12):
         torch.cuda.empty_cache()
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
+    ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
+                    help="run phases 1, 2 and these only (3-12), and print no result lines")
+    only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
     from repro_torch.configs import resnet50_cl
@@ -1220,6 +1305,9 @@ def main():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ssd_scan as ssd
+
+    def run(n: int) -> bool:
+        return not only or n in only
 
     counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
                 "quantize_rows": qz.quantize_rows, "dequantize_rows": qz.dequantize_rows,
@@ -1238,64 +1326,77 @@ def main():
 
     phase("2 kernel build")
     t0 = time.perf_counter()
-    paths = build.build(["rehearsal_ops", "quantize", "flash_attention",
-                         "flash_attention_sm90", "ssd_scan"])
+    paths = build.build(SOURCES)
     print(f"built {[os.path.relpath(p, ROOT) for p in paths]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in build.BUILD_LOG.items():
         print(f"[{name}] {log}")
 
     cfg = resnet50_cl.full()
-    phase("3 kernels against their plain versions")
-    entry = kernel_phase(ops, ref, cfg.image_size * cfg.image_size * cfg.channels)
-    link = link_rates()
-    pinned_update_sample(ops, ref, link[1])
-    int8_entries = int8_kernel_phase(qz, ops, ref, link)
+    if run(3):
+        phase("3 kernels against their plain versions")
+        entry = kernel_phase(ops, ref, cfg.image_size * cfg.image_size * cfg.channels)
+        link = link_rates()
+        pinned_update_sample(ops, ref, link[1])
+        int8_entries = int8_kernel_phase(qz, ops, ref, link)
 
-    phase("4 model on the card against the CPU")
-    model_phase(cfg)
+    if run(4):
+        phase("4 model on the card against the CPU")
+        model_phase(cfg)
 
-    phase("5 main path: ContinualTrainer on resnet50_cl.full()")
-    for fn in counters.values():
-        fn.launches = 0
-    entry["launches"] = main_path(ops, cfg)
-    others = {name: fn.launches for name, fn in counters.items()
-              if name != "rehearsal_update_sample"}
-    if any(others.values()):
-        raise AssertionError(f"the flat path launched other kernels: {others}")
+    if run(5):
+        phase("5 main path: ContinualTrainer on resnet50_cl.full()")
+        for fn in counters.values():
+            fn.launches = 0
+        flat_launches = main_path(ops, cfg)
+        others = {name: fn.launches for name, fn in counters.items()
+                  if name != "rehearsal_update_sample"}
+        if any(others.values()):
+            raise AssertionError(f"the flat path launched other kernels: {others}")
 
-    phase("6 tiered store at full row width: card against CPU")
-    tiered_phase(cfg)
+    if run(6):
+        phase("6 tiered store at full row width: card against CPU")
+        tiered_phase(cfg)
 
-    phase("7 tiered main path: ContinualTrainer, tiering='host', unfused then fused")
-    runs = {fused: tiered_main_path(counters, cfg, fused) for fused in (False, True)}
-    if runs[False][1] != runs[True][1]:
-        raise AssertionError("fused and unfused tiered runs differ in rep_checksum / "
-                             f"buffer_fill: {runs[False][1]} vs {runs[True][1]}")
-    print(f"fused == unfused fingerprints over {len(runs[True][1])} steps; median step "
-          f"unfused {runs[False][2]:.1f} ms, fused {runs[True][2]:.1f} ms")
+    if run(7):
+        phase("7 tiered main path: ContinualTrainer, tiering='host', unfused then fused")
+        runs = {fused: tiered_main_path(counters, cfg, fused) for fused in (False, True)}
+        if runs[False][1] != runs[True][1]:
+            raise AssertionError("fused and unfused tiered runs differ in rep_checksum / "
+                                 f"buffer_fill: {runs[False][1]} vs {runs[True][1]}")
+        print(f"fused == unfused fingerprints over {len(runs[True][1])} steps; median step "
+              f"unfused {runs[False][2]:.1f} ms, fused {runs[True][2]:.1f} ms")
+
+    tf32_off()
+    if run(8):
+        phase("8 flash attention against its plain version")
+        flash_entry = flash_phase(fa, ref)
+
+    if run(9):
+        phase("9 SSD scan against its plain version")
+        ssd_entry = ssd_phase(ssd, ref)
+
+    if run(10):
+        phase("10 SmolLM-135M and Mamba2-370M at full width on the card against the CPU")
+        lm_model_phase()
+
+    if run(11):
+        phase("11 LM main path: prefill at full width, kernels against the plain path")
+        launches = prefill_phase(counters, ssd)
+
+    if run(12):
+        phase("12 LM serving: greedy decode at full width")
+        serving_phase()
+
+    if only:
+        print(f"phases {sorted(only)} passed; no result lines without every phase")
+        return
+    entry["launches"] = flat_launches
     for e in int8_entries:
         e["launches"] = runs[e["name"] in ("gather_dequant_rows", "encode_scatter_rows")][0][
             e["name"]]
-
-    phase("8 flash attention against its plain version")
-    tf32_off()
-    flash_entry = flash_phase(fa, ref)
-
-    phase("9 SSD scan against its plain version")
-    ssd_entry = ssd_phase(ssd, ref)
-
-    phase("10 SmolLM-135M and Mamba2-370M at full width on the card against the CPU")
-    lm_model_phase()
-
-    phase("11 LM main path: prefill at full width, kernels against the plain path")
-    launches = prefill_phase(counters, ssd)
     flash_entry["launches"] = launches["flash_attention"]
     ssd_entry["launches"] = launches["ssd_scan"]  # num_layers x KERNELS_PER_CALL
-
-    phase("12 LM serving: greedy decode at full width")
-    serving_phase()
-
     print(card)
     print(json.dumps({"kernels": [entry] + int8_entries + [flash_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {

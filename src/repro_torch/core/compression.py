@@ -28,7 +28,7 @@ from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.rehearsal_ops import (
     encode_scatter_rows,
     gather_dequant_rows,
-    rehearsal_update_sample,
+    rehearsal_update_sample_leaves,
 )
 
 
@@ -78,25 +78,26 @@ def encode_scatter_gather_batch(cold_data, batch, item_spec, flush_rows, samp_ro
     read flat ``samp_rows`` (clamped) from the result.
 
     A float field takes one ``encode_scatter_rows`` launch and one
-    ``gather_dequant_rows`` launch; an integer field one
-    ``rehearsal_update_sample`` launch that writes and reads together.
+    ``gather_dequant_rows`` launch; the integer fields together take one
+    ``rehearsal_update_sample_leaves`` launch that writes and reads them all.
     Returns the sampled records ``{name: [len(samp_rows), ...]}`` in the
     record dtypes and shapes."""
     n = samp_rows.shape[0]
-    items = {}
+    got, raw = {}, {}
     for name, s in item_spec.items():
         blob, x = cold_data[name], batch[name]
         if "raw" in blob:
             table = table_view(blob["raw"])
-            cands = x.to(table.dtype).reshape(x.shape[0], table.shape[1]).contiguous()
-            _, got = rehearsal_update_sample(table, cands, flush_rows, samp_rows)
+            raw[name] = (table, x.to(table.dtype).reshape(x.shape[0], table.shape[1]).contiguous())
         else:
             q, scale = table_view(blob["q"]), table_view(blob["scale"])
             encode_scatter_rows(q, scale, x.reshape(x.shape[0], q.shape[1]).contiguous(),
                                 flush_rows)
-            got = gather_dequant_rows(q, scale, samp_rows, s.dtype)
-        items[name] = got.view((n,) + tuple(s.shape))
-    return items
+            got[name] = gather_dequant_rows(q, scale, samp_rows, s.dtype)
+    if raw:
+        tables, cands = zip(*raw.values())
+        got.update(zip(raw, rehearsal_update_sample_leaves(tables, cands, flush_rows, samp_rows)))
+    return {name: got[name].view((n,) + tuple(s.shape)) for name, s in item_spec.items()}
 
 
 def encode_scatter_batch(cold_data, batch, item_spec, rows):

@@ -1,4 +1,6 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), as a chain of three kernels.
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), as a chain of three kernels,
+// for f32 inputs; bf16 inputs run stages 1 and 3 of csrc/ssd_scan_sm90.cu
+// (on the bf16 tensor cores) and share stage 2 with f32.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py::ssd_scan_chunked
 // (_ssd_kernel); the plain versions are src/repro_torch/kernels/ref.py::
@@ -32,9 +34,8 @@
 //      two heads at a time so that they share the loads of C.
 // All three run f32 FMA on register micro-tiles fed by 16-byte shared-memory
 // loads (8x4 outputs a thread; 8x4 for two heads in C.state_in). Staging is
-// latency-bound, so f32 rows are staged with cp.async (all in flight at
-// once) and bf16 or transposed ones with 4-element loads, 8 in flight per
-// thread. Chunks up to 128, head dims up to 64, state sizes up to 128,
+// latency-bound, so rows are staged with cp.async (all in flight at once)
+// and transposed ones with 4-element loads, 8 in flight per thread. Chunks up to 128, head dims up to 64, state sizes up to 128,
 // zero-padded to those tiles.
 //
 // Bound. The function needs, per (batch, chunk), the lower triangle of C.B^T
@@ -45,7 +46,6 @@
 // TB/s. The chain adds the scratch's round trips (67 MB written by 1, read
 // and written by 2, read by 3: 0.08 ms) and computes the whole C.B^T square,
 // once per block of 16 heads.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,7 +60,6 @@ constexpr int THREADS = 256;  // 16 x 16
 constexpr int QP = QM + 4;    // padded row of the transposed tiles (16-byte aligned)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -75,8 +74,7 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
 }
 
 // Four results to p[0..3] of a row: one store where every row starts
-// 16-byte (f32) or 8-byte (bf16) aligned (``vec``), else element by element
-// up to ``n``.
+// 16-byte aligned (``vec``), else element by element up to ``n``.
 __device__ __forceinline__ void store4(float* p, const float (&v)[4], bool vec, int n) {
   if (vec) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -84,27 +82,10 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4], bool vec, 
     for (int k = 0; k < n && k < 4; ++k) p[k] = v[k];
   }
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4], bool vec, int n) {
-  if (vec) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&a);
-    u.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
-  } else {
-    for (int k = 0; k < n && k < 4; ++k) p[k] = __float2bfloat16(v[k]);
-  }
-}
 
-// Four consecutive elements as f32: one 16-byte (f32) or 8-byte (bf16) load.
+// Four consecutive elements as f32: one 16-byte load.
 __device__ __forceinline__ float4 load4g(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4g(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
 }
 
 // Stage a row-major [rows, cols] block of src (row stride `stride`) into
@@ -511,21 +492,17 @@ int launch_output(const void* x, const float* dt, const float* cum, const void* 
 
 // Layouts of all three entry points: x [B, S, H, P], dt and cum [B, S, H] f32,
 // bm and cm [B, S, N], y [B, S, H, P], the state scratch st [B, S/Q, H, N, P]
-// f32; all contiguous; chunk Q <= 128 divides S; P <= 64; N <= 128. dtype of
-// x, bm, cm and y alike: 0 f32, 1 bf16. Each returns cudaGetLastError() after
-// its launch (0 on success), or the error that refused the shared-memory size.
+// f32; all contiguous; chunk Q <= 128 divides S; P <= 64; N <= 128; x, bm,
+// cm and y f32. Each returns cudaGetLastError() after its launch (0 on
+// success), or the error that refused the shared-memory size.
 
 // st <- each chunk's own state (kernel 1).
 extern "C" int ssd_chunk_state(const void* x, const float* dt, const float* cum,
                                const void* bm, float* st, int B, int S, int H, int P, int N,
-                               int Q, int dtype, void* stream) {
+                               int Q, void* stream) {
   if (bad_shape(S, P, N, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_state<float>(x, dt, cum, bm, st, B, S, H, P, N, Q, s);
-    case 1: return launch_state<__nv_bfloat16>(x, dt, cum, bm, st, B, S, H, P, N, Q, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_state<float>(x, dt, cum, bm, st, B, S, H, P, N, Q,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // st: each chunk's own state -> the state passed into each chunk, in place (kernel 2).
@@ -541,13 +518,8 @@ extern "C" int ssd_state_pass(float* st, const float* cum, int B, int S, int H, 
 // y <- every chunk's output from its inputs and the state passed into it (kernel 3).
 extern "C" int ssd_chunk_output(const void* x, const float* dt, const float* cum,
                                 const void* bm, const void* cm, const float* st, void* y,
-                                int B, int S, int H, int P, int N, int Q, int dtype,
-                                void* stream) {
+                                int B, int S, int H, int P, int N, int Q, void* stream) {
   if (bad_shape(S, P, N, Q)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_output<float>(x, dt, cum, bm, cm, st, y, B, S, H, P, N, Q, s);
-    case 1: return launch_output<__nv_bfloat16>(x, dt, cum, bm, cm, st, y, B, S, H, P, N, Q, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_output<float>(x, dt, cum, bm, cm, st, y, B, S, H, P, N, Q,
+                              static_cast<cudaStream_t>(stream));
 }

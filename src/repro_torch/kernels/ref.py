@@ -150,19 +150,22 @@ def ssd_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 
 
 # The chunked scan as the CUDA kernel chain computes it, one plain function
-# per kernel (csrc/ssd_scan.cu). Kernel layout as ``ssd_scan_chunked_ref``;
-# ``ssd_chunk_output_ref(..., ssd_pass_states_ref(ssd_chunk_states_ref(...))[0])``
+# per kernel (csrc/ssd_scan.cu, csrc/ssd_scan_sm90.cu). Kernel layout as
+# ``ssd_scan_chunked_ref``; with ``states, cum = ssd_chunk_states_ref(...)``,
+# ``ssd_chunk_output_ref(..., cum, ..., ssd_pass_states_ref(states, cum)[0])``
 # is ``ssd_scan_chunked_ref``.
 
 
-def ssd_chunk_states_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
-                         bmat: torch.Tensor) -> torch.Tensor:
+def ssd_chunk_states_ref(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor,
+                         bmat: torch.Tensor):
     """Each chunk's own contribution to the state, as if it started from zero:
-    ``Sc = Σ_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j``. Returns [B,nc,H,N,P] f32."""
+    ``Sc = Σ_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j``, with ``cum`` the
+    within-chunk cumulative sum of ``dt * a_head``. Returns (Sc [B,nc,H,N,P],
+    cum [B,nc,Q,H]), f32."""
     f32 = torch.float32
-    cum = cum.to(f32)
+    cum = torch.cumsum(dt.to(f32) * a_head.to(f32), dim=2)
     w = torch.exp(cum[:, :, -1:, :] - cum) * dt.to(f32)  # [B, nc, Q, H]
-    return torch.einsum("bcjn,bcjh,bcjhp->bchnp", bmat.to(f32), w, x.to(f32))
+    return torch.einsum("bcjn,bcjh,bcjhp->bchnp", bmat.to(f32), w, x.to(f32)), cum
 
 
 def ssd_pass_states_ref(states: torch.Tensor, cum: torch.Tensor):

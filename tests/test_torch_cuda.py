@@ -297,12 +297,14 @@ def test_use_kernel_on_the_card_launches_once_per_layer(cuda, arch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [(1, 32, 4, 16, 8, 8), (1, 48, 3, 20, 40, 48),
-                                            (2, 512, 4, 64, 128, 128), (1, 256, 20, 64, 128, 64)])
+                                            (2, 512, 4, 64, 128, 128), (1, 256, 20, 64, 128, 64),
+                                            (4, 2048, 32, 64, 128, 128)])
 def test_ssd_stage_kernels_match_their_plain_stages(cuda, dtype, b, s, h, p, n, chunk):
     """chunk_states, pass_states and chunk_output, one launch each, against
     ref.ssd_chunk_states_ref, ssd_pass_states_ref and ssd_chunk_output_ref on
     the same inputs (kernel layout); an odd head count leaves the last head
-    block without its pair."""
+    block without its pair; ragged tiles (P 20, N 40, chunk 48); Mamba2-370M's
+    prefill shapes (B 4, S 2048, H 32, P 64, N 128, chunk 128)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator().manual_seed(s * n + h)
@@ -312,12 +314,12 @@ def test_ssd_stage_kernels_match_their_plain_stages(cuda, dtype, b, s, h, p, n, 
     a = (-torch.exp(torch.randn((h,), generator=g) * 0.3)).to(cuda)
     bm = (torch.randn((b, nc, chunk, n), generator=g) * 0.5).to(dtype).to(cuda)
     cm = (torch.randn((b, nc, chunk, n), generator=g) * 0.5).to(dtype).to(cuda)
-    cum = torch.cumsum(dt * a, dim=2)
     before = ssd.ssd_scan.launches
-    states = ssd.chunk_states(x, dt, cum, bm)
+    states, cum = ssd.chunk_states(x, dt, a, bm)
+    want_states, want_cum = ref.ssd_chunk_states_ref(x, dt, a, bm)
     want_in, _ = ref.ssd_pass_states_ref(states, cum)
-    torch.testing.assert_close(states, ref.ssd_chunk_states_ref(x, dt, cum, bm), atol=5e-4,
-                               rtol=1e-3)
+    torch.testing.assert_close(cum, want_cum, atol=1e-5, rtol=1e-5)  # sums in another order
+    torch.testing.assert_close(states, want_states, atol=5e-4, rtol=1e-3)
     passed = states.clone()
     state_in = ssd.pass_states(passed, cum)
     assert state_in is passed  # in place, as on the CPU
@@ -383,7 +385,7 @@ def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ssd.ssd_scan(x, dt, a, wide, wide, chunk=128)  # states up to 128 only
     xk, dtk = x.reshape(1, 2, 128, 2, 16), dt.reshape(1, 2, 128, 2)
     with pytest.raises(TypeError):  # x, B and C share one dtype
-        ssd.chunk_states(xk, dtk, dtk, bm.reshape(1, 2, 128, 8).bfloat16())
+        ssd.chunk_states(xk, dtk, a, bm.reshape(1, 2, 128, 8).bfloat16())
     with pytest.raises(TypeError):  # the states are f32
         ssd.pass_states(torch.zeros((1, 2, 2, 8, 16), dtype=torch.bfloat16, device=cuda), dtk)
     base = torch.zeros(1 * 64 * 2 * 32 + 1, dtype=torch.bfloat16, device=cuda)
