@@ -14,8 +14,12 @@ Phases (any failure exits non-zero):
      (the one-launch flat step beside the three single-leaf launches it
      replaced), bounds, and the host link's measured rate, which bounds the
      kernels that touch pinned tables; the rate at which gather_dequant_rows
-     reads pinned memory beside the copy engine's, from 2 to 128 rows, and
-     the same gather on device copies of the tables;
+     reads pinned memory, and encode_scatter_rows writes it, beside the copy
+     engine's, from 2 to 128 rows, and the same gather on device copies of
+     the tables; the quantizer with its input in L2 and stopped after each
+     of its three phases, and the launch floor (an empty kernel launched as
+     a plain grid and as clusters of 8) beside every int8 kernel; the
+     quantizer on rows that tell IEEE division from a reciprocal multiply;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
   5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
@@ -67,6 +71,7 @@ it and a visible CUDA device; without either it fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -120,19 +125,22 @@ def gpu_name_and_power() -> str:
 HOLD_CYCLES = 2_000_000  # about 1 ms of GPU spin at the H100's clock
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3, hold: bool = True) -> float:
+def time_ms(fn, iters: int = 30, warmup: int = 3, hold: bool = True, cold: bool = True) -> float:
     """Median time of ``fn`` in ms between CUDA events over ``iters`` runs,
     each started with a cold L2 (the train step evicts it between buffer
-    updates). With ``hold`` the GPU spins before the start event while the
-    host enqueues ``fn``, so the events time the device work alone; without
-    it they also time the GPU idling on the host's launch overhead."""
+    updates; ``cold=False`` leaves the L2 as the last run left it, so a
+    kernel's inputs are read from it). With ``hold`` the GPU spins before the
+    start event while the host enqueues ``fn``, so the events time the device
+    work alone; without it they also time the GPU idling on the host's launch
+    overhead."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(iters)]
     for start, end in pairs:
-        flush.zero_()
+        if cold:
+            flush.zero_()
         if hold:
             torch.cuda._sleep(HOLD_CYCLES)
         start.record()
@@ -449,6 +457,100 @@ def int8_sweep(qz, ops, ref, seed: int = 0):
           f"versions")
 
 
+def halfway_cases(qz, ops, ref, n_rows: int = 64):
+    """quantize_rows and encode_scatter_rows (device and pinned tables) on
+    rows whose x / scale lands on or one ulp beside a half-integer
+    (``repro_torch.testdata.halfway_rows``), at a width that takes the
+    scalar layout and one that takes the 16-byte one. The set tells the IEEE
+    division from a multiply by the reciprocal: that shortcut must disagree
+    with the plain version on it."""
+    from repro_torch.testdata import HALFWAY_WIDTH, halfway_rows
+    differ = 0
+    for width in (HALFWAY_WIDTH, 1024):
+        x = torch.from_numpy(halfway_rows(n_rows, width, seed=width)).cuda()
+        pq, ps = ref.quantize_rows_ref(x)
+        recip = torch.clamp(torch.round(x * (1.0 / ps)), -127, 127).to(torch.int8)
+        differ += int((recip != pq).sum())
+        kq, ks = qz.quantize_rows(x)
+        torch.cuda.synchronize()
+        if not (same_bits(kq, pq) and same_bits(ks, ps)):
+            raise AssertionError(f"quantize_rows != plain version on the half-way rows "
+                                 f"[{n_rows}, {width}]")
+        rows = torch.arange(2 * n_rows - 1, -1, -2, dtype=torch.int32, device="cuda")
+        rows[::5] = -1
+        for where in ("device", "pinned"):
+            q = torch.zeros((2 * n_rows, width), dtype=torch.int8)
+            scales = torch.ones((2 * n_rows, 1))
+            q, scales = (q.pin_memory(), scales.pin_memory()) if where == "pinned" else \
+                (q.cuda(), scales.cuda())
+            want_q, want_s = q.to("cuda", copy=True), scales.to("cuda", copy=True)
+            ops.encode_scatter_rows(q, scales, x, rows)
+            ref.encode_scatter_rows_ref(want_q, want_s, x, rows)
+            torch.cuda.synchronize()
+            if not (same_bits(q, want_q) and same_bits(scales, want_s)):
+                raise AssertionError(f"encode_scatter_rows ({where}) != plain version on the "
+                                     f"half-way rows [{n_rows}, {width}]")
+    if differ == 0:
+        raise AssertionError("the half-way rows do not tell division from the reciprocal")
+    return (f"half-way rows ({2 * n_rows} x {3 * 252} values): bit-equal through "
+            f"quantize_rows and encode_scatter_rows; x * (1/scale) would move {differ} of them")
+
+
+def quantize_phases(x, phases: int):
+    """quantize_rows' kernel on f32 x stopped after ``phases`` of its three
+    phases (csrc/quantize.cu::quantize_rows_phases), to time each phase. Not
+    counted on quantize_rows.launches. Returns (q, scales)."""
+    from repro_torch.kernels import build
+    fn = build.c_function("quantize", "quantize_rows_phases",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 +
+                          [ctypes.c_int, ctypes.c_void_p])
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((x.shape[0], 1), device=x.device)
+    err = fn(x.data_ptr(), q.data_ptr(), scales.data_ptr(), x.shape[0], x.shape[1], phases,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_rows_phases ({phases}) failed: CUDA error {err}")
+    return q, scales
+
+
+def quantizer_anatomy(qz, ops, x, pinned: tuple, device: tuple, flush_rows):
+    """Where the quantizer's time goes at the path's shapes (one cluster of
+    8 blocks a row): with x already in L2 (the read from HBM's share),
+    stopped after each of its phases, and the flush of encode_scatter_rows
+    into device copies of the tables (the host link's share)."""
+    cold = time_ms(lambda: qz.quantize_rows(x))
+    warm = time_ms(lambda: qz.quantize_rows(x), cold=False)
+    ms = [time_ms(lambda: quantize_phases(x, p)) for p in (1, 2, 3)]
+    print(f"quantize_rows f32 {list(x.shape)}, clusters of 8 blocks a row "
+          f"({8 * x.shape[0]} CTAs): {cold:.4f} ms, x in L2 {warm:.4f} ms; the kernel stopped "
+          f"after each phase: load and reduce {ms[0]:.4f} ms, + the maxima's exchange and "
+          f"scale {ms[1]:.4f} ms, + quantize and store {ms[2]:.4f} ms")
+    to_pinned = time_ms(lambda: ops.encode_scatter_rows(*pinned, x, flush_rows))
+    to_device = time_ms(lambda: ops.encode_scatter_rows(*device, x, flush_rows))
+    print(f"encode_scatter_rows, the path's flush: pinned tables {to_pinned:.4f} ms, device "
+          f"copies of the tables {to_device:.4f} ms, so the link costs "
+          f"{to_pinned - to_device:.4f} ms of it")
+
+
+def launch_floors(rows: int) -> dict:
+    """Device time of an empty kernel of ``rows`` x 8 blocks of 512 threads,
+    timed as the int8 kernels are: as a plain grid (key "grid") and as
+    clusters of 8 (key "cluster")."""
+    from repro_torch.kernels import build
+    fn = build.c_function("quantize", "launch_floor", [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(clustered):
+        err = fn(rows * 8, clustered, stream)
+        if err != 0:
+            raise RuntimeError(f"launch_floor (clustered {clustered}) failed: CUDA error {err}")
+
+    floors = {"grid": time_ms(lambda: launch(0)), "cluster": time_ms(lambda: launch(1))}
+    print(f"launch floor, an empty kernel of {rows} x 8 blocks of 512 threads: plain grid "
+          f"{floors['grid']:.4f} ms, clusters of 8 {floors['cluster']:.4f} ms")
+    return floors
+
+
 def pinned_read_curve(ops, q_table, s_table):
     """How fast a kernel reads pinned host memory as the bytes grow: the
     gather of n distinct cold-tier rows against the copy engine moving the
@@ -462,6 +564,23 @@ def pinned_read_curve(ops, q_table, s_table):
         print(f"  pinned read of {n} int8 rows ({n * width} B): gather_dequant_rows {kernel:.4f} ms "
               f"= {n * width / kernel / 1e6:.2f} GB/s; copy engine {copy:.4f} ms = "
               f"{n * width / copy / 1e6:.2f} GB/s")
+
+
+def pinned_write_curve(ops, q_table, s_table, d2h: float):
+    """How fast encode_scatter_rows writes pinned host memory as the bytes
+    grow: n distinct cold-tier rows (f32 staged rows read from the card)
+    against the copy engine moving the same int8 bytes from the card to
+    pinned memory."""
+    width = q_table.shape[1]
+    for n in (2, 4, 8, 32, 128):
+        rows = torch.arange(0, n * 7, 7, dtype=torch.int32, device="cuda")
+        x = torch.randn((n, width), device="cuda")
+        src = torch.zeros((n, width), dtype=torch.int8, device="cuda")
+        kernel = time_ms(lambda: ops.encode_scatter_rows(q_table, s_table, x, rows))
+        copy = time_ms(lambda: q_table[:n].copy_(src, non_blocking=True))
+        print(f"  pinned write of {n} int8 rows ({n * width} B): encode_scatter_rows "
+              f"{kernel:.4f} ms = {n * width / kernel / 1e6:.2f} GB/s; copy engine {copy:.4f} "
+              f"ms = {n * width / copy / 1e6:.2f} GB/s (256 MiB copy: {d2h / 1e9:.2f} GB/s)")
 
 
 def int8_kernel_phase(qz, ops, ref, link: tuple):
@@ -562,8 +681,9 @@ def int8_kernel_phase(qz, ops, ref, link: tuple):
               f"{hbm_ms:.5f} ms, link {link_bytes} B = {link_ms:.5f} ms); {lib}")
         entries.append({"name": name, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": "bytes", "bound_at": at, "library_ms": library_ms})
+                        "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes", "bound_at": at,
+                        "library_ms": library_ms})
         if name == "gather_dequant_rows":
             rate = link_bytes / ms / 1e6
             print(f"gather_dequant_rows reads pinned host memory at {rate:.2f} GB/s "
@@ -573,6 +693,17 @@ def int8_kernel_phase(qz, ops, ref, link: tuple):
                   f"{ms - gather_dev_ms:.4f} ms of it")
             entries[-1].update({"ms_device_tables": gather_dev_ms, "pinned_read_GBps": rate,
                                 "copy_engine_GBps": h2d / 1e9})
+    # the probes below come after the timed kernels, so that none of their
+    # launches or pinned writes precedes a timing
+    floors = launch_floors(STAGE)
+    for entry in entries:
+        clustered = entry["name"] in ("quantize_rows", "encode_scatter_rows")
+        entry["launch_floor_ms"] = floors["cluster" if clustered else "grid"]
+    print("  beside the launch floor: " + ", ".join(
+        f"{e['name']} {e['ms']:.4f} ms (floor {e['launch_floor_ms']:.4f})" for e in entries))
+    print(halfway_cases(qz, ops, ref))
+    pinned_write_curve(ops, q_table, s_table, d2h)
+    quantizer_anatomy(qz, ops, x, (q_table, s_table), (q_dev, s_dev), flush)
     return entries
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref, rehearsal_ops as ops
+from repro_torch.testdata import HALFWAY_WIDTH, halfway_rows
 
 
 @pytest.fixture
@@ -188,6 +189,105 @@ def test_encode_scatter_bit_equal_to_plain_version(cuda, where, r, width, c):
                                                      device=cuda))
     torch.cuda.synchronize()
     assert _same(q, frozen[0]) and _same(scales, frozen[1])
+
+
+def _quantize_once(x):
+    """quantize_rows on the card, checked to launch exactly once."""
+    before = qz.quantize_rows.launches
+    q, scales = qz.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert qz.quantize_rows.launches == before + 1
+    return q, scales
+
+
+def _encode_once(q, scales, x, rows):
+    """encode_scatter_rows on the card, checked against the plain version on
+    device copies of the tables and to launch exactly once."""
+    want_q, want_s = q.to("cuda", copy=True), scales.to("cuda", copy=True)
+    before = ops.encode_scatter_rows.launches
+    ops.encode_scatter_rows(q, scales, x, rows)
+    ref.encode_scatter_rows_ref(want_q, want_s, x, rows)
+    torch.cuda.synchronize()
+    assert ops.encode_scatter_rows.launches == before + 1
+    assert _same(q, want_q) and _same(scales, want_s)
+
+
+@pytest.mark.cuda
+def test_quantizer_past_one_wave_of_clusters(cuda):
+    """300 rows at the tiered path's width: more clusters than the card holds
+    at once, through quantize_rows and a 300-row flush into a pinned table."""
+    x = torch.randn((300, 150528), generator=torch.Generator().manual_seed(5)).mul_(3).to(cuda)
+    q, scales = _quantize_once(x)
+    wq, ws = ref.quantize_rows_ref(x)
+    assert _same(q, wq) and _same(scales, ws)
+    del q, wq
+    table = torch.zeros((4000, 150528), dtype=torch.int8, pin_memory=True)
+    table_scales = torch.ones((4000, 1), pin_memory=True)
+    rows = torch.randperm(4000, generator=torch.Generator().manual_seed(6))[:300]
+    rows[::7] = -1
+    rows[1::11] = rows[2::11][:rows[1::11].numel()]  # duplicates: the later row wins
+    _encode_once(table, table_scales, x, rows.to(torch.int32).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1 << 19, 400037])
+@pytest.mark.parametrize("rows", [3, 45])
+def test_quantizer_rows_longer_than_a_cluster_holds(cuda, dtype, width, rows):
+    """Rows past the 192 K values a cluster holds in registers take the
+    re-reading path, aligned and ragged, in one wave (3 rows) and in
+    several (45 rows)."""
+    g = torch.Generator().manual_seed(width)
+    x = (torch.randn((rows, width), generator=g) * 3).to(dtype).to(cuda)
+    q, scales = _quantize_once(x)
+    wq, ws = ref.quantize_rows_ref(x)
+    assert _same(q, wq) and _same(scales, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("width", [150528, 37])
+def test_encode_scatter_16_bit_stages(cuda, where, dtype, width):
+    """bf16 and f16 staged rows, converted with the intrinsics."""
+    rng = np.random.default_rng(width + 11)
+    q, scales = _table(rng, 24, width, where, cuda)
+    x = torch.as_tensor(rng.normal(size=(8, width)) * 3).to(dtype).to(cuda)
+    rows = torch.tensor([3, 24, 17, -1, 3, 0, 23, 9], dtype=torch.int32, device=cuda)
+    _encode_once(q, scales, x, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("width", [1, 3, 37, 8195, 150527])
+def test_quantizer_ragged_widths_offset_pointer(cuda, dtype, width):
+    """Widths that are not a multiple of 16 read from an offset pointer (the
+    scalar layout), through quantize_rows and encode_scatter_rows."""
+    g = torch.Generator().manual_seed(width)
+    big = (torch.randn((6, width), generator=g) * 3).to(dtype).to(cuda)
+    x = big[1:]
+    q, scales = _quantize_once(x)
+    wq, ws = ref.quantize_rows_ref(x)
+    assert _same(q, wq) and _same(scales, ws)
+    table = torch.zeros((7, width), dtype=torch.int8, device=cuda)
+    _encode_once(table, torch.ones((7, 1), device=cuda), x,
+                 torch.tensor([6, 0, 7, 6, 2], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("width", [HALFWAY_WIDTH, 1024])
+def test_quantizer_on_halfway_rows(cuda, where, width):
+    """Rows whose x / scale sits on or one ulp beside a half-integer: the
+    kernels divide as the plain version does, where x * (1/scale) would
+    move about one value in eleven."""
+    x = torch.from_numpy(halfway_rows(64, width, seed=width + 1)).to(cuda)
+    wq, ws = ref.quantize_rows_ref(x)
+    q, scales = _quantize_once(x)
+    assert _same(q, wq) and _same(scales, ws)
+    q, scales = _table(np.random.default_rng(width), 80, width, where, cuda)
+    rows = torch.arange(79, -49, -2, dtype=torch.int32, device=cuda)  # 79 .. -47, odd
+    _encode_once(q, scales, x, rows)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ from repro_torch.core import compression as tcomp
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rehearsal_ops as tops
+from repro_torch.testdata import HALFWAY_WIDTH, halfway_rows
 
 
 def _t(a):
@@ -85,6 +86,57 @@ def test_quantize_rows_max_error_bound(r, l, scale):
     q2, s2 = tq.quantize_rows(deq)
     np.testing.assert_allclose(tq.dequantize_rows(q2, s2).numpy(), deq.numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("width", [HALFWAY_WIDTH, 1024])
+def test_halfway_rows_plain_matches_jax_and_refuse_the_reciprocal(width):
+    """On rows whose x / scale sits on or one ulp beside a half-integer, the
+    port's plain quantizer equals the jitted JAX kernel bit for bit, and the
+    shortcut q = rint(x * (1/scale)) does not: the set tells a kernel that
+    divides from one that multiplies by the reciprocal."""
+    x = halfway_rows(200, width, seed=width)
+    q, s = tq.quantize_rows(torch.from_numpy(x))
+    jq, js = jops.quantize(jnp.asarray(x))
+    _bits_equal(q, jq)
+    _bits_equal(s, js)
+    recip = np.clip(np.rint(x * (np.float32(1.0) / np.asarray(js))), -127, 127)
+    moved = int((recip.astype(np.int8) != np.asarray(jq)).sum())
+    assert moved > 0.05 * 200 * 3 * 252, moved
+
+
+def test_halfway_rows_sit_on_half_integers():
+    """Each row's max fixes its scale, and every other non-zero value is
+    f32((k + 0.5) scale) or one of its two f32 neighbours, each of the three
+    once for every k in [-126, 125]."""
+    x = halfway_rows(8, 800, seed=3)
+    assert x.shape == (8, 800) and x.dtype == np.float32
+    assert (x[:, HALFWAY_WIDTH:] == 0).all()
+    for row in x[:, :HALFWAY_WIDTH]:
+        amax = np.abs(row).max()
+        scale = np.float32(amax * np.float32(1.0 / 127.0))
+        rest = row[np.abs(row) < amax]
+        assert rest.size == 3 * 252
+        k = np.round(rest.astype(np.float64) / np.float64(scale) - 0.5)
+        mid = ((k + 0.5) * np.float64(scale)).astype(np.float32)
+        step = np.where(rest == mid, 0, np.where(rest == np.nextafter(mid, np.float32(np.inf)),
+                                                 1, np.where(rest == np.nextafter(
+                                                     mid, np.float32(-np.inf)), -1, 9)))
+        assert (step != 9).all()
+        for d in (-1, 0, 1):
+            np.testing.assert_array_equal(np.sort(k[step == d]), np.arange(-126, 126))
+
+
+def test_encode_scatter_plain_on_halfway_rows_matches_jax_kernel():
+    """The fused flush on the half-way set: int8 rows and scales bit-exact
+    against the JAX kernel, dropped and duplicate targets included."""
+    x = halfway_rows(12, seed=7)
+    q, scales = _table(5, 20, HALFWAY_WIDTH)
+    rows = np.array([3, -1, 19, 3, 20, 0, 7, 11, 7, 2, 15, 9], dtype=np.int32)
+    got_q, got_s = tops.encode_scatter_rows(_t(q), _t(scales), torch.from_numpy(x), _t(rows))
+    want_q, want_s = jops.encode_scatter(jnp.asarray(q), jnp.asarray(scales), jnp.asarray(x),
+                                         jnp.asarray(rows))
+    _bits_equal(got_q, want_q)
+    _bits_equal(got_s, want_s)
 
 
 def _table(seed, r, l):
