@@ -20,6 +20,10 @@ Phases (any failure exits non-zero):
      of its three phases, and the launch floor (an empty kernel launched as
      a plain grid and as clusters of 8) beside every int8 kernel; the
      quantizer on rows that tell IEEE division from a reciprocal multiply;
+     and the unfused cold pass's one launch, update+sample with its int8
+     leaf dequantized on the gather (f32, bf16, f16 records; pinned and
+     device tables), against update+sample then dequantize_rows' plain
+     version, and timed against the two launches it replaces;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
   5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
@@ -35,10 +39,20 @@ Phases (any failure exits non-zero):
      the cold tier adds nothing to the card's allocated memory;
   7. the tiered main path: the trainer of phase 5 with ``tiering="host"``
      (that tiered store), once with the fused kernels and once without. Each
-     float-leaf kernel of the setting launches once per step, update+sample
-     as often as the tiered step's callers ask (3 a step, fused or not),
-     the histories of ``rep_checksum`` and ``buffer_fill`` are identical,
-     and the buffer outgrows the hot tier.
+     float-leaf kernel of the setting launches once per step (unfused:
+     quantize_rows; its cold sample is dequantized by an update+sample
+     launch, so dequantize_rows launches 0 times), update+sample as often as
+     the tiered step's callers ask (3 a step, fused or not), the histories
+     of ``rep_checksum`` and ``buffer_fill`` are identical, and the buffer
+     outgrows the hot tier;
+ 13. the split pipelined step (run after phase 7, with TF32 still on):
+     ``ContinualTrainer(step_form='split')`` on phase 5's flat and phase 7's
+     unfused tiered configuration, the issue half on its own CUDA stream;
+     fingerprints and launches equal to the fused runs', then both forms
+     profiled (``repro_torch.profile_main_path``, one process each, so that
+     no profiler session runs in this one): median step, idle share,
+     the stream each kernel ran on, and the issue half's time during the
+     train half's kernels.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's prefill
      shapes (f32 on the 3xTF32 wgmma kernel, bf16 on the bf16 wgmma kernel)
@@ -707,6 +721,147 @@ def int8_kernel_phase(qz, ops, ref, link: tuple):
     return entries
 
 
+def check_folded(ops, ref, tables, cands, cand_rows, samp_rows, dtype, what):
+    """The dequantizing update+sample (one launch) against its plain version
+    (update+sample leaf by leaf on device copies of the tables, then
+    dequantize_rows_ref) on clones of the same inputs: every table and every
+    sample bit for bit, one launch. Returns the max abs error of the
+    dequantized sample."""
+    got_tables = [t.clone().pin_memory() if t.is_pinned() else t.clone() for t in tables]
+    want_tables = [t.to("cuda", copy=True) for t in tables]
+    before = ops.rehearsal_update_sample.launches
+    got = ops.rehearsal_update_sample_leaves(got_tables, cands, cand_rows, samp_rows,
+                                             {0: (1, dtype)})
+    launched = ops.rehearsal_update_sample.launches - before
+    want = ref.rehearsal_update_sample_leaves_ref(want_tables, cands, cand_rows, samp_rows,
+                                                  {0: (1, dtype)})
+    torch.cuda.synchronize()
+    if launched != 1 or not all(same_bits(a, b) for a, b in zip(got, want)) or not all(
+            same_bits(a, b) for a, b in zip(got_tables, want_tables)):
+        raise AssertionError(f"dequantizing update+sample != plain version ({what}), "
+                             f"launches {launched}")
+    return abs_err(got[0], want[0])
+
+
+def folded_sweep(ops, ref, seed: int = 4):
+    """The dequantizing update+sample over f32, bf16 and f16 records, pinned
+    and device tables, widths that take the 16-, 4- and 1-value paths and an
+    offset candidate pointer: duplicate and dropped targets, and a sample of
+    a row written in the same launch, in every case."""
+    rng = np.random.default_rng(seed)
+    n = 0
+    for where in ("pinned", "device"):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for r, width, c, s in ((300, 150528, 8, 2), (40, 37, 16, 5), (9, 8, 12, 3),
+                                   (7, 64, 1, 4)):
+                q = torch.as_tensor(rng.integers(-127, 128, (r, width)), dtype=torch.int8)
+                scale = torch.as_tensor(rng.uniform(1e-3, 4.0, (r, 1)), dtype=torch.float32)
+                label = torch.as_tensor(rng.integers(0, 1000, (r, 1)), dtype=torch.int32)
+                tables = [t.pin_memory() if where == "pinned" else t.cuda()
+                          for t in (q, scale, label)]
+                big = torch.as_tensor(rng.integers(-127, 128, (c + 1, width)), dtype=torch.int8,
+                                      device="cuda")
+                cands = [big[1:] if n % 2 else big[:c],
+                         torch.as_tensor(rng.uniform(1e-3, 4.0, (c, 1)), dtype=torch.float32,
+                                         device="cuda"),
+                         torch.as_tensor(rng.integers(0, 1000, (c, 1)), dtype=torch.int32,
+                                         device="cuda")]
+                rows = rng.integers(-2, r + 2, c)
+                rows[0] = rows[-1] = r // 2  # a duplicate target: the last one wins
+                samp = rng.integers(-1, r + 1, s)
+                samp[0] = r // 2  # a row written in this launch
+                check_folded(ops, ref, tables, cands,
+                             torch.as_tensor(rows, dtype=torch.int32, device="cuda"),
+                             torch.as_tensor(samp, dtype=torch.int32, device="cuda"), dtype,
+                             f"{where} [{r}, {width}] {dtype} C={c} S={s}")
+                n += 1
+    print(f"dequantizing update+sample sweep: {n} cases, one launch each, bit-equal to "
+          f"update+sample then dequantize_rows_ref")
+
+
+def folded_phase(qz, ops, ref, link: tuple) -> dict:
+    """The unfused cold pass's launch with dequantize_rows folded in, at the
+    unfused tiered step's shapes: the stage's 8 quantized rows (4 written),
+    S = 2, the cold record's four leaves (int8 q [4000, 150528], f32 scale,
+    i32 label and task) in pinned host memory. Held against its plain
+    version on pinned and device tables and over ``folded_sweep``; timed
+    against the two launches it replaces (update+sample, then
+    dequantize_rows on the gathered rows), in turns. Returns the numbers
+    for the dequantize_rows entry of the kernels line."""
+    h2d, d2h = link
+    width, rows_total = 150528, BUCKETS * COLD
+    gen = torch.Generator().manual_seed(5)
+    tables = [torch.randint(-127, 128, (rows_total, width), dtype=torch.int8, generator=gen),
+              torch.rand((rows_total, 1), generator=gen) * 4 + 1e-3,
+              torch.randint(0, 1000, (rows_total, 1), dtype=torch.int32, generator=gen),
+              torch.randint(0, BUCKETS, (rows_total, 1), dtype=torch.int32, generator=gen)]
+    tables = [t.pin_memory() for t in tables]
+    kq, ks = qz.quantize_rows(torch.randn((STAGE, width), device="cuda") * 3)
+    cands = [kq, ks, torch.randint(0, 1000, (STAGE, 1), dtype=torch.int32, device="cuda"),
+             torch.randint(0, BUCKETS, (STAGE, 1), dtype=torch.int32, device="cuda")]
+    # a steady-state flush (4 staged evictions, 4 empty stage rows dropped) and
+    # a cold sample of two rows the flush does not write: both cross the link
+    flush = torch.tensor([12, rows_total, 2017, rows_total, 1003, rows_total, 3998,
+                          rows_total], dtype=torch.int32, device="cuda")
+    samp = torch.tensor([17, 1000], dtype=torch.int32, device="cuda")
+    written, sampled = 4, samp.shape[0]
+    fresh = torch.tensor([2017, 17], dtype=torch.int32, device="cuda")  # one row just written
+    err = max(check_folded(ops, ref, tables, cands, flush, rows, torch.float32,
+                           f"path shapes, pinned, samples {rows.tolist()}")
+              for rows in (samp, fresh))
+    device_tables = [t.to("cuda") for t in tables]
+    err = max(err, check_folded(ops, ref, device_tables, cands, flush, samp, torch.float32,
+                                "path shapes, device tables"))
+    print(f"path shapes: cold record q [{rows_total}, {width}] int8 + scale, label, task, "
+          f"pinned and on the card; stage [{STAGE}] ({written} written), {sampled} sampled "
+          f"(and one just written) -- the dequantizing update+sample bit-equal to "
+          f"update+sample then dequantize_rows_ref")
+    folded_sweep(ops, ref)
+
+    dequant = {0: (1, torch.float32)}
+
+    def folded():
+        ops.rehearsal_update_sample_leaves(tables, cands, flush, samp, dequant)
+
+    def two_launches():
+        q, s = ops.rehearsal_update_sample_leaves(tables, cands, flush, samp)[:2]
+        qz.dequantize_rows(q, s)
+
+    def plain():
+        ref.rehearsal_update_sample_leaves_ref(device_tables, cands, flush, samp, dequant)
+
+    # in turns, folded / two / two / folded, three rounds: the link's rate
+    # wanders between readings by more than the launch the fold removes
+    readings = {folded: [], two_launches: []}
+    for _ in range(3):
+        for fn in (folded, two_launches, two_launches, folded):
+            readings[fn].append(time_ms(fn))
+    ms_folded, ms_two = (statistics.median(readings[fn]) for fn in (folded, two_launches))
+    plain_ms = time_ms(plain)
+    device_ms = time_ms(lambda: ops.rehearsal_update_sample_leaves(device_tables, cands, flush,
+                                                                   samp, dequant))
+    row_bytes = width + 4 + 4 + 4  # q, scale, label, task
+    write_link, read_link = written * row_bytes, sampled * row_bytes
+    hbm = written * row_bytes + sampled * (4 * width + 12) + 4 * (STAGE + sampled)
+    parts = {"link writes": write_link / d2h * 1e3, "link reads": read_link / h2d * 1e3,
+             "HBM": hbm / HBM_BYTES_PER_S * 1e3}
+    bound_ms = max(parts.values())
+    print(f"unfused cold pass, one launch with the dequantizing gather: median {ms_folded:.4f} "
+          f"ms of {[round(t, 4) for t in readings[folded]]}; the two launches it replaces "
+          f"(update+sample, then dequantize_rows of the gathered rows): median {ms_two:.4f} ms "
+          f"of {[round(t, 4) for t in readings[two_launches]]}; plain "
+          f"{plain_ms:.4f} ms; the same launch on device copies of the tables {device_ms:.4f} "
+          f"ms; bound {bound_ms:.5f} ms, the larger of "
+          + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+          + f" (link writes {write_link} B at {d2h / 1e9:.2f} GB/s, reads {read_link} B at "
+          f"{h2d / 1e9:.2f} GB/s, HBM {hbm} B)")
+    return {"ms_folded": ms_folded, "ms_folded_readings": readings[folded],
+            "ms_two_launches": ms_two, "ms_two_launches_readings": readings[two_launches],
+            "plain_ms_folded": plain_ms,
+            "ms_folded_device_tables": device_ms, "bound_ms_folded": bound_ms,
+            "max_abs_err_folded": err, "folded_into": "rehearsal_update_sample"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -742,7 +897,10 @@ def model_phase(cfg):
 # ---------------------------------------------------------------------------
 
 
-def main_path(ops, cfg, seed: int = 0):
+def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
+    """The flat main path through ``ContinualTrainer(step_form=...)``, every
+    launch counter set to 0 just before ``fit`` and read just after. Returns
+    the update+sample launches, the fingerprints and the median step in ms."""
     from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
     from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
     from repro_torch.scenario import ClassIncremental, ContinualTrainer
@@ -760,16 +918,21 @@ def main_path(ops, cfg, seed: int = 0):
     print(f"cuts (data scale only): tasks run {TASKS_RUN} of {sc.num_tasks}, "
           f"{STEPS_PER_TASK} steps per task, eval_per_class {EVAL_PER_CLASS}; "
           f"b={BATCH} r={REPS} c={CANDS}, {sc.num_tasks} buckets x {SLOTS} slots")
-    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda")
+    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda",
+                               step_form=step_form)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.rehearsal_update_sample.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     result = trainer.fit(num_tasks=TASKS_RUN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.rehearsal_update_sample.launches
+    launches = counters["rehearsal_update_sample"].launches
+    others = {name: fn.launches for name, fn in counters.items()
+              if name != "rehearsal_update_sample"}
     steps = TASKS_RUN * STEPS_PER_TASK
+    print(f"flat, step_form={step_form!r}")
 
     fills = [h["buffer_fill"] for h in result.history]
     acc = result.accuracy_matrix
@@ -786,13 +949,16 @@ def main_path(ops, cfg, seed: int = 0):
           f"steps)")
     if launches != steps:
         raise AssertionError(f"expected {steps} kernel launches, saw {launches}")
+    if any(others.values()):
+        raise AssertionError(f"the flat path launched other kernels: {others}")
     if len(result.losses) != steps or not all(math.isfinite(x) for x in result.losses):
         raise AssertionError(f"non-finite or missing losses: {result.losses}")
     if not fills[-1] > fills[0]:
         raise AssertionError(f"buffer_fill did not grow: {fills}")
     if acc.shape != (TASKS_RUN, TASKS_RUN) or not np.isfinite(acc).all():
         raise AssertionError(f"bad accuracy matrix {acc}")
-    return launches
+    prints = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    return launches, prints, step_ms
 
 
 # ---------------------------------------------------------------------------
@@ -888,7 +1054,7 @@ def tiered_phase(cfg, steps: int = 6, seed: int = 3):
 # ---------------------------------------------------------------------------
 
 
-def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
+def tiered_main_path(counters, cfg, fused: bool, seed: int = 0, step_form: str = "fused"):
     """The trainer of phase 5 on the tiered store. Returns the launches of
     each kernel, the fingerprints and the median step in ms."""
     from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
@@ -905,10 +1071,12 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
         num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
         image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
         seed=1234 + seed))
-    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda")
+    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda",
+                               step_form=step_form)
     rcfg = trainer.rcfg
-    print(f"tiered, fused_kernels={fused}: {rcfg.num_buckets} buckets x {rcfg.resolved_hot_slots}"
-          f" hot + {rcfg.resolved_cold_slots} cold slots, stage {rcfg.resolved_demote_stage}")
+    print(f"tiered, fused_kernels={fused}, step_form={step_form!r}: {rcfg.num_buckets} buckets"
+          f" x {rcfg.resolved_hot_slots} hot + {rcfg.resolved_cold_slots} cold slots, stage "
+          f"{rcfg.resolved_demote_stage}")
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -924,12 +1092,16 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
     print(f"rep_checksum {[h['rep_checksum'] for h in result.history]}")
     print(f"median step {step_ms:.1f} ms (all steps "
           f"{[round(t * 1e3, 1) for t in result.step_seconds]}), launches {launches}")
+    # unfused: quantize_rows on the stage; the cold sample is dequantized by
+    # the update+sample launch that gathers it, so dequantize_rows is never
+    # launched
     float_kernels = (("encode_scatter_rows", "gather_dequant_rows") if fused
-                     else ("quantize_rows", "dequantize_rows"))
+                     else ("quantize_rows",))
     # per step: the cold leaves' flush+sample (fused: one launch for the raw
     # leaves, label and task; unfused: one launch for the int8 q and scale
-    # leaves and the raw leaves together), the evicted gather (one launch for
-    # the 3 record leaves) and the hot push+sample (one launch)
+    # leaves and the raw leaves together, dequantizing the sampled q rows),
+    # the evicted gather (one launch for the 3 record leaves) and the hot
+    # push+sample (one launch)
     update_sample = 1 + 1 + 1
     want = {name: (steps if name in float_kernels else 0) for name in counters}
     want["rehearsal_update_sample"] = update_sample * steps
@@ -941,6 +1113,77 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0):
         raise AssertionError(f"buffer_fill {fills[-1]} never outgrew the hot tier's "
                              f"{BUCKETS * HOT} slots, so the cold tier holds nothing")
     return launches, prints, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the split pipelined step, the issue half on its own stream
+# ---------------------------------------------------------------------------
+
+
+def profile_subprocess(tiered: bool, split: bool) -> dict:
+    """``repro_torch.profile_main_path`` in a process of its own (its
+    profiler session cannot touch the later phases' host times); prints its
+    report and returns its JSON."""
+    import tempfile
+    flags = (["--tiered"] if tiered else []) + (["--split"] if split else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.profile_main_path", "--steps", "6",
+             "--warmup", "3", "--out", path, *flags], capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            raise AssertionError(f"profile_main_path {flags} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(path) as f:
+            return json.load(f)
+
+
+def split_phase(counters, cfg, fused_runs: dict):
+    """``ContinualTrainer(step_form='split')`` on the configurations of phases
+    5 and 7 (flat, and tiered unfused): the histories of ``rep_checksum``
+    and ``buffer_fill`` must equal the fused runs' (``fused_runs``, from
+    phases 5 and 7 when they ran, else run here), with the same launch
+    counts. Then the profiled step (``repro_torch.profile_main_path``) of
+    both forms: median step, idle share, and on which stream the issue
+    half's kernels ran and how much of them ran during the train half's."""
+    def run(tiered: bool, step_form: str):
+        if tiered:
+            return tiered_main_path(counters, cfg, False, step_form=step_form)
+        return main_path(counters, cfg, step_form=step_form)
+
+    steps_ms = {}
+    for name, tiered in (("flat", False), ("tiered, unfused", True)):
+        fused = fused_runs.get(name) or run(tiered, "fused")
+        split = run(tiered, "split")
+        if split[1] != fused[1]:
+            raise AssertionError(f"{name}: split and fused histories of (rep_checksum, "
+                                 f"buffer_fill) differ: {split[1]} vs {fused[1]}")
+        if split[0] != fused[0]:
+            raise AssertionError(f"{name}: split launches {split[0]} != fused {fused[0]}")
+        steps_ms[name] = (fused[2], split[2])
+        print(f"{name}: split == fused fingerprints over {len(split[1])} steps, launches "
+              f"{split[0]}; median step fused {fused[2]:.1f} ms, split {split[2]:.1f} ms")
+    profiles = {}
+    for name, tiered in (("flat", False), ("tiered, unfused", True)):
+        for form in ("fused", "split"):
+            out = profile_subprocess(tiered, form == "split")
+            st = out["streams"]
+            on_train = st["buffer_kernel_streams"] == [st["train_stream"]]
+            if not st["buffer_kernel_streams"] or on_train != (form == "fused"):
+                raise AssertionError(f"{name} {form}: update+sample ran on streams "
+                                     f"{st['buffer_kernel_streams']}, the train stream is "
+                                     f"{st['train_stream']}")
+            profiles[(name, form)] = out
+            torch.cuda.empty_cache()
+    for name in steps_ms:
+        f, sp = profiles[(name, "fused")], profiles[(name, "split")]
+        print(f"{name}: trainer median step fused {steps_ms[name][0]:.1f} ms, split "
+              f"{steps_ms[name][1]:.1f} ms; profiled step wall fused "
+              f"{f['wall_ms_per_step']:.2f} ms, split {sp['wall_ms_per_step']:.2f} ms; idle "
+              f"share fused {f['device_idle_share']:.4f}, split {sp['device_idle_share']:.4f}")
+    return steps_ms, profiles
 
 
 # ---------------------------------------------------------------------------
@@ -1427,7 +1670,7 @@ def serving_phase(seed: int = 12):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-12), and print no result lines")
+                    help="run phases 1, 2 and these only (3-13), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -1470,20 +1713,17 @@ def main(argv=None):
         link = link_rates()
         pinned_update_sample(ops, ref, link[1])
         int8_entries = int8_kernel_phase(qz, ops, ref, link)
+        folded = folded_phase(qz, ops, ref, link)
 
     if run(4):
         phase("4 model on the card against the CPU")
         model_phase(cfg)
 
+    fused_runs = {}
     if run(5):
         phase("5 main path: ContinualTrainer on resnet50_cl.full()")
-        for fn in counters.values():
-            fn.launches = 0
-        flat_launches = main_path(ops, cfg)
-        others = {name: fn.launches for name, fn in counters.items()
-                  if name != "rehearsal_update_sample"}
-        if any(others.values()):
-            raise AssertionError(f"the flat path launched other kernels: {others}")
+        fused_runs["flat"] = main_path(counters, cfg)
+        flat_launches = fused_runs["flat"][0]
 
     if run(6):
         phase("6 tiered store at full row width: card against CPU")
@@ -1492,11 +1732,16 @@ def main(argv=None):
     if run(7):
         phase("7 tiered main path: ContinualTrainer, tiering='host', unfused then fused")
         runs = {fused: tiered_main_path(counters, cfg, fused) for fused in (False, True)}
+        fused_runs["tiered, unfused"] = runs[False]
         if runs[False][1] != runs[True][1]:
             raise AssertionError("fused and unfused tiered runs differ in rep_checksum / "
                                  f"buffer_fill: {runs[False][1]} vs {runs[True][1]}")
         print(f"fused == unfused fingerprints over {len(runs[True][1])} steps; median step "
               f"unfused {runs[False][2]:.1f} ms, fused {runs[True][2]:.1f} ms")
+
+    if run(13):
+        phase("13 split pipelined step: the issue half on its own CUDA stream")
+        split_phase(counters, cfg, fused_runs)
 
     tf32_off()
     if run(8):
@@ -1526,6 +1771,9 @@ def main(argv=None):
     for e in int8_entries:
         e["launches"] = runs[e["name"] in ("gather_dequant_rows", "encode_scatter_rows")][0][
             e["name"]]
+    for e in int8_entries:
+        if e["name"] == "dequantize_rows":
+            e.update(folded)
     flash_entry["launches"] = launches["flash_attention"]
     ssd_entry["launches"] = launches["ssd_scan"]  # num_layers x KERNELS_PER_CALL
     print(card)

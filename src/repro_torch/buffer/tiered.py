@@ -24,9 +24,10 @@ then moves the bytes in this order on one stream:
   1. the cold tier: flush the old stage and draw the cold sample from the
      result (``fused_kernels``: ``encode_scatter_rows`` then
      ``gather_dequant_rows`` per float leaf and one ``rehearsal_update_sample``
-     per integer leaf; otherwise ``quantize_rows``, one
-     ``rehearsal_update_sample_leaves`` launch for every stored leaf, and
-     ``dequantize_rows``);
+     launch for the integer leaves; otherwise two launches: ``quantize_rows``
+     on the stage, then one ``rehearsal_update_sample_leaves`` launch for
+     every stored leaf whose gather dequantizes the sampled int8 rows on the
+     way out);
   2. the evicted gather: the pre-push records of the hot rows the push will
      overwrite, copied into a new stage before the push writes them (one
      launch);
@@ -182,8 +183,8 @@ def _cold_pass(cold: BufferState, stage, spec, rows: UpdateSampleRows, fused: bo
         items = comp.encode_scatter_gather_batch(cold.data, stage, spec, rows.cand_rows,
                                                  rows.samp_rows)
     else:
-        _, stored, _ = local_update_sample(cold, comp.encode_batch(stage, spec), rows)
-        items = comp.decode_batch(stored, spec)
+        items = comp.update_sample_decoded(cold.data, comp.encode_batch(stage, spec), spec,
+                                           rows.cand_rows, rows.samp_rows)
     return BufferState(cold.data, rows.new_counts, rows.new_seen), items
 
 

@@ -6,9 +6,11 @@ stored record field is ``{"q": int8 [flat], "scale": f32 [1]}`` or
 ``{"raw": ...}``.
 
 Two forms move the same bytes:
-  * ``encode_batch`` / ``decode_batch`` quantize or dequantize a whole batch
-    (``kernels.quantize``), which the buffer then scatters or gathers like any
-    record (the default);
+  * ``encode_batch`` quantizes a whole batch (``kernels.quantize``), and
+    ``update_sample_decoded`` scatters it into the tables and gathers the
+    sample back dequantized, in one ``rehearsal_update_sample_leaves`` launch
+    for every stored leaf (the default; ``decode_batch``, the batch
+    dequantizer, is what that launch's gather folds in);
   * ``encode_scatter_batch`` / ``decode_gather_batch`` quantize straight into
     the table rows and dequantize straight out of them
     (``kernels.rehearsal_ops.encode_scatter_rows`` / ``gather_dequant_rows``,
@@ -68,6 +70,36 @@ def decode_batch(stored, item_spec):
             x = dequantize_rows(blob["q"], blob["scale"], s.dtype)
             out[name] = x.view((x.shape[0],) + tuple(s.shape))
     return out
+
+
+def update_sample_decoded(cold_data, encoded, item_spec, cand_rows, samp_rows):
+    """Write the encoded [B, ...] records ``encoded`` (``encode_batch``) into
+    flat ``cand_rows`` of the compressed store ``cold_data`` (updated in
+    place; ``< 0`` or ``>= K*slots`` drops a record, the last duplicate
+    wins), then read flat ``samp_rows`` (clamped) from the result.
+
+    ONE ``rehearsal_update_sample_leaves`` launch moves every stored leaf;
+    its gather dequantizes each float field's int8 rows with their scales,
+    so the sample needs no ``dequantize_rows``. Returns the sampled records
+    ``{name: [len(samp_rows), ...]}`` in the record dtypes and shapes."""
+    n = samp_rows.shape[0]
+    tables, cands, dequant, index = [], [], {}, {}
+
+    def add(leaf, item):
+        table = table_view(leaf)
+        tables.append(table)
+        cands.append(item.to(table.dtype).reshape(item.shape[0], table.shape[1]).contiguous())
+        return len(tables) - 1
+
+    for name, s in item_spec.items():
+        blob, item = cold_data[name], encoded[name]
+        if "raw" in blob:
+            index[name] = add(blob["raw"], item["raw"])
+        else:
+            index[name] = add(blob["q"], item["q"])
+            dequant[index[name]] = (add(blob["scale"], item["scale"]), s.dtype)
+    got = rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows, dequant)
+    return {name: got[index[name]].view((n,) + tuple(s.shape)) for name, s in item_spec.items()}
 
 
 def encode_scatter_gather_batch(cold_data, batch, item_spec, flush_rows, samp_rows):

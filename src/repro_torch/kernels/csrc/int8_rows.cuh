@@ -353,6 +353,43 @@ __global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kQuantT
   }
 }
 
+// One group of VEC int8 values dequantized: (float)q * scale, one FMUL a
+// value, cast to T (round to nearest).
+template <typename T, int VEC>
+__device__ __forceinline__ Group<T, VEC> dequant_group(const Group<int8_t, VEC>& v,
+                                                       float scale) {
+  Group<T, VEC> o;
+#pragma unroll
+  for (int u = 0; u < VEC; ++u) o.v[u] = from_f32<T>(static_cast<float>(v.v[u]) * scale);
+  return o;
+}
+
+// Groups [begin, end) of an int8 row qg, dequantized with `scale` into the
+// same groups of og. Thread `tid` of `stride` takes groups begin + tid +
+// k * stride and issues UNROLL loads before it stores any, so UNROLL groups
+// a thread are in flight at once (what a read across the host link needs).
+// The dequantizer of dequantize_rows and gather_dequant_rows, and the
+// dequantizing gather of rehearsal_update_sample_leaves.
+template <typename T, int VEC, int UNROLL>
+__device__ __forceinline__ void dequant_span(const Group<int8_t, VEC>* __restrict__ qg,
+                                             float scale, Group<T, VEC>* __restrict__ og,
+                                             long long begin, long long end, int tid,
+                                             int stride) {
+  for (long long base = begin + tid; base < end; base += static_cast<long long>(UNROLL) * stride) {
+    Group<int8_t, VEC> v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long g = base + static_cast<long long>(u) * stride;
+      if (g < end) v[u] = qg[g];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long g = base + static_cast<long long>(u) * stride;
+      if (g < end) og[g] = dequant_group<T, VEC>(v[u], scale);
+    }
+  }
+}
+
 // Block (j, c) dequantizes chunk c of table row clamp(rows[j], 0, n_rows-1)
 // (row j itself when rows is null) into row j of out [n, len].
 template <typename T, int VEC>
@@ -371,16 +408,9 @@ __global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
   const long long per_block = (groups + gridDim.y - 1) / gridDim.y;
   const long long begin = blockIdx.y * per_block;
   const long long end = begin + per_block < groups ? begin + per_block : groups;
-  const Group<int8_t, VEC>* qg = reinterpret_cast<const Group<int8_t, VEC>*>(q + row * len);
-  Group<T, VEC>* og = reinterpret_cast<Group<T, VEC>*>(out + j * len);
-#pragma unroll 4
-  for (long long g = begin + threadIdx.x; g < end; g += blockDim.x) {
-    const Group<int8_t, VEC> v = qg[g];
-    Group<T, VEC> o;
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) o.v[u] = from_f32<T>(static_cast<float>(v.v[u]) * scale);
-    og[g] = o;
-  }
+  dequant_span<T, VEC, 4>(reinterpret_cast<const Group<int8_t, VEC>*>(q + row * len), scale,
+                          reinterpret_cast<Group<T, VEC>*>(out + j * len), begin, end,
+                          threadIdx.x, blockDim.x);
 }
 
 inline bool aligned(const void* p, size_t bytes) {

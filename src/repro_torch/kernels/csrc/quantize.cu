@@ -1,5 +1,10 @@
 // Row-wise symmetric int8 quantize and dequantize for Hopper (sm_90a): the
-// int8 codec of the tiered store's cold tier (unfused form).
+// int8 codec of the tiered store's cold tier (unfused form). The unfused
+// step launches quantize_rows on its demotion stage; its cold sample is
+// dequantized by the update+sample launch that gathers it
+// (rehearsal_ops.cu, the dequantizing gather, which runs the same
+// dequant_span as dequantize_rows below), so dequantize_rows is no longer
+// launched by a train step: it is the batch codec's inverse.
 //
 // Replaces the TPU kernels src/repro/kernels/quantize.py::quantize_rows
 // (_quant_kernel) and ::dequantize_rows (_dequant_kernel); the plain versions
@@ -24,7 +29,8 @@
 // f32 demotion stage [8, 150528] (4.8 MB) and writes int8 rows and scales
 // (1.2 MB); dequantize reads 2 int8 rows (0.3 MB) and writes 2 f32 rows
 // (1.2 MB). At 3.35 TB/s that is about 1.8 us and 0.45 us, so launch latency
-// is most of what either takes (launch_floor below measures it).
+// is most of what either takes (launch_floor below measures it): why the
+// dequantization was folded into a launch the step makes anyway.
 #include "int8_rows.cuh"
 
 namespace {

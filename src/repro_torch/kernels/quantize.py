@@ -1,9 +1,14 @@
 """Row-wise symmetric int8 quantize / dequantize: the cold tier's codec.
 
 ``quantize_rows`` turns float rows into int8 rows with one f32 scale each;
-``dequantize_rows`` inverts it. ``repro_torch.core.compression`` uses them
-for the tiered store's cold tier when ``RehearsalConfig.fused_kernels`` is off
-(the default). On a CUDA tensor each launches its hand-written kernel
+``dequantize_rows`` inverts it. ``repro_torch.core.compression`` quantizes
+the tiered store's demotion stage with ``quantize_rows`` when
+``RehearsalConfig.fused_kernels`` is off (the default). The cold sample is
+not dequantized here: the update+sample launch that gathers it dequantizes
+it on the way out (``rehearsal_update_sample_leaves(..., dequant=...)``), so
+no step of the train path calls ``dequantize_rows``. It stays the batch
+codec's inverse (``compression.decode_batch``) and the reference the folded
+gather is held to. On a CUDA tensor each launches its hand-written kernel
 (``csrc/quantize.cu``, built for ``sm_90a`` on first use, loaded with
 ``ctypes``) and raises if the launch fails; on a CPU tensor it takes the plain
 version in ``ref``. There is no fallback from one to the other.

@@ -34,6 +34,20 @@ def rehearsal_update_sample_ref(buffer: torch.Tensor, cands: torch.Tensor,
     return buffer, reps
 
 
+def rehearsal_update_sample_leaves_ref(tables, cands, cand_rows: torch.Tensor,
+                                       samp_rows: torch.Tensor, dequant=None):
+    """``rehearsal_update_sample_ref`` leaf by leaf (tables updated in place),
+    THEN each sample of a leaf i that ``dequant`` maps to ``(j, dtype)``
+    dequantized with leaf j's sampled scales: ``dequantize_rows_ref(reps_i,
+    reps_j, dtype)``. Returns ``[reps_i]``."""
+    reps = [rehearsal_update_sample_ref(t, c, cand_rows, samp_rows)[1]
+            for t, c in zip(tables, cands)]
+    out = list(reps)
+    for i, (j, dtype) in (dequant or {}).items():
+        out[i] = dequantize_rows_ref(reps[i], reps[j], dtype)
+    return out
+
+
 # f32(1/127): the reference's jitted quantizers (Pallas kernel, XLA and the
 # fused encode-on-scatter alike) compute the scale as amax times this
 # reciprocal, not as amax / 127, which differs by one ulp on some rows.

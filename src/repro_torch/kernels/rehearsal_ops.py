@@ -5,7 +5,9 @@ cold-tier pair.
 leaf's ``[R, L]`` record table in place, then gathers the sampled
 representatives from the updated table: the paper's ``update`` primitive,
 replacing its fine-grain locks. ``rehearsal_update_sample_leaves`` does the
-same for every leaf of a record in one launch. ``gather_dequant_rows`` reads
+same for every leaf of a record in one launch, and can dequantize an int8
+leaf's sample on the way out (the unfused cold tier's sample, which then
+needs no ``dequantize_rows`` launch). ``gather_dequant_rows`` reads
 int8 rows of a cold-tier table and dequantizes them on the way out;
 ``encode_scatter_rows`` quantizes staged rows straight into their cold-tier
 target rows.
@@ -21,7 +23,8 @@ the plain version in ``ref``. There is no fallback from one to the other.
 
 Replaces the TPU kernels ``repro/kernels/rehearsal_ops.py::
 rehearsal_update_sample`` (single-row and tiled forms), ``::gather_dequant_rows``
-and ``::encode_scatter_rows`` with their ``ops.py`` wrappers. The TPU's
+and ``::encode_scatter_rows`` with their ``ops.py`` wrappers, and on the
+unfused cold sample ``repro/kernels/quantize.py::dequantize_rows``. The TPU's
 sequential grid ordered scatter before gather and resolved duplicate targets;
 the CUDA kernels resolve both themselves and need no order between their
 blocks (see the notes in the ``.cu`` source). ``torch.index_copy_`` is not
@@ -38,13 +41,15 @@ from repro_torch.kernels.build import DTYPE_CODES, check_contiguous, on_card, st
 from repro_torch.kernels.ref import (
     encode_scatter_rows_ref,
     gather_dequant_rows_ref,
-    rehearsal_update_sample_ref,
+    rehearsal_update_sample_leaves_ref,
 )
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _PP, _PLL = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
+_PI = ctypes.POINTER(ctypes.c_int)
 _C_ARGTYPES = {
-    "rehearsal_update_sample_leaves": [_I, _PP, _PP, _PP, _PLL, _P, _P, _LL, _I, _I, _P],
+    "rehearsal_update_sample_leaves": [_I, _PP, _PP, _PP, _PLL, _PI, _PI, _P, _P, _LL, _I, _I,
+                                       _P],
     "gather_dequant_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
     "encode_scatter_rows": [_P] * 4 + [_LL, _LL, _I, _I, _P],
 }
@@ -75,8 +80,24 @@ def _check_rows(cands, cand_rows, samp_rows):
     check_contiguous("rehearsal_update_sample", cand_rows, samp_rows)
 
 
+def _check_dequant(tables, dequant):
+    for i, (j, dtype) in dequant.items():
+        if not (0 <= i < len(tables) and 0 <= j < len(tables)) or i == j or j in dequant:
+            raise ValueError(f"dequant maps leaf {i} to scale leaf {j}: expected two "
+                             f"different leaves of the {len(tables)}, the scale leaf not "
+                             f"itself dequantized")
+        if tables[i].dtype != torch.int8:
+            raise TypeError(f"a dequantized leaf holds int8 rows, leaf {i} holds "
+                            f"{tables[i].dtype}")
+        if tables[j].dtype != torch.float32 or tables[j].shape[1] != 1:
+            raise TypeError(f"a scale leaf holds f32 [R, 1], leaf {j} holds "
+                            f"{tables[j].dtype} {tuple(tables[j].shape)}")
+        if dtype not in DTYPE_CODES:
+            raise TypeError(f"unsupported record dtype {dtype}")
+
+
 def rehearsal_update_sample_leaves(tables, cands, cand_rows: torch.Tensor,
-                                   samp_rows: torch.Tensor):
+                                   samp_rows: torch.Tensor, dequant=None):
     """Every leaf of one record in ONE launch: for each i, scatter cands[i]
     [C, L_i] (of tables[i]'s dtype) into tables[i] [R, L_i] in place, then
     gather the sampled rows from the updated table. The leaves share R,
@@ -84,9 +105,15 @@ def rehearsal_update_sample_leaves(tables, cands, cand_rows: torch.Tensor,
     samp_rows i32[S] (clamped), and may differ in dtype and width; at most
     ``MAX_LEAVES``. Returns ``[reps_i [S, L_i]]`` on the inputs' device.
 
+    ``dequant`` ({i: (j, dtype)}) makes leaf i's sample come back as
+    ``q * scale`` cast to ``dtype`` (f32, bf16 or f16) in place of its int8
+    rows: tables[i] holds int8 rows and tables[j] their f32 scales [R, 1].
+    Leaf j is scattered and sampled as any other leaf. The plain version is
+    ``rehearsal_update_sample_ref`` leaf by leaf, then ``dequantize_rows_ref``.
+
     ``rehearsal_update_sample.launches`` counts the kernel's launches, by
     either form."""
-    tables, cands = list(tables), list(cands)
+    tables, cands, dequant = list(tables), list(cands), dict(dequant or {})
     if not tables or len(tables) != len(cands):
         raise ValueError(f"expected one candidate batch per table, got {len(tables)} "
                          f"tables and {len(cands)} batches")
@@ -99,22 +126,27 @@ def rehearsal_update_sample_leaves(tables, cands, cand_rows: torch.Tensor,
     if any(t.shape[0] != n_rows for t in tables):
         raise ValueError(f"the leaves' tables must share R, got "
                          f"{[t.shape[0] for t in tables]}")
+    _check_dequant(tables, dequant)
     if not on_card(tables, cands + [cand_rows, samp_rows]):
-        return [rehearsal_update_sample_ref(t, c, cand_rows, samp_rows)[1]
-                for t, c in zip(tables, cands)]
+        return rehearsal_update_sample_leaves_ref(tables, cands, cand_rows, samp_rows, dequant)
     dev = cand_rows.device
     n_cand, n_samp = cand_rows.shape[0], samp_rows.shape[0]
-    reps = [torch.empty((n_samp, t.shape[1]), dtype=t.dtype, device=dev) for t in tables]
+    out_dtypes = [dequant[i][1] if i in dequant else t.dtype for i, t in enumerate(tables)]
+    reps = [torch.empty((n_samp, t.shape[1]), dtype=d, device=dev)
+            for t, d in zip(tables, out_dtypes)]
     row_bytes = [t.shape[1] * t.element_size() for t in tables]
     if n_cand + n_samp == 0 or not any(row_bytes):
         return reps
     n = len(tables)
     pointers = [(ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
                 for xs in (tables, cands, reps)]
+    codes = [DTYPE_CODES[dequant[i][1]] if i in dequant else -1 for i in range(n)]
+    scales = [dequant[i][0] if i in dequant else -1 for i in range(n)]
     fn = _function("rehearsal_update_sample_leaves")
     with torch.cuda.device(dev):
-        err = fn(n, *pointers, (ctypes.c_longlong * n)(*row_bytes), cand_rows.data_ptr(),
-                 samp_rows.data_ptr(), n_rows, n_cand, n_samp, stream(dev))
+        err = fn(n, *pointers, (ctypes.c_longlong * n)(*row_bytes), (ctypes.c_int * n)(*codes),
+                 (ctypes.c_int * n)(*scales), cand_rows.data_ptr(), samp_rows.data_ptr(),
+                 n_rows, n_cand, n_samp, stream(dev))
     build.launched(rehearsal_update_sample, err)
     return reps
 

@@ -6,13 +6,14 @@
         ├─ scenario.apply_defaults(run.rehearsal)   # policy/bucketing defaults
         ├─ scenario.build_problem(run, device)      # init_params / loss / eval
         ├─ make_cl_step + init_carry                # buffer + pipeline slot
+        │  (step_form='split': make_pipelined_halves, the issue half on its
+        │   own CUDA stream)
         ├─ Prefetcher                               # background Load stage
         └─ accuracy-matrix evaluation               # paper Eq. (1)
 
 The reference's other options are not ported yet and raise: ``mesh`` (the
-pjit backend, ROADMAP Queue 1 item 13), ``step_form='split'`` (item 5),
-``resilience`` and ``ckpt_dir`` (item 10), ``obs`` (item 14) and tap
-strategies (item 8).
+pjit backend, ROADMAP Queue 1 item 13), ``resilience`` and ``ckpt_dir``
+(item 10), ``obs`` (item 14) and tap strategies (item 8).
 """
 from __future__ import annotations
 
@@ -44,6 +45,9 @@ class ContinualTrainer:
       scenario: a ``Scenario`` instance, a registry name, or None.
       device: ``None`` (cuda) or ``"cpu"``; without a card only ``"cpu"`` runs.
       strategy: a registered strategy name; default ``run.scenario.strategy``.
+      step_form: ``'fused'`` (one call a step) or ``'split'`` (the train half,
+        then the issue half on its own CUDA stream; the pipelined
+        ``rehearsal`` strategy only, as in the reference).
     The trainer is one process, so the rehearsal exchange has no peers.
     """
 
@@ -51,13 +55,12 @@ class ContinualTrainer:
                  strategy: Optional[str] = None, mesh=None, step_form: str = "fused",
                  resilience=None, ckpt_dir: str = "", obs=None):
         from repro_torch.optim import make_optimizer
-        from repro_torch.strategy import STRATEGIES, get_strategy, make_cl_step
+        from repro_torch.strategy import (STRATEGIES, get_strategy, make_cl_step,
+                                          make_pipelined_halves)
 
         if mesh is not None:
             _not_ported("the mesh (pjit) backend", 13)
-        if step_form != "fused":
-            if step_form == "split":
-                _not_ported("step_form='split'", 5)
+        if step_form not in ("fused", "split"):
             raise ValueError(f"unknown step_form {step_form!r}")
         if resilience is not None or run.resilience is not None:
             _not_ported("the resilient loop", 10)
@@ -105,10 +108,19 @@ class ContinualTrainer:
                 f"scenario {self.scenario.name!r} declares bucket field "
                 f"{self.scenario.buffer_task_field!r} but its records only carry "
                 f"{sorted(self.item_spec)}")
-        self._step_fn = make_cl_step(
-            self.loss_fn, opt_update, rcfg, strategy=self.strat,
-            label_field=self.label_field, task_field=self.scenario.buffer_task_field,
-            device=self.device)
+        self._step_fn = self._halves = None
+        if step_form == "split":
+            if self.strategy != "rehearsal" or not rcfg.is_pipelined:
+                raise ValueError("step_form='split' needs the single-device "
+                                 "pipelined rehearsal path (mode='async')")
+            self._halves = make_pipelined_halves(
+                self.loss_fn, opt_update, rcfg, label_field=self.label_field,
+                task_field=self.scenario.buffer_task_field, device=self.device)
+        else:
+            self._step_fn = make_cl_step(
+                self.loss_fn, opt_update, rcfg, strategy=self.strat,
+                label_field=self.label_field, task_field=self.scenario.buffer_task_field,
+                device=self.device)
 
     def _source(self, task: int) -> Callable[[int], Dict[str, np.ndarray]]:
         """cursor -> raw batch for the given task segment, strategy-aware."""
@@ -139,6 +151,25 @@ class ContinualTrainer:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _split_step(self, carry, batch, key: int, record: bool):
+        """One step of the split form: the train half, then the issue half
+        (on its own stream on a card). The fingerprints the fused step emits
+        (``rep_checksum`` of the consumed pending slot, ``buffer_fill`` after
+        the issue) are computed only on the steps the history records."""
+        from repro_torch.buffer.api import buffer_fill
+        from repro_torch.strategy import TrainCarry, rep_checksum
+
+        train_half, issue_half = self._halves
+        consumed = carry.pipe
+        model, opt, metrics = train_half(carry.params, carry.opt, consumed, batch)
+        buffer, pipe = issue_half(carry.buffer, consumed, batch, key)
+        if record:
+            issue_half.join()  # the buffer's counts are written on the issue stream
+            metrics = dict(metrics, buffer_fill=buffer_fill(buffer).float(),
+                           rep_checksum=rep_checksum(consumed.reps, consumed.valid,
+                                                     self.label_field))
+        return TrainCarry(model, opt, buffer, pipe), metrics
 
     def fit(self, num_tasks: Optional[int] = None):
         """Train through the first ``num_tasks`` tasks (default: all) and
@@ -173,13 +204,17 @@ class ContinualTrainer:
                     t_step = time.perf_counter()
                     _, batch = pf.next()
                     waits.append(time.perf_counter() - t_step)
-                    carry, metrics = self._step_fn(carry, batch,
-                                                   fold_in(self.seed, global_step))
+                    record = s % max(1, n_steps // 4) == 0
+                    key = fold_in(self.seed, global_step)
+                    if self._halves is not None:
+                        carry, metrics = self._split_step(carry, batch, key, record)
+                    else:
+                        carry, metrics = self._step_fn(carry, batch, key)
                     loss = float(metrics["loss"])
                     step_seconds.append(time.perf_counter() - t_step)
                     losses.append(loss)
                     global_step += 1
-                    if s % max(1, n_steps // 4) == 0:
+                    if record:
                         history.append(self._history_entry(task, s, loss, metrics))
             finally:
                 pf.stop()

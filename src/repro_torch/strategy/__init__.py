@@ -16,12 +16,14 @@ from repro_torch.strategy.step import (
     TrainCarry,
     init_carry,
     make_cl_step,
+    make_pipelined_halves,
     rep_checksum,
 )
 
 __all__ = [
     "FromScratchStrategy", "IncrementalStrategy", "PipelinedRehearsalCarry",
     "RehearsalStrategy", "STRATEGIES", "Strategy", "TrainCarry", "get_strategy",
-    "init_carry", "make_cl_step", "register_strategy", "rep_checksum",
+    "init_carry", "make_cl_step", "make_pipelined_halves", "register_strategy",
+    "rep_checksum",
     "resolve_strategy",
 ]

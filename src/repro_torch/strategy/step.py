@@ -1,4 +1,4 @@
-"""Training-step factory, parameterised by a registered ``Strategy``.
+"""Training-step factories, parameterised by a registered ``Strategy``.
 
 The step of the reference's non-tap branch, in both its forms:
 
@@ -13,11 +13,16 @@ half draws from a generator seeded with the key carried from step t-1
 pipelined runs consume the same random sequence and the pipelined step's
 representatives at t are the sync step's at t-1.
 
-Single-process, or one process per GPU with a ``torch.distributed`` group:
-gradients are then mean-reduced with ``plain_psum``, and the rehearsal
-exchange runs over the group. The buffer and the parameters are updated in
-place. Tap strategies (DER, grasp_embed), int8 gradient compression and the
-split two-half form are ROADMAP Queue 1 items 5 and 8.
+``make_cl_step`` is the fused step: one call runs the issue half, then the
+train half, on the current stream. Single-process, or one process per GPU
+with a ``torch.distributed`` group: gradients are then mean-reduced with
+``plain_psum``, and the rehearsal exchange runs over the group.
+``make_pipelined_halves`` is the split form of the pipelined step (single
+process): the train half and the issue half as two calls, the issue half on
+a CUDA stream of its own, so it runs beside the train half's forward and
+backward and its host-side dispatch comes after the train half's. The
+buffer and the parameters are updated in place. Tap strategies (DER,
+grasp_embed) and int8 gradient compression are ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -99,6 +104,23 @@ def _mean_over(group, n_workers: int, metrics):
     return dict(metrics, **{k: vec[i] for i, k in enumerate(keys)})
 
 
+def _train(model, opt, opt_update, loss_fn, train_batch, reduce=None):
+    """Forward, backward (gradients through ``reduce`` when given) and the
+    optimizer step on one augmented batch. Returns ``(opt, loss,
+    aux_metrics, opt_metrics)``."""
+    model.zero_grad(set_to_none=True)
+    loss, aux_metrics = loss_fn(model, train_batch)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in params.items()}
+    if reduce is not None:
+        grads = reduce(grads)
+    _, opt, opt_metrics = opt_update(grads, opt, params)
+    model.zero_grad(set_to_none=True)
+    return opt, loss, aux_metrics, opt_metrics
+
+
 def make_cl_step(
     loss_fn: Callable,
     opt_update: Callable,
@@ -141,6 +163,7 @@ def make_cl_step(
     n_workers = 1 if group is None else dist.get_world_size(group)
     rank = rdist.rank_in(group)
     ex_group = None if exchange == "local" else group
+    reduce = (lambda grads: plain_psum(grads, group, n_workers)) if n_workers > 1 else None
 
     def step(carry: TrainCarry, batch, key: int, rows=None):
         model, buf, pipe = carry.params, carry.buffer, carry.pipe
@@ -162,19 +185,129 @@ def make_cl_step(
         else:
             train_batch = batch
 
-        model.zero_grad(set_to_none=True)
-        loss, aux_metrics = loss_fn(model, train_batch)
-        loss.backward()
-        params = dict(model.named_parameters())
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        if n_workers > 1:
-            grads = plain_psum(grads, group, n_workers)
-        _, opt, opt_metrics = opt_update(grads, carry.opt, params)
-        model.zero_grad(set_to_none=True)
+        opt, loss, aux_metrics, opt_metrics = _train(model, carry.opt, opt_update, loss_fn,
+                                                     train_batch, reduce)
         metrics.update(loss=loss.detach(), **aux_metrics, **opt_metrics)
         if n_workers > 1:
             metrics = _mean_over(group, n_workers, metrics)
         return TrainCarry(model, opt, buf, pipe), metrics
 
     return step
+
+
+class _IssueStream:
+    """The issue half's CUDA stream and the two events that order it against
+    the caller's stream: ``batch_ready`` (recorded on the caller's stream when
+    the train half receives its batch: the issue half of the same batch
+    waits on it) and ``issued`` (recorded on the issue stream once a pending
+    slot is written: the next train half waits on it)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.batch_ready = None  # (batch dict, event)
+        self.issued = None
+
+    def mark_batch(self, batch):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self.batch_ready = (batch, ev)
+
+    def wait_issued(self):
+        """Make the caller's current stream wait for the last issue half."""
+        if self.issued is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.issued)
+
+
+def make_pipelined_halves(
+    loss_fn: Callable,
+    opt_update: Callable,
+    rcfg,
+    *,
+    exchange: str = "local",
+    label_field: Optional[str] = None,
+    task_field: Optional[str] = None,
+    device=None,
+):
+    """The pipelined step as two separately dispatched calls (single process):
+
+      ``train_half(model, opt, pipe, batch) -> (model, opt, metrics)`` -- the
+          forward, backward and optimizer step on the batch augmented with
+          the carried pending representatives (``pipe``, issued at t-1);
+      ``issue_half(buffer, pipe, batch, key, rows=None) -> (buffer, pipe')``
+          -- the Alg-1 push and the sample producing step t+1's pending slot,
+          drawing from ``generator(fold_in(pipe.key, 0))`` as the fused
+          step's lineage does; ``rows`` replaces the drawn row vectors (the
+          parity seam of ``make_cl_step``).
+
+    Dispatch ``train_half`` then ``issue_half`` each step, then read the
+    loss: the reference trainer's order. Both halves take the same ``pipe``.
+    On a CUDA device the issue half runs on a stream the halves own
+    (``issue_half.stream``): it waits on an event recorded when the train
+    half received the same batch (so it runs beside the train half's
+    kernels, not after them), and the next train half waits on an event the
+    issue half records once the pending slot is written. Only the issue half
+    writes the buffer; the train half never reads it. The batch the issue
+    half reads and the pending slot the train half reads are held against
+    early reuse by the caching allocator (``record_stream``). Before reading
+    the returned buffer on the caller's stream, call ``issue_half.join()``.
+    On the CPU the halves run in line, in the same order, and
+    ``issue_half.stream`` is None.
+
+    Plain rehearsal only, ``rcfg.is_pipelined``, as in the reference: tap
+    strategies need the fused form. The reference's sanitizer hook
+    (``wrap_halves``) belongs to the runtime (ROADMAP Queue 1 item 10) and
+    is not here."""
+    if rcfg is None or not rcfg.is_pipelined:
+        raise ValueError("make_pipelined_halves needs the pipelined rehearsal path "
+                         "(mode='async')")
+    buffer_api.check_supported(rcfg)
+    device = resolve_device(device)
+    label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "label")
+    task_field = buffer_api.resolve_field(task_field, rcfg, "task_field", "task")
+    side = _IssueStream(device) if device.type == "cuda" else None
+
+    def _on_device(batch):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def train_half(model, opt, pipe: PipelinedRehearsalCarry, batch):
+        if side is not None:
+            side.mark_batch(batch)
+            side.wait_issued()  # the pending slot is written
+            current = torch.cuda.current_stream(device)
+            for t in list(pipe.reps.values()) + [pipe.valid]:
+                t.record_stream(current)
+        train_batch = _on_device(batch)
+        reps, valid = rdist.consume_reps(rdist.PendingSample(pipe.reps, pipe.valid),
+                                         label_field)
+        train_batch = rb.augment_batch(train_batch, reps, valid, label_field)
+        opt, loss, aux_metrics, opt_metrics = _train(model, opt, opt_update, loss_fn,
+                                                     train_batch)
+        return model, opt, dict(aux_metrics, **opt_metrics, loss=loss.detach())
+
+    def issue(buffer, pipe, batch, key, rows):
+        gen = generator(fold_in(pipe.key, 0), device)  # single worker: index 0, as fused
+        buffer, pending = rdist.issue_sample(buffer, batch, batch[task_field], gen, rcfg,
+                                             None, exchange, rows=rows)
+        return buffer, PipelinedRehearsalCarry(pending.reps, pending.valid, key)
+
+    def issue_half(buffer, pipe: PipelinedRehearsalCarry, batch, key: int, rows=None):
+        if side is None:
+            return issue(buffer, pipe, _on_device(batch), key, rows)
+        if side.batch_ready is None or side.batch_ready[0] is not batch:
+            side.mark_batch(batch)  # no train half saw this batch
+        ready = side.batch_ready[1]
+        side.batch_ready = None
+        with torch.cuda.stream(side.stream):
+            side.stream.wait_event(ready)
+            batch = _on_device(batch)
+            for t in batch.values():
+                t.record_stream(side.stream)
+            out = issue(buffer, pipe, batch, key, rows)
+            side.issued = torch.cuda.Event()
+            side.issued.record(side.stream)
+        return out
+
+    issue_half.stream = None if side is None else side.stream
+    issue_half.join = (lambda: None) if side is None else side.wait_issued
+    return train_half, issue_half

@@ -24,7 +24,9 @@ def cuda():
 
 
 def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.float16) else t
 
 
 def _same(a, b):
@@ -306,6 +308,52 @@ def test_gather_dequant_bit_equal_to_plain_version(cuda, where, dtype, r, width,
     assert got.device.type == "cuda" and _same(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("r,width,c,s", [(300, 150528, 8, 2), (40, 37, 16, 5), (9, 8, 12, 3),
+                                         (7, 64, 1, 4)])
+def test_dequantizing_update_sample_bit_equal_to_plain_version(cuda, where, dtype, r, width,
+                                                               c, s):
+    """The unfused cold pass's one launch: int8 rows, their f32 scales and i32
+    labels scattered, the int8 leaf's sample dequantized to the record dtype
+    on the gather. Against the plain version (update+sample leaf by leaf,
+    then ``dequantize_rows_ref``) on device copies of the tables: every
+    table and sample bit for bit, with a duplicate target, drops and a
+    sample of a row written in the same launch; one launch, and no
+    ``dequantize_rows`` launch. Odd widths and an offset candidate pointer
+    take the 4-value and 1-value paths."""
+    rng = np.random.default_rng(r * 13 + width + c)
+    q, scales = _table(rng, r, width, where, cuda)
+    labels = torch.as_tensor(rng.integers(0, 1000, (r, 1)), dtype=torch.int32)
+    labels = labels.pin_memory() if where == "pinned" else labels.to(cuda)
+    tables = [q, scales, labels]
+    want_tables = [t.to(cuda, copy=True) for t in tables]
+    big = torch.as_tensor(rng.integers(-127, 128, (c + 1, width)), dtype=torch.int8, device=cuda)
+    cands = [big[1:] if width % 2 else big[:c],
+             torch.as_tensor(rng.uniform(1e-3, 4.0, (c, 1)), dtype=torch.float32, device=cuda),
+             torch.as_tensor(rng.integers(0, 1000, (c, 1)), dtype=torch.int32, device=cuda)]
+    rows = rng.integers(-2, r + 2, c)
+    rows[0] = rows[-1] = r // 2  # a duplicate target: the last candidate wins
+    samp = rng.integers(-1, r + 1, s)
+    samp[0] = r // 2  # a row written in this launch
+    cand_rows = torch.as_tensor(rows, dtype=torch.int32, device=cuda)
+    samp_rows = torch.as_tensor(samp, dtype=torch.int32, device=cuda)
+    before = (ops.rehearsal_update_sample.launches, qz.dequantize_rows.launches)
+    got = ops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows,
+                                             dequant={0: (1, dtype)})
+    want = ref.rehearsal_update_sample_leaves_ref(want_tables, cands, cand_rows, samp_rows,
+                                                  {0: (1, dtype)})
+    torch.cuda.synchronize()
+    assert (ops.rehearsal_update_sample.launches, qz.dequantize_rows.launches) == (
+        before[0] + 1, before[1])
+    assert got[0].dtype == dtype and got[0].shape == (s, width)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and _same(a, b)
+    for table, want_table in zip(tables, want_tables):
+        assert _same(table, want_table)
+
+
 # ---------------------------------------------------------------------------
 # the language-model kernels: flash attention and the SSD scan
 # ---------------------------------------------------------------------------
@@ -493,3 +541,112 @@ def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ok = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):  # the TMA loads need a 16-byte aligned base
         fa.flash_attention(shifted, ok, ok)
+
+
+# ---------------------------------------------------------------------------
+# the split pipelined step: the issue half on its own stream
+# ---------------------------------------------------------------------------
+
+
+class _Linear(torch.nn.Module):
+    def __init__(self, device):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(8, 4, device=device))
+
+
+def _ce(model, b):
+    logits = b["x"] @ model.w
+    mask = (b["label"] >= 0).float()
+    ce = torch.nn.functional.cross_entropy(logits, b["label"].long().clamp(min=0),
+                                           reduction="none")
+    return (ce * mask).sum() / mask.sum().clamp(min=1.0), {}
+
+
+def _sgd(grads, opt, params):
+    with torch.no_grad():
+        for name, p in params.items():
+            p -= 0.1 * grads[name]
+    return params, opt, {}
+
+
+def _step_batch(step, cuda):
+    rng = np.random.default_rng(step)
+    lab = rng.integers(0, 4, 16)
+    return {"x": torch.as_tensor(rng.normal(size=(16, 8)) * 3, dtype=torch.float32, device=cuda),
+            "label": torch.as_tensor(lab, dtype=torch.int32, device=cuda),
+            "task": torch.as_tensor(lab % 2, dtype=torch.int32, device=cuda)}
+
+
+def _buffer_leaves(st):
+    """Every tensor of a flat or tiered buffer state."""
+    parts = (st.hot, st.cold) if hasattr(st, "hot") else (st,)
+    out = []
+    for part in parts:
+        for leaf in part.data.values():
+            out += list(leaf.values()) if isinstance(leaf, dict) else [leaf]
+        out += [part.counts, part.seen]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiering", ["off", "host"])
+def test_split_halves_on_their_streams_match_the_fused_step(cuda, tiering, monkeypatch):
+    """``make_pipelined_halves`` on the card: the train half runs on the
+    caller's stream, the issue half (its update+sample launches included) on
+    ``issue_half.stream``, another stream. Over 8 steps, flat and tiered
+    (pinned int8 cold tier), each step's ``rep_checksum``, ``buffer_fill``
+    and loss, and at the end the parameters, the buffer and the pending slot
+    equal the fused ``make_cl_step``'s bit for bit."""
+    from repro_torch.buffer import api as buffer_api
+    from repro_torch.buffer.state import ItemSpec
+    from repro_torch.configs.base import RehearsalConfig
+    from repro_torch.core import distributed as rdist
+    from repro_torch.strategy import init_carry, make_cl_step, make_pipelined_halves, rep_checksum
+
+    rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
+                           num_candidates=8, mode="async", label_field="label",
+                           tiering=tiering, hot_slots=2, cold_slots=8)
+    spec = {"x": ItemSpec((8,), torch.float32), "label": ItemSpec((), torch.int32),
+            "task": ItemSpec((), torch.int32)}
+    streams = {"train": set(), "issue": set()}
+    issue_sample = rdist.issue_sample
+
+    def spy_issue(*args, **kw):
+        streams["issue"].add(torch.cuda.current_stream().cuda_stream)
+        launches = ops.rehearsal_update_sample.launches
+        out = issue_sample(*args, **kw)
+        assert ops.rehearsal_update_sample.launches > launches
+        return out
+
+    def spy_loss(model, batch):
+        streams["train"].add(torch.cuda.current_stream().cuda_stream)
+        return _ce(model, batch)
+
+    step = make_cl_step(_ce, _sgd, rcfg, exchange="local", device=cuda)
+    fused = init_carry(_Linear(cuda), None, spec, rcfg, seed=5, device=cuda)
+    train_half, issue_half = make_pipelined_halves(spy_loss, _sgd, rcfg, device=cuda)
+    model, opt, buf, pipe = init_carry(_Linear(cuda), None, spec, rcfg, seed=5, device=cuda)
+    assert issue_half.stream is not None
+    for s in range(8):
+        batch = _step_batch(s, cuda)
+        fused, m = step(fused, batch, s)
+        consumed = pipe
+        monkeypatch.setattr(rdist, "issue_sample", spy_issue)
+        model, opt, tm = train_half(model, opt, pipe, batch)
+        buf, pipe = issue_half(buf, pipe, batch, s)
+        monkeypatch.setattr(rdist, "issue_sample", issue_sample)
+        issue_half.join()
+        assert float(rep_checksum(consumed.reps, consumed.valid, "label")) == float(
+            m["rep_checksum"])
+        assert float(buffer_api.buffer_fill(buf)) == float(m["buffer_fill"])
+        assert float(tm["loss"]) == float(m["loss"])
+    torch.cuda.synchronize()
+    assert streams["train"] == {torch.cuda.current_stream().cuda_stream}
+    assert streams["issue"] == {issue_half.stream.cuda_stream} != streams["train"]
+    assert torch.equal(model.w, fused.params.w)
+    for name in spec:
+        assert _same(pipe.reps[name], fused.pipe.reps[name])
+    assert torch.equal(pipe.valid, fused.pipe.valid)
+    for a, b in zip(_buffer_leaves(buf), _buffer_leaves(fused.buffer)):
+        assert _same(a, b)
+    assert float(buffer_api.buffer_fill(buf)) > 0

@@ -213,3 +213,88 @@ def test_list_form_rejects_bad_inputs(bad):
         cand_rows = cand_rows.long()
     with pytest.raises((TypeError, ValueError)):
         tops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows)
+
+
+# ---------------------------------------------------------------------------
+# the dequantizing gather: the unfused cold sample's dequantization folded in
+# ---------------------------------------------------------------------------
+
+_RECORD_DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16),
+                  "f16": (torch.float16, jnp.float16)}
+
+
+def _np_bits(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int16).numpy() if t.element_size() == 2 else t.numpy()
+
+
+def _cold_leaves(seed, r, width, c, s):
+    """A cold record: int8 rows, their f32 scales and i32 raw labels sharing
+    R, with candidates whose targets repeat a row, drop (< 0 and >= R), and
+    whose samples read a row written in the same call."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-127, 128, (r, width)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-3, 4.0, (r, 1)).astype(np.float32))
+    label = torch.from_numpy(rng.integers(0, 1000, (r, 1)).astype(np.int32))
+    cq = torch.from_numpy(rng.integers(-127, 128, (c, width)).astype(np.int8))
+    cscale = torch.from_numpy(rng.uniform(1e-3, 4.0, (c, 1)).astype(np.float32))
+    clabel = torch.from_numpy(rng.integers(0, 1000, (c, 1)).astype(np.int32))
+    cand_rows = rng.integers(-2, r + 2, c).astype(np.int32)
+    cand_rows[-1] = cand_rows[0] = r // 2  # a duplicate target; the last one wins
+    samp_rows = rng.integers(-1, r + 1, s).astype(np.int32)
+    samp_rows[0] = r // 2  # a row written in the same call
+    return ([q, scale, label], [cq, cscale, clabel], torch.from_numpy(cand_rows),
+            torch.from_numpy(samp_rows))
+
+
+@pytest.mark.parametrize("dtype", sorted(_RECORD_DTYPES))
+@pytest.mark.parametrize("seed,r,width,c,s", [(0, 8, 37, 6, 4), (1, 16, 64, 12, 5),
+                                              (2, 5, 1, 9, 3)])
+def test_dequantizing_list_form_matches_jax_update_sample_then_dequantize(
+        dtype, seed, r, width, c, s):
+    """``rehearsal_update_sample_leaves(..., dequant={0: (1, dtype)})`` on CPU
+    tensors (its plain version) against the JAX package leaf by leaf: the
+    oracle ``rehearsal_update_sample_ref`` on every leaf, then the JAX
+    ``dequantize_rows`` kernel (interpret mode) on the gathered int8 rows
+    and scales. Bit for bit: every table, the label sample, and the int8
+    leaf's sample dequantized to the record dtype. No launch is counted."""
+    tdtype, jdtype = _RECORD_DTYPES[dtype]
+    tables, cands, cand_rows, samp_rows = _cold_leaves(seed, r, width, c, s)
+    want = [jref.rehearsal_update_sample_ref(*map(jnp.asarray, (
+        t.numpy(), x.numpy(), cand_rows.numpy(), samp_rows.numpy()))) for t, x in zip(tables, cands)]
+    before = tops.rehearsal_update_sample.launches
+    got_tables = [t.clone() for t in tables]
+    got = tops.rehearsal_update_sample_leaves(got_tables, cands, cand_rows, samp_rows,
+                                              dequant={0: (1, tdtype)})
+    assert tops.rehearsal_update_sample.launches == before
+    for table, (want_table, _) in zip(got_tables, want):
+        _assert_bits((table.numpy(),), (np.asarray(want_table),))
+    _assert_bits((got[1].numpy(), got[2].numpy()), (np.asarray(want[1][1]),
+                                                    np.asarray(want[2][1])))
+    dq = jops.dequantize(want[0][1], want[1][1], jdtype, interpret=True)
+    assert got[0].dtype == tdtype and got[0].shape == (s, width)
+    np.testing.assert_array_equal(_np_bits(got[0]), np.asarray(dq).view(_np_bits(got[0]).dtype))
+    # the sample of the row written in this call comes from the last candidate on it
+    assert torch.equal(got[0][0], tref.dequantize_rows_ref(cands[0][-1:], cands[1][-1:],
+                                                           tdtype)[0])
+
+
+@pytest.mark.parametrize("bad", ["same_leaf", "not_int8", "scale_width", "scale_dtype",
+                                 "record_dtype", "chained"])
+def test_dequantizing_list_form_rejects_bad_maps(bad):
+    tables, cands, cand_rows, samp_rows = _cold_leaves(3, 6, 8, 3, 2)
+    dequant = {0: (1, torch.float32)}
+    if bad == "same_leaf":
+        dequant = {0: (0, torch.float32)}
+    elif bad == "not_int8":
+        dequant = {2: (1, torch.float32)}
+    elif bad == "scale_width":
+        tables[2], cands[2] = tables[2].float().repeat(1, 2), cands[2].float().repeat(1, 2)
+        dequant = {0: (2, torch.float32)}
+    elif bad == "scale_dtype":
+        dequant = {0: (2, torch.float32)}
+    elif bad == "record_dtype":
+        dequant = {0: (1, torch.float64)}
+    else:
+        dequant = {0: (1, torch.float32), 1: (0, torch.float32)}
+    with pytest.raises((TypeError, ValueError)):
+        tops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows, dequant)

@@ -1,4 +1,6 @@
-"""The whole slice: the port's train step against the JAX ``make_cl_step``.
+"""The whole slice: the port's train step against the JAX ``make_cl_step``,
+and its split form (``make_pipelined_halves``) against the fused step and
+the JAX halves.
 
 Both start from the same carry (JAX params, optimizer state, buffer and
 pending slot carried across with ``repro_torch.convert``) and see the same
@@ -28,6 +30,8 @@ from repro.models import resnet as jresnet
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.strategy import init_carry as jinit_carry
 from repro.strategy import make_cl_step as jmake_cl_step
+from repro.strategy import make_pipelined_halves as jmake_pipelined_halves
+from repro.strategy import rep_checksum as jrep_checksum
 from repro_torch.buffer.state import ItemSpec, UpdateSampleRows
 from repro_torch.configs import resnet50_cl as tcfgs
 from repro_torch.configs.base import RehearsalConfig, TrainConfig
@@ -39,7 +43,7 @@ from repro_torch.models import model_zoo as tzoo
 from repro_torch.models import resnet as tresnet
 from repro_torch.optim import make_optimizer
 from repro_torch.strategy import (PipelinedRehearsalCarry, TrainCarry, init_carry,
-                                  make_cl_step)
+                                  make_cl_step, make_pipelined_halves, rep_checksum)
 
 JCFG = jcfgs.CNNConfig("t", "resnet18", num_classes=8, width=4, stage_blocks=(1, 1),
                        bottleneck=False, image_size=8)
@@ -61,19 +65,19 @@ def _close(got, want, rtol=1e-4):
     assert np.abs(got - want).max() <= rtol * np.abs(want).max() + 1e-7
 
 
+def _jax_loss(p, batch):
+    logits = jresnet.apply_cnn(p, batch["images"], JCFG)
+    return jzoo.cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
+
+
 def _jax_run(pipelined):
     rcfg = JRehearsal(mode="sync", pipelined=pipelined, **RCFG)
     spec = {"images": jax.ShapeDtypeStruct((8, 8, 3), jnp.float32),
             "label": jax.ShapeDtypeStruct((), jnp.int32),
             "task": jax.ShapeDtypeStruct((), jnp.int32)}
-
-    def loss_fn(p, batch):
-        logits = jresnet.apply_cnn(p, batch["images"], JCFG)
-        return jzoo.cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
-
     init, update = jmake_optimizer(JTrain(**RECIPE))
     params = jax.jit(lambda k: jresnet.init_cnn(k, JCFG))(jax.random.PRNGKey(0))
-    step = jmake_cl_step(loss_fn, update, rcfg, strategy="rehearsal", exchange="local",
+    step = jmake_cl_step(_jax_loss, update, rcfg, strategy="rehearsal", exchange="local",
                          label_field="label", donate=False)
     return rcfg, spec, params, init(params), step
 
@@ -88,20 +92,28 @@ def _port_carry(jc):
                       buffer_from_jax(jc.buffer, "cpu"), pipe)
 
 
+def _port_loss(model, batch):
+    logits = tresnet.apply_cnn(model, batch["images"])
+    return tzoo.cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
+
+
 def _port_step(pipelined):
     rcfg = RehearsalConfig(mode="sync", pipelined=pipelined, **RCFG)
-
-    def loss_fn(model, batch):
-        logits = tresnet.apply_cnn(model, batch["images"])
-        return tzoo.cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
-
     _, update = make_optimizer(TrainConfig(**RECIPE))
-    return make_cl_step(loss_fn, update, rcfg, strategy="rehearsal", exchange="local",
+    return make_cl_step(_port_loss, update, rcfg, strategy="rehearsal", exchange="local",
                         label_field="label", device="cpu")
 
 
+def _port_halves():
+    rcfg = RehearsalConfig(mode="sync", pipelined=True, **RCFG)
+    _, update = make_optimizer(TrainConfig(**RECIPE))
+    return make_pipelined_halves(_port_loss, update, rcfg, exchange="local",
+                                 label_field="label", device="cpu")
+
+
 def _jax_rows(jc, jbatch, rcfg):
-    """The row vectors the JAX step's issue half computes."""
+    """The row vectors the JAX step's issue half computes (``jc`` carries the
+    ``pipe`` and the ``buffer``)."""
     k_up, k_samp = jax.random.split(jax.random.fold_in(jc.pipe.key, 0))
     flat, _, _, _, counts, seen = jstate.local_update_rows(
         jc.buffer, jbatch["task"], k_up, rcfg.num_candidates)
@@ -137,6 +149,84 @@ def test_port_step_matches_jax_make_cl_step(pipelined):
     want = named_from_tree(jax.tree_util.tree_map(np.asarray, jc.params))
     for name, p in tc.params.named_parameters():
         _close(p.detach().numpy(), want[name])
+
+
+def test_port_halves_match_jax_make_pipelined_halves():
+    """The split form against the reference's: the JAX halves run as the
+    reference trainer dispatches them (train, then issue); the port's issue
+    half gets the JAX issue half's row vectors through the ``rows`` seam.
+    Buffer, pending reps and valid, ``buffer_fill`` and ``rep_checksum`` of
+    the consumed slot exactly; loss and parameters within ``_close``."""
+    rcfg, spec, params, opt, _ = _jax_run(True)
+    jc = jinit_carry(params, opt, spec, rcfg, label_field="label", seed=3)
+    jtrain, jissue = jmake_pipelined_halves(_jax_loss, jmake_optimizer(JTrain(**RECIPE))[1],
+                                            rcfg, exchange="local", label_field="label")
+    tc = _port_carry(jc)
+    ttrain, tissue = _port_halves()
+    assert tissue.stream is None  # the CPU runs the halves in line
+    jparams, jopt, jbuf, jpipe = jc.params, jc.opt, jc.buffer, jc.pipe
+    model, topt, tbuf, tpipe = tc
+    stream = JImages(JStreamCfg(**STREAM))
+    key = jax.random.PRNGKey(0)
+    for s in range(STEPS + 2):
+        batch = _batch(stream, s)
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        rows = _jax_rows(TrainCarry(None, None, jbuf, jpipe), jbatch, rcfg)
+        jck = float(jrep_checksum(jpipe.reps, jpipe.valid, "label"))
+        tck = float(rep_checksum(tpipe.reps, tpipe.valid, "label"))
+        jparams, jopt, jm = jtrain(jparams, jopt, jpipe, jbatch)
+        jbuf, jpipe = jissue(jbuf, jpipe, jbatch, jax.random.fold_in(key, s))
+        model, topt, tm = ttrain(model, topt, tpipe, batch)
+        tbuf, tpipe = tissue(tbuf, tpipe, batch, s, rows=rows)
+        assert tck == jck
+        _close(float(tm["loss"]), float(jm["loss"]))
+        assert float(tbuf.counts.sum()) == float(jbuf.counts.sum())
+        for name, leaf in jbuf.data.items():
+            np.testing.assert_array_equal(tbuf.data[name].numpy(), np.asarray(leaf))
+            np.testing.assert_array_equal(tpipe.reps[name].numpy(), np.asarray(jpipe.reps[name]))
+        assert tpipe.valid.tolist() == np.asarray(jpipe.valid).tolist()
+    assert float(tbuf.counts.sum()) > 0 and tck > 0
+    want = named_from_tree(jax.tree_util.tree_map(np.asarray, jparams))
+    for name, p in model.named_parameters():
+        _close(p.detach().numpy(), want[name])
+
+
+def test_port_halves_match_port_fused_pipelined_step():
+    """``make_pipelined_halves`` dispatched train then issue reproduces the
+    fused pipelined ``make_cl_step`` over 6 steps with the port's own
+    generator: parameters, optimizer state, buffer and pending slot bit for
+    bit (as tests/test_pipelined.py holds the reference's halves)."""
+    checksums, _, fused = _port_run(True, steps=6)
+    _, _, carry = _port_run(True, steps=0)
+    train_half, issue_half = _port_halves()
+    stream = ClassIncrementalImages(ImageStreamConfig(**STREAM))
+    model, opt, buf, pipe = carry
+    split_checksums = []
+    for s in range(6):
+        batch = _batch(stream, s)
+        split_checksums.append(float(rep_checksum(pipe.reps, pipe.valid, "label")))
+        model, opt, _ = train_half(model, opt, pipe, batch)
+        buf, pipe = issue_half(buf, pipe, batch, s)
+    assert split_checksums == checksums
+    assert pipe.key == fused.pipe.key and torch.equal(pipe.valid, fused.pipe.valid)
+    for k in fused.buffer.data:
+        assert torch.equal(buf.data[k], fused.buffer.data[k])
+        assert torch.equal(pipe.reps[k], fused.pipe.reps[k])
+    assert torch.equal(buf.counts, fused.buffer.counts)
+    assert torch.equal(buf.seen, fused.buffer.seen)
+    want = dict(fused.params.named_parameters())
+    for name, p in model.named_parameters():
+        assert torch.equal(p, want[name]), name
+    assert opt.step == fused.opt.step
+    for name, mu in fused.opt.mu.items():
+        assert torch.equal(opt.mu[name], mu), name
+
+
+def test_halves_refuse_the_sync_path():
+    rcfg = RehearsalConfig(mode="sync", **RCFG)
+    with pytest.raises(ValueError, match="mode='async'"):
+        make_pipelined_halves(_port_loss, make_optimizer(TrainConfig(**RECIPE))[1], rcfg,
+                              device="cpu")
 
 
 def _port_run(pipelined, steps=6):

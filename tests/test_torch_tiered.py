@@ -94,12 +94,19 @@ def _assert_bits(got, want, what=""):
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8), err_msg=what)
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A port tensor as numpy; bf16 as JAX's numpy bf16 (numpy has none)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
 def _assert_states(port: T.TieredState, ref):
     want = dict(_state_leaves(ref))
     got = dict(_state_leaves(port))
     assert got.keys() == want.keys()
     for name, leaf in want.items():
-        _assert_bits(got[name].numpy(), leaf, name)
+        _assert_bits(_np(got[name]), leaf, name)
 
 
 def jax_tiered_rows(js, labels, key_up, key_samp, c: int, n: int) -> T.TieredRows:
@@ -165,6 +172,52 @@ def test_tiered_step_matches_jax_bit_for_bit(fused, k, hot, cold, stage, b, step
         for name, leaf in jreps.items():
             _assert_bits(treps[name].numpy(), leaf, name)
     assert int(ts.cold.counts.sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unfused_step_dequantizes_in_the_update_sample_launch(monkeypatch, dtype):
+    """The unfused tiered step, bit for bit against the JAX package through
+    the rows seam as above, with counters patched on the CPU path: its cold
+    pass calls ``rehearsal_update_sample_leaves`` once a step with the float
+    field's int8 leaf dequantized on the gather, and ``dequantize_rows``
+    never (the reference's third launch is folded into the second)."""
+    from repro_torch.core import compression
+
+    calls = {"dequantize_rows": 0, "leaves": 0, "folded": 0}
+    leaves, dequantize = compression.rehearsal_update_sample_leaves, compression.dequantize_rows
+
+    def count_leaves(*args, **kw):
+        calls["leaves"] += 1
+        calls["folded"] += bool(args[4] if len(args) > 4 else kw.get("dequant"))
+        return leaves(*args, **kw)
+
+    def count_dequantize(*args, **kw):
+        calls["dequantize_rows"] += 1
+        return dequantize(*args, **kw)
+
+    monkeypatch.setattr(compression, "rehearsal_update_sample_leaves", count_leaves)
+    monkeypatch.setattr(compression, "dequantize_rows", count_dequantize)
+    jspec = dict(_jspec(), x=jax.ShapeDtypeStruct((8,), jnp.dtype(dtype)))
+    tspec = dict(_tspec(), x=ItemSpec((8,), getattr(torch, dtype)))
+    k, hot, cold, stage, b, steps = 2, 2, 4, 3, 8, 8
+    js = jtiered.init_tiered(jspec, k, hot, cold, stage)
+    ts = T.init_tiered(tspec, k, hot, cold, stage, device="cpu")
+    for i in range(steps):
+        batch = _batch(700 + i, b, n_buckets=k)
+        jitems = {name: jnp.asarray(v) for name, v in batch.items()}
+        jitems["x"] = jitems["x"].astype(dtype)
+        items = dict(_torch(batch), x=torch.from_numpy(batch["x"]).to(getattr(torch, dtype)))
+        key_up, key_samp = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(7), i))
+        rows = jax_tiered_rows(js, jitems["task"], key_up, key_samp, b, 4)
+        js = jtiered.tiered_update(js, jitems, jitems["task"], key_up, b)
+        jreps, jvalid = jtiered.tiered_sample(js, key_samp, 4)
+        ts, treps, tvalid = T.tiered_update_sample(ts, items, rows)
+        _assert_states(ts, js)
+        _assert_bits(tvalid.numpy(), jvalid, "valid")
+        for name, leaf in jreps.items():
+            _assert_bits(_np(treps[name]), leaf, name)
+    assert int(ts.cold.counts.sum()) > 0
+    assert calls == {"dequantize_rows": 0, "leaves": steps, "folded": steps}
 
 
 def test_empty_stage_flush_is_identity_fused_and_not():

@@ -76,12 +76,44 @@ def test_constructors_default_to_the_card(name):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "item 13"), (dict(step_form="split"), "item 5"),
+    (dict(mesh=object()), "item 13"),
     (dict(resilience=object()), "item 10"), (dict(ckpt_dir="/nonexistent"), "item 10"),
     (dict(obs=object()), "item 14")])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ContinualTrainer(RUN, device="cpu", **kwargs)
+
+
+TIERED = dataclasses.replace(RUN.rehearsal, tiering="host", hot_slots=2, cold_slots=6)
+
+
+@pytest.mark.parametrize("rehearsal", [RUN.rehearsal, TIERED], ids=["flat", "tiered"])
+def test_split_form_histories_equal_the_fused_form(rehearsal):
+    """``step_form='split'`` (train half, then issue half) against the fused
+    step on the CPU: the same ``rep_checksum`` / ``buffer_fill`` / loss
+    history, losses and accuracy matrix, bit for bit."""
+    run = RUN.replace(rehearsal=rehearsal)
+    fused = ContinualTrainer(run, device="cpu").fit()
+    split_trainer = ContinualTrainer(run, device="cpu", step_form="split")
+    assert split_trainer._halves is not None
+    split = split_trainer.fit()
+    assert split.history == fused.history and split.losses == fused.losses
+    assert np.array_equal(split.accuracy_matrix, fused.accuracy_matrix)
+    assert len(split.step_seconds) == len(split.prefetch_wait_seconds) == 6
+    fills = [h["buffer_fill"] for h in split.history]
+    assert fills[-1] > fills[0] and any(h["rep_checksum"] for h in split.history)
+    if rehearsal.tiered:
+        assert fills[-1] > 2 * 2  # past the hot tier: the cold tier holds records
+
+
+@pytest.mark.parametrize("kwargs", [dict(strategy="incremental"),
+                                    dict(run=RUN.replace(rehearsal=dataclasses.replace(
+                                        RUN.rehearsal, mode="sync")))],
+                         ids=["not_rehearsal", "not_pipelined"])
+def test_split_form_refuses_what_the_reference_refuses(kwargs):
+    run = kwargs.pop("run", RUN)
+    with pytest.raises(ValueError, match="pipelined rehearsal path"):
+        ContinualTrainer(run, device="cpu", step_form="split", **kwargs)
 
 
 def test_unported_configs_raise():
