@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
      and the unfused cold pass's one launch, update+sample with its int8
      leaf dequantized on the gather (f32, bf16, f16 records; pinned and
      device tables), against update+sample then dequantize_rows' plain
-     version, and timed against the two launches it replaces;
+     version, and timed against the two launches it replaces; the tap
+     strategies' records at full width (image, label, task and der's dense
+     logits [1000] or top-8 pairs, or grasp_embed's embedding [2048]) in one
+     launch, on device tables and in the cold tier's pinned layout;
   4. the port's ResNet-50 at full width on the card against the same model
      on the CPU, on a small input;
   5. the flat main path: ``ContinualTrainer`` on ``resnet50_cl.full()``
@@ -53,6 +56,17 @@ Phases (any failure exits non-zero):
      no profiler session runs in this one): median step, idle share,
      the stream each kernel ran on, and the issue half's time during the
      train half's kernels.
+ 14. strategies and policies on the main path (after phase 13, TF32 on):
+     ``ContinualTrainer`` on phase 5's configuration with der_pp (dense
+     logits, flat), der with top_k 8 on phase 7's tiered store (unfused,
+     then fused: identical fingerprints), grasp_embed with the grasp policy
+     (flat), and rehearsal under fifo and under class_balanced (flat, 1
+     task); each checks one update+sample launch a flat step for the whole
+     record (3 a tiered step), one quantize_rows launch a step per float
+     leaf on the unfused tiered store, der's distill finite and positive,
+     the policy aux on the card, and prints its median step beside phase 5's;
+     then der_pp steps at phase 4's small input, the card against the CPU
+     through the ``rows`` seam, TF32 off.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's prefill
      shapes (f32 on the 3xTF32 wgmma kernel, bf16 on the bf16 wgmma kernel)
@@ -281,6 +295,64 @@ def leaves_sweep(ops, ref, seed: int = 2):
           f"leaf by leaf")
 
 
+def check_pinned_leaves(ops, ref, tables, cands, cand_rows, samp_rows):
+    """The list form on tables in pinned host memory (the cold tier) against
+    the plain version on device copies, leaf by leaf; asserts bit equality
+    and one launch."""
+    want_tables = [t.to("cuda") for t in tables]
+    before = ops.rehearsal_update_sample.launches
+    got = ops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows)
+    if ops.rehearsal_update_sample.launches - before != 1:
+        raise AssertionError("the list form on pinned tables was not one launch")
+    for i, (table, want_table, cand) in enumerate(zip(tables, want_tables, cands)):
+        pb, pr = ref.rehearsal_update_sample_ref(want_table, cand, cand_rows, samp_rows)
+        torch.cuda.synchronize()
+        if not (same_bits(table, pb) and same_bits(got[i], pr)):
+            raise AssertionError(f"pinned list form != plain version on leaf {i}: table "
+                                 f"{tuple(table.shape)} {table.dtype}")
+
+
+def strategy_records(ops, ref, leaves, cands, cand_rows, samp_rows):
+    """The tap strategies' records at full width through one update+sample
+    launch, bit for bit against the plain version leaf by leaf: der's image
+    f32 [150528], label and task i32 and either dense logits f32 [1000] or
+    the top-8 pairs (logit_vals f32 [8], logit_idx i32 [8]), and
+    grasp_embed's embedding f32 [2048]; on the flat buffer's device tables
+    at the main path's rows, and in the cold tier's pinned layout (int8 q
+    and f32 scale per float field, i32 fields raw) at the tiered path's."""
+    rows_total = leaves["images"].shape[0]
+    extra = {"der, dense logits": [(torch.float32, 1000)],
+             "der, top-8 pairs": [(torch.float32, 8), (torch.int32, 8)],
+             "grasp_embed": [(torch.float32, 2048)]}
+
+    def rand(shape, dtype, where="cuda"):
+        if dtype == torch.float32:
+            return torch.randn(shape, device=where)
+        lo, hi = (-127, 128) if dtype == torch.int8 else (-2**31, 2**31 - 1)
+        return torch.randint(lo, hi, shape, dtype=dtype, device=where)
+
+    for name, fields in extra.items():
+        tables = list(leaves.values()) + [rand((rows_total, w), d) for d, w in fields]
+        batch = list(cands.values()) + [rand((BATCH, w), d) for d, w in fields]
+        check_leaves(ops, ref, tables, batch, cand_rows, samp_rows)
+    cold_rows = BUCKETS * COLD
+    base = [(torch.int8, leaves["images"].shape[1]), (torch.float32, 1), (torch.int32, 1),
+            (torch.int32, 1)]
+    common = [rand((cold_rows, w), d, "cpu").pin_memory() for d, w in base]
+    flush_rows = torch.tensor([3, cold_rows, 17, cold_rows, 2500, cold_rows, 3999, cold_rows],
+                              dtype=torch.int32, device="cuda")
+    cold_samp = torch.tensor([17, 1000], dtype=torch.int32, device="cuda")
+    for name, fields in extra.items():
+        cold_fields = [(torch.int8, w) if d == torch.float32 else (d, w) for d, w in fields]
+        cold_fields += [(torch.float32, 1) for d, _ in fields if d == torch.float32]
+        tables = common + [rand((cold_rows, w), d, "cpu").pin_memory() for d, w in cold_fields]
+        batch = [rand((STAGE, t.shape[1]), t.dtype) for t in tables]
+        check_pinned_leaves(ops, ref, tables, batch, flush_rows, cold_samp)
+    print(f"tap strategies' records, one launch each, bit-equal to the plain version leaf "
+          f"by leaf: {', '.join(extra)}; flat ({rows_total} rows on the card, 4-5 leaves) "
+          f"and cold ({cold_rows} rows pinned, 6-7 leaves)")
+
+
 def main_path_inputs(rows_total: int, seed: int = 1):
     """Row vectors at the main path's shapes: C = b = 16 candidates of which
     c = 4 are accepted (distinct rows; the rest carry the out-of-range drop
@@ -317,6 +389,7 @@ def kernel_phase(ops, ref, image_len: int):
     print("main-path shapes, list form: the three leaves in one launch -- bit-equal")
     worst = max(worst, sweep(ops, ref))
     leaves_sweep(ops, ref)
+    strategy_records(ops, ref, leaves, cands, cand_rows, samp_rows)
 
     # the work of one step: one launch for the record's three leaves
     tables, batches = list(leaves.values()), list(cands.values())
@@ -984,8 +1057,15 @@ def _state_leaves(st):
 
 
 def _on_cpu(rows):
-    """A (nested) tuple of row vectors, copied to the CPU."""
-    return type(rows)(*(_on_cpu(x) if isinstance(x, tuple) else x.cpu() for x in rows))
+    """Row vectors (nested named tuples, a policy's aux dict, None),
+    copied to the CPU."""
+    if isinstance(rows, torch.Tensor):
+        return rows.cpu()
+    if isinstance(rows, dict):
+        return {k: _on_cpu(v) for k, v in rows.items()}
+    if isinstance(rows, tuple) and hasattr(rows, "_fields"):
+        return type(rows)(*(_on_cpu(x) for x in rows))
+    return rows
 
 
 def tiered_phase(cfg, steps: int = 6, seed: int = 3):
@@ -1184,6 +1264,208 @@ def split_phase(counters, cfg, fused_runs: dict):
               f"{f['wall_ms_per_step']:.2f} ms, split {sp['wall_ms_per_step']:.2f} ms; idle "
               f"share fused {f['device_idle_share']:.4f}, split {sp['device_idle_share']:.4f}")
     return steps_ms, profiles
+
+
+# ---------------------------------------------------------------------------
+# phase 14: strategies and policies on the main path
+# ---------------------------------------------------------------------------
+
+
+def strategy_main_path(counters, cfg, strategy: str, *, policy: str = "reservoir",
+                       top_k: int = 0, tiered: bool = False, fused: bool = False,
+                       tasks: int = TASKS_RUN, seed: int = 0):
+    """``ContinualTrainer`` on the configuration of phase 5 (``tiered``: of
+    phase 7) with another strategy or policy. Every counter is set to 0 just
+    before ``fit`` and read just after. Checks that every update+sample went
+    through the kernel (one launch a flat step for the whole record, three a
+    tiered step), that the unfused tiered store quantizes each float leaf
+    once a step, that der's distillation term is finite and positive once
+    replay rows are valid, and that the policy's aux stays on the card.
+    Returns the launches, the fingerprints and the median step in ms."""
+    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+                                          StrategyConfig)
+    from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
+    from repro_torch.scenario import ClassIncremental, ContinualTrainer
+
+    sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=cfg.image_size,
+                        batch_size=BATCH, epochs_per_task=1,
+                        steps_per_epoch=STEPS_PER_TASK, seed=seed, strategy=strategy)
+    store = (dict(tiering="host", hot_slots=HOT, cold_slots=COLD, fused_kernels=fused)
+             if tiered else dict(slots_per_bucket=SLOTS, tiering="off"))
+    run = RunConfig(model=cfg, scenario=sc, strategy=StrategyConfig(top_k=top_k),
+                    rehearsal=RehearsalConfig(num_representatives=REPS, num_candidates=CANDS,
+                                              mode="async", policy=policy, **store))
+    stream = ClassIncrementalImages(ImageStreamConfig(
+        num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
+        image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
+        seed=1234 + seed))
+    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda")
+    if trainer.rcfg.policy != policy:
+        raise AssertionError(f"the trainer runs policy {trainer.rcfg.policy!r}, not {policy!r}")
+    fields = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+              for k, v in trainer.item_spec.items()}
+    name = (f"{strategy}, policy {policy}" + (f", top_k {top_k}" if top_k else "")
+            + (f", tiered {'fused' if fused else 'unfused'}" if tiered else ", flat"))
+    print(f"{name}: record {fields}")
+    step, per_step = trainer._step_fn, []
+
+    def watched(carry, batch, key, rows=None):
+        carry, m = step(carry, batch, key, rows)
+        aux = (carry.buffer.hot if tiered else carry.buffer).aux
+        on_card = aux == () or all(v.device.type == "cuda" for v in aux.values())
+        per_step.append((m.get("distill"), on_card))
+        return carry, m
+
+    trainer._step_fn = watched
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    result = trainer.fit(num_tasks=tasks)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = tasks * STEPS_PER_TASK
+    fills = [h["buffer_fill"] for h in result.history]
+    prints = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    step_ms = statistics.median(result.step_seconds) * 1e3
+    distill = [float(d) for d, _ in per_step if d is not None]
+    print(f"losses {result.losses}")
+    print(f"buffer_fill {fills}; rep_checksum {[h['rep_checksum'] for h in result.history]}")
+    if distill:
+        print(f"distill {distill}")
+    print(f"median step {step_ms:.1f} ms (all steps "
+          f"{[round(t * 1e3, 1) for t in result.step_seconds]}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    floats = [k for k, v in trainer.item_spec.items() if v.dtype.is_floating_point]
+    want = {k: 0 for k in counters}
+    want["rehearsal_update_sample"] = (3 if tiered else 1) * steps
+    if tiered:
+        for kernel in (("encode_scatter_rows", "gather_dequant_rows") if fused
+                       else ("quantize_rows",)):
+            want[kernel] = len(floats) * steps
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want}, saw {launches}")
+    if len(result.losses) != steps or not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"{name}: non-finite or missing losses {result.losses}")
+    if not all(on_card for _, on_card in per_step):
+        raise AssertionError(f"{name}: the policy's aux left the card")
+    if strategy.startswith("der"):
+        # the pending slot of step 0 is empty; from step 2 on it holds valid
+        # rows sampled from a buffer that step 0 filled
+        if len(distill) != steps or not all(math.isfinite(d) for d in distill) or not all(
+                d > 0 for d in distill[2:]):
+            raise AssertionError(f"{name}: distill {distill}")
+    # class_balanced accepts ever fewer candidates of a filling bucket, so
+    # within one task the fill may stand still for a few steps; a second
+    # task opens an empty bucket
+    if not (fills[0] > 0 and fills == sorted(fills) and (tasks < 2 or fills[-1] > fills[0])):
+        raise AssertionError(f"{name}: buffer_fill {fills}")
+    return launches, prints, step_ms
+
+
+def der_card_against_cpu(cfg, steps: int = 2, seed: int = 7):
+    """der_pp steps of ``make_cl_step`` at phase 4's small input (4 images
+    32x32 at full width, 1000 classes), the card against the CPU from the
+    same weights, fed the same rows (planned on the CPU, through the
+    ``rows`` seam), TF32 off: the image, label and task leaves of the buffer
+    bit for bit, the stored logits and the loss within 1e-4 of their
+    largest value (f32 both sides, other convolution algorithms)."""
+    from repro_torch.buffer.state import ItemSpec, plan_update_sample
+    from repro_torch.configs.base import RehearsalConfig, StrategyConfig, TrainConfig
+    from repro_torch.models import apply_cnn, cnn_outputs, cross_entropy, init_cnn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.strategy import init_carry, make_cl_step
+
+    rcfg = RehearsalConfig(num_buckets=BUCKETS, slots_per_bucket=8, num_representatives=REPS,
+                           num_candidates=4, mode="async", label_field="label")
+    spec = {"images": ItemSpec((32, 32, 3), torch.float32), "label": ItemSpec((), torch.int32),
+            "task": ItemSpec((), torch.int32),
+            "logits": ItemSpec((cfg.num_classes,), torch.float32)}
+    init, update = make_optimizer(TrainConfig(peak_lr=0.05, warmup_steps=1))
+
+    def loss_fn(model, batch):
+        return cross_entropy(apply_cnn(model, batch["images"])[:, None, :],
+                             batch["label"][:, None]), {}
+
+    def forward_outputs(model, batch):
+        return cnn_outputs(model, batch["images"])
+
+    devices = {"cpu": "cpu", "card": "cuda"}
+    carries, step_fns = {}, {}
+    for key, dev in devices.items():
+        model = init_cnn(torch.Generator().manual_seed(seed), cfg, dev)
+        carries[key] = init_carry(model, init(dict(model.named_parameters())), spec, rcfg,
+                                  label_field="label", seed=3, device=dev)
+        step_fns[key] = make_cl_step(loss_fn, update, rcfg, strategy="der_pp",
+                                     exchange="local", label_field="label",
+                                     strategy_cfg=StrategyConfig(alpha=0.5, beta=0.5),
+                                     forward_outputs=forward_outputs,
+                                     aux_spec={"logits": spec["logits"]}, device=dev)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(steps):
+            batch = {"images": rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
+                     "label": rng.integers(0, cfg.num_classes, 4).astype(np.int32),
+                     "task": rng.integers(0, BUCKETS, 4).astype(np.int32)}
+            rows = plan_update_sample(carries["cpu"].buffer, torch.from_numpy(batch["task"]),
+                                      gen, 4, REPS)
+            metrics = {}
+            for key, dev in devices.items():
+                dev_rows = type(rows)(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                                        for x in rows))
+                carries[key], metrics[key] = step_fns[key](carries[key], batch, s,
+                                                           rows=dev_rows)
+            got, want = carries["card"].buffer.data, carries["cpu"].buffer.data
+            for name in ("images", "label", "task"):
+                if not same_bits(got[name], want[name]):
+                    raise AssertionError(f"der_pp step {s}: buffer leaf {name} differs")
+            scale = float(want["logits"].abs().max())
+            err = abs_err(got["logits"].cpu(), want["logits"])
+            loss_err = abs(float(metrics["card"]["loss"]) - float(metrics["cpu"]["loss"]))
+            loss_tol = 1e-4 * abs(float(metrics["cpu"]["loss"]))
+            print(f"der_pp step {s}, card against CPU (TF32 off, same rows): images/label/"
+                  f"task leaves bit-equal; logits leaf max |card - cpu| {err:.3e} (tolerance "
+                  f"{1e-4 * scale:.3e}); loss {float(metrics['card']['loss']):.6f} vs "
+                  f"{float(metrics['cpu']['loss']):.6f} (tolerance {loss_tol:.3e}); distill "
+                  f"{float(metrics['card']['distill']):.4e} vs "
+                  f"{float(metrics['cpu']['distill']):.4e}")
+            if not (scale > 0 and err <= 1e-4 * scale and loss_err <= loss_tol):
+                raise AssertionError(f"der_pp step {s}: the card disagrees with the CPU")
+        if not float(metrics["cpu"]["distill"]) > 0:
+            raise AssertionError("the der_pp check never distilled")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def strategy_phase(counters, cfg, fused_runs: dict):
+    """Phase 14: der_pp flat, der top-8 on the tiered store (unfused, then
+    fused: identical fingerprints), grasp_embed with the grasp policy, and
+    the rehearsal strategy under fifo and under class_balanced (1 task), each
+    run's median step beside phase 5's flat rehearsal step from this
+    process; then one der_pp check of the card against the CPU."""
+    base = fused_runs.get("flat") or main_path(counters, cfg)
+    runs = {}
+    runs["der_pp, flat"] = strategy_main_path(counters, cfg, "der_pp")
+    tiered = {f: strategy_main_path(counters, cfg, "der", top_k=8, tiered=True, fused=f)
+              for f in (False, True)}
+    runs["der top-8, tiered unfused"] = tiered[False]
+    runs["der top-8, tiered fused"] = tiered[True]
+    if tiered[False][1] != tiered[True][1]:
+        raise AssertionError(f"der tiered: fused and unfused fingerprints differ: "
+                             f"{tiered[False][1]} vs {tiered[True][1]}")
+    runs["grasp_embed + grasp, flat"] = strategy_main_path(counters, cfg, "grasp_embed",
+                                                           policy="grasp")
+    for policy in ("fifo", "class_balanced"):
+        runs[f"rehearsal + {policy}, flat, 1 task"] = strategy_main_path(
+            counters, cfg, "rehearsal", policy=policy, tasks=1)
+    print(f"der tiered: fused == unfused fingerprints over {len(tiered[True][1])} steps")
+    for name, (launches, _, step_ms) in runs.items():
+        print(f"phase 14 {name}: median step {step_ms:.1f} ms (phase 5 flat rehearsal "
+              f"{base[2]:.1f} ms), launches {({k: v for k, v in launches.items() if v})}")
+    der_card_against_cpu(cfg)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1670,7 +1952,7 @@ def serving_phase(seed: int = 12):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-13), and print no result lines")
+                    help="run phases 1, 2 and these only (3-14), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -1742,6 +2024,10 @@ def main(argv=None):
     if run(13):
         phase("13 split pipelined step: the issue half on its own CUDA stream")
         split_phase(counters, cfg, fused_runs)
+
+    if run(14):
+        phase("14 strategies and policies on the main path")
+        strategy_phase(counters, cfg, fused_runs)
 
     tf32_off()
     if run(8):

@@ -37,8 +37,7 @@ def _fused_of(rcfg) -> bool:
 
 
 def check_supported(rcfg):
-    """Raise for a config the port cannot run yet: a policy other than the
-    reservoir."""
+    """Raise ``KeyError`` for a policy name that is not registered."""
     _policy_of(rcfg)
 
 
@@ -60,14 +59,15 @@ def buffer_sample(state: AnyBufferState, gen, n: int, rcfg=None):
     return local_sample(state, gen, n, _policy_of(rcfg))
 
 
-def plan_update_and_sample(state: AnyBufferState, labels, gen, n: int, rcfg):
-    """The row vectors of an Alg-1 push followed by a draw of ``n`` records:
-    an ``UpdateSampleRows`` for the flat store, a ``TieredRows`` for the
-    tiered one."""
+def plan_update_and_sample(state: AnyBufferState, labels, gen, n: int, rcfg, items=None):
+    """The row vectors (and the policy aux) of an Alg-1 push of ``items``
+    followed by a draw of ``n`` records: an ``UpdateSampleRows`` for the
+    flat store, a ``TieredRows`` for the tiered one."""
     if isinstance(state, TieredState):
-        return plan_tiered(state, labels, gen, rcfg.num_candidates, n, _policy_of(rcfg))
+        return plan_tiered(state, labels, gen, rcfg.num_candidates, n, _policy_of(rcfg),
+                           items)
     return plan_update_sample(state, labels, gen, rcfg.num_candidates, n,
-                              _policy_of(rcfg))
+                              _policy_of(rcfg), items)
 
 
 def buffer_update_sample(state: AnyBufferState, items, rows, rcfg=None):

@@ -39,22 +39,28 @@ class ItemSpec(NamedTuple):
 
 
 class BufferState(NamedTuple):
-    """Per-worker rehearsal buffer B_n (``data`` leaves are [K, slots, ...])."""
+    """Per-worker rehearsal buffer B_n (``data`` leaves are [K, slots, ...]).
+
+    ``aux`` is the policy's private state on the buffer's device (``()`` for
+    the stateless reservoir; FIFO's cursor, GRASP's prototypes and distances)."""
 
     data: Dict[str, Any]  # name -> [K, slots, *item_shape] (or a dict of such)
     counts: torch.Tensor  # i32[K] filled slots per bucket
     seen: torch.Tensor  # i32[K] candidates offered per bucket (stats)
+    aux: Any = ()  # policy-private state
 
 
 class UpdateSampleRows(NamedTuple):
     """The row vectors of one update+sample: where each candidate goes, the
-    counts after the update, and which rows the sample reads."""
+    counts (and policy aux) after the update, and which rows the sample
+    reads."""
 
     cand_rows: torch.Tensor  # i32[b]; K*slots (out of range) marks a dropped candidate
     new_counts: torch.Tensor  # i32[K]
     new_seen: torch.Tensor  # i32[K]
     samp_rows: torch.Tensor  # i32[n], always in range
     samp_valid: torch.Tensor  # bool[n]
+    new_aux: Any = None  # the policy aux after the update; None keeps the state's
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -75,11 +81,12 @@ def init_buffer(item_spec: Dict[str, Any], num_buckets: int, slots: int,
                 policy=None, device=None, *, pin_data: bool = False) -> BufferState:
     """An empty buffer: zeroed leaves, zero counts, on ``device`` (``None``:
     the card). ``pin_data`` puts the data leaves in pinned host memory
-    instead, with the counts still on ``device`` (the cold tier)."""
+    instead, with the counts still on ``device`` (the cold tier). The
+    policy's aux starts from ``policy.init_aux`` on ``device``."""
     from repro_torch.buffer.policies import resolve_policy
 
-    resolve_policy(policy)  # raises for a policy the port does not have
     device = resolve_device(device)
+    aux = resolve_policy(policy).init_aux(item_spec, num_buckets, slots, device)
 
     def alloc(s: ItemSpec):
         shape = (num_buckets, slots) + tuple(s.shape)
@@ -88,7 +95,7 @@ def init_buffer(item_spec: Dict[str, Any], num_buckets: int, slots: int,
         return torch.zeros(shape, dtype=s.dtype, device=device)
 
     zeros = torch.zeros((num_buckets,), dtype=torch.int32, device=device)
-    return BufferState(tree_map(alloc, item_spec), zeros, zeros.clone())
+    return BufferState(tree_map(alloc, item_spec), zeros, zeros.clone(), aux)
 
 
 def buffer_dims(state: BufferState) -> Tuple[int, int]:
@@ -136,13 +143,21 @@ def local_sample_rows(state: BufferState, gen, n: int, policy=None):
 
 
 def plan_update_sample(state: BufferState, labels, gen, num_candidates: int,
-                       n: int, policy=None) -> UpdateSampleRows:
+                       n: int, policy=None, items=None) -> UpdateSampleRows:
     """Both row vectors of an update followed by a sample of ``n`` records:
-    the sample reads the counts the update leaves behind."""
-    flat, _, _, _, new_counts, new_seen = local_update_rows(
-        state, labels, gen, num_candidates, policy)
-    samp, valid = local_sample_rows(state._replace(counts=new_counts), gen, n, policy)
-    return UpdateSampleRows(flat, new_counts, new_seen, samp, valid)
+    the sample reads the counts and the policy aux the update leaves behind
+    (GRASP samples by this step's distances), so the aux update runs here,
+    before the sample rows are drawn. ``items`` are the incoming records
+    (the features GRASP's aux update reads); no kernel result is needed."""
+    from repro_torch.buffer.policies import resolve_policy
+
+    pol = resolve_policy(policy)
+    flat, accept, _, _, new_counts, new_seen = local_update_rows(
+        state, labels, gen, num_candidates, pol)
+    new_aux = pol.update_aux(state, items, labels, accept, flat, new_counts)
+    samp, valid = local_sample_rows(state._replace(counts=new_counts, aux=new_aux), gen, n,
+                                    pol)
+    return UpdateSampleRows(flat, new_counts, new_seen, samp, valid, new_aux)
 
 
 def evicted_mask(state: BufferState, labels, accept, pos, slot):
@@ -177,14 +192,15 @@ def local_update_sample(state: BufferState, items, rows: UpdateSampleRows):
     got = rehearsal_update_sample_leaves(tables, cands, rows.cand_rows, rows.samp_rows)
     reps = tree_map(lambda i, leaf: got[i].view((n,) + tuple(leaf.shape[2:])), index,
                     state.data)
-    new_state = BufferState(state.data, rows.new_counts, rows.new_seen)
+    new_aux = state.aux if rows.new_aux is None else rows.new_aux
+    new_state = BufferState(state.data, rows.new_counts, rows.new_seen, new_aux)
     return new_state, reps, rows.samp_valid
 
 
-def update_only(flat, new_counts, new_seen) -> UpdateSampleRows:
+def update_only(flat, new_counts, new_seen, new_aux=None) -> UpdateSampleRows:
     """The rows of an update that samples nothing."""
     none = torch.zeros((0,), dtype=torch.int32, device=flat.device)
-    return UpdateSampleRows(flat, new_counts, new_seen, none, none.bool())
+    return UpdateSampleRows(flat, new_counts, new_seen, none, none.bool(), new_aux)
 
 
 def sample_only(state: BufferState, samp_rows, samp_valid) -> UpdateSampleRows:
@@ -206,10 +222,16 @@ def local_update(state: BufferState, items, labels, gen, num_candidates: int,
                  policy=None, accept_mask=None) -> BufferState:
     """Algorithm 1: every sample enters its bucket with probability c/b; new
     candidates fill empty slots in arrival order, a full bucket evicts a
-    uniformly random slot. ``accept_mask`` overrides the lottery."""
-    flat, _, _, _, new_counts, new_seen = local_update_rows(
-        state, labels, gen, num_candidates, policy, accept_mask)
-    return local_update_sample(state, items, update_only(flat, new_counts, new_seen))[0]
+    uniformly random slot (other policies decide otherwise). ``accept_mask``
+    overrides the lottery."""
+    from repro_torch.buffer.policies import resolve_policy
+
+    pol = resolve_policy(policy)
+    flat, accept, _, _, new_counts, new_seen = local_update_rows(
+        state, labels, gen, num_candidates, pol, accept_mask)
+    new_aux = pol.update_aux(state, items, labels, accept, flat, new_counts)
+    return local_update_sample(state, items,
+                               update_only(flat, new_counts, new_seen, new_aux))[0]
 
 
 def local_update_with_evicted(state: BufferState, items, labels, gen,
@@ -220,17 +242,23 @@ def local_update_with_evicted(state: BufferState, items, labels, gen,
     several candidates on one slot, each reports the pre-batch record). The
     kernel gathers after it writes, so the evicted gather is its own launch,
     ordered before the update's."""
+    from repro_torch.buffer.policies import resolve_policy
+
+    pol = resolve_policy(policy)
     flat, accept, pos, slot, new_counts, new_seen = local_update_rows(
-        state, labels, gen, num_candidates, policy)
+        state, labels, gen, num_candidates, pol)
+    new_aux = pol.update_aux(state, items, labels, accept, flat, new_counts)
     evicted_valid = evicted_mask(state, labels, accept, pos, slot)
     evicted = gather_rows(state, flat)
-    new_state = local_update_sample(state, items, update_only(flat, new_counts, new_seen))[0]
+    new_state = local_update_sample(state, items,
+                                    update_only(flat, new_counts, new_seen, new_aux))[0]
     return new_state, evicted, evicted_valid
 
 
 def local_sample(state: BufferState, gen, n: int, policy=None):
-    """Draw ``n`` records, uniform over *filled* slots under the reservoir rule
-    (with replacement). Returns ``(items {name: [n, ...]}, valid bool[n])``."""
+    """Draw ``n`` records under the policy's sampling rule (the reservoir's:
+    uniform over filled slots, with replacement). Returns ``(items
+    {name: [n, ...]}, valid bool[n])``."""
     flat, valid = local_sample_rows(state, gen, n, policy)
     return gather_rows(state, flat), valid
 

@@ -3,8 +3,9 @@ majority int8-quantized in pinned host memory.
 
 A device-resident buffer caps S_max at device memory. This store splits each
 bucket into
-  * a **hot tier** of raw records on the device, managed by the policy; every
-    Algorithm-1 insertion lands here first, and
+  * a **hot tier** of raw records on the device, managed by the policy (its
+    aux lives with the hot tier); every Algorithm-1 insertion lands here
+    first, and
   * a **cold tier** of the records the hot tier evicts, row-quantized to int8
     (``core.compression``, 4x fewer bytes) and kept in pinned host memory on
     CUDA (``resolve_cold_placement``), so ``cold_slots`` can exceed device
@@ -41,6 +42,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.buffer.policies import resolve_policy
 from repro_torch.buffer.state import (
     BufferState,
     ItemSpec,
@@ -141,13 +143,16 @@ def _flush_rows(state: TieredState, gen):
     return flat, counts, seen
 
 
-def _push_rows(state: TieredState, labels, gen, num_candidates: int, policy):
-    """Hot-tier targets of the candidates, and the stage their evictions fill."""
+def _push_rows(state: TieredState, labels, gen, num_candidates: int, policy, items):
+    """Hot-tier targets of the candidates, the hot tier's policy aux after
+    the push, and the stage their evictions fill."""
+    pol = resolve_policy(policy)
     flat, accept, pos, slot, counts, seen = local_update_rows(
-        state.hot, labels, gen, num_candidates, policy)
+        state.hot, labels, gen, num_candidates, pol)
+    aux = pol.update_aux(state.hot, items, labels, accept, flat, counts)
     evicted_valid = evicted_mask(state.hot, labels, accept, pos, slot)
     take, in_range = _pack_order(evicted_valid, state.stage_labels.shape[0])
-    return (flat, counts, seen, flat[take], labels.int()[take],
+    return (flat, counts, seen, aux, flat[take], labels.int()[take],
             evicted_valid[take] & in_range)
 
 
@@ -160,17 +165,20 @@ def _mix_rows(hot_counts, cold_counts, gen, n: int):
 
 
 def plan_tiered(state: TieredState, labels, gen, num_candidates: int, n: int,
-                policy=None) -> TieredRows:
+                policy=None, items=None) -> TieredRows:
     """Every row vector of a tiered update followed by a draw of ``n``
     records. Draws from ``gen`` in the order flush, push, hot sample, cold
-    sample, mix; each sample reads the counts its tier's update leaves."""
+    sample, mix; each sample reads the counts its tier's update leaves, and
+    the hot sample the hot tier's policy aux after the push (``items``, the
+    incoming records, feed that aux update)."""
     c_flat, c_counts, c_seen = _flush_rows(state, gen)
-    h_flat, h_counts, h_seen, src, stage_labels, stage_valid = _push_rows(
-        state, labels, gen, num_candidates, policy)
-    h_samp, h_valid = local_sample_rows(state.hot._replace(counts=h_counts), gen, n, policy)
+    h_flat, h_counts, h_seen, h_aux, src, stage_labels, stage_valid = _push_rows(
+        state, labels, gen, num_candidates, policy, items)
+    h_samp, h_valid = local_sample_rows(state.hot._replace(counts=h_counts, aux=h_aux), gen,
+                                        n, policy)
     c_samp, c_valid = local_sample_rows(state.cold._replace(counts=c_counts), gen, n)
     return TieredRows(UpdateSampleRows(c_flat, c_counts, c_seen, c_samp, c_valid),
-                      UpdateSampleRows(h_flat, h_counts, h_seen, h_samp, h_valid),
+                      UpdateSampleRows(h_flat, h_counts, h_seen, h_samp, h_valid, h_aux),
                       src, stage_labels, stage_valid,
                       _mix_rows(h_counts, c_counts, gen, n))
 
@@ -185,7 +193,7 @@ def _cold_pass(cold: BufferState, stage, spec, rows: UpdateSampleRows, fused: bo
     else:
         items = comp.update_sample_decoded(cold.data, comp.encode_batch(stage, spec), spec,
                                            rows.cand_rows, rows.samp_rows)
-    return BufferState(cold.data, rows.new_counts, rows.new_seen), items
+    return BufferState(cold.data, rows.new_counts, rows.new_seen, cold.aux), items
 
 
 def _pick(hot_items, hot_valid, cold_items, cold_valid, use_hot):
@@ -222,10 +230,10 @@ def tiered_push(state: TieredState, items, labels, gen, num_candidates: int,
                 policy=None) -> TieredState:
     """Policy-driven hot-tier update; what it displaced becomes the new stage
     (the old one is replaced: flush it first)."""
-    flat, counts, seen, src, stage_labels, stage_valid = _push_rows(
-        state, labels, gen, num_candidates, policy)
+    flat, counts, seen, aux, src, stage_labels, stage_valid = _push_rows(
+        state, labels, gen, num_candidates, policy, items)
     stage = gather_rows(state.hot, src)  # before the push overwrites them
-    hot, _, _ = local_update_sample(state.hot, items, update_only(flat, counts, seen))
+    hot, _, _ = local_update_sample(state.hot, items, update_only(flat, counts, seen, aux))
     return TieredState(hot, state.cold, stage, stage_labels, stage_valid)
 
 

@@ -8,6 +8,7 @@ from repro_torch.configs.base import (
     RehearsalConfig,
     RunConfig,
     ScenarioConfig,
+    StrategyConfig,
     TrainConfig,
     reduce_model,
 )
@@ -39,5 +40,5 @@ def get_reduced(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "REGISTRY", "ModelConfig", "RehearsalConfig", "RunConfig",
-           "ScenarioConfig", "TrainConfig", "get_config", "get_reduced", "reduce_model",
-           "resnet50_cl"]
+           "ScenarioConfig", "StrategyConfig", "TrainConfig", "get_config", "get_reduced",
+           "reduce_model", "resnet50_cl"]

@@ -181,7 +181,7 @@ class RehearsalConfig:
     # Train on step t-1's representatives while issuing step t+1's sample;
     # mode='async' implies it.
     pipelined: bool = False
-    policy: str = "reservoir"  # the port has the reservoir policy only
+    policy: str = "reservoir"  # reservoir | fifo | class_balanced | grasp
     # Tiered store: 'off' keeps the whole buffer on the device; 'host' adds an
     # int8-quantized cold tier in pinned host memory (plain host memory on the
     # CPU), so per-bucket capacity can exceed device memory.
@@ -246,7 +246,7 @@ class ScenarioConfig:
 
     name: str = "class_incremental"
     modality: str = "vision"
-    # incremental | from_scratch | rehearsal
+    # incremental | from_scratch | rehearsal | der | der_pp | grasp_embed
     strategy: str = "rehearsal"
     num_tasks: int = 4
     epochs_per_task: int = 1
@@ -277,6 +277,25 @@ class TrainConfig:
     max_scaled_lr: float = 64.0  # LR cap under linear scaling
     linear_scaling: bool = True  # multiply LR by the number of DP workers
     grad_clip: float = 1.0
+    grad_compress: str = "none"  # none | int8 (error-feedback quantized all-reduce)
+
+
+@dataclass(frozen=True)
+class StrategyConfig:
+    """Hyper-parameters of the training strategy (``repro_torch.strategy``).
+
+    The strategy name lives in ``ScenarioConfig.strategy`` (or the trainer's
+    ``strategy=``); the built-in trio ignores these knobs, DER/DER++ read
+    ``alpha``/``beta``/``top_k``."""
+
+    alpha: float = 0.5  # DER: weight of the logit-MSE distillation term
+    beta: float = 0.5  # DER++: weight of the replay-row CE term (der ignores it)
+    # Store only the top-k (value, index) logit pairs per record (0: dense).
+    top_k: int = 0
+
+    def __post_init__(self):
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
 
 
 @dataclass(frozen=True)
@@ -287,6 +306,8 @@ class RunConfig:
     model: Optional[Any] = None  # CNNConfig | None (the LM path takes a ModelConfig directly)
     train: TrainConfig = TrainConfig()
     rehearsal: RehearsalConfig = RehearsalConfig()
+    # Strategy hyper-parameters; the strategy name is ScenarioConfig.strategy.
+    strategy: StrategyConfig = StrategyConfig()
     scenario: ScenarioConfig = ScenarioConfig()
     # Fault-tolerant loop config; the port does not have it yet and the
     # trainer raises when it is set.

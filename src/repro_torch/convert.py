@@ -14,9 +14,11 @@ both packages from the same carry. Nothing here imports the JAX package.
                             ``units.layer0.*`` leaves split into
                             ``layers.{i}.*``; ``load_named`` loads any
                             module from ``{name: array}``;
-  * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` — the
-                            flat or tiered buffer and the optimizer state of
-                            a carry.
+  * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` /
+    ``ef_from_jax``       — the flat or tiered buffer (every record leaf,
+                            a tap strategy's too, and the policy's aux), the
+                            optimizer state and the int8 error feedback of a
+                            carry.
 """
 from __future__ import annotations
 
@@ -96,10 +98,12 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def buffer_from_jax(state, device=None, *, pin_data: bool = False) -> BufferState:
-    """A port ``BufferState`` from a JAX ``BufferState`` (reservoir; the data
-    may be a dict of dicts, as the cold tier's) on ``device``, the card unless
-    the caller asks for the CPU. ``pin_data`` puts the data leaves in pinned
-    host memory, the counts on ``device``."""
+    """A port ``BufferState`` from a JAX ``BufferState`` (the data may be a
+    dict of dicts, as the cold tier's; the policy's aux a dict of arrays, as
+    FIFO's ``cursor`` or GRASP's ``proto``/``proto_n``/``dist``, or ``()``)
+    on ``device``, the card unless the caller asks for the CPU. ``pin_data``
+    puts the data leaves in pinned host memory, the counts and aux on
+    ``device``."""
     device = resolve_device(device)
 
     def leaf(a):
@@ -108,14 +112,17 @@ def buffer_from_jax(state, device=None, *, pin_data: bool = False) -> BufferStat
     data = tree_map(leaf, dict(state.data))
     counts = _tensor(np.asarray(state.counts, dtype=np.int32), device)
     seen = _tensor(np.asarray(state.seen, dtype=np.int32), device)
-    return BufferState(data, counts, seen)
+    aux = state.aux
+    if isinstance(aux, dict):
+        aux = {k: _tensor(v, device) for k, v in aux.items()}
+    return BufferState(data, counts, seen, aux)
 
 
 def tiered_from_jax(state, device=None) -> TieredState:
-    """A port ``TieredState`` from a JAX ``TieredState``: the hot tier and the
-    stage on ``device`` (the card unless the caller asks for the CPU), the
-    cold tier's ``{"q", "scale"}`` / ``{"raw"}`` leaves where
-    ``resolve_cold_placement`` puts them."""
+    """A port ``TieredState`` from a JAX ``TieredState``: the hot tier (with
+    its policy aux) and the stage on ``device`` (the card unless the caller
+    asks for the CPU), the cold tier's ``{"q", "scale"}`` / ``{"raw"}``
+    leaves where ``resolve_cold_placement`` puts them."""
     device = resolve_device(device)
     pinned = resolve_cold_placement(device) == "pinned_host"
     return TieredState(buffer_from_jax(state.hot, device),
@@ -135,3 +142,12 @@ def opt_state_from_jax(opt, device=None) -> OptState:
                 for k, v in named_from_tree(tree).items()}
 
     return OptState(int(np.asarray(opt.step)), tensors(opt.mu))
+
+
+def ef_from_jax(ef, device=None) -> Dict[str, torch.Tensor]:
+    """The port's error feedback ``{name: f32}`` from the JAX
+    ``init_error_feedback`` tree (the parameters' layout) on ``device``, the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in named_from_tree(ef).items()}

@@ -105,7 +105,7 @@ def issue_sample(state, items, labels, gen, rcfg, group=None,
     local = is_local(group, exchange)
     n = rcfg.num_representatives if local else _world(group)
     if rows is None:
-        rows = buffer_api.plan_update_and_sample(state, labels, gen, n, rcfg)
+        rows = buffer_api.plan_update_and_sample(state, labels, gen, n, rcfg, items)
     new_state, reps, valid = buffer_api.buffer_update_sample(state, items, rows, rcfg)
     if not local:
         recv, recv_valid = _exchange(reps, valid, group)

@@ -22,11 +22,16 @@ class Problem(NamedTuple):
 
     ``init_params_fn(seed) -> model`` on the run's device;
     ``loss_fn(model, batch) -> (loss, metrics)``;
-    ``eval_fn(model, task) -> float`` (top-1 accuracy for vision)."""
+    ``eval_fn(model, task) -> float`` (top-1 accuracy for vision);
+    ``forward_outputs(model, batch) -> {"logits": [B, ...], "embed": [B, D]}``,
+    the model-outputs tap the der/der_pp (stored logits) and grasp_embed
+    (embeddings) strategies build their loss and stored fields from, one
+    forward a step. ``None`` restricts the run to strategies without it."""
 
     init_params_fn: Callable[[int], Any]
     loss_fn: Callable[[Any, Dict], Any]
     eval_fn: Callable[[Any, int], float]
+    forward_outputs: Optional[Callable] = None
 
 
 class Scenario(abc.ABC):

@@ -74,7 +74,7 @@ class ClassIncremental(Scenario):
     def build_problem(self, run, device) -> Problem:
         from repro_torch.core.cl_loop import topk_accuracy
         from repro_torch.models.model_zoo import cross_entropy
-        from repro_torch.models.resnet import apply_cnn, init_cnn
+        from repro_torch.models.resnet import apply_cnn, cnn_outputs, init_cnn
 
         ccfg = run.model if run.model is not None else resnet50_cl.reduced(
             num_classes=self.num_classes)
@@ -91,6 +91,9 @@ class ClassIncremental(Scenario):
             return cross_entropy(logits[:, None, :],
                                  batch[self.label_field][:, None]), {}
 
+        def forward_outputs(model, batch):
+            return cnn_outputs(model, batch["images"])
+
         @torch.no_grad()
         def eval_fn(model, task):
             ev = self.eval_set(task)
@@ -104,7 +107,7 @@ class ClassIncremental(Scenario):
                 hits += round(float(acc) * len(labels))
             return hits / n
 
-        return Problem(init_params_fn, loss_fn, eval_fn)
+        return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs)
 
 
 register_scenario("class_incremental", ClassIncremental)

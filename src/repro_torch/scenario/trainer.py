@@ -4,7 +4,8 @@
 
     RunConfig + Scenario
         ├─ scenario.apply_defaults(run.rehearsal)   # policy/bucketing defaults
-        ├─ scenario.build_problem(run, device)      # init_params / loss / eval
+        ├─ scenario.build_problem(run, device)      # init_params / loss / eval / tap
+        ├─ Strategy.record_fields                   # tap strategies' extra fields
         ├─ make_cl_step + init_carry                # buffer + pipeline slot
         │  (step_form='split': make_pipelined_halves, the issue half on its
         │   own CUDA stream)
@@ -13,7 +14,7 @@
 
 The reference's other options are not ported yet and raise: ``mesh`` (the
 pjit backend, ROADMAP Queue 1 item 13), ``resilience`` and ``ckpt_dir``
-(item 10), ``obs`` (item 14) and tap strategies (item 8).
+(item 10) and ``obs`` (item 14).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.buffer.api import resolve_field
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import RehearsalConfig, RunConfig
 from repro_torch.data import Cursor, Prefetcher
 from repro_torch.device import resolve_device
 from repro_torch.rng import fold_in
@@ -45,6 +46,9 @@ class ContinualTrainer:
       scenario: a ``Scenario`` instance, a registry name, or None.
       device: ``None`` (cuda) or ``"cpu"``; without a card only ``"cpu"`` runs.
       strategy: a registered strategy name; default ``run.scenario.strategy``.
+        Its hyper-parameters come from ``run.strategy``; a strategy with a
+        recommended policy (grasp_embed: grasp) gets it when the config
+        leaves the policy at its default.
       step_form: ``'fused'`` (one call a step) or ``'split'`` (the train half,
         then the issue half on its own CUDA stream; the pipelined
         ``rehearsal`` strategy only, as in the reference).
@@ -81,8 +85,7 @@ class ContinualTrainer:
             raise ValueError(f"unknown strategy {self.strategy!r}; expected one of "
                              f"{sorted(STRATEGIES)}")
         self.strat = get_strategy(self.strategy)
-        if self.strat.needs_outputs:
-            _not_ported(f"strategy {self.strategy!r} (model-outputs tap)", 8)
+        self.scfg = run.strategy
         self.num_tasks = self.scenario.num_tasks
         self.epochs_per_task = sc.epochs_per_task
         self.steps_per_epoch = sc.steps_per_epoch
@@ -94,6 +97,8 @@ class ContinualTrainer:
             rcfg = self.scenario.apply_defaults(rcfg)
             if not self.strat.uses_buffer:
                 rcfg = dataclasses.replace(rcfg, mode="off")
+            elif self.strat.recommended_policy and rcfg.policy == RehearsalConfig().policy:
+                rcfg = dataclasses.replace(rcfg, policy=self.strat.recommended_policy)
         self.rcfg = rcfg
         self.label_field = resolve_field(self.scenario.label_field, rcfg,
                                          "label_field", "label")
@@ -101,7 +106,12 @@ class ContinualTrainer:
         self.init_params_fn = problem.init_params_fn
         self.loss_fn = problem.loss_fn
         self.eval_fn = problem.eval_fn
+        self.forward_outputs = problem.forward_outputs
         self.item_spec = self.scenario.item_spec
+        # tap strategies extend the record with fields derived from the
+        # model's outputs; the buffer, exchange and tiers see the joined spec
+        self.aux_spec = self._strategy_aux_spec()
+        self.item_spec = dict(self.item_spec, **self.aux_spec)
         self.init_opt_fn, opt_update = make_optimizer(run.train)
         if rcfg.enabled and self.scenario.buffer_task_field not in self.item_spec:
             raise ValueError(
@@ -120,7 +130,24 @@ class ContinualTrainer:
             self._step_fn = make_cl_step(
                 self.loss_fn, opt_update, rcfg, strategy=self.strat,
                 label_field=self.label_field, task_field=self.scenario.buffer_task_field,
+                compress=run.train.grad_compress, strategy_cfg=self.scfg,
+                forward_outputs=self.forward_outputs, aux_spec=self.aux_spec,
                 device=self.device)
+
+    def _strategy_aux_spec(self):
+        """The strategy's extra record field specs (``{}`` without a tap):
+        the tap's per-record output specs, from one forward of a one-record
+        zero batch, handed to ``Strategy.record_fields``."""
+        from repro_torch.strategy import outputs_row_spec
+
+        if not (self.strat.needs_outputs and self.strat.uses_buffer and self.rcfg.enabled):
+            return {}
+        if self.forward_outputs is None:
+            raise TypeError(f"strategy {self.strategy!r} needs the model-outputs tap; the "
+                            f"scenario's Problem provides no forward_outputs")
+        row_spec = outputs_row_spec(self.forward_outputs, self.init_params_fn(self.seed),
+                                    self.item_spec, self.device)
+        return dict(self.strat.record_fields(self.item_spec, row_spec, self.scfg))
 
     def _source(self, task: int) -> Callable[[int], Dict[str, np.ndarray]]:
         """cursor -> raw batch for the given task segment, strategy-aware."""

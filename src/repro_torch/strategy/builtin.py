@@ -1,7 +1,12 @@
-"""The paper's trio of strategies (§VI-D)."""
+"""The paper's trio of strategies (§VI-D), and ``grasp_embed``: rehearsal
+whose records carry the model's embedding, so the GRASP policy's prototype
+distances run in embedding space (``buffer.policies.FEATURE_FIELD``)."""
 from __future__ import annotations
 
-from repro_torch.strategy.base import Strategy, register_strategy
+import torch
+
+from repro_torch.buffer.state import ItemSpec
+from repro_torch.strategy.base import Strategy, make_tap_ce_loss, register_strategy
 
 
 class IncrementalStrategy(Strategy):
@@ -29,6 +34,33 @@ class RehearsalStrategy(Strategy):
     uses_buffer = True
 
 
+class GraspEmbedStrategy(Strategy):
+    """Rehearsal with a model-embedding feature tap (GRASP at scale).
+
+    Records gain an ``embed`` field, the penultimate activations of the model
+    when the sample was seen; the GRASP policy's class prototypes and per-slot
+    distances are computed on it instead of on raw inputs. The loss is the
+    plain rehearsal CE."""
+
+    name = "grasp_embed"
+    uses_buffer = True
+    needs_outputs = True
+    recommended_policy = "grasp"
+
+    def record_fields(self, item_spec, outputs_spec, scfg):
+        if "embed" not in outputs_spec:
+            raise ValueError(f"strategy {self.name!r} needs an 'embed' outputs tap; the "
+                             f"model exposes {sorted(outputs_spec)}")
+        return {"embed": ItemSpec(tuple(outputs_spec["embed"].shape), torch.float32)}
+
+    def on_store(self, batch, outputs, scfg):
+        return dict(batch, embed=outputs["embed"].float())
+
+    def build_loss(self, base_loss, forward_outputs, scfg, label_field: str = "labels"):
+        return make_tap_ce_loss(forward_outputs, label_field)
+
+
 register_strategy(IncrementalStrategy())
 register_strategy(FromScratchStrategy())
 register_strategy(RehearsalStrategy())
+register_strategy(GraspEmbedStrategy())

@@ -1,6 +1,6 @@
 """Training-step factories, parameterised by a registered ``Strategy``.
 
-The step of the reference's non-tap branch, in both its forms:
+The step of the reference's plain branch, in both its forms:
 
   * sync      — issue this step's Alg-1 push + global sample, train on it
                 (the exchange sits on the critical path; the paper's baseline);
@@ -13,16 +13,29 @@ half draws from a generator seeded with the key carried from step t-1
 pipelined runs consume the same random sequence and the pipelined step's
 representatives at t are the sync step's at t-1.
 
-``make_cl_step`` is the fused step: one call runs the issue half, then the
-train half, on the current stream. Single-process, or one process per GPU
+Strategies that need the model-outputs tap (``Strategy.needs_outputs``: der,
+der_pp, grasp_embed) take the reference's second branch, pipelined only:
+
+      reps   <- pipe (sampled + exchanged at t-1)
+      aug    <- batch + zero extra fields, then reps (with their stored fields)
+      outs   <- forward(model, aug)         # logits + embedding, ONCE
+      store  <- on_store(batch, outs[:b])   # extra field values, detached
+      buffer <- Alg-1(buffer, store); reps' <- global sample(buffer')
+      model  <- opt(model, d loss / d model)
+
+so the issue half is dispatched after the forward and before the backward:
+its kernels need the forward's outputs, not the gradients.
+
+``make_cl_step`` is the fused step: one call runs the issue half and the
+train half on the current stream. Single-process, or one process per GPU
 with a ``torch.distributed`` group: gradients are then mean-reduced with
-``plain_psum``, and the rehearsal exchange runs over the group.
+``plain_psum``, or with ``compressed_psum`` (int8 with error feedback,
+``compress='int8'``), and the rehearsal exchange runs over the group.
 ``make_pipelined_halves`` is the split form of the pipelined step (single
 process): the train half and the issue half as two calls, the issue half on
 a CUDA stream of its own, so it runs beside the train half's forward and
 backward and its host-side dispatch comes after the train half's. The
-buffer and the parameters are updated in place. Tap strategies (DER,
-grasp_embed) and int8 gradient compression are ROADMAP Queue 1 item 8.
+buffer and the parameters are updated in place.
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ from repro_torch.buffer import api as buffer_api
 from repro_torch.buffer import state as rb
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
-from repro_torch.optim.grad_compress import plain_psum
+from repro_torch.optim.grad_compress import compressed_psum, plain_psum
 from repro_torch.rng import fold_in, generator
 from repro_torch.strategy.base import STRATEGIES, resolve_strategy
 
@@ -59,17 +72,21 @@ class TrainCarry(NamedTuple):
     opt: Any  # OptState
     buffer: Any  # BufferState | TieredState | None
     pipe: Optional[PipelinedRehearsalCarry]
+    ef: Any = None  # error-feedback residuals {name: f32} (compress='int8') or None
 
 
-def init_carry(params, opt_state, item_spec=None, rcfg=None,
+def init_carry(params, opt_state, item_spec=None, rcfg=None, ef=None,
                label_field: Optional[str] = None, seed: int = 0, device=None):
     """Fresh carry. With rehearsal on, the buffer starts empty and the
     in-flight representatives start invalid: the first iteration trains
     un-augmented, the paper's bootstrap (§IV-D). The buffer is flat or
-    tiered, as the config says. The empty buffer holds only
-    zero records, so the initial pending slot is the zero record with its
-    label masked; no bytes need gathering. ``seed`` roots the sampling key
-    lineage."""
+    tiered, as the config says, under its policy (whose aux starts on
+    ``device``). ``item_spec`` already holds a tap strategy's extra fields
+    (``Strategy.record_fields``; the trainer joins them). The empty buffer
+    holds only zero records, so the initial pending slot is the zero record
+    with its label masked; no bytes need gathering. ``ef`` is the error
+    feedback of int8 gradient compression (``init_error_feedback``).
+    ``seed`` roots the sampling key lineage."""
     device = resolve_device(device)
     buffer = pipe = None
     if rcfg is not None and rcfg.enabled:
@@ -81,7 +98,7 @@ def init_carry(params, opt_state, item_spec=None, rcfg=None,
         valid = torch.zeros((r,), dtype=torch.bool, device=device)
         pipe = PipelinedRehearsalCarry(rb.mask_invalid(reps, valid, label_field),
                                        valid, seed)
-    return TrainCarry(params, opt_state, buffer, pipe)
+    return TrainCarry(params, opt_state, buffer, pipe, ef)
 
 
 def rep_checksum(reps, valid, label_field: str):
@@ -91,6 +108,15 @@ def rep_checksum(reps, valid, label_field: str):
         labels = next(iter(reps.values()))
     mask = valid.reshape(valid.shape + (1,) * (labels.dim() - valid.dim()))
     return torch.sum(labels.float() * mask)
+
+
+def batch_rows(outputs, b: int):
+    """The first ``b`` rows of each batched leaf of an outputs-tap dict (the
+    incoming mini-batch's rows of the augmented forward), detached: the
+    update kernel writes them into the buffer's tables in place. Scalar
+    leaves (the MoE aux) are dropped."""
+    return {k: v[:b].detach() for k, v in outputs.items()
+            if v.dim() and v.shape[0] >= b}
 
 
 def _mean_over(group, n_workers: int, metrics):
@@ -104,20 +130,27 @@ def _mean_over(group, n_workers: int, metrics):
     return dict(metrics, **{k: vec[i] for i, k in enumerate(keys)})
 
 
-def _train(model, opt, opt_update, loss_fn, train_batch, reduce=None):
-    """Forward, backward (gradients through ``reduce`` when given) and the
-    optimizer step on one augmented batch. Returns ``(opt, loss,
-    aux_metrics, opt_metrics)``."""
-    model.zero_grad(set_to_none=True)
-    loss, aux_metrics = loss_fn(model, train_batch)
+def _apply_loss(model, opt, opt_update, loss, reduce=None, ef=None):
+    """Backward of ``loss``, the gradients through ``reduce(grads, ef) ->
+    (grads, ef)`` when given, and the optimizer step. Returns ``(opt, ef,
+    opt_metrics)``."""
     loss.backward()
     params = dict(model.named_parameters())
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}
     if reduce is not None:
-        grads = reduce(grads)
+        grads, ef = reduce(grads, ef)
     _, opt, opt_metrics = opt_update(grads, opt, params)
     model.zero_grad(set_to_none=True)
+    return opt, ef, opt_metrics
+
+
+def _train(model, opt, opt_update, loss_fn, train_batch):
+    """Forward, backward and the optimizer step on one augmented batch.
+    Returns ``(opt, loss, aux_metrics, opt_metrics)``."""
+    model.zero_grad(set_to_none=True)
+    loss, aux_metrics = loss_fn(model, train_batch)
+    opt, _, opt_metrics = _apply_loss(model, opt, opt_update, loss)
     return opt, loss, aux_metrics, opt_metrics
 
 
@@ -131,6 +164,10 @@ def make_cl_step(
     exchange: str = "full",
     label_field: Optional[str] = None,
     task_field: Optional[str] = None,
+    compress: str = "none",
+    strategy_cfg=None,
+    forward_outputs: Optional[Callable] = None,
+    aux_spec=None,
     device=None,
 ):
     """Build ``step(carry, batch, key, rows=None) -> (carry, metrics)``.
@@ -138,59 +175,116 @@ def make_cl_step(
     ``loss_fn(model, batch) -> (loss, metrics_dict)``;
     ``opt_update(grads, opt_state, params) -> (params, opt_state, metrics)``.
     ``group`` is a ``torch.distributed`` process group (one process per
-    GPU), or None for a single process. ``key`` is this step's integer key;
-    it becomes the lineage key the next step's issue half draws with.
-    ``rows`` (an ``UpdateSampleRows``, or a ``TieredRows`` for the tiered
-    store) replaces the issue half's drawn row vectors: the parity seam the
-    tests feed the reference's rows through.
+    GPU), or None for a single process; with one, ``compress='int8'``
+    mean-reduces the gradients through ``compressed_psum`` with the carry's
+    error feedback (``init_carry(ef=init_error_feedback(params))``). ``key``
+    is this step's integer key; it becomes the lineage key the next step's
+    issue half draws with. ``rows`` (an ``UpdateSampleRows``, or a
+    ``TieredRows`` for the tiered store) replaces the issue half's drawn row
+    vectors: the parity seam the tests feed the reference's rows through.
+
+    Tap strategies (der, der_pp, grasp_embed) also need
+    ``forward_outputs(model, batch) -> {"logits", "embed", ...}``, ``aux_spec``
+    (their extra record field specs, from ``Strategy.record_fields``) and a
+    ``StrategyConfig`` in ``strategy_cfg``; they run the pipelined path only
+    (``mode='async'``).
     """
     try:
         strat = resolve_strategy(strategy)
     except KeyError:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                          f"{sorted(STRATEGIES)}") from None
-    if strat.needs_outputs:
-        raise NotImplementedError(
-            f"strategy {strat.name!r} needs the model-outputs tap, which is not "
-            f"ported yet (ROADMAP Queue 1 item 8)")
+    if compress not in ("none", "int8"):
+        raise ValueError(f"unknown gradient compression {compress!r}; expected none|int8")
     device = resolve_device(device)
     rehearse = strat.uses_buffer and rcfg is not None and rcfg.enabled
     pipelined = rehearse and rcfg.is_pipelined
+    tap = rehearse and strat.needs_outputs
+    if strat.needs_outputs and strat.uses_buffer and not rehearse:
+        # else a der/grasp_embed run with mode='off' would train plain
+        # incremental while reporting the strategy's name
+        raise ValueError(
+            f"strategy {strat.name!r} stores extra fields in the rehearsal buffer; "
+            f"rehearsal.mode='off' (or no RehearsalConfig) would silently degrade it "
+            f"to 'incremental': set mode='async'")
     if rehearse:
         buffer_api.check_supported(rcfg)
     label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "label")
     task_field = buffer_api.resolve_field(task_field, rcfg, "task_field", "task")
+    if tap:
+        if forward_outputs is None:
+            raise TypeError(f"strategy {strat.name!r} needs the model-outputs tap: pass "
+                            f"forward_outputs (and aux_spec from Strategy.record_fields)")
+        if not pipelined:
+            raise ValueError(
+                f"strategy {strat.name!r} requires the pipelined rehearsal path "
+                f"(rehearsal.mode='async'): the sync form would need the sampled "
+                f"representatives before the forward that produces the values to store")
+        aux_spec = aux_spec or {}
+        tap_loss = strat.build_loss(loss_fn, forward_outputs, strategy_cfg,
+                                    label_field=label_field)
     n_workers = 1 if group is None else dist.get_world_size(group)
     rank = rdist.rank_in(group)
     ex_group = None if exchange == "local" else group
-    reduce = (lambda grads: plain_psum(grads, group, n_workers)) if n_workers > 1 else None
+
+    def reduce(grads, ef):
+        if compress == "int8":
+            if ef is None:
+                raise ValueError("compress='int8' needs the carry's error feedback: "
+                                 "init_carry(ef=init_error_feedback(params))")
+            return compressed_psum(grads, group, ef, n_workers)
+        return plain_psum(grads, group, n_workers), ef
+
+    def issue(buf, items, batch, gen, rows):
+        return rdist.issue_sample(buf, items, batch[task_field], gen, rcfg, ex_group,
+                                  exchange, rows=rows)
 
     def step(carry: TrainCarry, batch, key: int, rows=None):
         model, buf, pipe = carry.params, carry.buffer, carry.pipe
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         metrics = {}
+        model.zero_grad(set_to_none=True)
         if rehearse:
             gen = generator(fold_in(pipe.key, rank), device)
-            buf, pending = rdist.issue_sample(buf, batch, batch[task_field], gen,
-                                              rcfg, ex_group, exchange, rows=rows)
+        if tap:
+            b = next(iter(batch.values())).shape[0]
+            # the incoming rows carry zero placeholders of the extra fields,
+            # masked out of the loss by is_replay (only valid replay rows distill)
+            batch_z = dict(batch, **strat.placeholder_fields(aux_spec, b, device))
+            train_reps, train_valid = rdist.consume_reps(
+                rdist.PendingSample(pipe.reps, pipe.valid), label_field)
+            train_batch = rb.augment_batch(batch_z, train_reps, train_valid, label_field)
+            train_batch["is_replay"] = torch.cat(
+                [torch.zeros((b,), dtype=torch.float32, device=device), train_valid.float()])
+            loss, (aux_metrics, outs) = tap_loss(model, train_batch)
+            # store the new rows with this step's outputs: the issue half
+            # needs the forward, not the gradients
+            store = strat.on_store(batch, batch_rows(outs, b), strategy_cfg)
+            buf, pending = issue(buf, store, batch, gen, rows)
+        elif rehearse:
+            buf, pending = issue(buf, batch, batch, gen, rows)
             if pipelined:  # consume the reps sampled at t-1 (double buffer)
                 consumed = rdist.PendingSample(pipe.reps, pipe.valid)
             else:  # sync: this step's freshly issued sample, blocking
                 consumed = pending
             train_reps, train_valid = rdist.consume_reps(consumed, label_field)
             train_batch = rb.augment_batch(batch, train_reps, train_valid, label_field)
+            loss, aux_metrics = loss_fn(model, train_batch)
+        else:
+            loss, aux_metrics = loss_fn(model, batch)
+        if rehearse:
             pipe = PipelinedRehearsalCarry(pending.reps, pending.valid, key)
             metrics["buffer_fill"] = buffer_api.buffer_fill(buf).float()
             metrics["rep_checksum"] = rep_checksum(train_reps, train_valid, label_field)
-        else:
-            train_batch = batch
 
-        opt, loss, aux_metrics, opt_metrics = _train(model, carry.opt, opt_update, loss_fn,
-                                                     train_batch, reduce)
-        metrics.update(loss=loss.detach(), **aux_metrics, **opt_metrics)
+        opt, ef, opt_metrics = _apply_loss(model, carry.opt, opt_update, loss,
+                                           reduce if n_workers > 1 else None, carry.ef)
+        metrics.update(loss=loss.detach(), **opt_metrics,
+                       **{k: v.detach() if isinstance(v, torch.Tensor) else v
+                          for k, v in aux_metrics.items()})
         if n_workers > 1:
             metrics = _mean_over(group, n_workers, metrics)
-        return TrainCarry(model, opt, buf, pipe), metrics
+        return TrainCarry(model, opt, buf, pipe, ef), metrics
 
     return step
 

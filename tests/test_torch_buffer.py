@@ -179,13 +179,20 @@ def test_empty_buffer_sample_invalid_and_masked():
 
 def test_api_flat_branch_only():
     """The flat branch for ``tiering='off'`` (the tiered one is held in
-    tests/test_torch_tiered.py); unported policies still raise."""
+    tests/test_torch_tiered.py); a registered policy other than the
+    reservoir builds a buffer with its aux (fifo: a zero cursor per bucket),
+    and an unknown policy raises ``KeyError`` naming the four."""
     assert isinstance(tapi.init_from_config(_tspec(), RehearsalConfig(), "cpu"),
                       tstate.BufferState)
     assert not isinstance(tapi.init_from_config(_tspec(), RehearsalConfig(tiering="host"),
                                                 "cpu"), tstate.BufferState)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.init_from_config(_tspec(), RehearsalConfig(policy="fifo"), "cpu")
+    fifo = tapi.init_from_config(_tspec(), RehearsalConfig(num_buckets=3, policy="fifo"),
+                                 "cpu")
+    assert isinstance(fifo, tstate.BufferState)
+    assert fifo.aux["cursor"].tolist() == [0, 0, 0]
+    assert fifo.aux["cursor"].dtype == torch.int32
+    with pytest.raises(KeyError, match="'class_balanced', 'fifo', 'grasp', 'reservoir'"):
+        tapi.init_from_config(_tspec(), RehearsalConfig(policy="lru"), "cpu")
 
 
 def test_sample_global_without_peers_draws_r_filled_records():

@@ -625,7 +625,7 @@ def test_split_halves_on_their_streams_match_the_fused_step(cuda, tiering, monke
     step = make_cl_step(_ce, _sgd, rcfg, exchange="local", device=cuda)
     fused = init_carry(_Linear(cuda), None, spec, rcfg, seed=5, device=cuda)
     train_half, issue_half = make_pipelined_halves(spy_loss, _sgd, rcfg, device=cuda)
-    model, opt, buf, pipe = init_carry(_Linear(cuda), None, spec, rcfg, seed=5, device=cuda)
+    model, opt, buf, pipe, _ = init_carry(_Linear(cuda), None, spec, rcfg, seed=5, device=cuda)
     assert issue_half.stream is not None
     for s in range(8):
         batch = _step_batch(s, cuda)
@@ -650,3 +650,164 @@ def test_split_halves_on_their_streams_match_the_fused_step(cuda, tiering, monke
     for a, b in zip(_buffer_leaves(buf), _buffer_leaves(fused.buffer)):
         assert _same(a, b)
     assert float(buffer_api.buffer_fill(buf)) > 0
+
+
+# ---------------------------------------------------------------------------
+# the strategies' records and the policies on the card
+# ---------------------------------------------------------------------------
+
+# The record layouts of the tap strategies, at the full ResNet-50 width's
+# leaf widths: image f32, label and task i32, and der's dense logits, der's
+# top-8 pairs, or grasp_embed's embedding. Pinned: the cold tier's layout of
+# the same records (int8 q and f32 scale per float field, raw i32 fields).
+STRATEGY_LEAVES = {
+    "der": [(torch.float32, 150528), (torch.int32, 1), (torch.int32, 1), (torch.float32, 1000)],
+    "der_topk": [(torch.float32, 150528), (torch.int32, 1), (torch.int32, 1),
+                 (torch.float32, 8), (torch.int32, 8)],
+    "grasp_embed": [(torch.float32, 150528), (torch.int32, 1), (torch.int32, 1),
+                    (torch.float32, 2048)],
+}
+COLD_LEAVES = {
+    "der": [(torch.int8, 150528), (torch.float32, 1), (torch.int32, 1), (torch.int32, 1),
+            (torch.int8, 1000), (torch.float32, 1)],
+    "der_topk": [(torch.int8, 150528), (torch.float32, 1), (torch.int32, 1), (torch.int32, 1),
+                 (torch.int8, 8), (torch.float32, 1), (torch.int32, 8)],
+    "grasp_embed": [(torch.int8, 150528), (torch.float32, 1), (torch.int32, 1),
+                    (torch.int32, 1), (torch.int8, 2048), (torch.float32, 1)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("leafset", sorted(STRATEGY_LEAVES))
+@pytest.mark.parametrize("r,c,s", [(40, 16, 2), (7, 9, 5)])
+def test_strategy_records_one_launch_bit_equal_to_plain_version(cuda, where, leafset, r, c,
+                                                                s):
+    """The tap strategies' records (4-5 leaves on the card; 6-7 in the cold
+    tier's pinned layout) through one update+sample launch: every table and
+    sample bit-equal to the plain version leaf by leaf."""
+    rng = np.random.default_rng(r + c)
+    specs = (STRATEGY_LEAVES if where == "device" else COLD_LEAVES)[leafset]
+    tables = []
+    for dtype, width in specs:
+        x = (torch.randn((r, width)) if dtype == torch.float32 else
+             torch.as_tensor(rng.integers(-127, 128, (r, width))).to(dtype))
+        tables.append(x.pin_memory() if where == "pinned" else x.to(cuda))
+    want_tables = [t.to(cuda, copy=True) for t in tables]
+    cands = [(torch.randn((c, t.shape[1])) if t.dtype == torch.float32 else torch.as_tensor(
+        rng.integers(-127, 128, (c, t.shape[1]))).to(t.dtype)).to(cuda) for t in tables]
+    cand_rows = torch.as_tensor(rng.integers(-2, r + 3, c), dtype=torch.int32, device=cuda)
+    samp_rows = torch.as_tensor(rng.integers(-2, r + 2, s), dtype=torch.int32, device=cuda)
+    before = ops.rehearsal_update_sample.launches
+    got = ops.rehearsal_update_sample_leaves(tables, cands, cand_rows, samp_rows)
+    assert ops.rehearsal_update_sample.launches == before + 1
+    want = [ref.rehearsal_update_sample_ref(t, x, cand_rows, samp_rows)[1]
+            for t, x in zip(want_tables, cands)]
+    torch.cuda.synchronize()
+    for table, want_table, reps, want_reps in zip(tables, want_tables, got, want):
+        assert _same(reps, want_reps) and _same(table, want_table)
+
+
+def _on_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_on_cpu(x) for x in tree))
+    return tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leafset,policy", [("der_topk", "reservoir"), ("der", "fifo"),
+                                            ("grasp_embed", "grasp")])
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiered_strategy_records_card_equal_to_plain_version(cuda, leafset, policy, fused):
+    """The tiered store with a tap strategy's record and the hot tier's
+    policy on the card: fed the same planned rows (the hot tier's aux
+    planned on the card and kept there), six steps of the card's kernels
+    and the plain versions on the CPU agree on every leaf and sample bit for
+    bit; float extra fields are int8 in the pinned cold tier, ``logit_idx``
+    raw, and each float field's quantizer launches once a step (unfused)."""
+    from repro_torch.buffer.state import ItemSpec
+    from repro_torch.buffer.tiered import init_tiered, plan_tiered, tiered_update_sample
+
+    names = ["images", "label", "task"] + {"der": ["logits"], "grasp_embed": ["embed"],
+                                           "der_topk": ["logit_vals", "logit_idx"]}[leafset]
+    spec = {n: ItemSpec(() if w == 1 and n in ("label", "task") else (w,), d)
+            for n, (d, w) in zip(names, STRATEGY_LEAVES[leafset])}
+    spec["images"] = ItemSpec((224, 224, 3), torch.float32)
+    card = init_tiered(spec, 2, 2, 64, 8, policy, device=cuda)
+    plain = init_tiered(spec, 2, 2, 64, 8, policy, device="cpu")
+    assert all(leaf.is_pinned() for blob in card.cold.data.values() for leaf in blob.values())
+    assert ("q" in card.cold.data[names[3]]) and ("raw" in card.cold.data["task"])
+    if leafset == "der_topk":
+        assert "raw" in card.cold.data["logit_idx"]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rng = np.random.default_rng(1)
+    floats = [n for n in names if spec[n].dtype == torch.float32]
+    for step in range(6):
+        batch = {n: (torch.randn((6,) + spec[n].shape, device=cuda) if spec[n].dtype ==
+                     torch.float32 else torch.as_tensor(rng.integers(0, 2 if n == "task" else 9,
+                                                                     (6,) + spec[n].shape),
+                                                        dtype=torch.int32, device=cuda))
+                 for n in names}
+        rows = plan_tiered(card, batch["task"], gen, 6, 2, policy, batch)
+        if policy != "reservoir":
+            assert all(v.device.type == "cuda" for v in rows.hot.new_aux.values())
+        before = qz.quantize_rows.launches
+        card, reps, valid = tiered_update_sample(card, batch, rows, fused=fused)
+        assert qz.quantize_rows.launches - before == (0 if fused else len(floats))
+        plain, preps, pvalid = tiered_update_sample(plain, _on_cpu(batch), _on_cpu(rows))
+        assert _same(valid, pvalid) and all(_same(reps[n], preps[n]) for n in names)
+    torch.cuda.synchronize()
+    for part in ("hot", "cold"):
+        a, b = getattr(card, part), getattr(plain, part)
+        for n in names:
+            blob_a, blob_b = a.data[n], b.data[n]
+            for k in (blob_a if isinstance(blob_a, dict) else {None: 0}):
+                la = blob_a[k] if k else blob_a
+                lb = blob_b[k] if k else blob_b
+                assert _same(la, lb), (part, n, k)
+    assert int(card.cold.counts.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,policy", [("der_pp", "reservoir"), ("der", "reservoir"),
+                                             ("grasp_embed", "grasp"), ("rehearsal", "fifo"),
+                                             ("rehearsal", "class_balanced")])
+def test_strategy_trainer_steps_on_the_card(cuda, strategy, policy):
+    """The reduced ResNet trainer with each new strategy or policy on the
+    card: one update+sample launch a step for the whole record, finite
+    losses, the policy aux on the card, and der's distillation positive
+    once replay rows are valid."""
+    from repro_torch.configs import resnet50_cl
+    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+                                          StrategyConfig)
+    from repro_torch.scenario import ContinualTrainer
+
+    run = RunConfig(model=resnet50_cl.reduced(num_classes=20),
+                    rehearsal=RehearsalConfig(slots_per_bucket=8, num_representatives=2,
+                                              num_candidates=4, mode="async", policy=policy),
+                    strategy=StrategyConfig(top_k=4 if strategy == "der" else 0),
+                    scenario=ScenarioConfig(num_tasks=2, steps_per_epoch=3, batch_size=8,
+                                            strategy=strategy))
+    trainer = ContinualTrainer(run, device=cuda)
+    distill = []
+    step = trainer._step_fn
+
+    def spy(carry, batch, key, rows=None):
+        carry, m = step(carry, batch, key, rows)
+        if "distill" in m:
+            distill.append(float(m["distill"]))
+        aux = carry.buffer.aux
+        assert aux == () or all(v.device.type == "cuda" for v in aux.values())
+        return carry, m
+
+    trainer._step_fn = spy
+    before = ops.rehearsal_update_sample.launches
+    res = trainer.fit()
+    assert ops.rehearsal_update_sample.launches - before == 6
+    assert np.isfinite(res.losses).all() and np.isfinite(res.accuracy_matrix).all()
+    if strategy.startswith("der"):
+        assert distill and distill[-1] > 0 and all(np.isfinite(distill))

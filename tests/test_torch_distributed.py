@@ -147,3 +147,173 @@ def test_tiered_data_parallel_step_keeps_replicas_equal():
         assert all(x == x and abs(x) < 1e6 for x in r["losses"])
         assert r["fill"] > 2 * 2 and r["cold"] > 0 and all(r["valid"])
     assert res[0]["losses"] == res[1]["losses"]
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression, policy aux and tap strategies across two ranks
+# ---------------------------------------------------------------------------
+
+COMPRESS = """
+import numpy as np
+from repro_torch.optim import compressed_psum
+shapes = {"w": (5, 7), "b": (7,), "s": ()}
+rng = np.random.default_rng(100 + rank)
+grads = {k: torch.from_numpy(np.asarray(rng.normal(size=s) * 10.0 ** rng.integers(-3, 3),
+                                         np.float32)) for k, s in shapes.items()}
+ef = {k: torch.from_numpy(np.asarray(rng.normal(size=s) * 1e-3, np.float32))
+      for k, s in shapes.items()}
+out = []
+for it in range(3):  # the new error feedback feeds the next round, as in training
+    means, ef = compressed_psum(grads, dist.group.WORLD, ef, world)
+    out.append({k: [means[k].reshape(-1).tolist(), ef[k].reshape(-1).tolist()]
+                for k in shapes})
+print(json.dumps({"rank": rank, "out": out}))
+"""
+
+
+def test_compressed_psum_matches_jax_bit_for_bit():
+    """Two gloo ranks against the reference's ``compressed_psum`` under
+    ``jax.jit(jax.vmap(..., axis_name))`` (jitted, as the reference's step
+    runs it) on the same gradients and error feedback, three rounds: the
+    means and the new error feedback bit for bit on both ranks."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.optim.grad_compress import compressed_psum as jcompressed_psum
+
+    res = _run(COMPRESS)
+    shapes = {"w": (5, 7), "b": (7,), "s": ()}
+    grads, ef = [], []
+    for rank in range(WORLD):
+        rng = np.random.default_rng(100 + rank)
+        grads.append({k: np.asarray(rng.normal(size=s) * 10.0 ** rng.integers(-3, 3),
+                                    np.float32) for k, s in shapes.items()})
+        ef.append({k: np.asarray(rng.normal(size=s) * 1e-3, np.float32)
+                   for k, s in shapes.items()})
+    g = {k: jnp.stack([grads[r][k] for r in range(WORLD)]) for k in shapes}
+    e = {k: jnp.stack([ef[r][k] for r in range(WORLD)]) for k in shapes}
+    fn = jax.jit(jax.vmap(lambda g_, e_: jcompressed_psum(g_, "dp", e_, WORLD), axis_name="dp"))
+    for it in range(3):
+        means, e = fn(g, e)
+        for r in res:
+            for k in shapes:
+                got_mean, got_ef = (np.asarray(x, np.float32) for x in r["out"][it][k])
+                np.testing.assert_array_equal(got_mean.view(np.uint32),
+                                              np.asarray(means[k][r["rank"]]).reshape(-1)
+                                              .view(np.uint32), err_msg=f"{k} mean {it}")
+                np.testing.assert_array_equal(got_ef.view(np.uint32),
+                                              np.asarray(e[k][r["rank"]]).reshape(-1)
+                                              .view(np.uint32), err_msg=f"{k} ef {it}")
+    assert res[0]["out"][2]["w"][0] == res[1]["out"][2]["w"][0]  # replicas agree
+
+
+STRATEGY_STEP = """
+from repro_torch.buffer.state import ItemSpec
+from repro_torch.configs import resnet50_cl
+from repro_torch.configs.base import RehearsalConfig, StrategyConfig, TrainConfig
+from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
+from repro_torch.models import cross_entropy, init_cnn, apply_cnn, cnn_outputs
+from repro_torch.optim import init_error_feedback, make_optimizer
+from repro_torch.strategy import get_strategy, init_carry, make_cl_step
+
+cfg = resnet50_cl.CNNConfig("t", "resnet18", num_classes=8, width=4,
+                            stage_blocks=(1, 1), bottleneck=False, image_size=8)
+rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
+                       num_candidates=4, mode="async", label_field="label", policy=POLICY)
+train = TrainConfig(peak_lr=0.1, warmup_steps=1, grad_compress=COMPRESS)
+init, update = make_optimizer(train, n_workers=world)
+
+def loss_fn(model, batch):
+    logits = apply_cnn(model, batch["images"])
+    return cross_entropy(logits[:, None, :], batch["label"][:, None]), {}
+
+def forward_outputs(model, batch):
+    return cnn_outputs(model, batch["images"])
+
+model = init_cnn(torch.Generator().manual_seed(0), cfg, device="cpu")
+params = dict(model.named_parameters())
+spec = {"images": ItemSpec((8, 8, 3), torch.float32), "label": ItemSpec((), torch.int32),
+        "task": ItemSpec((), torch.int32)}
+strat = get_strategy(STRATEGY)
+aux_spec = strat.record_fields(spec, {"logits": ItemSpec((8,), torch.float32),
+                                      "embed": ItemSpec((8,), torch.float32)}, StrategyConfig())
+ef = init_error_feedback(params) if COMPRESS == "int8" else None
+carry = init_carry(model, init(params), dict(spec, **aux_spec), rcfg, ef=ef,
+                   label_field="label", seed=3, device="cpu")
+step = make_cl_step(loss_fn, update, rcfg, strategy=strat, group=dist.group.WORLD,
+                    exchange="full", label_field="label", compress=train.grad_compress,
+                    strategy_cfg=StrategyConfig(), forward_outputs=forward_outputs,
+                    aux_spec=aux_spec, device="cpu")
+stream = ClassIncrementalImages(ImageStreamConfig(num_tasks=2, classes_per_task=4,
+                                                  image_size=8))
+losses = []
+for s in range(4):
+    carry, m = step(carry, stream.batch(0, 6, 10 * s + rank), s)
+    losses.append(float(m["loss"]))
+flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+gathered = [torch.zeros_like(flat) for _ in range(world)]
+dist.all_gather(gathered, flat)
+aux = carry.buffer.aux
+print(json.dumps({
+    "rank": rank, "losses": losses, "fill": float(m["buffer_fill"]),
+    "params_equal": all(torch.equal(g, gathered[0]) for g in gathered),
+    "aux": {k: [list(v.shape), str(v.dtype), v.reshape(-1).tolist()] for k, v in aux.items()}
+           if aux != () else None,
+    "counts": carry.buffer.counts.tolist(),
+    "ef_abs": (None if carry.ef is None
+               else float(sum(e.abs().sum() for e in carry.ef.values()))),
+    "reps": sorted(carry.pipe.reps), "valid": carry.pipe.valid.tolist(),
+    "stored": {k: float(carry.buffer.data[k].abs().sum()) for k in aux_spec}}))
+"""
+
+
+def _strategy_run(strategy, policy, compress):
+    return _run(f"STRATEGY, POLICY, COMPRESS = {strategy!r}, {policy!r}, {compress!r}\n"
+                + STRATEGY_STEP)
+
+
+def test_int8_compressed_step_keeps_replicas_equal():
+    """``TrainConfig.grad_compress='int8'`` on two ranks: every rank gets the
+    same int8-reduced mean, so the replicas stay bit-identical, and the
+    error feedback carries a residual."""
+    res = _strategy_run("rehearsal", "reservoir", "int8")
+    for r in res:
+        assert r["params_equal"] and r["ef_abs"] > 0
+        assert all(x == x and abs(x) < 1e6 for x in r["losses"])
+    assert res[0]["losses"] == res[1]["losses"]
+
+
+@pytest.mark.parametrize("policy", ["fifo", "grasp"])
+def test_policies_preserve_aux_through_distributed_carry(policy):
+    """Each rank's buffer keeps its policy's aux through the data-parallel
+    step (shapes and dtypes of ``init_aux``, values of its own buffer): FIFO's
+    cursor equals the counts of a bucket that is still filling and stays on
+    the ring; GRASP holds a finite distance for every filled slot."""
+    res = _strategy_run("rehearsal", policy, "none")
+    for r in res:
+        assert r["params_equal"] and r["aux"] is not None
+        if policy == "fifo":
+            shape, dtype, cursor = r["aux"]["cursor"]
+            assert shape == [2] and dtype == "torch.int32" and set(r["aux"]) == {"cursor"}
+            assert all(0 <= c < 4 for c in cursor)
+            assert all(c == n for c, n in zip(cursor, r["counts"]) if n < 4)
+        else:
+            assert {k: v[:2] for k, v in r["aux"].items()} == {
+                "proto": [[2, 192], "torch.float32"], "proto_n": [[2], "torch.float32"],
+                "dist": [[2, 4], "torch.float32"]}
+            filled = sum(d < 1e29 for d in r["aux"]["dist"][2])
+            assert filled == sum(r["counts"]) > 0
+
+
+@pytest.mark.parametrize("strategy,policy", [("der_pp", "reservoir"), ("grasp_embed", "grasp")])
+def test_tap_strategy_data_parallel_step(strategy, policy):
+    """A tap strategy on two ranks with the full exchange: the extra fields
+    (logits; the embedding) ride the all_to_all as record leaves, the
+    replicas stay bit-identical, and the stored fields are filled."""
+    res = _strategy_run(strategy, policy, "none")
+    extra = "logits" if strategy == "der_pp" else "embed"
+    for r in res:
+        assert r["params_equal"] and extra in r["reps"] and all(r["valid"])
+        assert r["stored"][extra] > 0 and r["fill"] > 0
+    assert res[0]["losses"] == res[1]["losses"]

@@ -165,7 +165,7 @@ def test_port_halves_match_jax_make_pipelined_halves():
     ttrain, tissue = _port_halves()
     assert tissue.stream is None  # the CPU runs the halves in line
     jparams, jopt, jbuf, jpipe = jc.params, jc.opt, jc.buffer, jc.pipe
-    model, topt, tbuf, tpipe = tc
+    model, topt, tbuf, tpipe, _ = tc
     stream = JImages(JStreamCfg(**STREAM))
     key = jax.random.PRNGKey(0)
     for s in range(STEPS + 2):
@@ -200,7 +200,7 @@ def test_port_halves_match_port_fused_pipelined_step():
     _, _, carry = _port_run(True, steps=0)
     train_half, issue_half = _port_halves()
     stream = ClassIncrementalImages(ImageStreamConfig(**STREAM))
-    model, opt, buf, pipe = carry
+    model, opt, buf, pipe, _ = carry
     split_checksums = []
     for s in range(6):
         batch = _batch(stream, s)

@@ -52,7 +52,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
 
 @pytest.mark.parametrize("name", [
     "init_buffer", "init_tiered", "init_cnn", "cnn_params_from_jax", "buffer_from_jax",
-    "tiered_from_jax", "opt_state_from_jax"])
+    "tiered_from_jax", "opt_state_from_jax", "ef_from_jax"])
 def test_constructors_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")
@@ -70,6 +70,7 @@ def test_constructors_default_to_the_card(name):
         "buffer_from_jax": lambda: convert.buffer_from_jax(None),
         "tiered_from_jax": lambda: convert.tiered_from_jax(None),
         "opt_state_from_jax": lambda: convert.opt_state_from_jax(None),
+        "ef_from_jax": lambda: convert.ef_from_jax({}),
     }[name]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
@@ -117,9 +118,9 @@ def test_split_form_refuses_what_the_reference_refuses(kwargs):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ContinualTrainer(RUN.replace(rehearsal=dataclasses.replace(
-            RUN.rehearsal, policy="fifo")), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ContinualTrainer(RUN.replace(scenario=dataclasses.replace(
+            RUN.scenario, modality="tokens")), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         ContinualTrainer(RUN, scenario="domain_incremental", device="cpu")
 
