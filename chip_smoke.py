@@ -88,7 +88,23 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      held against the f32 plain path); median time, tokens/s, peak memory;
  12. greedy serving (batch 4, prompt 32, gen 16) for both models through
      ``repro_torch.launch.serve`` and ``DecodeEngine``, decode logits against
-     the teacher-forced forward.
+     the teacher-forced forward;
+ 15. continual LM training (after phase 12, TF32 off): ``ContinualTrainer``
+     on ``TokenClassIncremental`` at full width on the run the train CLI
+     builds (``launch.train.build_run``; its defaults: seq 128, batch 8,
+     AdamW lr 3e-3, f32 compute, async reservoir rehearsal, 16 slots a
+     bucket, vocab min(V, 2048)): SmolLM-135M 2 tasks x 8 steps,
+     Mamba2-370M 2 x 4; SmolLM-135M with der_pp top-16 on the tiered store,
+     unfused and fused (1 x 4), at bf16 compute (1 x 4) and on
+     ``DriftStream`` (2 anchors x 4). Each run: losses finite, task 0's loss
+     falling, 1 update+sample launch a flat step and 3 a tiered step, the
+     int8 kernels once a step on ``logit_vals``, no flash or scan launch;
+     median step, peak memory, prefetch-wait share and the accuracy matrix
+     printed. Then SmolLM-135M through the CLI's ``main`` on the card (2 x
+     4, its eval lines and launches), update+sample and the int8 kernels on
+     these token records against their plain versions, and reduced LM steps
+     on the card against the CPU through the ``rows`` seam.
+Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
 (time, launches, bound, plain and library times); the last line is
@@ -100,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -139,8 +156,21 @@ PREFILL_B, PREFILL_S = 4, 2048
 SERVE_B, PROMPT, GEN = 4, 32, 16
 
 
-def phase(name: str):
-    print(f"\n== {name}", flush=True)
+class Phases:
+    """``phase(name)`` starts phase ``name`` after printing the seconds the
+    one before it took; ``phase.end()`` prints the last one's."""
+
+    def __init__(self):
+        self.name, self.start = None, 0.0
+
+    def end(self):
+        if self.name is not None:
+            print(f"(phase {self.name}: {time.perf_counter() - self.start:.1f} s)", flush=True)
+
+    def __call__(self, name: str):
+        self.end()
+        self.name, self.start = name.split()[0], time.perf_counter()
+        print(f"\n== {name}", flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -1949,10 +1979,320 @@ def serving_phase(seed: int = 12):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: continual LM training
+# ---------------------------------------------------------------------------
+
+# The train CLI's one-device run (``repro_torch.launch.train.build_run``) at
+# its defaults: seq 128, global batch 8, AdamW at lr 3e-3 with 20 warm-up
+# steps, f32 compute, async reservoir rehearsal with 16 slots a bucket and
+# the config's r 7 and c 14, the scenario's vocab min(V, 2048). Cut in data
+# scale only: the steps a task.
+LM_SEQ, LM_BATCH, LM_SLOTS, LM_REPS, LM_CANDS, LM_TOPK = 128, 8, 16, 7, 14, 16
+LM_STEPS = {"smollm-135m": 8, "mamba2-370m": 4}
+
+
+def lm_cli_run(arch: str, *, steps: int, tasks: int = 2, strategy: str = "",
+               top_k: int = 0, tiered: bool = False, fused: bool = False,
+               dtype: str = "float32", scenario: str = "class_incremental", seed: int = 0):
+    """The ``RunConfig`` the train CLI builds for these flags, with the
+    tiered store's kernels (``fused``), the compute dtype and the scenario
+    set on it where they differ from the CLI's (it has no flag for them).
+    Checks that the CLI's defaults are the settings printed above."""
+    from repro_torch.launch import train as train_cli
+
+    flags = ["--arch", arch, "--tasks", str(tasks), "--steps-per-task", str(steps),
+             "--seed", str(seed)]
+    flags += ["--strategy", strategy] if strategy else []
+    flags += ["--der-top-k", str(top_k)] if top_k else []
+    flags += ["--tiering", "host"] if tiered else []
+    run = train_cli.build_run(train_cli.parse_args(flags))
+    rc, sc, tr = run.rehearsal, run.scenario, run.train
+    got = (sc.seq_len, sc.batch_size, rc.slots_per_bucket, rc.num_representatives,
+           rc.num_candidates, tr.optimizer, tr.peak_lr, tr.warmup_steps, tr.compute_dtype,
+           rc.mode, rc.policy)
+    want = (LM_SEQ, LM_BATCH, LM_SLOTS, LM_REPS, LM_CANDS, "adamw", 3e-3, 20, "float32",
+            "async", "reservoir")
+    if got != want:
+        raise AssertionError(f"the train CLI's defaults moved: {got}, phase 15 reads {want}")
+    return dataclasses.replace(
+        run, train=dataclasses.replace(tr, compute_dtype=dtype),
+        rehearsal=dataclasses.replace(rc, fused_kernels=fused),
+        scenario=dataclasses.replace(sc, name=scenario))
+
+
+def lm_train_run(counters, arch: str, *, steps: int, tasks: int = 2,
+                 strategy: str = "rehearsal", top_k: int = 0, tiered: bool = False,
+                 fused: bool = False, dtype: str = "float32",
+                 scenario: str = "class_incremental", seed: int = 0):
+    """``ContinualTrainer`` on a token scenario at full width, on the train
+    CLI's run (``lm_cli_run``). Every counter is set to 0 just before
+    ``fit`` and read just after. Checks every loss finite, task 0's loss
+    (der: its CE on the new rows) lower at its last step than at its first,
+    one update+sample launch a flat step (three a tiered step), the int8
+    kernels once a step per float leaf on the tiered store, and no flash or
+    scan launch (training runs the plain mixers). Prints the median step,
+    peak device memory, prefetch-wait share, launches and accuracy matrix;
+    returns the launches and the ``(rep_checksum, buffer_fill)`` history."""
+    from repro_torch.scenario import ContinualTrainer
+
+    run = lm_cli_run(arch, steps=steps, tasks=tasks, strategy=strategy, top_k=top_k,
+                     tiered=tiered, fused=fused, dtype=dtype, scenario=scenario, seed=seed)
+    name = (f"{arch} {scenario} {strategy}" + (f" top-{top_k}" if top_k else "")
+            + (f", tiered {'fused' if fused else 'unfused'}" if tiered else ", flat")
+            + f", {dtype}, {tasks} x {steps} steps")
+    trainer = ContinualTrainer(run, device="cuda")
+    step, ce = trainer._step_fn, []
+
+    def watched(carry, batch, key, rows=None):
+        carry, m = step(carry, batch, key, rows)
+        ce.append(m.get("ce"))
+        return carry, m
+
+    trainer._step_fn = watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = tasks * steps
+    floats = [k for k, v in trainer.item_spec.items() if v.dtype.is_floating_point]
+    want = {k: 0 for k in counters}
+    want["rehearsal_update_sample"] = (3 if tiered else 1) * n_steps
+    if tiered:
+        for kernel in (("encode_scatter_rows", "gather_dequant_rows") if fused
+                       else ("quantize_rows",)):
+            want[kernel] = len(floats) * n_steps
+    step_ms = statistics.median(result.step_seconds) * 1e3
+    wait_share = sum(result.prefetch_wait_seconds) / sum(result.step_seconds)
+    falling = ([float(c) for c in ce[:steps]] if strategy.startswith("der")
+               else result.losses[:steps])
+    print(f"{name}: record {({k: tuple(v.shape) for k, v in trainer.item_spec.items()})}")
+    print(f"  losses {[round(x, 4) for x in result.losses]}"
+          + (f"; ce {[round(x, 4) for x in falling]}" if strategy.startswith("der") else ""))
+    print(f"  median step {step_ms:.2f} ms (all {[round(t * 1e3, 1) for t in result.step_seconds]}"
+          f"); peak device memory {peak / 2**30:.2f} GiB; prefetch-wait share "
+          f"{wait_share:.4f}; fit {seconds:.1f} s")
+    print(f"  launches {({k: v for k, v in launches.items() if v})}: update+sample "
+          f"{launches['rehearsal_update_sample'] / n_steps:g} a step")
+    print(f"  accuracy matrix ({'eval loss' if scenario == 'class_incremental' else 'top-1'}) "
+          f"{result.accuracy_matrix.round(4).tolist()}")
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want}, saw {launches}")
+    if len(result.losses) != n_steps or not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"{name}: non-finite or missing losses {result.losses}")
+    if not falling[-1] < falling[0]:
+        raise AssertionError(f"{name}: task 0's loss did not fall: {falling}")
+    acc = result.accuracy_matrix[np.tril_indices(tasks)]
+    if not np.isfinite(acc).all() or (scenario == "drift_stream" and not (
+            (acc >= 0) & (acc <= 1)).all()):
+        raise AssertionError(f"{name}: accuracy matrix {result.accuracy_matrix}")
+    history = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    del trainer, result
+    torch.cuda.empty_cache()
+    return {"launches": launches, "history": history}
+
+
+def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int = 4):
+    """The train CLI itself, ``launch.train.main``, at full width on its
+    default device (the card), ``tasks`` x ``steps`` steps. Counters are set
+    to 0 just before and read just after. Checks one update+sample launch a
+    step and no other kernel, every logged loss finite and an eval line for
+    every task seen after each task; prints the CLI's log lines."""
+    import logging
+
+    from repro_torch.launch import train as train_cli
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep, log = Keep(), logging.getLogger(train_cli.log.name)
+    log.addHandler(keep)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        result = train_cli.main(["--arch", arch, "--tasks", str(tasks),
+                                 "--steps-per-task", str(steps)])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(keep)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"{arch} through the train CLI ({tasks} x {steps} steps): "
+          + " | ".join(line for line in lines if not line.startswith("step "))
+          + f"; losses {[round(x, 4) for x in result.losses]}")
+    want = dict({k: 0 for k in counters}, rehearsal_update_sample=tasks * steps)
+    evals = [line for line in lines if line.startswith("eval after task")]
+    if launches != want:
+        raise AssertionError(f"train CLI: expected launches {want}, saw {launches}")
+    if "device=cuda" not in lines[0] or len(evals) != tasks * (tasks + 1) // 2:
+        raise AssertionError(f"train CLI: log lines {lines}")
+    if len(result.losses) != tasks * steps or not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"train CLI: non-finite or missing losses {result.losses}")
+    return {"launches": launches}
+
+
+def token_record_kernels(qz, ops, ref, seed: int = 15):
+    """update+sample on phase 15's token records (the buffer of 2 buckets x
+    16 slots: tokens and labels i32 [128], task i32; der top-16 adds
+    logit_vals f32 and logit_idx i32 [128 x 16]) in one launch, and in the
+    cold tier's pinned layout (2 x 48 slots: logit_vals as int8 rows of 2048
+    and their f32 scales, the rest raw), plain and with logit_vals
+    dequantized on the gather; the int8 kernels on logit_vals rows (a stage
+    of 2c = 28); all bit for bit against the plain versions."""
+    rng = np.random.default_rng(seed)
+    hot_rows, cold_rows, stage = 2 * LM_SLOTS, 2 * 3 * LM_SLOTS, 2 * LM_CANDS
+    width = LM_SEQ * LM_TOPK
+
+    def rand(shape, dtype, where="cuda"):
+        if dtype == torch.float32:
+            return torch.randn(shape, device=where) * 8  # logit-like values
+        lo, hi = (-127, 128) if dtype == torch.int8 else (0, 49152)
+        return torch.randint(lo, hi, shape, dtype=dtype, device=where)
+
+    def rows(n, total, drops=0):
+        out = np.concatenate([rng.choice(total, n - drops, replace=False),
+                              np.full(drops, total)]).astype(np.int32)
+        return torch.as_tensor(out, device="cuda")
+
+    base = [(torch.int32, LM_SEQ), (torch.int32, LM_SEQ), (torch.int32, 1)]
+    topk = base + [(torch.float32, width), (torch.int32, width)]
+    cand_rows, samp_rows = rows(LM_BATCH, hot_rows), rows(LM_REPS, hot_rows)
+    for fields in (base, topk):
+        tables = [rand((hot_rows, w), d) for d, w in fields]
+        cands = [rand((LM_BATCH, w), d) for d, w in fields]
+        check_leaves(ops, ref, tables, cands, cand_rows, samp_rows)
+    cold = [(torch.int8, width), (torch.float32, 1)] + base + [(torch.int32, width)]
+    flush, cold_samp = rows(stage, cold_rows, drops=stage // 2), rows(LM_REPS, cold_rows)
+    tables = [rand((cold_rows, w), d, "cpu").pin_memory() for d, w in cold]
+    batch = [rand((stage, w), d) for d, w in cold]
+    batch[1] = batch[1].abs() / 127  # scales
+    check_pinned_leaves(ops, ref, tables, batch, flush, cold_samp)
+    check_folded(ops, ref, tables, batch, flush, cold_samp, torch.float32, "logit_vals")
+    q, scales = tables[0], tables[1]
+    want_q, want_s = q.to("cuda", copy=True), scales.to("cuda", copy=True)
+    x = rand((stage, width), torch.float32)
+    kq, ks = qz.quantize_rows(x)
+    pq, ps = ref.quantize_rows_ref(x)
+    ops.encode_scatter_rows(q, scales, x, flush)
+    ref.encode_scatter_rows_ref(want_q, want_s, x, flush)
+    got = ops.gather_dequant_rows(q, scales, cold_samp, torch.float32)
+    want = ref.gather_dequant_rows_ref(want_q, want_s, cold_samp, torch.float32)
+    torch.cuda.synchronize()
+    for what, a, b in (("quantize_rows q", kq, pq), ("quantize_rows scale", ks, ps),
+                       ("encode_scatter_rows q", q, want_q),
+                       ("encode_scatter_rows scale", scales, want_s),
+                       ("gather_dequant_rows", got, want)):
+        if not same_bits(a, b):
+            raise AssertionError(f"{what} != plain version on logit_vals rows [{stage}, {width}]")
+    print(f"token records: update+sample one launch, bit-equal to the plain version leaf by "
+          f"leaf ({hot_rows} rows, 3 and 5 leaves; cold {cold_rows} rows pinned, 6 leaves, "
+          f"plain and dequantizing logit_vals); quantize_rows, encode_scatter_rows and "
+          f"gather_dequant_rows bit-equal on logit_vals rows [{stage}, {width}]")
+
+
+def lm_train_card_against_cpu(steps: int = 2, seed: int = 16):
+    """``make_cl_step`` with the LM loss and AdamW on the reduced SmolLM-135M
+    and Mamba2-370M (4 layers, d 128, vocab 512) at seq 32, b 4, r 3, c 4,
+    async rehearsal: the card against the CPU from the same weights, fed the
+    same rows (planned on the CPU, through the ``rows`` seam), TF32 off. The
+    buffer's leaves and the pending slot bit for bit; the loss within 1e-4
+    of its value (f32 both sides, other summation orders)."""
+    from repro_torch.buffer.state import ItemSpec, plan_update_sample
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import RehearsalConfig, TrainConfig
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.strategy import init_carry, make_cl_step
+
+    seq, b = 32, 4
+    rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
+                           num_candidates=4, mode="async", label_field="labels")
+    spec = {"tokens": ItemSpec((seq,), torch.int32), "labels": ItemSpec((seq,), torch.int32),
+            "task": ItemSpec((), torch.int32)}
+    init, update = make_optimizer(TrainConfig(optimizer="adamw", peak_lr=3e-3, warmup_steps=2,
+                                              linear_scaling=False))
+    for arch in LM_ARCHS:
+        cfg = get_reduced(arch)
+        lm, ctx = build_model(cfg), StackCtx(cfg)
+        carries, step_fns = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = lm.init(torch.Generator().manual_seed(seed), seq, dev)
+            carries[dev] = init_carry(model, init(dict(model.named_parameters())), spec, rcfg,
+                                      label_field="labels", seed=3, device=dev)
+            step_fns[dev] = make_cl_step(lambda m, bt: lm.loss(m, bt, ctx), update, rcfg,
+                                         exchange="local", label_field="labels", device=dev)
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator().manual_seed(seed)
+        for s in range(steps):
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, seq)).astype(np.int32),
+                     "labels": rng.integers(0, cfg.vocab_size, (b, seq)).astype(np.int32),
+                     "task": rng.integers(0, 2, b).astype(np.int32)}
+            rows = plan_update_sample(carries["cpu"].buffer, torch.from_numpy(batch["task"]),
+                                      gen, rcfg.num_candidates, rcfg.num_representatives)
+            losses = {}
+            for dev in ("cpu", "cuda"):
+                dev_rows = type(rows)(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                                        for x in rows))
+                carries[dev], m = step_fns[dev](carries[dev], batch, s, rows=dev_rows)
+                losses[dev] = float(m["loss"])
+            got, want = carries["cuda"], carries["cpu"]
+            for k in spec:
+                if not (same_bits(got.buffer.data[k], want.buffer.data[k])
+                        and same_bits(got.pipe.reps[k], want.pipe.reps[k])):
+                    raise AssertionError(f"{arch} LM step {s}: buffer leaf {k} differs")
+            tol = 1e-4 * abs(losses["cpu"])
+            print(f"{arch} reduced LM step {s}, card against CPU (TF32 off, same rows): buffer "
+                  f"and pending slot bit-equal; loss {losses['cuda']:.6f} vs "
+                  f"{losses['cpu']:.6f} (tolerance {tol:.3e})")
+            if abs(losses["cuda"] - losses["cpu"]) > tol:
+                raise AssertionError(f"{arch} LM step {s}: the card disagrees with the CPU")
+
+
+def lm_train_phase(counters, qz, ops, ref):
+    """Phase 15: SmolLM-135M (8 steps a task) and Mamba2-370M (4) on 2 tasks
+    of TokenClassIncremental; SmolLM-135M with der_pp top-16 on the tiered
+    store, unfused then fused (identical fingerprints), at bf16 compute, and
+    on DriftStream, each on the train CLI's run; SmolLM-135M through the
+    train CLI's ``main``, 2 tasks x 4 steps; the token records' kernels
+    against their plain versions; the reduced card-against-CPU steps. Returns each run's
+    launches and history by name."""
+    print(f"card: {gpu_name_and_power()}")
+    print(f"data-scale cuts (widths and depths are the published ones): seq {LM_SEQ}, "
+          f"batch {LM_BATCH} + r {LM_REPS}, {LM_STEPS} steps a task, 2 tasks, 16 eval "
+          f"sequences a task; the scenario's vocab min(V, 2048)")
+    runs = {}
+    for arch in LM_ARCHS:
+        runs[arch] = lm_train_run(counters, arch, steps=LM_STEPS[arch])
+    der = {f: lm_train_run(counters, "smollm-135m", steps=4, tasks=1, strategy="der_pp",
+                           top_k=LM_TOPK, tiered=True, fused=f) for f in (False, True)}
+    if der[False]["history"] != der[True]["history"]:
+        raise AssertionError(f"der_pp tiered: fused and unfused fingerprints differ: "
+                             f"{der[False]['history']} vs {der[True]['history']}")
+    runs["smollm-135m der_pp top-16 tiered unfused"] = der[False]
+    runs["smollm-135m der_pp top-16 tiered fused"] = der[True]
+    runs["smollm-135m bf16"] = lm_train_run(counters, "smollm-135m", steps=4, tasks=1,
+                                            dtype="bfloat16")
+    runs["smollm-135m drift_stream"] = lm_train_run(counters, "smollm-135m", steps=4,
+                                                    scenario="drift_stream")
+    print(f"der_pp tiered: fused == unfused fingerprints over {len(der[True]['history'])} steps")
+    runs["smollm-135m train CLI"] = lm_cli_main(counters)
+    token_record_kernels(qz, ops, ref)
+    lm_train_card_against_cpu()
+    return runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-14), and print no result lines")
+                    help="run phases 1, 2 and these only (3-15), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -1971,6 +2311,7 @@ def main(argv=None):
                 "encode_scatter_rows": ops.encode_scatter_rows,
                 "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
 
+    phase = Phases()
     phase("1 environment")
     card = gpu_name_and_power()
     torch.backends.cudnn.allow_tf32 = True  # convolutions in TF32 (cuDNN default)
@@ -2050,6 +2391,11 @@ def main(argv=None):
         phase("12 LM serving: greedy decode at full width")
         serving_phase()
 
+    if run(15):
+        phase("15 LM training: ContinualTrainer on the token scenarios at full width")
+        lm_runs = lm_train_phase(counters, qz, ops, ref)
+    phase.end()
+
     if only:
         print(f"phases {sorted(only)} passed; no result lines without every phase")
         return
@@ -2060,6 +2406,11 @@ def main(argv=None):
     for e in int8_entries:
         if e["name"] == "dequantize_rows":
             e.update(folded)
+    # the launches of phase 15's runs, each counted from 0 over its own fit
+    lm_launches = {name: r["launches"] for name, r in lm_runs.items()}
+    for e in [entry] + int8_entries:
+        e["launches_lm_train"] = {name: n[e["name"]] for name, n in lm_launches.items()
+                                  if n[e["name"]]}
     flash_entry["launches"] = launches["flash_attention"]
     ssd_entry["launches"] = launches["ssd_scan"]  # num_layers x KERNELS_PER_CALL
     print(card)

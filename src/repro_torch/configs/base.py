@@ -256,6 +256,8 @@ class ScenarioConfig:
     classes_per_task: int = 10
     image_size: int = 32
     noise: float = 0.35
+    vocab_size: int = 256  # tokens modality
+    seq_len: int = 32  # tokens modality
     # Let the scenario fill rehearsal fields still at their dataclass defaults.
     auto_defaults: bool = True
 
@@ -266,9 +268,9 @@ class ScenarioConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The paper's SGD recipe (§VI-A)."""
+    """The paper's SGD recipe (§VI-A), and AdamW for the language models."""
 
-    optimizer: str = "sgd"  # the port has sgd only
+    optimizer: str = "sgd"  # sgd (paper) | adamw
     peak_lr: float = 0.0125
     warmup_steps: int = 100
     decay_milestones: Tuple[Tuple[int, float], ...] = ()  # (step, factor)
@@ -277,6 +279,7 @@ class TrainConfig:
     max_scaled_lr: float = 64.0  # LR cap under linear scaling
     linear_scaling: bool = True  # multiply LR by the number of DP workers
     grad_clip: float = 1.0
+    compute_dtype: str = "bfloat16"  # the LM's activations: bfloat16 | float32
     grad_compress: str = "none"  # none | int8 (error-feedback quantized all-reduce)
 
 

@@ -12,13 +12,16 @@ both packages from the same carry. Nothing here imports the JAX package.
   * ``lm_params_from_jax``  — the JAX ``init_decoder`` tree (dense or SSM)
                             into a fresh ``Decoder``, its stacked
                             ``units.layer0.*`` leaves split into
-                            ``layers.{i}.*``; ``load_named`` loads any
-                            module from ``{name: array}``;
+                            ``layers.{i}.*`` (``lm_named_from_tree``, which
+                            also names a gradient or moment tree of that
+                            shape); ``load_named`` loads any module from
+                            ``{name: array}``;
   * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` /
     ``ef_from_jax``       — the flat or tiered buffer (every record leaf,
                             a tap strategy's too, and the policy's aux), the
-                            optimizer state and the int8 error feedback of a
-                            carry.
+                            optimizer state (SGD's momentum, or AdamW's two
+                            moments, of a CNN or an LM) and the int8 error
+                            feedback of a carry.
 """
 from __future__ import annotations
 
@@ -75,14 +78,13 @@ def load_named(module: torch.nn.Module, named: Dict[str, np.ndarray]) -> torch.n
     return module
 
 
-def lm_params_from_jax(np_tree, cfg, device=None):
-    """A ``Decoder`` holding the weights of the JAX ``init_decoder`` tree
-    ``np_tree`` (dense or SSM), on ``device`` (the card unless the caller asks
-    for the CPU). Dense weights keep their ``[d_in, d_out]`` layout."""
-    model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
+def lm_named_from_tree(tree, cfg) -> Dict[str, np.ndarray]:
+    """Flatten a JAX ``init_decoder``-shaped tree (parameters, gradients or
+    optimizer moments) into the ``Decoder``'s parameter names: the stacked
+    ``units.layer{i}.*`` leaves split into ``layers.{u * period + i}.*``."""
     period = unit_period(cfg)
     named = {}
-    for name, a in _walk(np_tree):
+    for name, a in _walk(tree):
         if name.startswith("units."):
             _, unit_layer, rest = name.split(".", 2)
             i = int(unit_layer[len("layer"):])
@@ -90,7 +92,15 @@ def lm_params_from_jax(np_tree, cfg, device=None):
                 named[f"layers.{u * period + i}.{rest}"] = a[u]
         else:
             named[name] = a
-    return load_named(model, named)
+    return named
+
+
+def lm_params_from_jax(np_tree, cfg, device=None):
+    """A ``Decoder`` holding the weights of the JAX ``init_decoder`` tree
+    ``np_tree`` (dense or SSM), on ``device`` (the card unless the caller asks
+    for the CPU). Dense weights keep their ``[d_in, d_out]`` layout."""
+    model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
+    return load_named(model, lm_named_from_tree(np_tree, cfg))
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -132,16 +142,21 @@ def tiered_from_jax(state, device=None) -> TieredState:
                        _tensor(state.stage_valid, device))
 
 
-def opt_state_from_jax(opt, device=None) -> OptState:
-    """A port ``OptState`` from a JAX SGD ``OptState`` (step, momentum tree) on
-    ``device``, the card unless the caller asks for the CPU."""
+def opt_state_from_jax(opt, device=None, lm_cfg=None) -> OptState:
+    """A port ``OptState`` from a JAX ``OptState`` on ``device``, the card
+    unless the caller asks for the CPU: the integer step, the first moment,
+    and AdamW's second moment (SGD's ``nu``, a tree of scalar zeros, becomes
+    the port's empty dict). The trees are named as a CNN's, or as a
+    ``Decoder``'s when ``lm_cfg`` gives the LM's config."""
     device = resolve_device(device)
 
     def tensors(tree):
+        named = named_from_tree(tree) if lm_cfg is None else lm_named_from_tree(tree, lm_cfg)
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-                for k, v in named_from_tree(tree).items()}
+                for k, v in named.items()}
 
-    return OptState(int(np.asarray(opt.step)), tensors(opt.mu))
+    sgd = all(a.ndim == 0 for _, a in _walk(opt.nu))
+    return OptState(int(np.asarray(opt.step)), tensors(opt.mu), {} if sgd else tensors(opt.nu))
 
 
 def ef_from_jax(ef, device=None) -> Dict[str, torch.Tensor]:

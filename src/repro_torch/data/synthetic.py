@@ -1,15 +1,21 @@
-"""Synthetic class-incremental image stream (deterministic, cursor-resumable).
+"""Synthetic continual-learning streams (deterministic, cursor-resumable).
 
-The port's own copy of ``ClassIncrementalImages``: numpy only, so the JAX
-package and the port see identical batches for the same config. T disjoint
-tasks each introduce new classes; every class is a fixed random prototype
-image and samples are prototype + Gaussian noise. Batches are pure functions
-of (seed, task, cursor).
+The port's own copies of the reference's numpy streams, so the JAX package
+and the port see identical batches for the same config. Batches are pure
+functions of (seed, task, cursor).
+
+  * ``ClassIncrementalImages``: T disjoint tasks each introduce new classes;
+    every class is a fixed random prototype image and samples are
+    prototype + Gaussian noise;
+  * ``TaskTokenStream``: Markov-1 token chains over a disjoint vocab range
+    per task (the LM analogue of new classes);
+  * ``DriftTokenStream``: a task-free token stream whose distribution
+    drifts continuously across anchor distributions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -70,3 +76,136 @@ class ClassIncrementalImages:
             for k in out:
                 out[k].append(b[k][0])
         return {k: np.stack(v) for k, v in out.items()}
+
+
+@dataclass(frozen=True)
+class TokenStreamConfig:
+    num_tasks: int = 4
+    vocab_size: int = 512
+    seq_len: int = 64
+    shared_frac: float = 0.25  # fraction of vocab below every task's range
+    seed: int = 99
+
+
+class TaskTokenStream:
+    """Markov-1 token streams with disjoint per-task vocab ranges."""
+
+    def __init__(self, cfg: TokenStreamConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self.transition = []
+        span = int(cfg.vocab_size * (1 - cfg.shared_frac)) // cfg.num_tasks
+        for t in range(cfg.num_tasks):
+            lo = int(cfg.vocab_size * cfg.shared_frac) + t * span
+            # sparse row-stochastic transition over the task's span
+            trans = rng.dirichlet(np.full(span, 0.05), size=span).astype(np.float32)
+            self.transition.append((lo, span, trans))
+
+    def batch(self, task: int, batch_size: int, cursor: int) -> Dict[str, np.ndarray]:
+        lo, span, trans = self.transition[task]
+        rng = np.random.default_rng((self.cfg.seed, task, cursor))
+        s = self.cfg.seq_len
+        toks = np.zeros((batch_size, s + 1), np.int64)
+        toks[:, 0] = rng.integers(0, span, size=batch_size)
+        for i in range(s):
+            cdf = np.cumsum(trans[toks[:, i]], axis=1)
+            u = rng.random((batch_size, 1))
+            toks[:, i + 1] = (u > cdf).sum(axis=1).clip(0, span - 1)
+        toks = toks + lo
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32),
+                "task": np.full(batch_size, task, np.int32)}
+
+    def eval_set(self, task: int, n: int = 64):
+        return self.batch(task, n, cursor=10_000_019)  # held-out cursor region
+
+
+@dataclass(frozen=True)
+class DriftStreamConfig:
+    num_phases: int = 4  # anchor distributions the stream drifts across
+    vocab_size: int = 256
+    seq_len: int = 32
+    phase_len: int = 100  # cursor span over which one anchor fades into the next
+    shared_frac: float = 0.25  # fraction of vocab below every phase's band
+    seed: int = 777
+
+
+class DriftTokenStream:
+    """Task-free Markov-1 token stream: the distribution drifts continuously.
+
+    The stream holds ``num_phases`` anchor Markov-1 distributions, each over
+    a disjoint vocab band. At cursor ``c`` each sample draws from anchor
+    ``floor(c / phase_len)`` with probability ``1 - frac(c / phase_len)``
+    and from the next anchor otherwise, so every batch is a mixture and no
+    step sees a clean switch. Records carry no task id; their scalar
+    ``label`` is the majority vocab band of the sample's own tokens (the
+    buffer buckets by it). ``batch`` ignores its ``task`` argument.
+    """
+
+    def __init__(self, cfg: DriftStreamConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self.base = int(cfg.vocab_size * cfg.shared_frac)
+        self.span = (cfg.vocab_size - self.base) // cfg.num_phases
+        if self.span < 2:
+            raise ValueError(f"vocab_size={cfg.vocab_size} too small for "
+                             f"{cfg.num_phases} phase bands")
+        # [P, span, span] row-stochastic anchors; phase p emits tokens in
+        # [base + p*span, base + (p+1)*span)
+        self.trans = np.stack([rng.dirichlet(np.full(self.span, 0.05), size=self.span)
+                               for _ in range(cfg.num_phases)]).astype(np.float32)
+
+    @property
+    def num_phases(self) -> int:
+        return self.cfg.num_phases
+
+    def phase_weight(self, cursor: int) -> Tuple[int, float]:
+        """(phase, w): at this cursor a sample drifts to ``phase + 1`` with
+        probability ``w``. Clamped to the last anchor once the drift ends."""
+        x = max(0.0, cursor / float(self.cfg.phase_len))
+        p = int(x)
+        if p >= self.cfg.num_phases - 1:
+            return self.cfg.num_phases - 1, 0.0
+        return p, x - p
+
+    def bucket_of(self, tokens: np.ndarray) -> np.ndarray:
+        """Majority vocab band of each row of ``tokens`` [B, S]: the scalar
+        admission label, derived from content alone."""
+        tokens = np.asarray(tokens)
+        band = np.clip((tokens - self.base) // self.span, 0, self.cfg.num_phases - 1)
+        onehot = band[..., None] == np.arange(self.cfg.num_phases)
+        return onehot.sum(axis=1).argmax(axis=-1).astype(np.int32)
+
+    def _chains(self, phase_idx: np.ndarray, rng) -> np.ndarray:
+        """Markov chains [B, seq_len+1], row i from anchor ``phase_idx[i]``."""
+        b, s = len(phase_idx), self.cfg.seq_len
+        toks = np.zeros((b, s + 1), np.int64)
+        toks[:, 0] = rng.integers(0, self.span, size=b)
+        for i in range(s):
+            cdf = np.cumsum(self.trans[phase_idx, toks[:, i]], axis=1)
+            u = rng.random((b, 1))
+            toks[:, i + 1] = (u > cdf).sum(axis=1).clip(0, self.span - 1)
+        return toks + self.base + phase_idx[:, None] * self.span
+
+    def _record(self, toks: np.ndarray) -> Dict[str, np.ndarray]:
+        tokens = toks[:, :-1].astype(np.int32)
+        return {"tokens": tokens, "labels": toks[:, 1:].astype(np.int32),
+                "label": self.bucket_of(tokens)}
+
+    def batch(self, task: int, batch_size: int, cursor: int) -> Dict[str, np.ndarray]:
+        """Mini-batch at global ``cursor``; ``task`` is ignored (task-free).
+        Fields: tokens [S], labels [S], label (): no task id."""
+        del task
+        phase, w = self.phase_weight(cursor)
+        rng = np.random.default_rng((self.cfg.seed, 31, cursor))
+        phase_idx = np.full(batch_size, phase)
+        phase_idx[rng.random(batch_size) < w] = phase + 1
+        return self._record(self._chains(phase_idx, rng))
+
+    def anchor_batch(self, phase: int, batch_size: int, cursor: int) -> Dict[str, np.ndarray]:
+        """Pure single-anchor batch (the evaluation slices; never mixed)."""
+        rng = np.random.default_rng((self.cfg.seed, 37, phase, cursor))
+        return self._record(self._chains(np.full(batch_size, phase), rng))
+
+    def eval_set(self, phase: int, n: int = 64):
+        return self.anchor_batch(phase, n, cursor=10_000_019)

@@ -125,6 +125,17 @@ def on_card(tables: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> b
     return True
 
 
+def refuse_autograd(name: str, *tensors):
+    """Raise when autograd would record a call: the forward kernels have no
+    backward kernel (nor do the reference's), and a kernel's output would
+    leave the graph silently. The check is the same on the CPU, where the
+    call takes the plain version, as on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel: call it under torch.no_grad() (inference), "
+            f"or train through the plain mixers (StackCtx(use_kernel=False))")
+
+
 def check_contiguous(name: str, *tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")

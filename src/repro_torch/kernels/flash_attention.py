@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.build import on_card, stream
+from repro_torch.kernels.build import on_card, refuse_autograd, stream
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 80, 128)  # the head dims the kernel is built for
@@ -78,7 +78,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
                     causal: bool = True) -> torch.Tensor:
     """q [B,S,H,hd]; k/v [B,T,KV,hd] -> [B,S,H,hd] in q's dtype.
 
-    ``flash_attention.launches`` counts kernel launches."""
+    ``flash_attention.launches`` counts kernel launches. There is no backward
+    kernel: with grad enabled, an input that requires grad raises."""
+    refuse_autograd("flash_attention", q, k, v)
     _check(q, k, v)
     if not on_card((), (q, k, v)):
         return flash_attention_ref(q, k, v, window=window, causal=causal)

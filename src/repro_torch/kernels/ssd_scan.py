@@ -14,7 +14,8 @@ on the bf16 tensor cores, whose stage 1 computes cum itself, and share stage
 2. On CPU tensors it is the plain version ``ref.ssd_scan_chunked_ref``, and
 each stage its own plain stage (``ref.ssd_chunk_states_ref``,
 ``ssd_pass_states_ref``, ``ssd_chunk_output_ref``). There is no fallback
-from one to the other.
+from one to the other, and no backward: a call that autograd would record
+raises (``build.refuse_autograd``), on the CPU as on the card.
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan_chunked`` with
 its ``ops.py`` wrapper. The TPU kernel blocked heads (``head_block``); the
@@ -30,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.build import check_contiguous, on_card, stream
+from repro_torch.kernels.build import check_contiguous, on_card, refuse_autograd, stream
 from repro_torch.kernels.ref import (
     ssd_chunk_output_ref,
     ssd_chunk_states_ref,
@@ -150,7 +151,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_head: torch.Tensor, bmat: torc
     y [B,S,H,P] in x's dtype.
 
     ``ssd_scan.launches`` counts kernel launches, ``KERNELS_PER_CALL`` a call
-    on the card."""
+    on the card. There is no backward kernel: with grad enabled, an input
+    that requires grad raises."""
+    refuse_autograd("ssd_scan", x, dt, a_head, bmat, cmat)
     if x.dim() != 4:
         raise ValueError(f"expected x [B,S,H,P], got {tuple(x.shape)}")
     b, s, h, p = x.shape

@@ -111,8 +111,12 @@ def ssd_chunked(x, dt, a_head, bmat, cmat, chunk: int, initial_state=None):
     # intra-chunk (quadratic in Q): Y[i] = sum_{j<=i} C_i·B_j exp(cum_i-cum_j) dt_j x_j
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)  # [B,nc,Q,Q]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # [B,nc,Qi,Qj,H]
-    w = cb[..., None] * torch.where(tri[None, None, :, :, None], decay, torch.zeros_like(decay))
+    # the exponent is masked before exp: above the diagonal it is positive and
+    # can overflow, and a masked inf would make the backward 0 * inf = NaN
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Qi,Qj,H]
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                  torch.full_like(seg, -math.inf)))
+    w = cb[..., None] * decay
     w = w * dtc[:, :, None, :, :]  # multiply dt_j
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
 

@@ -1,9 +1,11 @@
-"""Optimizer + LR schedule: the paper's recipe (§VI-A).
+"""Optimizer + LR schedule: the paper's recipe (§VI-A), and AdamW.
 
 SGD with momentum, linear warmup, milestone decay, weight decay, the linear
 scaling rule (LR x N workers) with the max-LR cap, and global-norm gradient
-clipping. Parameters are a dict of named tensors (``dict(model.named_parameters())``)
-and are updated in place. AdamW (the LM recipe) is not ported yet.
+clipping. AdamW (the language models' recipe) has b1 0.9, b2 0.95 and eps
+1e-8 fixed, and decoupled weight decay on the f32 parameter, as the
+reference. Parameters are a dict of named tensors
+(``dict(model.named_parameters())``) and are updated in place.
 """
 from __future__ import annotations
 
@@ -13,9 +15,13 @@ import numpy as np
 import torch
 
 
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
+
+
 class OptState(NamedTuple):
     step: int  # host-side step counter (drives the LR schedule)
-    mu: Dict[str, torch.Tensor]  # momentum, f32
+    mu: Dict[str, torch.Tensor]  # momentum / first moment, f32
+    nu: Dict[str, torch.Tensor] = {}  # second moment, f32 (adamw; empty for sgd)
 
 
 def lr_schedule(cfg, n_workers: int = 1):
@@ -48,18 +54,27 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
     return {k: g * scale for k, g in grads.items()}, norm
 
 
+def bias_corrections(step: int):
+    """AdamW's ``1 - b1**t`` and ``1 - b2**t`` at ``t = step + 1``, in f32."""
+    t = np.float32(step + 1)
+    return (float(np.float32(1) - np.float32(ADAM_B1) ** t),
+            float(np.float32(1) - np.float32(ADAM_B2) ** t))
+
+
 def make_optimizer(cfg, n_workers: int = 1):
     """Returns ``(init_fn(params) -> state, update_fn(grads, state, params) ->
-    (params, new_state, metrics))``; ``update_fn`` writes params in place."""
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 4); the port has 'sgd'")
+    (params, new_state, metrics))``; ``update_fn`` writes params in place.
+    ``cfg.optimizer`` is ``'sgd'`` or ``'adamw'``."""
+    if cfg.optimizer not in ("sgd", "adamw"):
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; expected sgd|adamw")
+    adamw = cfg.optimizer == "adamw"
     sched = lr_schedule(cfg, n_workers)
 
     def init(params: Dict[str, torch.Tensor]) -> OptState:
-        return OptState(0, {k: torch.zeros_like(p, dtype=torch.float32)
-                            for k, p in params.items()})
+        def zeros():
+            return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+
+        return OptState(0, zeros(), zeros() if adamw else {})
 
     @torch.no_grad()
     def update(grads, state: OptState, params):
@@ -69,10 +84,19 @@ def make_optimizer(cfg, n_workers: int = 1):
         else:
             gnorm = global_norm(grads.values())
         lr = sched(state.step)
-        mu = {}
-        for k, p in params.items():
-            mu[k] = cfg.momentum * state.mu[k] + grads[k] + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * mu[k]).to(p.dtype))
-        return params, OptState(state.step + 1, mu), {"lr": lr, "grad_norm": gnorm}
+        mu, nu = {}, {}
+        if adamw:
+            c1, c2 = bias_corrections(state.step)
+            for k, p in params.items():
+                g = grads[k]
+                mu[k] = ADAM_B1 * state.mu[k] + (1 - ADAM_B1) * g
+                nu[k] = ADAM_B2 * state.nu[k] + (1 - ADAM_B2) * torch.square(g)
+                step = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + ADAM_EPS)
+                p.copy_((p.float() - lr * (step + cfg.weight_decay * p.float())).to(p.dtype))
+        else:
+            for k, p in params.items():
+                mu[k] = cfg.momentum * state.mu[k] + grads[k] + cfg.weight_decay * p.float()
+                p.copy_((p.float() - lr * mu[k]).to(p.dtype))
+        return params, OptState(state.step + 1, mu, nu), {"lr": lr, "grad_norm": gnorm}
 
     return init, update

@@ -2,7 +2,7 @@
 """Where the time of the port's main-path train step goes, on one GPU.
 
     PYTHONPATH=src python3 -m repro_torch.profile_main_path [--steps 3] [--out FILE]
-        [--tiered [--fused]] [--split]
+        [--tiered [--fused]] [--split] [--lm ARCH [--dtype bfloat16]]
 
 Builds the step ``chip_smoke.py`` drives (ResNet-50 at full width, 224x224x3,
 1000 classes, async rehearsal, b=16 r=2 c=4, 4 x 500 buffer slots; with
@@ -11,7 +11,11 @@ cold slots in pinned host memory, ``--fused`` for the fused kernels) through
 the public API, warms it up, then runs ``--steps`` steps under
 ``torch.profiler``. ``--split`` runs the split form
 (``make_pipelined_halves``: the train half, then the issue half on its own
-CUDA stream) in place of the fused ``make_cl_step``. Prints the median wall
+CUDA stream) in place of the fused ``make_cl_step``. ``--lm ARCH`` profiles
+the LM train step of ``chip_smoke.py``'s phase 15 in place of the ResNet's
+(``TokenClassIncremental`` at full width with the train CLI's one-device
+settings: seq 128, b 8, r 7, c 14, AdamW, 2 x 16 buffer slots, TF32 off;
+``--dtype bfloat16`` computes in bf16). Prints the median wall
 time of a step (timed without the profiler; beside it the host's time to
 dispatch the step, each half's in the split form, and to wait for the
 loss), the device-busy time (the
@@ -36,11 +40,12 @@ import time
 import torch
 
 GROUPS = (("buffer kernels", ("update_sample_kernel", "quantize_rows_kernel")),
+          ("softmax/logsumexp", ("softmax", "logsumexp", "LogSoftmax")),
           ("groupnorm", ("RowwiseMoments", "ComputeInternalGradients", "GroupNorm",
                          "group_norm", "ComputeFusedParams", "GammaBeta")),
           ("layout transpose", ("nchwToNhwc", "nhwcToNchw")),
           ("convolution/matmul", ("conv", "gemm", "cutlass", "xmma", "wgrad", "dgrad",
-                                  "implicit", "winograd", "fft", "cudnn")),
+                                  "implicit", "winograd", "fft", "cudnn", "nvjet")),
           ("elementwise/copy", ("elementwise", "clamp", "copy", "Memcpy", "memset",
                                 "fill", "CatArrayBatched")),
           ("reduction", ("reduce", "Reduce")))
@@ -148,37 +153,62 @@ def stream_report(kernels, steps: int):
     return {"train_stream": train, "buffer_kernel_streams": buffer_streams, "streams": report}
 
 
-def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool = False,
-            split: bool = False) -> dict:
-    """Build, warm up, time and profile the main-path step (see the module
-    note). Returns the report as a dict."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+def _resnet_run(tiered: bool, fused: bool):
+    """The ResNet main path's run and scenario (phases 5 and 7), TF32 on."""
     from repro_torch.configs import resnet50_cl
     from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
-    from repro_torch.optim import make_optimizer
-    from repro_torch.rng import fold_in
     from repro_torch.scenario import ClassIncremental
-    from repro_torch.strategy import TrainCarry, init_carry, make_cl_step, make_pipelined_halves
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    cfg = resnet50_cl.full()
     sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=224, batch_size=16)
     tiering = (dict(tiering="host", hot_slots=4, cold_slots=1000, fused_kernels=fused)
                if tiered else {})
-    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
+    run = RunConfig(model=resnet50_cl.full(), scenario=sc, rehearsal=RehearsalConfig(
         num_buckets=4, slots_per_bucket=500, num_representatives=2, num_candidates=4,
         mode="async", label_field="label", **tiering))
-    scenario = ClassIncremental(sc)
+    return run, ClassIncremental(sc)
+
+
+def _lm_run(arch: str, dtype: str, tiered: bool, fused: bool):
+    """Phase 15's LM run and scenario at full width, TF32 off: the train
+    CLI's one-device run for ``arch`` (``launch.train.build_run``), with the
+    compute dtype and the tiered store's kernels set on it."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.scenario import TokenClassIncremental
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    run = train_cli.build_run(train_cli.parse_args(
+        ["--arch", arch] + (["--tiering", "host"] if tiered else [])))
+    run = dataclasses.replace(
+        run, train=dataclasses.replace(run.train, compute_dtype=dtype),
+        rehearsal=dataclasses.replace(run.rehearsal, fused_kernels=fused))
+    return run, TokenClassIncremental(run.scenario)
+
+
+def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool = False,
+            split: bool = False, lm: str = "", dtype: str = "float32") -> dict:
+    """Build, warm up, time and profile the main-path step (see the module
+    note; ``lm`` names an LM arch to profile phase 15's step). Returns the
+    report as a dict."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.optim import make_optimizer
+    from repro_torch.rng import fold_in
+    from repro_torch.strategy import TrainCarry, init_carry, make_cl_step, make_pipelined_halves
+
+    run, scenario = _lm_run(lm, dtype, tiered, fused) if lm else _resnet_run(tiered, fused)
+    sc, label = run.scenario, scenario.label_field
     problem = scenario.build_problem(run, "cuda")
     init, update = make_optimizer(run.train)
     model = problem.init_params_fn(0)
     carry = init_carry(model, init(dict(model.named_parameters())), scenario.item_spec,
-                       run.rehearsal, label_field="label", device="cuda")
+                       run.rehearsal, label_field=label, device="cuda")
     marks = []  # host clock after the train half's dispatch (split form)
     if split:
         train_half, issue_half = make_pipelined_halves(problem.loss_fn, update, run.rehearsal,
-                                                       label_field="label", device="cuda")
+                                                       label_field=label, device="cuda")
 
         def step(carry, batch, key):
             model, opt, m = train_half(carry.params, carry.opt, carry.pipe, batch)
@@ -186,7 +216,7 @@ def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool =
             buffer, pipe = issue_half(carry.buffer, carry.pipe, batch, key)
             return TrainCarry(model, opt, buffer, pipe), m
     else:
-        step = make_cl_step(problem.loss_fn, update, run.rehearsal, label_field="label",
+        step = make_cl_step(problem.loss_fn, update, run.rehearsal, label_field=label,
                             device="cuda")
     batches = [{k: torch.as_tensor(v, device="cuda")
                 for k, v in scenario.batch(0, sc.batch_size, s).items()}
@@ -237,7 +267,7 @@ def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool =
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     buffer = ("tiered, fused" if fused else "tiered") if tiered else "flat"
-    return {"card": card, "buffer": buffer, "step_form": "split" if split else "fused",
+    return {"card": card, "model": f"{lm} {dtype}" if lm else "resnet50_cl", "buffer": buffer, "step_form": "split" if split else "fused",
             "steps": steps, "wall_ms_per_step": wall_ms, "wall_ms_steps": walls,
             "host_ms_per_step": host_ms,
             "device_ms_per_step": device_ms, "device_busy_ms_per_step": busy_ms,
@@ -249,7 +279,8 @@ def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool =
 
 
 def print_report(out: dict):
-    print(f"card: {out['card']}; buffer: {out['buffer']}; step form: {out['step_form']}")
+    print(f"card: {out['card']}; model: {out['model']}; buffer: {out['buffer']}; step form: "
+          f"{out['step_form']}")
     print(f"per step: wall {out['wall_ms_per_step']:.2f} ms (median, unprofiled), device "
           f"busy {out['device_busy_ms_per_step']:.2f} ms (kernel time summed over streams "
           f"{out['device_ms_per_step']:.2f}; idle share {out['device_idle_share']:.4f})")
@@ -287,10 +318,15 @@ def main():
     ap.add_argument("--fused", action="store_true", help="its fused kernels")
     ap.add_argument("--split", action="store_true",
                     help="the split form: the issue half on its own stream")
+    ap.add_argument("--lm", default="", metavar="ARCH",
+                    help="profile phase 15's LM train step of this arch")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the LM's compute dtype")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile_main_path: needs a CUDA device")
-    out = profile(args.steps, args.warmup, args.tiered, args.fused, args.split)
+    out = profile(args.steps, args.warmup, args.tiered, args.fused, args.split, args.lm,
+                  args.dtype)
     print_report(out)
     if args.out:
         with open(args.out, "w") as f:

@@ -12,8 +12,14 @@ from repro_torch.scenario.base import (
     get_scenario,
     register_scenario,
 )
-from repro_torch.scenario.scenarios import ClassIncremental
+from repro_torch.scenario.scenarios import (
+    ClassIncremental,
+    DriftStream,
+    TokenClassIncremental,
+    build_token_lm,
+)
 from repro_torch.scenario.trainer import ContinualTrainer
 
-__all__ = ["ClassIncremental", "ContinualTrainer", "Problem", "SCENARIOS",
-           "Scenario", "get_scenario", "register_scenario"]
+__all__ = ["ClassIncremental", "ContinualTrainer", "DriftStream", "Problem", "SCENARIOS",
+           "Scenario", "TokenClassIncremental", "build_token_lm", "get_scenario",
+           "register_scenario"]

@@ -1,9 +1,13 @@
-"""The class-incremental scenario (paper §VI-A).
+"""The shipped scenarios: class-incremental over images (paper §VI-A) or
+over token distributions (``modality="tokens"``), and the task-free drifting
+token stream (``drift_stream``).
 
 Domain-incremental and blurry-boundary scenarios are ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
+import abc
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -11,7 +15,14 @@ import torch
 from repro_torch.buffer.state import ItemSpec
 from repro_torch.configs import resnet50_cl
 from repro_torch.configs.base import ScenarioConfig
-from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
+from repro_torch.data import (
+    ClassIncrementalImages,
+    DriftStreamConfig,
+    DriftTokenStream,
+    ImageStreamConfig,
+    TaskTokenStream,
+    TokenStreamConfig,
+)
 from repro_torch.scenario.base import Problem, Scenario, register_scenario
 
 # Eval forwards run in chunks of this many images: at 224x224 with the
@@ -35,9 +46,6 @@ class ClassIncremental(Scenario):
 
     def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None):
         cfg = cfg or ScenarioConfig()
-        if cfg.modality != "vision":
-            raise NotImplementedError(
-                "token scenarios are not ported yet (ROADMAP Queue 1 item 11)")
         self.stream = stream if stream is not None else ClassIncrementalImages(
             ImageStreamConfig(
                 num_tasks=cfg.num_tasks, classes_per_task=cfg.classes_per_task,
@@ -110,4 +118,156 @@ class ClassIncremental(Scenario):
         return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs)
 
 
-register_scenario("class_incremental", ClassIncremental)
+# ---------------------------------------------------------------------------
+# Token (LM) scenarios
+# ---------------------------------------------------------------------------
+
+
+def build_token_lm(run, vocab_size: int):
+    """The token scenarios' LM and its forward contexts from a ``RunConfig``:
+    ``(model, ctx, eval_ctx)``. ``ctx`` computes in the run's compute dtype
+    (``run.train.compute_dtype``) through the plain mixers, as the
+    reference trains (it has no backward kernel); ``eval_ctx`` computes in
+    f32. Without ``run.model`` the model is the reduced SmolLM-135M, 2
+    layers, over the stream's vocab."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import StackCtx, build_model
+
+    cfg = run.model
+    if cfg is None:
+        cfg = dataclasses.replace(get_reduced("smollm-135m"), vocab_size=vocab_size,
+                                  num_layers=2)
+    dtype = torch.float32 if run.train.compute_dtype == "float32" else torch.bfloat16
+    return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype),
+            StackCtx(cfg=cfg, compute_dtype=torch.float32))
+
+
+class _TokenScenario(Scenario):
+    """Shared token plumbing: the LM problem over ``tokens``/``labels``
+    records of ``seq_len`` positions."""
+
+    label_field = "labels"
+    stream: Any  # set by subclass __init__
+    eval_n: int
+
+    @property
+    def seq_len(self) -> int:
+        return self.stream.cfg.seq_len
+
+    @property
+    def item_spec(self) -> Dict[str, Any]:
+        s = self.seq_len
+        return {"tokens": ItemSpec((s,), torch.int32), "labels": ItemSpec((s,), torch.int32),
+                self.buffer_task_field: ItemSpec((), torch.int32)}
+
+    def batch(self, task, batch_size, cursor):
+        return self.stream.batch(task, batch_size, cursor)
+
+    def eval_set(self, task):
+        return self.stream.eval_set(task, n=self.eval_n)
+
+    @abc.abstractmethod
+    def _eval_metric(self, lm, model, ev, eval_ctx) -> float:
+        """The accuracy-matrix entry of one eval set ``ev`` (on the device)."""
+
+    def build_problem(self, run, device) -> Problem:
+        lm, ctx, eval_ctx = build_token_lm(run, self.stream.cfg.vocab_size)
+
+        def init_params_fn(seed: int):
+            return lm.init(torch.Generator().manual_seed(seed), self.seq_len, device)
+
+        def loss_fn(model, batch):
+            loss, _ = lm.loss(model, batch, ctx)
+            return loss, {}
+
+        def forward_outputs(model, batch):
+            return lm.outputs(model, batch, ctx)
+
+        @torch.no_grad()
+        def eval_fn(model, task):
+            ev = {k: torch.as_tensor(v, device=device) for k, v in self.eval_set(task).items()}
+            return self._eval_metric(lm, model, ev, eval_ctx)
+
+        return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs)
+
+
+class TokenClassIncremental(_TokenScenario):
+    """Class-incremental over token distributions: each task a disjoint
+    Markov-1 vocab range (the LM analogue of new classes). Metric: per-task
+    eval LOSS (lower is better), in the matrix slot accuracy takes for the
+    vision scenarios."""
+
+    name = "class_incremental"
+    task_field = "task"
+
+    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None, eval_n: int = 16):
+        cfg = cfg or ScenarioConfig(modality="tokens")
+        self.eval_n = eval_n
+        self.stream = stream if stream is not None else TaskTokenStream(TokenStreamConfig(
+            num_tasks=cfg.num_tasks, vocab_size=cfg.vocab_size, seq_len=cfg.seq_len,
+            seed=cfg.seed))
+
+    @property
+    def num_tasks(self) -> int:
+        return self.stream.cfg.num_tasks
+
+    def recommended(self):
+        return {"num_buckets": self.num_tasks, "policy": "reservoir",
+                "label_field": "labels", "task_field": "task"}
+
+    def _eval_metric(self, lm, model, ev, eval_ctx) -> float:
+        loss, _ = lm.loss(model, ev, eval_ctx)
+        return float(loss)
+
+
+class DriftStream(_TokenScenario):
+    """Task-free LM stream: the token distribution drifts across
+    ``num_tasks`` anchors with no task ids and no schedule. Records carry a
+    content-derived scalar ``label`` (the majority vocab band) and the
+    buffer buckets by it; ``num_tasks`` is the anchor count, and the eval
+    slices are the pure anchors.
+
+    Metric: next-token top-1 ACCURACY (higher is better)."""
+
+    name = "drift_stream"
+    task_field = None
+
+    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None, eval_n: int = 16):
+        cfg = cfg or ScenarioConfig(name="drift_stream", modality="tokens")
+        self.eval_n = eval_n
+        self.stream = stream if stream is not None else DriftTokenStream(DriftStreamConfig(
+            num_phases=cfg.num_tasks, vocab_size=cfg.vocab_size, seq_len=cfg.seq_len,
+            phase_len=cfg.steps_per_task, seed=cfg.seed))
+
+    @property
+    def num_tasks(self) -> int:
+        return self.stream.cfg.num_phases
+
+    @property
+    def buffer_task_field(self) -> str:
+        # label_field stays "labels" (the [S] targets the loss masks on);
+        # bucketing keys on the scalar content-derived band instead
+        return "label"
+
+    def recommended(self):
+        return {"num_buckets": self.num_tasks, "policy": "reservoir",
+                "label_field": "labels", "task_field": "label"}
+
+    def cumulative_batch(self, upto_task, batch_size, cursor):
+        raise NotImplementedError(
+            "drift_stream has no per-task view to accumulate (task-free stream): the "
+            "from_scratch strategy does not apply")
+
+    def _eval_metric(self, lm, model, ev, eval_ctx) -> float:
+        logits, _ = lm.forward(model, {"tokens": ev["tokens"]}, eval_ctx)
+        return float((torch.argmax(logits, dim=-1) == ev["labels"]).float().mean())
+
+
+def _class_incremental_factory(cfg: ScenarioConfig) -> Scenario:
+    if cfg.modality == "tokens":
+        return TokenClassIncremental(cfg)
+    return ClassIncremental(cfg)
+
+
+register_scenario("class_incremental", _class_incremental_factory)
+register_scenario("drift_stream", DriftStream)

@@ -12,6 +12,12 @@
         ├─ Prefetcher                               # background Load stage
         └─ accuracy-matrix evaluation               # paper Eq. (1)
 
+The model is the scenario's ``nn.Module``: the CNN of the vision scenario,
+or the LM (a ``Decoder``) of the token scenarios, which train through the
+plain mixers with autograd. The buffer buckets by the scenario's
+``buffer_task_field`` (``DriftStream``: the content label ``"label"``,
+while the loss reads ``"labels"``).
+
 The reference's other options are not ported yet and raise: ``mesh`` (the
 pjit backend, ROADMAP Queue 1 item 13), ``resilience`` and ``ckpt_dir``
 (item 10) and ``obs`` (item 14).

@@ -811,3 +811,194 @@ def test_strategy_trainer_steps_on_the_card(cuda, strategy, policy):
     assert np.isfinite(res.losses).all() and np.isfinite(res.accuracy_matrix).all()
     if strategy.startswith("der"):
         assert distill and distill[-1] > 0 and all(np.isfinite(distill))
+
+
+# ---------------------------------------------------------------------------
+# Continual LM training on the card
+# ---------------------------------------------------------------------------
+
+
+def _lm_run(arch, *, strategy="rehearsal", top_k=0, tiered=False, fused=False,
+            scenario="class_incremental", dtype="float32"):
+    import dataclasses as dc
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+                                          StrategyConfig, TrainConfig)
+
+    cfg = dc.replace(get_reduced(arch), vocab_size=128, num_layers=2)
+    store = dict(tiering="host", hot_slots=2, cold_slots=4, fused_kernels=fused) if tiered else {}
+    return RunConfig(
+        model=cfg, train=TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=5,
+                                     linear_scaling=False, compute_dtype=dtype),
+        rehearsal=RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
+                                  num_candidates=6, mode="async", **store),
+        strategy=StrategyConfig(top_k=top_k),
+        scenario=ScenarioConfig(name=scenario, modality="tokens", strategy=strategy,
+                                num_tasks=2, steps_per_epoch=3, batch_size=8, vocab_size=128,
+                                seq_len=16, auto_defaults=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_kernel_wrappers_refuse_autograd_on_the_card(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    q = torch.randn((1, 128, 2, 64), device=cuda, dtype=dtype, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention has no backward kernel"):
+        fa.flash_attention(q, q.detach(), q.detach())
+    x = torch.randn((1, 128, 2, 64), device=cuda, dtype=dtype, requires_grad=True)
+    args = (torch.rand((1, 128, 2), device=cuda), -torch.rand((2,), device=cuda),
+            torch.randn((1, 128, 16), device=cuda, dtype=dtype),
+            torch.randn((1, 128, 16), device=cuda, dtype=dtype))
+    before = ssd.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="ssd_scan has no backward kernel"):
+        ssd.ssd_scan(x, *args, chunk=128)
+    assert ssd.ssd_scan.launches == before
+    with torch.no_grad():
+        assert ssd.ssd_scan(x, *args, chunk=128).shape == x.shape
+        assert fa.flash_attention(q, q, q).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("top_k", [0, 4])
+def test_token_records_one_launch_bit_equal_to_plain_version(cuda, where, top_k):
+    """update+sample on an LM record (tokens and labels i32 [16], task i32,
+    der's top-k pairs [16, k]): one launch, bit for bit leaf by leaf; in the
+    cold tier's pinned layout the f32 values are int8 rows and scales."""
+    rng = np.random.default_rng(top_k)
+    r, c, s, seq = 24, 8, 3, 16
+    fields = [(torch.int32, seq), (torch.int32, seq), (torch.int32, 1)]
+    if top_k:
+        fields += ([(torch.int8, seq * top_k), (torch.float32, 1)] if where == "pinned"
+                   else [(torch.float32, seq * top_k)]) + [(torch.int32, seq * top_k)]
+
+    def rand(n, dtype, width, dev):
+        if dtype == torch.float32:
+            return torch.randn((n, width), device=dev)
+        lo, hi = (-127, 128) if dtype == torch.int8 else (0, 49152)
+        return torch.randint(lo, hi, (n, width), dtype=dtype, device=dev)
+
+    tables = [rand(r, d, w, "cpu") for d, w in fields]
+    tables = [t.pin_memory() for t in tables] if where == "pinned" else [t.to(cuda) for t in tables]
+    want_tables = [t.to(cuda, copy=True) for t in tables]
+    cands = [rand(c, d, w, cuda) for d, w in fields]
+    rows = torch.as_tensor(rng.integers(-1, r + 1, c), dtype=torch.int32, device=cuda)
+    samp = torch.as_tensor(rng.integers(0, r, s), dtype=torch.int32, device=cuda)
+    before = ops.rehearsal_update_sample.launches
+    got = ops.rehearsal_update_sample_leaves(tables, cands, rows, samp)
+    assert ops.rehearsal_update_sample.launches - before == 1
+    for i, (want_table, cand) in enumerate(zip(want_tables, cands)):
+        pb, pr = ref.rehearsal_update_sample_ref(want_table, cand, rows, samp)
+        assert _same(tables[i], pb) and _same(got[i], pr), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,strategy,tiered,fused,scenario", [
+    ("smollm-135m", "rehearsal", False, False, "class_incremental"),
+    ("mamba2-370m", "rehearsal", False, False, "class_incremental"),
+    ("smollm-135m", "der_pp", True, False, "class_incremental"),
+    ("smollm-135m", "der_pp", True, True, "class_incremental"),
+    ("smollm-135m", "rehearsal", False, False, "drift_stream")])
+def test_lm_trainer_steps_on_the_card(cuda, arch, strategy, tiered, fused, scenario):
+    """The reduced LM trainer on the card: 1 update+sample launch a flat
+    step, 3 a tiered one; der top-4's logit_vals through the int8 kernels
+    once a step; no flash or scan launch; finite losses and metrics."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.scenario import ContinualTrainer
+
+    run = _lm_run(arch, strategy=strategy, top_k=4 if strategy == "der_pp" else 0,
+                  tiered=tiered, fused=fused, scenario=scenario)
+    counters = [ops.rehearsal_update_sample, qz.quantize_rows, ops.encode_scatter_rows,
+                ops.gather_dequant_rows, fa.flash_attention, ssd.ssd_scan]
+    before = [fn.launches for fn in counters]
+    res = ContinualTrainer(run, device=cuda).fit()
+    got = [fn.launches - b for fn, b in zip(counters, before)]
+    per_step = 1 if tiered else 0
+    want = [6 * (3 if tiered else 1), 6 * per_step * (not fused), 6 * per_step * fused,
+            6 * per_step * fused, 0, 0]
+    assert got == want
+    assert np.isfinite(res.losses).all() and np.isfinite(res.accuracy_matrix).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+def test_lm_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Three AdamW LM steps of ``make_cl_step``, TF32 off, the same weights
+    and rows (planned on the CPU): buffer and pending slot bit for bit, the
+    loss within 1e-4 of its value, the parameters within 1e-4 of their
+    largest entry after the first step."""
+    from repro_torch.buffer.state import ItemSpec, plan_update_sample
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.strategy import init_carry, make_cl_step
+
+    run = _lm_run(arch)
+    cfg, rcfg = run.model, run.rehearsal
+    lm = build_model(cfg)
+    spec = {"tokens": ItemSpec((16,), torch.int32), "labels": ItemSpec((16,), torch.int32),
+            "task": ItemSpec((), torch.int32)}
+    init, update = make_optimizer(run.train)
+    carries, steps = {}, {}
+    for dev in ("cpu", cuda):
+        model = lm.init(torch.Generator().manual_seed(0), 16, dev)
+        carries[str(dev)] = init_carry(model, init(dict(model.named_parameters())), spec, rcfg,
+                                       label_field="labels", seed=3, device=dev)
+        steps[str(dev)] = make_cl_step(lambda m, b: lm.loss(m, b, StackCtx(cfg)), update, rcfg,
+                                       exchange="local", label_field="labels", device=dev)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(3):
+            batch = {"tokens": rng.integers(0, 128, (8, 16)).astype(np.int32),
+                     "labels": rng.integers(0, 128, (8, 16)).astype(np.int32),
+                     "task": rng.integers(0, 2, 8).astype(np.int32)}
+            rows = plan_update_sample(carries["cpu"].buffer, torch.from_numpy(batch["task"]),
+                                      gen, rcfg.num_candidates, rcfg.num_representatives)
+            loss = {}
+            for dev in carries:
+                dev_rows = type(rows)(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                                        for x in rows))
+                carries[dev], m = steps[dev](carries[dev], batch, s, rows=dev_rows)
+                loss[dev] = float(m["loss"])
+            card, cpu = carries["cuda"], carries["cpu"]
+            for k in spec:
+                assert _same(card.buffer.data[k], cpu.buffer.data[k]), k
+                assert _same(card.pipe.reps[k], cpu.pipe.reps[k]), k
+            assert abs(loss["cuda"] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])
+            if s == 0:
+                want = dict(cpu.params.named_parameters())
+                for name, p in card.params.named_parameters():
+                    w = want[name].detach()
+                    assert (p.detach().cpu() - w).abs().max() <= 1e-4 * w.abs().max() + 1e-7
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_adamw_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import make_optimizer
+
+    init, update = make_optimizer(TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=2,
+                                              weight_decay=0.1))
+    g = torch.Generator().manual_seed(0)
+    start = {"w": torch.randn((64, 32), generator=g), "b": torch.randn((32,), generator=g)}
+    params = {"cpu": {k: v.clone() for k, v in start.items()},
+              "cuda": {k: v.to(cuda) for k, v in start.items()}}
+    states = {dev: init(p) for dev, p in params.items()}
+    for _ in range(3):
+        grads = {k: torch.randn(v.shape, generator=g) * 3 for k, v in start.items()}
+        for dev in params:
+            _, states[dev], _ = update({k: v.to(dev) for k, v in grads.items()}, states[dev],
+                                       params[dev])
+        for k in start:
+            want = params["cpu"][k]
+            assert (params["cuda"][k].cpu() - want).abs().max() <= 1e-6 * want.abs().max()
+            assert torch.allclose(states["cuda"].nu[k].cpu(), states["cpu"].nu[k], rtol=1e-6,
+                                  atol=0)
