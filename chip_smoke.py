@@ -68,25 +68,29 @@ Phases (any failure exits non-zero):
      then der_pp steps at phase 4's small input, the card against the CPU
      through the ``rows`` seam, TF32 off.
 Phases 8-12 are the language-model inference path, with TF32 off:
-  8. flash attention against its plain version at SmolLM-135M's prefill
-     shapes (f32 on the 3xTF32 wgmma kernel, bf16 on the bf16 wgmma kernel)
-     and over a seeded sweep (the JAX kernel tests' cases, an H2O-Danube
-     case, hd 80, window 4096, S 8192, in both dtypes, and the bf16 kernel's
-     edges); times beside ``F.scaled_dot_product_attention`` and the bound
-     (for f32 the 3xTF32 tensor-core bound, the FMA bound beside it);
+  8. flash attention against its plain version at SmolLM-135M's (hd 64)
+     and Gemma-2B's (hd 256, MQA) prefill shapes (f32 on the 3xTF32 wgmma
+     kernel, bf16 on the bf16 wgmma kernel) and over a seeded sweep (the
+     JAX kernel tests' cases, an H2O-Danube case, hd 80, window 4096, S
+     8192, in both dtypes, the bf16 kernel's edges, and at hd 256 a window,
+     S 64 and S 100 without causal in both dtypes); times beside
+     ``F.scaled_dot_product_attention`` and the bound (for f32 the 3xTF32
+     tensor-core bound, the FMA bound beside it);
   9. the SSD scan against its plain version and the model's ``ssd_chunked``
      at Mamba2-370M's prefill shapes and over a sweep (bf16 among it, at the
      path's shapes too, its error beside one bf16 ulp of the output), and
      each of its three kernels against its plain stage (bf16: stages 1 and 3
      on the bf16 tensor cores); times and bounds of the f32 and bf16
      instances at the path's shapes, whole and kernel by kernel;
- 10. SmolLM-135M and Mamba2-370M at full width on the card against the CPU
-     (same seed, B 1, S 128);
+ 10. SmolLM-135M, Mamba2-370M, StableLM-3B and Gemma-2B at full width on
+     the card against the CPU (the same weights, B 1, S 128);
  11. prefill at full width (B 4, S 2048): ``build_model(cfg).forward`` with
-     the kernels (30 flash launches; 48 scans of 3 kernels each) against the
-     plain path, in f32 and in bf16 (``StackCtx(compute_dtype=bfloat16)``,
-     held against the f32 plain path); median time, tokens/s, peak memory;
- 12. greedy serving (batch 4, prompt 32, gen 16) for both models through
+     the kernels (30, 32 and 18 flash launches; 48 scans of 3 kernels each)
+     against the plain path, in f32 and in bf16
+     (``StackCtx(compute_dtype=bfloat16)``, held against the f32 plain
+     path; logits compared in chunks: Gemma-2B's are 8.4 GB in f32); median
+     time, tokens/s, peak memory;
+ 12. greedy serving (batch 4, prompt 32, gen 16) for the four models through
      ``repro_torch.launch.serve`` and ``DecodeEngine``, decode logits against
      the teacher-forced forward;
  15. continual LM training (after phase 12, TF32 off): ``ContinualTrainer``
@@ -115,6 +119,7 @@ it and a visible CUDA device; without either it fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -149,7 +154,7 @@ BATCH, REPS, CANDS, SLOTS = 16, 2, 4, 500  # b, r, c per worker; slots per bucke
 BUCKETS, HOT, COLD, STAGE = 4, 4, 1000, 2 * CANDS
 # The LM path: prefill of B sequences of S tokens at full width; serving at
 # the reference CLI's defaults. Widths and depths are the published ones.
-LM_ARCHS = ("smollm-135m", "mamba2-370m")
+LM_ARCHS = ("smollm-135m", "mamba2-370m", "stablelm-3b", "gemma-2b")
 SOURCES = ("rehearsal_ops", "quantize", "flash_attention", "flash_attention_sm90", "ssd_scan",
            "ssd_scan_sm90")
 PREFILL_B, PREFILL_S = 4, 2048
@@ -221,10 +226,25 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
+CHUNK = 1 << 26  # elements compared at a time: a full-width logits tensor is 2.1 G
+
+
+def _chunks(a: torch.Tensor, b: torch.Tensor):
+    """Matching flat pieces of ``a`` and ``b``, so that their float64 copies
+    stay small beside Gemma-2B's 8.4 GB f32 logits."""
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
+    a, b = a.reshape(-1), b.reshape(-1)
+    for i in range(0, a.numel(), CHUNK):
+        yield a[i:i + CHUNK].double(), b[i:i + CHUNK].double()
+
+
 def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|; NaN if any element of either is NaN (torch's max keeps a
+    NaN, Python's ``max`` over the chunks would drop one)."""
     if a.numel() == 0:
         return 0.0
-    return float((a.double() - b.double()).abs().max())
+    return float(torch.stack([(x - y).abs().max() for x, y in _chunks(a, b)]).max())
 
 
 # ---------------------------------------------------------------------------
@@ -1510,13 +1530,33 @@ def tf32_off():
 
 
 def close(got, want, atol, rtol, what):
-    """Assert |got - want| <= atol + rtol |want| everywhere; return max |err|."""
-    err = (got.double() - want.double()).abs()
-    bad = err > atol + rtol * want.double().abs()
-    worst = float(err.max()) if err.numel() else 0.0
-    if bool(bad.any()) or not math.isfinite(worst):
+    """Assert |got - want| <= atol + rtol |want| everywhere; return max |err|.
+    An element that is NaN on either side fails (``<=`` is false for it)."""
+    worst, bad = [], False
+    for g, w in _chunks(got, want):
+        err = (g - w).abs()
+        worst.append(err.max())
+        bad = bad or not bool((err <= atol + rtol * w.abs()).all())
+    worst = float(torch.stack(worst).max()) if worst else 0.0
+    if bad or not math.isfinite(worst):
         raise AssertionError(f"{what}: max abs err {worst:.3e} beyond atol {atol} rtol {rtol}")
     return worst
+
+
+def comparisons_catch_nan():
+    """``close`` raises and ``abs_err`` gives NaN for a NaN in any chunk, the
+    last included."""
+    want = torch.zeros(CHUNK + 3, device="cuda")
+    got = want.clone()
+    got[-1] = float("nan")
+    if not math.isnan(abs_err(got, want)):
+        raise AssertionError("abs_err dropped a NaN")
+    try:
+        close(got, want, 1.0, 1.0, "NaN self-check")
+    except AssertionError:
+        print(f"close() and abs_err() catch a NaN in the last of 2 chunks of {CHUNK} elements")
+        return
+    raise AssertionError("close() passed a NaN")
 
 
 def _randn(shape, gen, dtype=torch.float32, scale=1.0):
@@ -1544,29 +1584,45 @@ def small_outputs(got, want, rtol):
     return f"over |want| < 0.1: max abs err {worst_small:.3e}; least atol at rtol {rtol:g}: {need:.3e}"
 
 
+# The shapes phase 8 holds and times: each model's prefill (B 4, S = T =
+# 2048) at its head dim, and the suffix of its numbers in the kernels line.
+FLASH_TIMED = (("SmolLM-135M", 9, 3, 64, ""), ("Gemma-2B", 8, 1, 256, "_hd256"))
+FLASH_DESIGN = {("", torch.float32): "3xTF32 wgmma", ("", torch.bfloat16): "wgmma + TMA",
+                ("_hd256", torch.float32): "3xTF32 wgmma, 16-key tiles split in registers, "
+                                           "two CTAs a query tile (128 output dims each)",
+                ("_hd256", torch.bfloat16): "wgmma + TMA, m64n256k16 P.V, 2 stages, a "
+                                            "producer warpgroup with setmaxnreg"}
+
+
 def flash_phase(fa, ref):
     """Flash attention against its plain version; times at SmolLM-135M's
-    prefill shapes. Returns its kernels-line entry."""
+    (hd 64) and Gemma-2B's (hd 256) prefill shapes. Returns its kernels-line
+    entry."""
     import torch.nn.functional as F
 
     gen = torch.Generator().manual_seed(8)
-    b, s, h, kv, hd = PREFILL_B, PREFILL_S, 9, 3, 64
+    b, s = PREFILL_B, PREFILL_S
     runs, errs = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q = _randn((b, s, h, hd), gen, dtype)
-        k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
-        got = fa.flash_attention(q, k, v)
-        want = ref.flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        errs[dtype] = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash {dtype}")
-        runs[dtype] = (q, k, v)
-        print(f"SmolLM-135M prefill shapes q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, {kv}, {hd}] "
-              f"{dtype}: max abs err {errs[dtype]:.3e} (atol, rtol {FLASH_TOL[dtype]}); "
-              f"{small_outputs(got, want, FLASH_TOL[dtype][1])}")
+    for model, h, kv, hd, tag in FLASH_TIMED:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn((b, s, h, hd), gen, dtype)
+            k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
+            got = fa.flash_attention(q, k, v)
+            want = ref.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            errs[tag, dtype] = close(got.float(), want.float(), *FLASH_TOL[dtype],
+                                     f"flash {model} {dtype}")
+            runs[tag, dtype] = (q, k, v)
+            print(f"{model} prefill shapes q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, {kv}, {hd}] "
+                  f"{dtype}: max abs err {errs[tag, dtype]:.3e} (atol, rtol "
+                  f"{FLASH_TOL[dtype]}); {small_outputs(got, want, FLASH_TOL[dtype][1])}")
+            del got, want
     # the JAX kernel tests' cases (test_kernels.py:17-24, 39-45), H2O-Danube
     # (hd 80, window 4096, S 8192) in both dtypes, and the bf16 kernel's edges:
     # hd 32 at S 64 (less than one 128-query tile), a window without causal
-    # where rows see no key (64 queries, 32 keys, window 8)
+    # where rows see no key (64 queries, 32 keys, window 8); at Gemma-2B's hd
+    # 256 and MQA, a window, S 64 (less than one tile of either kernel) and
+    # a ragged S without causal, in both dtypes
     sweep = [(1, 64, 64, 2, 2, 32, 0, True, torch.float32),
              (2, 128, 128, 4, 2, 32, 0, True, torch.float32),
              (1, 128, 128, 8, 1, 64, 0, True, torch.float32),
@@ -1578,6 +1634,10 @@ def flash_phase(fa, ref):
              (1, 8192, 8192, 32, 8, 80, 4096, True, torch.bfloat16),
              (1, 64, 32, 4, 2, 32, 8, False, torch.bfloat16),
              (2, 256, 256, 4, 2, 128, 0, True, torch.bfloat16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        sweep += [(1, 2048, 2048, 8, 1, 256, 300, True, dtype),
+                  (2, 64, 64, 8, 1, 256, 0, True, dtype),
+                  (1, 100, 100, 4, 2, 256, 0, False, dtype)]
     for cb, cs, ct, ch, ckv, chd, win, causal, dtype in sweep:
         q = _randn((cb, cs, ch, chd), gen, dtype)
         k, v = _randn((cb, ct, ckv, chd), gen, dtype), _randn((cb, ct, ckv, chd), gen, dtype)
@@ -1586,20 +1646,21 @@ def flash_phase(fa, ref):
         torch.cuda.synchronize()
         case = (cb, cs, ct, ch, ckv, chd, win, causal, dtype)
         err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash sweep {case}")
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or chd == 256:
             print(f"  {case}: max abs err {err:.3e}; {small_outputs(got, want, FLASH_TOL[dtype][1])}")
         del q, k, v, got, want
     print(f"sweep: {len(sweep)} cases within tolerance (incl. H2O-Danube: H 32, KV 8, hd 80, "
-          f"window 4096, S 8192, f32 and bf16)")
+          f"window 4096, S 8192, f32 and bf16; hd 256: window 300 at S 2048, S 64, S 100 "
+          f"without causal, f32 and bf16)")
 
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "source_bf16": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-             "design": "3xTF32 wgmma", "design_bf16": "wgmma + TMA",
-             "replaces": "src/repro/kernels/flash_attention.py:73",
-             "max_abs_err": errs[torch.float32], "max_abs_err_bf16": errs[torch.bfloat16]}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = runs[dtype]
+             "replaces": "src/repro/kernels/flash_attention.py:73"}
+    for (tag, dtype), (q, k, v) in runs.items():
+        b, s, h, hd = q.shape
+        suffix = tag + ("" if dtype == torch.float32 else "_bf16")
+        design = FLASH_DESIGN[tag, dtype]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, hd] views
 
         def library():
@@ -1609,8 +1670,8 @@ def flash_phase(fa, ref):
         want = ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         lib_tol = 2e-2 if dtype == torch.bfloat16 else 2e-5  # SDPA rounds P to bf16
-        lib_err = close(lib.float(), want.float(), lib_tol, lib_tol, f"SDPA {dtype}")
-        print(f"SDPA {dtype} against the plain version: max abs err {lib_err:.3e}; "
+        lib_err = close(lib.float(), want.float(), lib_tol, lib_tol, f"SDPA hd {hd} {dtype}")
+        print(f"SDPA hd {hd} {dtype} against the plain version: max abs err {lib_err:.3e}; "
               f"{small_outputs(lib, want, FLASH_TOL[dtype][1])}")
         del lib, want
         ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -1633,18 +1694,17 @@ def flash_phase(fa, ref):
             rate = f"{flops / 1e9:.2f} GFLOP at {BF16_FLOPS / 1e12:g} TFLOP/s = {ops_ms:.4f} ms"
         bound_ms = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        design = entry["design" if dtype == torch.float32 else "design_bf16"]
-        print(f"flash_attention {dtype} ({design}): kernel {ms:.4f} ms (repeat "
+        print(f"flash_attention hd {hd} {dtype} ({design}): kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; max abs err "
-              f"vs plain: kernel {errs[dtype]:.3e}, SDPA {lib_err:.3e}; bound {bound_ms:.4f} ms "
-              f"by {by} ({rate}; {nbytes} B = {bytes_ms:.4f} ms); kernel at "
+              f"vs plain: kernel {errs[tag, dtype]:.3e}, SDPA {lib_err:.3e}; bound "
+              f"{bound_ms:.4f} ms by {by} ({rate}; {nbytes} B = {bytes_ms:.4f} ms); kernel at "
               f"{flops / ms / 1e9:.2f} TFLOP/s of f32 products, {bound_ms / ms:.3f} of its bound")
-        suffix = "" if dtype == torch.float32 else "_bf16"
-        entry.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
-                      f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
-                      f"library_ms{suffix}": library_ms})
+        entry.update({f"design{suffix}": design, f"max_abs_err{suffix}": errs[tag, dtype],
+                      f"ms{suffix}": ms, f"ms_repeat{suffix}": ms_again,
+                      f"plain_ms{suffix}": plain_ms, f"bound_ms{suffix}": bound_ms,
+                      f"bound_by{suffix}": by, f"library_ms{suffix}": library_ms})
         if dtype == torch.float32:
-            entry["bound_ms_fma"] = max(fma_ms, bytes_ms)
+            entry[f"bound_ms_fma{tag}"] = max(fma_ms, bytes_ms)
     del runs
     return entry
 
@@ -1818,23 +1878,54 @@ def ssd_phase(ssd, ref):
     return entry
 
 
-def lm_model_phase(seed: int = 10):
-    """Both models at full width on the card against the CPU, same seed."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import StackCtx, build_model
+class LMWeights:
+    """Each LM arch's model and full-width weights, drawn once from one seed
+    on the host and held there for phases 10-12: drawing a 2.5-2.8 B model
+    takes the host tens of seconds. A phase moves one arch's weights to the
+    card (``on_card``) and back before the next, so a peak it reads holds
+    that arch's weights alone."""
+
+    def __init__(self, seed: int = 10):
+        self.seed, self.held = seed, {}
+
+    def on_host(self, arch: str):
+        """(cfg, model, params) of ``arch`` on the host, drawn at first use."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+
+        if arch not in self.held:
+            cfg = get_config(arch)
+            model = build_model(cfg)
+            self.held[arch] = cfg, model, model.init(
+                torch.Generator().manual_seed(self.seed), PREFILL_S, device="cpu")
+        return self.held[arch]
+
+    @contextlib.contextmanager
+    def on_card(self, arch: str):
+        """(cfg, model, params) of ``arch`` with params moved to the card for
+        the block, and back to the host after it."""
+        cfg, model, params = self.on_host(arch)
+        try:
+            yield cfg, model, params.to("cuda")
+        finally:
+            params.to("cpu")
+            torch.cuda.empty_cache()
+
+
+def lm_model_phase(weights: LMWeights):
+    """Every model of the LM path at full width on the card against the CPU:
+    the same weights, on the host and then on the card."""
+    from repro_torch.models import StackCtx
 
     for arch in LM_ARCHS:
-        cfg = get_config(arch)
-        model = build_model(cfg)
+        cfg, model, params = weights.on_host(arch)
         toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
         with torch.no_grad():
-            params = model.init(torch.Generator().manual_seed(seed), 128, device="cpu")
             want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=True))
-            del params
-            params = model.init(torch.Generator().manual_seed(seed), 128, device="cuda")
-            got, _ = model.forward(params, {"tokens": toks.cuda()}, StackCtx(cfg, use_kernel=True))
-            got = got.cpu()
-        del params
+            with weights.on_card(arch) as (_, _, params):
+                got, _ = model.forward(params, {"tokens": toks.cuda()},
+                                       StackCtx(cfg, use_kernel=True))
+                got = got.cpu()
         scale = float(want.abs().max())
         tol = 1e-4 * scale + 1e-5  # f32 both sides, other kernels and summation orders
         err = close(got, want, tol, 0.0, f"{arch} card vs cpu")
@@ -1868,80 +1959,78 @@ def _counted_forward(model, params, toks, ctx, counters):
         torch.cuda.max_memory_allocated()
 
 
-def prefill_phase(counters, ssd, seed: int = 11):
+def prefill_phase(counters, ssd, weights: LMWeights):
     """Prefill at full width with the kernels (the LM main path) against the
-    plain path, in f32 and in bf16. Returns the kernels' launches per f32
-    forward."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import StackCtx, build_model
-
+    plain path, in f32 and in bf16. Returns each arch's kernel and its
+    launches per f32 forward."""
     launches = {}
     for arch in LM_ARCHS:
-        cfg = get_config(arch)
-        model = build_model(cfg)
-        params = model.init(torch.Generator().manual_seed(seed), PREFILL_S, device="cuda")
-        toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                             generator=torch.Generator().manual_seed(2)).cuda()
-        kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-        per_layer = ssd.KERNELS_PER_CALL if kernel == "ssd_scan" else 1
-        expect = {name: (cfg.num_layers * per_layer if name == kernel else 0) for name in counters}
-        tokens = PREFILL_B * PREFILL_S
-        with torch.no_grad():
-            want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
-            scale = float(want.abs().max())
-            for dtype in (torch.float32, torch.bfloat16):
-                fast = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
-                slow = StackCtx(cfg, use_kernel=False, compute_dtype=dtype)
-                got, seen, peak = _counted_forward(model, params, toks, fast, counters)
-                if seen != expect:
-                    raise AssertionError(f"{arch} {dtype}: expected launches {expect}, saw {seen}")
-                if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or got.dtype != dtype:
-                    raise AssertionError(f"bad logits {tuple(got.shape)} {got.dtype}")
-                if dtype == torch.float32:
-                    launches[kernel] = seen[kernel]
-                    # f32 both paths; the kernels sum attention / the scan in
-                    # another order than cuBLAS and the plain path's einsums.
-                    # The CPU parity tests show ~1e-6 of the largest logit
-                    # between the packages; 1e-4 leaves a factor of 100 for 30
-                    # and 48 layers of compounding.
-                    tol = 1e-4 * scale + 1e-5
-                    err = close(got, want, tol, 0.0, f"{arch} prefill kernels vs plain path")
-                    check = f"max |kernels - plain| {err:.3e} (tolerance {tol:.3e})"
-                else:
-                    # bf16 against the f32 plain path: the kernel path may stray
-                    # at most twice as far as the bf16 plain path does, plus
-                    # 1e-3 of the largest logit (the bf16 flash kernel rounds
-                    # P to bf16 where the plain path keeps f32 probabilities)
-                    plain16, _ = model.forward(params, {"tokens": toks}, slow)
-                    ref_err = abs_err(plain16.float(), want)
-                    tol = 2 * ref_err + 1e-3 * scale
-                    err = close(got.float(), want, tol, 0.0, f"{arch} bf16 prefill kernels vs f32")
-                    check = (f"max |kernels - f32 plain| {err:.3e}, bf16 plain path's "
-                             f"{ref_err:.3e} (tolerance {tol:.3e})")
-                    del plain16
-                del got
-                t_fast = _timed_forward(model, params, toks, fast)
-                t_slow = _timed_forward(model, params, toks, slow)
-                t_again = _timed_forward(model, params, toks, fast)
-                print(f"{arch} prefill {str(dtype)[6:]} B {PREFILL_B} x S {PREFILL_S}: "
-                      f"{seen[kernel]} {kernel} launches per forward ({per_layer} per layer); "
-                      f"logits {check}; median forward with kernels {t_fast * 1e3:.1f} ms (again "
-                      f"{t_again * 1e3:.1f}) = {tokens / t_fast:.0f} tokens/s, plain path "
-                      f"{t_slow * 1e3:.1f} ms = {tokens / t_slow:.0f} tokens/s; peak memory with "
-                      f"kernels {peak / 2**30:.2f} GiB")
-            del want
-        del params
-        torch.cuda.empty_cache()
+        with weights.on_card(arch) as (cfg, model, params):
+            launches[arch] = _prefill_arch(counters, ssd, arch, cfg, model, params)
     return launches
 
 
-def serving_phase(seed: int = 12):
-    """Greedy serving at full width: the CLI's path, and DecodeEngine's decode
-    logits at every prompt position against the teacher-forced forward."""
-    from repro_torch.configs import get_config
+def _prefill_arch(counters, ssd, arch, cfg, model, params):
+    from repro_torch.models import StackCtx
+
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                         generator=torch.Generator().manual_seed(2)).cuda()
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    per_layer = ssd.KERNELS_PER_CALL if kernel == "ssd_scan" else 1
+    expect = {name: (cfg.num_layers * per_layer if name == kernel else 0) for name in counters}
+    tokens = PREFILL_B * PREFILL_S
+    with torch.no_grad():
+        want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
+        scale = float(want.abs().max())
+        for dtype in (torch.float32, torch.bfloat16):
+            fast = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
+            slow = StackCtx(cfg, use_kernel=False, compute_dtype=dtype)
+            got, seen, peak = _counted_forward(model, params, toks, fast, counters)
+            if seen != expect:
+                raise AssertionError(f"{arch} {dtype}: expected launches {expect}, saw {seen}")
+            if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or got.dtype != dtype:
+                raise AssertionError(f"bad logits {tuple(got.shape)} {got.dtype}")
+            if dtype == torch.float32:
+                launched = kernel, seen[kernel]
+                # f32 both paths; the kernels sum attention / the scan in
+                # another order than cuBLAS and the plain path's einsums.
+                # The CPU parity tests show ~1e-6 of the largest logit
+                # between the packages; 1e-4 leaves a factor of 100 for 30
+                # and 48 layers of compounding.
+                tol = 1e-4 * scale + 1e-5
+                err = close(got, want, tol, 0.0, f"{arch} prefill kernels vs plain path")
+                check = f"max |kernels - plain| {err:.3e} (tolerance {tol:.3e})"
+            else:
+                # bf16 against the f32 plain path: the kernel path may stray
+                # at most twice as far as the bf16 plain path does, plus
+                # 1e-3 of the largest logit (the bf16 flash kernel rounds
+                # P to bf16 where the plain path keeps f32 probabilities)
+                plain16, _ = model.forward(params, {"tokens": toks}, slow)
+                ref_err = abs_err(plain16.float(), want)
+                tol = 2 * ref_err + 1e-3 * scale
+                err = close(got.float(), want, tol, 0.0, f"{arch} bf16 prefill kernels vs f32")
+                check = (f"max |kernels - f32 plain| {err:.3e}, bf16 plain path's "
+                         f"{ref_err:.3e} (tolerance {tol:.3e})")
+                del plain16
+            del got
+            t_fast = _timed_forward(model, params, toks, fast)
+            t_slow = _timed_forward(model, params, toks, slow)
+            t_again = _timed_forward(model, params, toks, fast)
+            print(f"{arch} prefill {str(dtype)[6:]} B {PREFILL_B} x S {PREFILL_S}: "
+                  f"{seen[kernel]} {kernel} launches per forward ({per_layer} per layer); "
+                  f"logits {check}; median forward with kernels {t_fast * 1e3:.1f} ms (again "
+                  f"{t_again * 1e3:.1f}) = {tokens / t_fast:.0f} tokens/s, plain path "
+                  f"{t_slow * 1e3:.1f} ms = {tokens / t_slow:.0f} tokens/s; peak memory with "
+                  f"kernels {peak / 2**30:.2f} GiB")
+        del want
+    return launched
+
+
+def serving_phase(weights: LMWeights, seed: int = 12):
+    """Greedy serving at full width: the CLI's path (which draws its own
+    weights from ``seed``), and DecodeEngine's decode logits at every prompt
+    position against the teacher-forced forward on the held weights."""
     from repro_torch.launch import serve
-    from repro_torch.models import StackCtx, build_model
-    from repro_torch.serving import DecodeEngine
 
     for arch in LM_ARCHS:
         res = serve.main(["--arch", arch, "--batch", str(SERVE_B), "--prompt-len", str(PROMPT),
@@ -1951,32 +2040,36 @@ def serving_phase(seed: int = 12):
         print(f"{arch} serve (CLI path): prefill {res.prefill_seconds:.3f} s for {PROMPT} "
               f"tokens x {SERVE_B}, decode {res.decode_seconds:.3f} s = "
               f"{res.tokens_per_second:.1f} tok/s per sequence")
-        cfg = get_config(arch)
-        model = build_model(cfg)
-        gen = torch.Generator().manual_seed(seed + 1)
-        params = model.init(gen, PROMPT + GEN, device="cuda")
-        prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT), generator=gen).cuda()
-        ctx = StackCtx(cfg)
-        res = DecodeEngine(model, ctx).generate(params, prompts, GEN)
-        with torch.no_grad():
-            full, _ = model.forward(params, {"tokens": prompts}, StackCtx(cfg, use_kernel=True))
-            caches = model.init_cache(params, SERVE_B, PROMPT + GEN, dtype=torch.float32)
-            outs = []
-            for t in range(PROMPT):
-                logits, caches = model.decode(params, {"token": prompts[:, t:t + 1]}, caches, t,
-                                              ctx)
-                outs.append(logits)
-            dec = torch.cat(outs, dim=1)
-            first = torch.argmax(dec[:, -1], dim=-1)
-        err = close(dec, full, 2e-3, 2e-3, f"{arch} decode vs teacher-forced forward")
-        if not torch.equal(first, res.tokens[:, 0]):
-            raise AssertionError(f"{arch}: the engine's first token differs from the decode loop's")
-        print(f"{arch} DecodeEngine: decode logits at all {PROMPT} prompt positions vs the "
-              f"teacher-forced forward (kernels): max abs err {err:.3e} (atol = rtol = 2e-3); "
-              f"prefill {res.prefill_seconds:.3f} s, {res.tokens_per_second:.1f} tok/s per "
-              f"sequence")
-        del params, caches
-        torch.cuda.empty_cache()
+        del res
+        with weights.on_card(arch) as (cfg, model, params):
+            _decode_arch(arch, cfg, model, params, seed)
+
+
+def _decode_arch(arch, cfg, model, params, seed):
+    from repro_torch.models import StackCtx
+    from repro_torch.serving import DecodeEngine
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT), generator=gen).cuda()
+    ctx = StackCtx(cfg)
+    res = DecodeEngine(model, ctx).generate(params, prompts, GEN)
+    with torch.no_grad():
+        full, _ = model.forward(params, {"tokens": prompts}, StackCtx(cfg, use_kernel=True))
+        caches = model.init_cache(params, SERVE_B, PROMPT + GEN, dtype=torch.float32)
+        outs = []
+        for t in range(PROMPT):
+            logits, caches = model.decode(params, {"token": prompts[:, t:t + 1]}, caches, t,
+                                          ctx)
+            outs.append(logits)
+        dec = torch.cat(outs, dim=1)
+        first = torch.argmax(dec[:, -1], dim=-1)
+    err = close(dec, full, 2e-3, 2e-3, f"{arch} decode vs teacher-forced forward")
+    if not torch.equal(first, res.tokens[:, 0]):
+        raise AssertionError(f"{arch}: the engine's first token differs from the decode loop's")
+    print(f"{arch} DecodeEngine: decode logits at all {PROMPT} prompt positions vs the "
+          f"teacher-forced forward (kernels): max abs err {err:.3e} (atol = rtol = 2e-3); "
+          f"prefill {res.prefill_seconds:.3f} s, {res.tokens_per_second:.1f} tok/s per "
+          f"sequence")
 
 
 # ---------------------------------------------------------------------------
@@ -2219,7 +2312,7 @@ def lm_train_card_against_cpu(steps: int = 2, seed: int = 16):
             "task": ItemSpec((), torch.int32)}
     init, update = make_optimizer(TrainConfig(optimizer="adamw", peak_lr=3e-3, warmup_steps=2,
                                               linear_scaling=False))
-    for arch in LM_ARCHS:
+    for arch in LM_STEPS:
         cfg = get_reduced(arch)
         lm, ctx = build_model(cfg), StackCtx(cfg)
         carries, step_fns = {}, {}
@@ -2269,7 +2362,7 @@ def lm_train_phase(counters, qz, ops, ref):
           f"batch {LM_BATCH} + r {LM_REPS}, {LM_STEPS} steps a task, 2 tasks, 16 eval "
           f"sequences a task; the scenario's vocab min(V, 2048)")
     runs = {}
-    for arch in LM_ARCHS:
+    for arch in LM_STEPS:
         runs[arch] = lm_train_run(counters, arch, steps=LM_STEPS[arch])
     der = {f: lm_train_run(counters, "smollm-135m", steps=4, tasks=1, strategy="der_pp",
                            top_k=LM_TOPK, tiered=True, fused=f) for f in (False, True)}
@@ -2320,6 +2413,8 @@ def main(argv=None):
           f"python {sys.version.split()[0]}")
     print(f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    comparisons_catch_nan()
 
     phase("2 kernel build")
     t0 = time.perf_counter()
@@ -2379,17 +2474,20 @@ def main(argv=None):
         phase("9 SSD scan against its plain version")
         ssd_entry = ssd_phase(ssd, ref)
 
+    weights = LMWeights()
     if run(10):
-        phase("10 SmolLM-135M and Mamba2-370M at full width on the card against the CPU")
-        lm_model_phase()
+        phase("10 the LM path's models at full width on the card against the CPU")
+        lm_model_phase(weights)
 
     if run(11):
         phase("11 LM main path: prefill at full width, kernels against the plain path")
-        launches = prefill_phase(counters, ssd)
+        launches = prefill_phase(counters, ssd, weights)
 
     if run(12):
         phase("12 LM serving: greedy decode at full width")
-        serving_phase()
+        serving_phase(weights)
+    del weights
+    torch.cuda.empty_cache()
 
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
@@ -2411,8 +2509,11 @@ def main(argv=None):
     for e in [entry] + int8_entries:
         e["launches_lm_train"] = {name: n[e["name"]] for name, n in lm_launches.items()
                                   if n[e["name"]]}
-    flash_entry["launches"] = launches["flash_attention"]
-    ssd_entry["launches"] = launches["ssd_scan"]  # num_layers x KERNELS_PER_CALL
+    # phase 11's launches a forward: SmolLM-135M's, then every arch's
+    flash_entry["launches"] = launches["smollm-135m"][1]
+    flash_entry["launches_by_arch"] = {a: n for a, (k, n) in launches.items()
+                                       if k == "flash_attention"}
+    ssd_entry["launches"] = launches["mamba2-370m"][1]  # num_layers x KERNELS_PER_CALL
     print(card)
     print(json.dumps({"kernels": [entry] + int8_entries + [flash_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,14 @@
 training), the paper's ResNet (``resnet50_cl``) and the ported LM
 architectures, resolved by ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 """
-from repro_torch.configs import h2o_danube_1_8b, mamba2_370m, resnet50_cl, smollm_135m
+from repro_torch.configs import (
+    gemma_2b,
+    h2o_danube_1_8b,
+    mamba2_370m,
+    resnet50_cl,
+    smollm_135m,
+    stablelm_3b,
+)
 from repro_torch.configs.base import (
     ModelConfig,
     RehearsalConfig,
@@ -13,12 +20,13 @@ from repro_torch.configs.base import (
     reduce_model,
 )
 
-REGISTRY = {m.ARCH_ID: m for m in (smollm_135m, h2o_danube_1_8b, mamba2_370m)}
+REGISTRY = {m.ARCH_ID: m for m in (smollm_135m, h2o_danube_1_8b, stablelm_3b, gemma_2b,
+                                   mamba2_370m)}
 ARCHS = tuple(REGISTRY)
 # Architectures the JAX package registers that the port does not have yet
 # (ROADMAP Queue 1 item 11: MoE, hybrid, enc-dec and VLM stacks).
-UNPORTED = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "stablelm-3b", "gemma-2b",
-            "whisper-tiny", "jamba-v0.1-52b", "qwen2-vl-72b")
+UNPORTED = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "whisper-tiny", "jamba-v0.1-52b",
+            "qwen2-vl-72b")
 
 
 def _module(arch_id: str):

@@ -66,6 +66,11 @@
 //    Keys past T (a ragged last tile) are zeros that score -inf.
 //  - GQA reads KV head h / (H / KV) straight from the [B, T, KV, hd] tensor
 //    through the strides the wrapper passes: no repeated copy is made.
+//  - hd 256 (Gemma-2B) runs a plan of its own (Plan, WIDE): a CTA computes
+//    128 of the 256 output dims for 64 queries, so the two CTAs of a query
+//    tile both compute S over all 256 dims (1.5 times the products of one
+//    CTA a tile), with 16-key tiles that the producer loads into registers
+//    and splits straight into the ring (no raw tiles).
 //
 // Bound. At SmolLM-135M's prefill (B 4, S = T = 2048, H 9, KV 3, hd 64) the
 // causal half is 2*B*H*S^2*hd = 19.3 GFLOP of f32 products. On the tensor
@@ -75,7 +80,10 @@
 // softmax waits for its own products, and the producer's single raw buffer
 // exposes one load latency a tile (a second one does not fit beside the
 // ring at 64-key tiles, and a trial with the query rows in registers to
-// make room ran no faster); this version runs at about 3.5x its bound.
+// make room ran no faster); this version runs at about 3.5x its bound. At
+// Gemma-2B's prefill (B 4, S = T = 2048, H 8, KV 1, hd 256) the causal half
+// is 68.7 GFLOP: 3 x 68.7 GFLOP of TF32 is 0.4165 ms, the FMA bound 1.026 ms,
+// q, k, v and o 151 MB, 0.045 ms.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,20 +100,35 @@ struct Strides {  // element strides of the batch, sequence and head dims
 // Stage st's split tiles start at STAGE0 + st * STAGE; within a stage K_HI,
 // K_LO, V_HI, V_LO follow each other. The whole plan stays under the 227 KB
 // a CTA may use.
+//
+// hd 256 (WIDE) has a plan of its own. Its split query tile alone is 128 KB
+// at 64 rows, and O (128 f32 a thread) beside this tile's P.V (128 more) is
+// past the 255 registers a thread may have. So a CTA computes DV = 128 of
+// the 256 output dims: two CTAs share a query tile, each with the whole
+// S = Q.K^T (all 256 dims) and its own half of V, at 64 + 64 accumulators a
+// thread. A stage of 16 keys is then 48 KB (K over 256 dims, V over 128,
+// hi and lo), two stages and the query tile 224 KB; there is no room for
+// raw tiles, so the producer loads each tile into registers while the
+// consumer works on the other stage, then splits it into the free stage.
 template <int HD>
 struct Plan {
-  static constexpr int BQ = HD == 128 ? 64 : 128;  // query rows, 64 a consumer
-  static constexpr int BK = HD >= 80 ? 32 : 64;    // keys a tile
+  static constexpr bool WIDE = HD == 256;
+  static constexpr int BQ = HD >= 128 ? 64 : 128;  // query rows, 64 a consumer
+  static constexpr int BK = WIDE ? 16 : HD >= 80 ? 32 : 64;  // keys a tile
+  static constexpr int DV = WIDE ? 128 : HD;  // output dims a CTA computes
+  static constexpr int SPLITS = HD / DV;     // CTAs a query tile
   static constexpr int CONSUMERS = BQ / 64;
   static constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer
   static constexpr int STAGES = 2;
   static constexpr int RP = HD + 4;  // raw row pitch: 8 rows of 16-byte loads on 32 banks
+  static constexpr int RAW = WIDE ? 0 : BK * RP;  // floats of one raw tile
   static constexpr int Q_HI = 0, Q_LO = BQ * HD;
-  static constexpr int STAGE0 = 2 * BQ * HD, STAGE = 4 * BK * HD;
-  static constexpr int K_HI = 0, K_LO = BK * HD, V_HI = 2 * BK * HD, V_LO = 3 * BK * HD;
-  static constexpr int K_RAW = STAGE0 + STAGES * STAGE, V_RAW = K_RAW + BK * RP;
-  static constexpr int FLOATS = V_RAW + BK * RP;
+  static constexpr int STAGE0 = 2 * BQ * HD, STAGE = 2 * BK * HD + 2 * BK * DV;
+  static constexpr int K_HI = 0, K_LO = BK * HD, V_HI = 2 * BK * HD, V_LO = 2 * BK * HD + BK * DV;
+  static constexpr int K_RAW = STAGE0 + STAGES * STAGE, V_RAW = K_RAW + RAW;
+  static constexpr int FLOATS = V_RAW + RAW;
   static constexpr int BYTES = 4 * FLOATS + 8 * 2 * STAGES;  // + the mbarriers
+  static_assert(BYTES <= 232448, "shared memory a CTA may use");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -180,6 +203,11 @@ __device__ __forceinline__ void load_raw(float* tile, const float* base, long lo
   asm volatile("cp.async.commit_group;");
 }
 
+// Four floats of a row: one 16-byte load (vec) or four 4-byte ones.
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  return vec ? *reinterpret_cast<const float4*>(p) : make_float4(p[0], p[1], p[2], p[3]);
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
 }
@@ -244,6 +272,16 @@ __device__ __forceinline__ void gmma_ss(float (&d)[32], uint64_t da, uint64_t db
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[8] (+)= A (shared, K-major) . B (shared, K-major), m64n16k8 tf32
+__device__ __forceinline__ void gmma_ss(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -342,7 +380,7 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
                  Strides qs, Strides ks, Strides vs, Strides os, float scale, int window,
                  int causal, int vec) {
   using P = Plan<HD>;
-  constexpr int BQ = P::BQ, BK = P::BK, RP = P::RP, CONSUMERS = P::CONSUMERS;
+  constexpr int BQ = P::BQ, BK = P::BK, RP = P::RP, CONSUMERS = P::CONSUMERS, DV = P::DV;
   constexpr int STAGES = P::STAGES;
   extern __shared__ __align__(128) float smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem);
@@ -355,7 +393,9 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
   // the warpgroup, broadcast so that the compiler knows it is warp-uniform
   // (a wgmma under a branch it cannot prove uniform is serialized)
   const int wg = __shfl_sync(0xffffffffu, warp / 4, 0), wl = warp % 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  // the longest causal rows first; d0: the first of the CTA's output dims
+  const int qt = gridDim.x / P::SPLITS - 1 - blockIdx.x / P::SPLITS;
+  const int d0 = DV * (blockIdx.x % P::SPLITS);
   const int h = blockIdx.y, b = blockIdx.z, q0 = qt * BQ;
 
   // The CTA's k-tiles, the union of its consumers' ranges, and this
@@ -390,36 +430,78 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
     }
     const int ptid = threadIdx.x - 128 * CONSUMERS;
     const float* kb = k + b * ks.b + (h / group) * ks.h;
-    const float* vb = v + b * vs.b + (h / group) * vs.h;
-    if (cta_begin < cta_end) {
-      load_raw<HD>(k_raw, kb, ks.s, cta_begin * BK, Tk, vec, ptid);
-      load_raw<HD>(v_raw, vb, vs.s, cta_begin * BK, Tk, vec, ptid);
-    }
-    for (int kt = cta_begin; kt < cta_end; ++kt) {
-      const int i = kt - cta_begin, st = i % STAGES, use = i / STAGES;
-      uint32_t* tile = sm + P::STAGE0 + st * P::STAGE;
-      cp_async_wait_all();
-      named_sync(BAR_PRODUCER, 128);  // raw K, V of tile kt are in
-      if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
-      for (int idx = ptid; idx < BK * HD / 4; idx += 128) {
-        const int j = idx % BK, c = idx / BK;  // K: key j, dims 4c .. 4c + 3
-        split_store(tile + P::K_HI, tile + P::K_LO, 4 * (c * BK + j),
-                    *reinterpret_cast<const float4*>(k_raw + j * RP + 4 * c));
+    const float* vb = v + b * vs.b + (h / group) * vs.h + d0;
+    if constexpr (P::WIDE) {
+      // tile kt into registers, then into stage st once the consumer frees
+      // it: K key j, dims 4c .. 4c + 3 (a warp reads the first 32 bytes of
+      // 16 rows); V dim n of the keys of fragment columns 4(kc % 2) .. +3 of
+      // the 8-key group kc / 2 (a warp reads 128 bytes of 4 rows)
+      constexpr int KN = BK * HD / 4 / 128, VN = BK * DV / 4 / 128;
+      for (int kt = cta_begin; kt < cta_end; ++kt) {
+        const int i = kt - cta_begin, st = i % STAGES, use = i / STAGES, k0 = kt * BK;
+        float4 kr[KN], vr[VN];
+#pragma unroll
+        for (int r = 0; r < KN; ++r) {
+          const int idx = ptid + 128 * r, j = idx % BK, c = idx / BK;
+          kr[r] = k0 + j < Tk ? load4(kb + (k0 + j) * ks.s + 4 * c, vec)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int r = 0; r < VN; ++r) {
+          const int idx = ptid + 128 * r, n = idx % DV, kc = idx / DV;
+          const int j = 8 * (kc / 2) + kc % 2;
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e] = k0 + j + 2 * e < Tk ? vb[(k0 + j + 2 * e) * vs.s + n] : 0.f;
+          vr[r] = make_float4(x[0], x[1], x[2], x[3]);
+        }
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        uint32_t* tile = sm + P::STAGE0 + st * P::STAGE;
+#pragma unroll
+        for (int r = 0; r < KN; ++r) {
+          const int idx = ptid + 128 * r, j = idx % BK, c = idx / BK;
+          split_store(tile + P::K_HI, tile + P::K_LO, 4 * (c * BK + j), kr[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < VN; ++r) {
+          const int idx = ptid + 128 * r, n = idx % DV, kc = idx / DV;
+          split_store(tile + P::V_HI, tile + P::V_LO, 4 * (kc * DV + n), vr[r]);
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[st]);
       }
-      for (int idx = ptid; idx < BK * HD / 4; idx += 128) {
-        // V^T: dim n, the keys of fragment columns 4(kc % 2) .. +3 of the
-        // 8-key group kc / 2, stored as keys 0 2 4 6 | 1 3 5 7 of the group
-        const int n = idx % HD, kc = idx / HD;
-        const float* col = v_raw + (8 * (kc / 2) + kc % 2) * RP + n;
-        split_store(tile + P::V_HI, tile + P::V_LO, 4 * (kc * HD + n),
-                    make_float4(col[0], col[2 * RP], col[4 * RP], col[6 * RP]));
+    } else {  // raw tiles in with cp.async, split tiles out
+      if (cta_begin < cta_end) {
+        load_raw<HD>(k_raw, kb, ks.s, cta_begin * BK, Tk, vec, ptid);
+        load_raw<HD>(v_raw, vb, vs.s, cta_begin * BK, Tk, vec, ptid);
       }
-      fence_proxy_async();
-      mbar_arrive(&full[st]);
-      named_sync(BAR_PRODUCER, 128);  // the raw tiles are free
-      if (kt + 1 < cta_end) {
-        load_raw<HD>(k_raw, kb, ks.s, (kt + 1) * BK, Tk, vec, ptid);
-        load_raw<HD>(v_raw, vb, vs.s, (kt + 1) * BK, Tk, vec, ptid);
+      for (int kt = cta_begin; kt < cta_end; ++kt) {
+        const int i = kt - cta_begin, st = i % STAGES, use = i / STAGES;
+        uint32_t* tile = sm + P::STAGE0 + st * P::STAGE;
+        cp_async_wait_all();
+        named_sync(BAR_PRODUCER, 128);  // raw K, V of tile kt are in
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        for (int idx = ptid; idx < BK * HD / 4; idx += 128) {
+          const int j = idx % BK, c = idx / BK;  // K: key j, dims 4c .. 4c + 3
+          split_store(tile + P::K_HI, tile + P::K_LO, 4 * (c * BK + j),
+                      *reinterpret_cast<const float4*>(k_raw + j * RP + 4 * c));
+        }
+        for (int idx = ptid; idx < BK * HD / 4; idx += 128) {
+          // V^T: dim n, the keys of fragment columns 4(kc % 2) .. +3 of the
+          // 8-key group kc / 2, stored as keys 0 2 4 6 | 1 3 5 7 of the group
+          const int n = idx % HD, kc = idx / HD;
+          const float* col = v_raw + (8 * (kc / 2) + kc % 2) * RP + n;
+          split_store(tile + P::V_HI, tile + P::V_LO, 4 * (kc * HD + n),
+                      make_float4(col[0], col[2 * RP], col[4 * RP], col[6 * RP]));
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[st]);
+        named_sync(BAR_PRODUCER, 128);  // the raw tiles are free
+        if (kt + 1 < cta_end) {
+          load_raw<HD>(k_raw, kb, ks.s, (kt + 1) * BK, Tk, vec, ptid);
+          load_raw<HD>(v_raw, vb, vs.s, (kt + 1) * BK, Tk, vec, ptid);
+        }
       }
     }
     return;
@@ -446,19 +528,19 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
   const int row_a = first + 16 * wl + lane / 4, row_b = row_a + 8;
   const int col0 = 2 * (lane % 4);
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-  float acc[HD / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 
   // Q: this consumer's 64 rows of [hd/4][BQ][4]: core matrices 128 B apart
   // along M, BQ*16 B apart along K. K: [hd/4][BK][4], likewise. V^T:
-  // [BK/4][hd][4], 128 B apart along N, hd*16 B along K (keys).
+  // [BK/4][DV][4], 128 B apart along N, DV*16 B along K (keys).
   const uint64_t dq_hi = gmma_desc(sm + P::Q_HI + 64 * wg * 4, BQ * 16, 128);
   const uint64_t dq_lo = gmma_desc(sm + P::Q_LO + 64 * wg * 4, BQ * 16, 128);
   const uint64_t dk_hi = gmma_desc(sm + P::STAGE0 + P::K_HI, BK * 16, 128);
   const uint64_t dk_lo = gmma_desc(sm + P::STAGE0 + P::K_LO, BK * 16, 128);
-  const uint64_t dv_hi = gmma_desc(sm + P::STAGE0 + P::V_HI, HD * 16, 128);
-  const uint64_t dv_lo = gmma_desc(sm + P::STAGE0 + P::V_LO, HD * 16, 128);
+  const uint64_t dv_hi = gmma_desc(sm + P::STAGE0 + P::V_HI, DV * 16, 128);
+  const uint64_t dv_lo = gmma_desc(sm + P::STAGE0 + P::V_LO, DV * 16, 128);
   constexpr uint64_t STAGE_STEP = (P::STAGE * 4) >> 4;  // a stage in descriptor units
 
   const int last = min(first + 63, S - 1);
@@ -522,14 +604,14 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
       l_a = l_a * corr_a + sum_a;
       l_b = l_b * corr_b + sum_b;
 
-      float pv[HD / 2];  // this tile's P.V, added to acc in f32
+      float pv[DV / 2];  // this tile's P.V, added to acc in f32
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) pv[j] = 0.f;
+      for (int j = 0; j < DV / 2; ++j) pv[j] = 0.f;
       fence_regs(pv);
       gmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 8; ++kk) {  // keys 8kk .. 8kk + 7
-        const uint64_t ov = so + ((kk * 2 * HD * 16) >> 4);
+        const uint64_t ov = so + ((kk * 2 * DV * 16) >> 4);
         gmma_rs(pv, p_lo + 4 * kk, dv_hi + ov, kk > 0);
         gmma_rs(pv, p_hi + 4 * kk, dv_lo + ov, 1);
         gmma_rs(pv, p_hi + 4 * kk, dv_hi + ov, 1);
@@ -538,7 +620,7 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
       gmma_wait();
       fence_regs(pv);
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = fmaf(acc[j], (j & 2) ? corr_b : corr_a, pv[j]);
+      for (int j = 0; j < DV / 2; ++j) acc[j] = fmaf(acc[j], (j & 2) ? corr_b : corr_a, pv[j]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
@@ -550,9 +632,9 @@ flash_fwd_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
-  float* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h + d0;
 #pragma unroll
-  for (int j = 0; j < HD / 2; j += 2) {
+  for (int j = 0; j < DV / 2; j += 2) {
     const int col = 8 * (j / 4) + col0;
     const int row = (j & 2) ? row_b : row_a;
     const float den = (j & 2) ? den_b : den_a;
@@ -570,7 +652,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_3xtf32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + P::BQ - 1) / P::BQ, H, B);
+  const dim3 grid((S + P::BQ - 1) / P::BQ * P::SPLITS, H, B);
   flash_fwd_3xtf32<HD><<<grid, P::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), S, Tk, H / KV, qs, ks, vs, os, scale, window, causal, vec);
@@ -586,7 +668,7 @@ bool aligned16(const void* p, const Strides& st) {
 
 // f32 q [B, S, H, hd], k/v [B, T, KV, hd], o [B, S, H, hd], each with unit
 // stride over hd and the given element strides over batch, sequence and
-// head; hd in {32, 64, 80, 128}; scale = hd^-0.5 rounded to f32 by the caller.
+// head; hd in {32, 64, 80, 128, 256}; scale = hd^-0.5 rounded to f32 by the caller.
 // o must have an 8-byte aligned base and even strides (the wrapper allocates
 // it); k and v are copied 16 bytes at a time where they have a 16-byte
 // aligned base and strides of a multiple of 4, 4 bytes otherwise. Returns
@@ -608,6 +690,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, vec, st);
     case 80: return launch<80>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, vec, st);
     case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, vec, st);
+    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,7 +19,8 @@
 // softmax runs in base 2 with log2(e) folded into the scale.
 //
 // Design. One CTA owns one (batch, head, 128-query tile): two consumer
-// warpgroups of 64 query rows each and one producer warp (288 threads).
+// warpgroups of 64 query rows each and one producer warp (288 threads); at
+// hd 256 a producer warpgroup and two stages (see Cfg).
 //  - The producer's first lane issues TMA loads (cp.async.bulk.tensor, 4-d
 //    maps over [B, S, H, hd] with the tensors' own strides, so KV head
 //    h / (H / KV) is read in place): the query tile once, then the K and V
@@ -38,7 +39,8 @@
 //    (lane/4 and lane/4 + 8 of its warp's 16) and 16 columns of each; a row's
 //    max reduces over the four lanes that share it; l stays per thread and
 //    is reduced once at the end.
-//  - O += P.V: wgmma m64n{hd}k16 with P converted to bf16 in registers as
+//  - O += P.V: wgmma m64n{hd}k16 (at hd 256 the widest, m64n256k16, 128
+//    accumulators a thread) with P converted to bf16 in registers as
 //    the A operand (the accumulator layout of S is the A-fragment layout of
 //    P) and V MN-major from shared memory; O f32 in registers.
 //  - Skipped tiles: the CTA loads the k-tiles that hold a key one of its
@@ -51,9 +53,10 @@
 // Bound. At SmolLM-135M's prefill (B 4, S = T = 2048, H 9, KV 3, hd 64) the
 // causal half of Q.K^T and P.V is 2*B*H*S^2*hd = 19.3 GFLOP: 0.0195 ms at
 // 989 TFLOP/s of dense bf16; q, k, v and o are 38 MB, 0.011 ms at 3.35 TB/s.
-// It is bound by the tensor cores. This first version does not overlap one
-// warpgroup's softmax with its own products (the two warpgroups overlap each
-// other) and stores O straight from registers.
+// It is bound by the tensor cores. At Gemma-2B's (B 4, S = T = 2048, H 8,
+// KV 1, hd 256) it is 68.7 GFLOP, 0.0695 ms; 75.5 MB, 0.0225 ms. This first
+// version does not overlap one warpgroup's softmax with its own products (the
+// two warpgroups overlap each other) and stores O straight from registers.
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,14 +66,30 @@ namespace {
 
 constexpr int BQ = 128;                       // queries per CTA
 constexpr int BK = 64;                        // keys per k-tile
-constexpr int STAGES = 3;                     // K/V ring depth
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
-constexpr int THREADS = 128 * CONSUMERS + 32; // + one producer warp
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The K/V ring's depth and the producer's width per head dim. Up to hd 128:
+// three stages and one producer warp (288 threads). hd 256: the query tile
+// (64 KB) and three stages (64 KB each) would pass the 227 KB a CTA may use,
+// so two stages (192 KB); and a consumer thread holds O (128 f32) beside S
+// (32), more than the 224 registers an even split of 288 threads leaves with
+// the rest of its state, so the producer is a whole warpgroup (384 threads)
+// that gives registers to the consumers with setmaxnreg.
+template <int HD>
+struct Cfg {
+  static constexpr bool WIDE = HD == 256;
+  static constexpr int STAGES = WIDE ? 2 : 3;
+  static constexpr int THREADS = 128 * CONSUMERS + (WIDE ? 128 : 32);
+};
+// setmaxnreg at hd 256: 128 * 40 + 256 * 232 = 384 * 168, the registers the
+// CTA is launched with.
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
 template <int HD>
 struct alignas(128) Smem {
+  static constexpr int STAGES = Cfg<HD>::STAGES;
   __nv_bfloat16 q[BQ * HD];          // [HD/8][BQ][8]
   __nv_bfloat16 k[STAGES][BK * HD];  // [HD/8][BK][8]
   __nv_bfloat16 v[STAGES][BK * HD];
@@ -215,6 +234,38 @@ __device__ __forceinline__ void gmma_rs(float (&d)[64], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[128] += A (registers) . B (shared, MN-major), m64n256k16
+__device__ __forceinline__ void gmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 struct Strides {  // element strides of the batch, sequence and head dims
   long long b, s, h;
 };
@@ -235,17 +286,20 @@ __device__ __forceinline__ void tile_range(int first, int last, int Tk, int wind
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int S,
                 int Tk, int group, Strides os, float scale_log2, int window, int causal) {
   static_assert(HD % 16 == 0 && HD <= 256, "head dim");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  constexpr int STAGES = Cfg<HD>::STAGES;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z, q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp, broadcast so that the compiler knows it is warp-uniform (the
+  // warpgroup branches below hold setmaxnreg and wgmma)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
 
   // The CTA's k-tiles: the union of its warpgroups' ranges.
   int cta_begin = 1 << 30, cta_end = 0;
@@ -269,8 +323,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
   __syncthreads();
 
-  if (warp == CONSUMERS * 4) {  // producer
-    if (lane == 0) {
+  if (warp >= CONSUMERS * 4) {  // producer: its first lane issues every load
+    if constexpr (Cfg<HD>::WIDE) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    }
+    if (warp == CONSUMERS * 4 && lane == 0) {
       const int hk = h / group;
       mbar_expect_tx(&sm.q_full, BQ * HD * 2);
 #pragma unroll
@@ -290,6 +347,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
 
   // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+  if constexpr (Cfg<HD>::WIDE) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  }
   const int wg = warp / 4, wl = warp % 4;
   const int first = q0 + 64 * wg, last = min(first + 63, S - 1);
   int my_begin = 0, my_end = 0;
@@ -448,11 +508,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
       !encode(&tv, v, B, Tk, KV, HD, vs.b, vs.s, vs.h, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = static_cast<int>(sizeof(Smem<HD>));
+  static_assert(smem <= 232448, "shared memory a CTA may use");
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_wgmma<HD><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_wgmma<HD><<<grid, Cfg<HD>::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, H / KV, os, scale * LOG2E, window,
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -463,7 +524,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // bf16 q [B, S, H, hd], k/v [B, T, KV, hd], o [B, S, H, hd], each with unit
 // stride over hd and the given element strides over batch, sequence and
 // head; q, k and v 16-byte aligned with strides of a multiple of 8 elements
-// (the TMA maps' rule); hd in {32, 64, 80, 128}; scale = hd^-0.5 rounded to
+// (the TMA maps' rule); hd in {32, 64, 80, 128, 256}; scale = hd^-0.5 rounded to
 // f32 by the caller. Returns cudaGetLastError() after the launch (0 on
 // success), or the error that stopped it before.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
@@ -481,6 +542,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
     case 80: return launch<80>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
     case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
+    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, KV, qs, ks, vs, os, scale, window, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,7 +19,10 @@ flash_attention_bhsd`` with its ``ops.py`` wrapper. Its semantics, including
 the window applied without ``causal``, are the kernel's (see the plain
 version). It keeps the reference wrapper's shape check at its default tiles
 (``S`` and ``T`` divisible by ``min(128, S)`` and ``min(128, T)``); the CUDA
-kernels tile by 64 or 128 queries and 32 or 64 keys and mask a ragged edge. It takes f32 and bf16, as the TPU kernel does. The bf16 kernel rounds
+kernels tile by 64 or 128 queries and 16, 32 or 64 keys and mask a ragged
+edge. At hd 256 (Gemma-2B) the f32 kernel gives each of two CTAs half of a
+query tile's output dims, and the bf16 kernel runs two K/V stages and a
+producer warpgroup. It takes f32 and bf16, as the TPU kernel does. The bf16 kernel rounds
 the probabilities to bf16 before P.V, as SDPA does, where the plain version
 keeps them f32: beyond one bf16 ulp of the output, the two differ by up to
 about 3e-3 on unit-normal inputs.
@@ -34,7 +37,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import on_card, refuse_autograd, stream
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (32, 64, 80, 128)  # the head dims the kernel is built for
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the head dims the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)  # the dtypes it is built for
 BLOCK = 128  # the reference wrapper's default tile: S and T are multiples of min(BLOCK, len)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -177,7 +177,11 @@ def make_cl_step(
     ``group`` is a ``torch.distributed`` process group (one process per
     GPU), or None for a single process; with one, ``compress='int8'``
     mean-reduces the gradients through ``compressed_psum`` with the carry's
-    error feedback (``init_carry(ef=init_error_feedback(params))``). ``key``
+    error feedback (``init_carry(ef=init_error_feedback(params))``). The
+    step holds ``group``: drop it before ``dist.destroy_process_group()``,
+    which then frees the group and joins gloo's threads; a group still held
+    is freed at the interpreter's exit, which can abort the process
+    ("terminate called without an active exception"). ``key``
     is this step's integer key; it becomes the lineage key the next step's
     issue half draws with. ``rows`` (an ``UpdateSampleRows``, or a
     ``TieredRows`` for the tiered store) replaces the issue half's drawn row

@@ -39,6 +39,9 @@ FLASH_CASES = [
     (2, 64, 4, 2, 32, 0, "bf16", 32, 32),
     (1, 128, 2, 2, 32, 0, "f32", 32, 64),  # rectangular blocks
     (1, 128, 4, 2, 80, 32, "f32", 128, 128),  # h2o-danube's head dim, a window
+    (1, 128, 8, 1, 256, 0, "f32", 64, 64),  # gemma-2b's head dim, MQA
+    (1, 128, 8, 1, 256, 48, "f32", 64, 64),  # gemma-2b's head dim, a window
+    (1, 128, 8, 1, 256, 0, "bf16", 64, 64),
 ]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -94,11 +97,14 @@ def test_flash_plain_averages_v_for_a_row_without_keys():
     np.testing.assert_allclose(out[0, 1].numpy(), v[0, 1].numpy(), rtol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "ragged", "dtype", "groups", "rank", "f16"])
+@pytest.mark.parametrize("bad", ["head_dim", "head_dim_96", "ragged", "dtype", "groups", "rank",
+                                 "f16"])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 256, 4, 2, 32))
     if bad == "head_dim":
         q, k, v = (torch.zeros(x.shape[:3] + (48,)) for x in (q, k, v))
+    elif bad == "head_dim_96":  # between two built head dims
+        q, k, v = (torch.zeros(x.shape[:3] + (96,)) for x in (q, k, v))
     elif bad == "ragged":  # 200 is not a multiple of min(128, 200)
         q, k, v = q[:, :200], k[:, :200], v[:, :200]
     elif bad == "dtype":
@@ -144,7 +150,8 @@ def _mm_3xtf32(a, b, three=True):
 
 def _flash_3xtf32(q, k, v, window, causal, three=True, block_k=64):
     """The f32 kernel's arithmetic on the CPU: q scaled by hd^-0.5 in f32, both
-    products in 3xTF32, the online softmax over k-tiles of 64 keys in order."""
+    products in 3xTF32, the online softmax over k-tiles of ``block_k`` keys in
+    order (the hd-256 kernel's tiles are 16 keys)."""
     b, s, h, hd = q.shape
     g = h // k.shape[2]
     qs = (q * hd ** -0.5).transpose(1, 2)  # [B, H, S, hd]
@@ -177,6 +184,8 @@ TF32X3_CASES = [
     (2, 128, 6, 3, 64, 64, True), (1, 256, 4, 4, 128, 128, True), (2, 64, 4, 2, 32, 0, True),
     (1, 1024, 4, 2, 128, 0, True), (1, 1024, 4, 2, 80, 256, True),
     (1, 512, 3, 1, 64, 100, False),
+    # gemma-2b's head dim and MQA, causal and with a window
+    (1, 128, 8, 1, 256, 0, True), (1, 512, 8, 1, 256, 100, True),
 ]
 
 
@@ -187,7 +196,7 @@ def test_3xtf32_scheme_holds_the_f32_tolerance(b, s, h, kv, hd, win, causal):
     not the kernel: how the tensor cores accumulate inside one mma is
     checked only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(s + hd, b, s, h, kv, hd))
-    got = _flash_3xtf32(q, k, v, win, causal)
+    got = _flash_3xtf32(q, k, v, win, causal, block_k=16 if hd == 256 else 64)
     want = tref.flash_attention_ref(q, k, v, window=win, causal=causal)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=2e-5)
 
@@ -217,7 +226,7 @@ def _attention_pair(arch, seed=0):
     return jcfg, cfg, jp, tp
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-1.8b", "stablelm-3b", "gemma-2b"])
 @pytest.mark.parametrize("impl", ["naive", "blocked", "kernel"])
 def test_attend_full_matches_jax(monkeypatch, arch, impl):
     jcfg, cfg, jp, tp = _attention_pair(arch)

@@ -373,11 +373,17 @@ def _qkv(seed, b, s, t, h, kv, hd, dtype, cuda):
     (1, 128, 128, 8, 1, 64, 0, True), (1, 256, 256, 4, 4, 128, 128, True),
     (1, 256, 256, 4, 2, 80, 100, True), (2, 37, 37, 3, 1, 32, 0, True),
     (1, 100, 100, 2, 2, 64, 0, False), (1, 64, 32, 4, 2, 32, 8, False),
-    (1, 640, 640, 9, 3, 64, 0, True), (1, 8192, 8192, 32, 8, 80, 4096, True)])
+    (1, 640, 640, 9, 3, 64, 0, True), (1, 8192, 8192, 32, 8, 80, 4096, True),
+    (4, 2048, 2048, 8, 1, 256, 0, True), (1, 1024, 1024, 8, 1, 256, 300, True),
+    (2, 64, 64, 8, 1, 256, 0, True), (2, 37, 37, 2, 1, 256, 0, True),
+    (1, 100, 100, 4, 2, 256, 0, False), (1, 64, 32, 4, 4, 256, 8, False)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, b, s, t, h, kv, hd, window, causal):
     """GQA, MQA, windows, ragged tiles (S = 37, 100), no causal mask, rows
     without keys (64 queries, 32 keys, window 8), hd 32 at S 64 (less than one
-    128-query tile of the bf16 kernel), H2O-Danube (hd 80, window 4096, S 8192)."""
+    128-query tile of the bf16 kernel), H2O-Danube (hd 80, window 4096, S 8192);
+    at hd 256 Gemma-2B's prefill (B 4, S 2048, H 8, KV 1), a window, S 64
+    (less than one tile of either kernel), ragged S 37, no causal mask and
+    rows without keys."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = _qkv(s + hd, b, s, t, h, kv, hd, dtype, cuda)
@@ -417,15 +423,25 @@ def test_ssd_kernel_matches_plain_version(cuda, dtype, b, s, h, p, n, chunk):
     torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol[0], rtol=tol[1])
 
 
+def _reduced(arch):
+    """The reduced config of ``arch``; ``gemma-2b-hd256`` keeps Gemma-2B's
+    head dim, 256, where its reduced config has 64."""
+    from repro_torch.configs import get_config, get_reduced, reduce_model
+
+    if arch == "gemma-2b-hd256":
+        return reduce_model(get_config("gemma-2b"), head_dim=256)
+    return get_reduced(arch)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m", "h2o-danube-1.8b",
+                                  "stablelm-3b", "gemma-2b", "gemma-2b-hd256"])
 def test_use_kernel_on_the_card_launches_once_per_layer(cuda, arch):
-    from repro_torch.configs import get_reduced
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import StackCtx, build_model
 
-    cfg = get_reduced(arch)
+    cfg = _reduced(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), 128, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
@@ -481,18 +497,17 @@ def test_ssd_stage_kernels_match_their_plain_stages(cuda, dtype, b, s, h, p, n, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m", "stablelm-3b", "gemma-2b-hd256"])
 def test_bf16_forward_on_the_card_runs_the_kernels(cuda, arch):
     """The reduced model at compute_dtype bf16 with the kernels: bf16 logits
     that stray from the f32 plain path at most twice as far as the bf16 plain
     path does, plus 1e-3 of the largest logit (P rounded to bf16 in the
     attention kernel)."""
-    from repro_torch.configs import get_reduced
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import StackCtx, build_model
 
-    cfg = get_reduced(arch)
+    cfg = _reduced(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), 128, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 128),
@@ -520,6 +535,12 @@ def test_lm_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 64, 2, 48), device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # head dim 48
+    for dtype in (torch.float32, torch.bfloat16):  # hd 96 lies between two built ones
+        q = torch.zeros((1, 64, 2, 96), dtype=dtype, device=cuda)
+        before = fa.flash_attention.launches
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, q, q)
+        assert fa.flash_attention.launches == before
     with pytest.raises(ValueError):  # k on the CPU
         fa.flash_attention(torch.zeros((1, 64, 2, 32), device=cuda), torch.zeros((1, 64, 2, 32)),
                            torch.zeros((1, 64, 2, 32), device=cuda))

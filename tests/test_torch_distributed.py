@@ -1,12 +1,12 @@
 """The port's exchange and data-parallel step across two gloo processes.
 
-Each test starts two worker processes that rendezvous on a free localhost
-port bound for this run (tests run in parallel, so no fixed port), run the
-scenario and print a JSON result line.
+Each test starts two worker processes that rendezvous through a file in the
+test's own ``tmp_path`` (``init_method="file://..."``: no port is chosen
+before the workers start, so no parallel test can take it in between), run
+the scenario and print a JSON result line.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -20,8 +20,8 @@ PRELUDE = """
 import json, sys
 import torch
 import torch.distributed as dist
-rank, world, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+rank, world, rendezvous = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
                         world_size=world)
 """
 
@@ -81,19 +81,28 @@ TIERED = ("TIERING = dict(tiering='host', hot_slots=2, cold_slots=4, demote_stag
           "fused_kernels=True)\n")
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# Both ranks leave their collectives before either tears gloo down. Then the
+# body's objects go (the step's closures hold the process group), so that
+# ``destroy_process_group`` frees the group there and not the interpreter's
+# teardown, where freeing it aborted a worker now and then ("terminate
+# called without an active exception") after it had printed its result.
+TEARDOWN = """
+dist.barrier()
+for _name in [n for n in globals() if not n.startswith("__") and n != "dist"]:
+    del globals()[_name]
+import gc
+gc.collect()
+dist.destroy_process_group()
+"""
 
 
-def _run(body: str):
-    # both ranks leave their collectives before either tears gloo down
-    code = textwrap.dedent(PRELUDE) + textwrap.dedent(body) + \
-        "\ndist.barrier()\ndist.destroy_process_group()\n"
-    port = _free_port()
+def _run(body: str, tmp_path):
+    """Run ``body`` on WORLD gloo ranks that meet through a file store in
+    ``tmp_path``; return their result lines by rank."""
+    code = textwrap.dedent(PRELUDE) + textwrap.dedent(body) + TEARDOWN
+    rendezvous = str(tmp_path / "rendezvous")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(WORLD), str(port)],
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(WORLD), rendezvous],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               env=env) for r in range(WORLD)]
     results = []
@@ -109,11 +118,11 @@ def _run(body: str):
     return sorted(results, key=lambda r: r["rank"])
 
 
-def test_exchange_is_permutation():
+def test_exchange_is_permutation(tmp_path):
     """§IV-C conservation: across the all_to_all, the multiset of sent
     candidates equals the multiset of received ones, and peer i's item for
     worker w arrives in slot i."""
-    res = _run(EXCHANGE)
+    res = _run(EXCHANGE, tmp_path)
     sent = sorted(x for r in res for x in r["sent"])
     recv = sorted(x for r in res for x in r["recv"])
     assert sent == recv
@@ -122,12 +131,12 @@ def test_exchange_is_permutation():
         assert all(r["valid"])
 
 
-def test_data_parallel_step_keeps_replicas_equal():
+def test_data_parallel_step_keeps_replicas_equal(tmp_path):
     """Two ranks, full exchange, pipelined: gradients are mean-reduced so the
     replicas stay bit-identical; with fewer peers than representatives
     (2 < r = 3) the pending slot holds one row per peer, as the reference's
     ``argsort(scores)[:r]`` does."""
-    res = _run(FLAT + STEP)
+    res = _run(FLAT + STEP, tmp_path)
     for r in res:
         assert r["params_equal"]
         assert r["pending_rows"] == [WORLD] * 4
@@ -136,11 +145,11 @@ def test_data_parallel_step_keeps_replicas_equal():
     assert res[0]["losses"] == res[1]["losses"]  # loss is mean-reduced too
 
 
-def test_tiered_data_parallel_step_keeps_replicas_equal():
+def test_tiered_data_parallel_step_keeps_replicas_equal(tmp_path):
     """The same two-rank pipelined step with the tiered store (fused
     kernels): demotions reach each rank's cold tier, the exchange carries
     the decoded records, and the replicas stay bit-identical."""
-    res = _run(TIERED + STEP)
+    res = _run(TIERED + STEP, tmp_path)
     for r in res:
         assert r["params_equal"]
         assert r["pending_rows"] == [WORLD] * 4
@@ -171,7 +180,7 @@ print(json.dumps({"rank": rank, "out": out}))
 """
 
 
-def test_compressed_psum_matches_jax_bit_for_bit():
+def test_compressed_psum_matches_jax_bit_for_bit(tmp_path):
     """Two gloo ranks against the reference's ``compressed_psum`` under
     ``jax.jit(jax.vmap(..., axis_name))`` (jitted, as the reference's step
     runs it) on the same gradients and error feedback, three rounds: the
@@ -182,7 +191,7 @@ def test_compressed_psum_matches_jax_bit_for_bit():
 
     from repro.optim.grad_compress import compressed_psum as jcompressed_psum
 
-    res = _run(COMPRESS)
+    res = _run(COMPRESS, tmp_path)
     shapes = {"w": (5, 7), "b": (7,), "s": ()}
     grads, ef = [], []
     for rank in range(WORLD):
@@ -268,16 +277,16 @@ print(json.dumps({
 """
 
 
-def _strategy_run(strategy, policy, compress):
+def _strategy_run(strategy, policy, compress, tmp_path):
     return _run(f"STRATEGY, POLICY, COMPRESS = {strategy!r}, {policy!r}, {compress!r}\n"
-                + STRATEGY_STEP)
+                + STRATEGY_STEP, tmp_path)
 
 
-def test_int8_compressed_step_keeps_replicas_equal():
+def test_int8_compressed_step_keeps_replicas_equal(tmp_path):
     """``TrainConfig.grad_compress='int8'`` on two ranks: every rank gets the
     same int8-reduced mean, so the replicas stay bit-identical, and the
     error feedback carries a residual."""
-    res = _strategy_run("rehearsal", "reservoir", "int8")
+    res = _strategy_run("rehearsal", "reservoir", "int8", tmp_path)
     for r in res:
         assert r["params_equal"] and r["ef_abs"] > 0
         assert all(x == x and abs(x) < 1e6 for x in r["losses"])
@@ -285,12 +294,12 @@ def test_int8_compressed_step_keeps_replicas_equal():
 
 
 @pytest.mark.parametrize("policy", ["fifo", "grasp"])
-def test_policies_preserve_aux_through_distributed_carry(policy):
+def test_policies_preserve_aux_through_distributed_carry(policy, tmp_path):
     """Each rank's buffer keeps its policy's aux through the data-parallel
     step (shapes and dtypes of ``init_aux``, values of its own buffer): FIFO's
     cursor equals the counts of a bucket that is still filling and stays on
     the ring; GRASP holds a finite distance for every filled slot."""
-    res = _strategy_run("rehearsal", policy, "none")
+    res = _strategy_run("rehearsal", policy, "none", tmp_path)
     for r in res:
         assert r["params_equal"] and r["aux"] is not None
         if policy == "fifo":
@@ -307,11 +316,11 @@ def test_policies_preserve_aux_through_distributed_carry(policy):
 
 
 @pytest.mark.parametrize("strategy,policy", [("der_pp", "reservoir"), ("grasp_embed", "grasp")])
-def test_tap_strategy_data_parallel_step(strategy, policy):
+def test_tap_strategy_data_parallel_step(strategy, policy, tmp_path):
     """A tap strategy on two ranks with the full exchange: the extra fields
     (logits; the embedding) ride the all_to_all as record leaves, the
     replicas stay bit-identical, and the stored fields are filled."""
-    res = _strategy_run(strategy, policy, "none")
+    res = _strategy_run(strategy, policy, "none", tmp_path)
     extra = "logits" if strategy == "der_pp" else "embed"
     for r in res:
         assert r["params_equal"] and extra in r["reps"] and all(r["valid"])

@@ -1,7 +1,7 @@
 """The port's language models against the JAX package: configs, layers,
-the full-sequence forward of the reduced SmolLM-135M and Mamba2-370M with and
-without the kernels, decode against prefill, ``DecodeEngine`` token ids, and
-the serving CLI on the CPU.
+the full-sequence forward of the reduced SmolLM-135M, Mamba2-370M,
+StableLM-3B and Gemma-2B with and without the kernels, decode against
+prefill, ``DecodeEngine`` token ids, and the serving CLI on the CPU.
 
 Weights are the JAX ``init_decoder`` trees, carried across by
 ``convert.lm_params_from_jax``; inputs are numpy arrays from a seed.
@@ -30,7 +30,17 @@ from repro_torch.models import StackCtx, build_model
 from repro_torch.models import layers as TL
 from repro_torch.serving import DecodeEngine
 
-LM_ARCHS = ["smollm-135m", "mamba2-370m"]
+LM_ARCHS = ["smollm-135m", "mamba2-370m", "stablelm-3b", "gemma-2b"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small CPU runs: one torch thread each keeps the suite's parallel test
+    processes from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _pair(arch, max_seq=64, seed=0):
@@ -250,7 +260,8 @@ def test_entry_points_default_to_the_card(name):
 
 
 @pytest.mark.parametrize("arch,dtype", [("smollm-135m", "float32"), ("mamba2-370m", "float32"),
-                                        ("h2o-danube-1.8b", "bfloat16")])
+                                        ("h2o-danube-1.8b", "bfloat16"),
+                                        ("stablelm-3b", "float32"), ("gemma-2b", "float32")])
 def test_serve_runs_reduced_on_the_cpu(arch, dtype, capsys):
     res = serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "6", "--gen-len", "4", "--dtype", dtype])
