@@ -67,6 +67,16 @@ Phases (any failure exits non-zero):
      the policy aux on the card, and prints its median step beside phase 5's;
      then der_pp steps at phase 4's small input, the card against the CPU
      through the ``rows`` seam, TF32 off.
+ 17. the domain-incremental and blurry-boundary scenarios on the main path
+     (after phase 14, TF32 on): ``ContinualTrainer(run, name)`` on phase 5's
+     model and cuts with each scenario's own rehearsal defaults and a
+     buffer of 2000 records: domain_incremental (4 domains over 1000 shared
+     classes, class_balanced, 4 buckets x 500 slots) and blurry_boundary (4
+     tasks x 250 classes, blur 0.25, reservoir, one bucket a class: 1000 x
+     2 slots, records without a task id); each checks one update+sample
+     launch a step and no other kernel, finite losses, buffer_fill growing
+     and a finite accuracy matrix, and prints its median step beside phase
+     5's.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's (hd 64)
      and Gemma-2B's (hd 256, MQA) prefill shapes (f32 on the 3xTF32 wgmma
@@ -108,6 +118,18 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      4, its eval lines and launches), update+sample and the int8 kernels on
      these token records against their plain versions, and reduced LM steps
      on the card against the CPU through the ``rows`` seam.
+ 16. online serving (after phase 15, TF32 off): ``OnlineLearner(run).run()``
+     on the serve CLI's ``--online`` run at its defaults (batch 4, prompt 32,
+     gen 16, 8 rounds of 1 train step, a drift over 3 anchors, AdamW f32,
+     async reservoir) with SmolLM-135M, then Mamba2-370M, at full width over
+     a drift stream of min(V, 2048) ids. Each run: every round trained at
+     freshness 1, admission 1.0, finite losses, 8 update+sample launches and
+     no other kernel, the serving copy equal to the train weights bit for
+     bit; decode tokens/s per sequence beside phase 12's, train ms a round,
+     the handoff copy's ms, peak memory. Then SmolLM-135M with a failure
+     injected before round 5's step: every round still served and serving
+     ends on round 4's handed-off weights bit for bit. Then
+     ``serve.main(["--online"])`` on the card at the CLI's defaults.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -1021,9 +1043,9 @@ def model_phase(cfg):
 
 
 def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
-    """The flat main path through ``ContinualTrainer(step_form=...)``, every
-    launch counter set to 0 just before ``fit`` and read just after. Returns
-    the update+sample launches, the fingerprints and the median step in ms."""
+    """The flat main path through ``ContinualTrainer(step_form=...)``
+    (``fit_flat``). Returns the update+sample launches, the fingerprints and
+    the median step in ms."""
     from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
     from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
     from repro_torch.scenario import ClassIncremental, ContinualTrainer
@@ -1043,6 +1065,16 @@ def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
           f"b={BATCH} r={REPS} c={CANDS}, {sc.num_tasks} buckets x {SLOTS} slots")
     trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda",
                                step_form=step_form)
+    return fit_flat(counters, trainer, f"flat, step_form={step_form!r}")
+
+
+def fit_flat(counters, trainer, what: str):
+    """``trainer.fit`` over the first ``TASKS_RUN`` tasks, every launch
+    counter set to 0 just before and read just after. Checks one
+    update+sample launch a step (a flat buffer) and no other kernel, finite
+    losses, a growing ``buffer_fill`` and a finite accuracy matrix. Returns
+    the update+sample launches, the ``(rep_checksum, buffer_fill)`` history
+    and the median step in ms."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -1055,7 +1087,7 @@ def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
     others = {name: fn.launches for name, fn in counters.items()
               if name != "rehearsal_update_sample"}
     steps = TASKS_RUN * STEPS_PER_TASK
-    print(f"flat, step_form={step_form!r}")
+    print(what)
 
     fills = [h["buffer_fill"] for h in result.history]
     acc = result.accuracy_matrix
@@ -1068,8 +1100,8 @@ def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
     print(f"median step {step_ms:.1f} ms (all steps {[round(t * 1e3, 1) for t in result.step_seconds]}), "
           f"prefetch wait {wait_share:.4f} of step time, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, fit wall {wall:.1f} s")
-    print(f"kernel launches on the main path: {launches} (one for the 3 leaves x {steps} "
-          f"steps)")
+    print(f"kernel launches on the main path: {launches} (one for the "
+          f"{len(trainer.item_spec)} leaves x {steps} steps)")
     if launches != steps:
         raise AssertionError(f"expected {steps} kernel launches, saw {launches}")
     if any(others.values()):
@@ -1521,6 +1553,67 @@ def strategy_phase(counters, cfg, fused_runs: dict):
 # ---------------------------------------------------------------------------
 # phases 8-12: the language-model inference path
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the domain-incremental and blurry-boundary scenarios
+# ---------------------------------------------------------------------------
+
+
+def vision_scenario_path(counters, cfg, name: str, seed: int = 0):
+    """``ContinualTrainer(run, name)`` on ``resnet50_cl.full()`` with phase
+    5's cuts (``fit_flat``), the scenario's own rehearsal defaults
+    (``auto_defaults``) and a buffer of 2000 records: domain_incremental
+    (4 domains over 1000 shared classes, class_balanced, 4 buckets x 500
+    slots), blurry_boundary (4 tasks x 250 classes, blur 0.25, reservoir, one
+    bucket per class: 1000 x 2 slots). The streams hold ``EVAL_PER_CLASS``
+    eval images a class: the domain stream's eval set covers every class."""
+    from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
+    from repro_torch.data import (BlurryBoundaryImages, BlurryStreamConfig,
+                                  DomainIncrementalImages, DomainStreamConfig)
+    from repro_torch.scenario import BlurryBoundary, ContinualTrainer, DomainIncremental
+
+    sc = ScenarioConfig(name=name, num_tasks=4, classes_per_task=250, num_classes=1000,
+                        image_size=cfg.image_size, batch_size=BATCH, epochs_per_task=1,
+                        steps_per_epoch=STEPS_PER_TASK, seed=seed, blur=0.25)
+    if name == "domain_incremental":
+        slots = SLOTS
+        scenario = DomainIncremental(sc, stream=DomainIncrementalImages(DomainStreamConfig(
+            num_tasks=sc.num_tasks, num_classes=sc.num_classes, image_size=sc.image_size,
+            noise=sc.noise, domain_shift=sc.domain_shift, eval_per_class=EVAL_PER_CLASS,
+            seed=1234 + seed)))
+    else:
+        slots = 2000 // (sc.num_tasks * sc.classes_per_task)
+        scenario = BlurryBoundary(sc, stream=BlurryBoundaryImages(BlurryStreamConfig(
+            num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
+            image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
+            task_len=sc.steps_per_task, blur=sc.blur, seed=1234 + seed)))
+    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
+        slots_per_bucket=slots, num_representatives=REPS, num_candidates=CANDS, mode="async"))
+    trainer = ContinualTrainer(run, scenario, device="cuda")
+    rc = trainer.rcfg
+    print(f"{name}: record {({k: tuple(v.shape) for k, v in trainer.item_spec.items()})}, "
+          f"bucket field {scenario.buffer_task_field!r}, policy {rc.policy}, "
+          f"{rc.num_buckets} buckets x {rc.slots_per_bucket} slots; tasks run {TASKS_RUN} of "
+          f"{sc.num_tasks}, {STEPS_PER_TASK} steps per task, b={BATCH} r={REPS} c={CANDS}")
+    want = (("class_balanced", 4, SLOTS) if name == "domain_incremental"
+            else ("reservoir", 1000, 2))
+    if (rc.policy, rc.num_buckets, rc.slots_per_bucket) != want:
+        raise AssertionError(f"{name}: rehearsal {rc} is not {want}")
+    out = fit_flat(counters, trainer, name)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_scenario_phase(counters, cfg, fused_runs: dict):
+    """Phase 17: both scenarios on the main path, each median step beside
+    phase 5's (run here when phase 5 did not run)."""
+    base = fused_runs.get("flat") or main_path(counters, cfg)
+    for name in ("domain_incremental", "blurry_boundary"):
+        launches, _, step_ms = vision_scenario_path(counters, cfg, name)
+        print(f"{name}: median step {step_ms:.1f} ms beside phase 5's {base[2]:.1f} ms "
+              f"(class_incremental, reservoir, 4 x 500); update+sample launches {launches}")
 
 
 def tf32_off():
@@ -2029,12 +2122,15 @@ def _prefill_arch(counters, ssd, arch, cfg, model, params):
 def serving_phase(weights: LMWeights, seed: int = 12):
     """Greedy serving at full width: the CLI's path (which draws its own
     weights from ``seed``), and DecodeEngine's decode logits at every prompt
-    position against the teacher-forced forward on the held weights."""
+    position against the teacher-forced forward on the held weights.
+    Returns the CLI path's decode tokens/s per sequence by arch."""
     from repro_torch.launch import serve
 
+    decode = {}
     for arch in LM_ARCHS:
         res = serve.main(["--arch", arch, "--batch", str(SERVE_B), "--prompt-len", str(PROMPT),
                           "--gen-len", str(GEN), "--seed", str(seed)])
+        decode[arch] = res.tokens_per_second
         if res.tokens.shape != (SERVE_B, GEN) or res.tokens.device.type != "cuda":
             raise AssertionError(f"bad generation {tuple(res.tokens.shape)} {res.tokens.device}")
         print(f"{arch} serve (CLI path): prefill {res.prefill_seconds:.3f} s for {PROMPT} "
@@ -2043,6 +2139,7 @@ def serving_phase(weights: LMWeights, seed: int = 12):
         del res
         with weights.on_card(arch) as (cfg, model, params):
             _decode_arch(arch, cfg, model, params, seed)
+    return decode
 
 
 def _decode_arch(arch, cfg, model, params, seed):
@@ -2382,10 +2479,199 @@ def lm_train_phase(counters, qz, ops, ref):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 16: online serving at full width
+# ---------------------------------------------------------------------------
+
+# The serve CLI's --online run (``launch.serve.build_online_run``) at its
+# defaults (batch 4, prompt 32, gen 16: records of 47 tokens; 8 rounds of 1
+# train step; a drift over 3 anchors; AdamW at 3e-3, f32; the drift stream's
+# rehearsal defaults: async reservoir, one bucket an anchor, 16 slots, r 7,
+# c 14) with the model at full width and the stream over min(V, 2048) ids.
+ONLINE_ROUNDS, ONLINE_PHASES, ONLINE_FAIL_AT = 8, 3, 5
+ONLINE_ARCHS = ("smollm-135m", "mamba2-370m")
+
+
+def online_run(arch: str):
+    """The ``RunConfig`` of the serve CLI's ``--online`` at its defaults, with
+    ``arch`` at full width in place of the reduced LM and the drift stream
+    over min(V, 2048) ids."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(["--online"])
+    got = (args.batch, args.prompt_len, args.gen_len, args.rounds, args.train_every,
+           args.phases, args.dtype)
+    want = (SERVE_B, PROMPT, GEN, ONLINE_ROUNDS, 1, ONLINE_PHASES, "float32")
+    if got != want:
+        raise AssertionError(f"the serve CLI's --online defaults moved: {got}, phase 16 "
+                             f"reads {want}")
+    run = serve.build_online_run(args)
+    cfg = get_config(arch)
+    return dataclasses.replace(run, model=cfg, scenario=dataclasses.replace(
+        run.scenario, vocab_size=min(cfg.vocab_size, 2048)))
+
+
+class OnlineTimes:
+    """Wraps a learner's train round and weight handoff: the host time of
+    each round's train steps (to the card's end, synchronised), the card's
+    time of each handoff copy (CUDA events), and a copy of the weights that
+    each handoff published, for the rounds in ``keep``."""
+
+    def __init__(self, learner, keep=()):
+        self.train_ms, self.handoff_ms, self.kept = [], [], {}
+        train, handoff = learner._train_round, learner._handoff
+
+        def timed_train(carry, records, train_step):
+            t0 = time.perf_counter()
+            try:
+                return train(carry, records, train_step)
+            finally:
+                torch.cuda.synchronize()
+                self.train_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_handoff(serving, params):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            handoff(serving, params)
+            end.record()
+            end.synchronize()
+            self.handoff_ms.append(start.elapsed_time(end))
+            if len(self.handoff_ms) - 1 in keep:
+                self.kept[len(self.handoff_ms) - 1] = {
+                    k: v.clone() for k, v in serving.state_dict().items()}
+
+        learner._train_round, learner._handoff = timed_train, timed_handoff
+
+
+def _same_weights(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+
+
+def online_arch(counters, arch: str, decode_cli: dict, fail: bool = False):
+    """``OnlineLearner(run).run()`` on the card (its default device) on
+    ``online_run(arch)``, every counter set to 0 just before ``run`` and
+    read just after. Checks, for the normal run: every round trained at
+    freshness 1, admission 1.0, finite losses, one update+sample launch a
+    round and no other kernel, the serving copy equal to the train weights
+    bit for bit. With ``fail``, a failure injected before round
+    ``ONLINE_FAIL_AT``'s step: every round still served, training off from
+    that round, and serving ends on the weights the round before handed off,
+    bit for bit. Prints decode tokens/s per sequence beside phase 12's CLI
+    path, the train ms a round, the handoff copy's ms and the peak memory."""
+    from repro_torch.serving import OnlineLearner
+
+    def hook(step):
+        if step >= ONLINE_FAIL_AT:
+            raise RuntimeError(f"injected failure before train step {step}")
+
+    run = online_run(arch)
+    learner = OnlineLearner(run, failure_hook=hook if fail else None)
+    times = OnlineTimes(learner, keep=(ONLINE_FAIL_AT - 1,) if fail else ())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = learner.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    hist = res.history
+    losses = [h["loss"] for h in hist]
+    name = f"{arch} online" + (f", failure before round {ONLINE_FAIL_AT}" if fail else "")
+    tok_s = statistics.median(h["tokens_per_second"] for h in hist)
+    tr, rc = learner.trainer, learner.trainer.rcfg
+    print(f"{name}: record {({k: tuple(v.shape) for k, v in tr.item_spec.items()})}, "
+          f"rehearsal {rc.mode} {rc.policy} {rc.num_buckets} x {rc.slots_per_bucket}, "
+          f"r {rc.num_representatives}, c {rc.num_candidates}; {tr.device}")
+    print(f"  losses {[round(x, 4) for x in losses]}; trained "
+          f"{[int(h['trained']) for h in hist]}; freshness "
+          f"{[int(h['freshness']) for h in hist]}; admission {res.admission_rate}")
+    print(f"  decode {tok_s:.1f} tok/s per sequence, median of {len(hist)} rounds (phase 12's "
+          f"CLI path: {decode_cli.get(arch, 'not run')}); train "
+          f"{statistics.median(times.train_ms):.2f} ms a round (all "
+          f"{[round(t, 1) for t in times.train_ms]}); handoff copy "
+          f"{statistics.median(times.handoff_ms):.4f} ms (all "
+          f"{[round(t, 4) for t in times.handoff_ms]}) for "
+          f"{sum(p.numel() * p.element_size() for p in res.params.parameters()) / 1e9:.3f} GB; "
+          f"peak device memory {peak / 2**30:.2f} GiB; run {seconds:.1f} s")
+    print(f"  launches {({k: v for k, v in launches.items() if v})}; accuracy by anchor "
+          f"{[round(a, 4) for a in res.accuracy]}")
+    trained = sum(h["trained"] for h in hist)
+    want = dict({k: 0 for k in counters}, rehearsal_update_sample=int(trained))
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want}, saw {launches}")
+    if len(hist) != ONLINE_ROUNDS or res.last_tokens.device.type != "cuda" or tuple(
+            res.last_tokens.shape) != (SERVE_B, GEN):
+        raise AssertionError(f"{name}: {len(hist)} rounds, last tokens "
+                             f"{tuple(res.last_tokens.shape)} on {res.last_tokens.device}")
+    if fail:
+        expect = [1.0] * ONLINE_FAIL_AT + [0.0] * (ONLINE_ROUNDS - ONLINE_FAIL_AT)
+        fresh = [1.0] * (ONLINE_FAIL_AT + 1) + [float(r - ONLINE_FAIL_AT + 1) for r in range(
+            ONLINE_FAIL_AT + 1, ONLINE_ROUNDS)]
+        if (not res.train_disabled or [h["trained"] for h in hist] != expect
+                or [h["freshness"] for h in hist] != fresh):
+            raise AssertionError(f"{name}: trained {[h['trained'] for h in hist]}, freshness "
+                                 f"{[h['freshness'] for h in hist]}")
+        if not _same_weights(res.params.state_dict(), times.kept[ONLINE_FAIL_AT - 1]):
+            raise AssertionError(f"{name}: serving left round {ONLINE_FAIL_AT - 1}'s weights")
+        print(f"  serving kept round {ONLINE_FAIL_AT - 1}'s handed-off weights bit for bit")
+    else:
+        if res.train_disabled or trained != ONLINE_ROUNDS or res.admission_rate != 1.0:
+            raise AssertionError(f"{name}: trained {trained} of {ONLINE_ROUNDS} rounds, "
+                                 f"admission {res.admission_rate}")
+        if any(h["freshness"] != 1.0 for h in hist):
+            raise AssertionError(f"{name}: freshness {[h['freshness'] for h in hist]}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        if not _same_weights(res.params.state_dict(), res.carry.params.state_dict()):
+            raise AssertionError(f"{name}: the serving copy differs from the train weights")
+        print("  serving copy == train weights bit for bit")
+    del learner, res
+    torch.cuda.empty_cache()
+    return {"decode_tok_s": tok_s, "train_ms": statistics.median(times.train_ms),
+            "handoff_ms": statistics.median(times.handoff_ms), "peak_gib": peak / 2**30}
+
+
+def online_cli(counters):
+    """``serve.main(["--online"])``: the reduced 2-layer LM on the card at the
+    CLI's defaults. Checks 8 rounds trained at freshness 1, one update+sample
+    launch a round and no other kernel."""
+    from repro_torch.launch import serve
+
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.main(["--online"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"serve --online (CLI defaults): losses "
+          f"{[round(h['loss'], 4) for h in res.history]}, decode "
+          f"{res.decode_tokens_per_second:.1f} tok/s per sequence, admission "
+          f"{res.admission_rate}, launches {({k: v for k, v in launches.items() if v})}")
+    if launches != dict({k: 0 for k in counters}, rehearsal_update_sample=ONLINE_ROUNDS):
+        raise AssertionError(f"serve --online: launches {launches}")
+    if (res.last_tokens.device.type != "cuda" or res.train_disabled
+            or [h["freshness"] for h in res.history] != [1.0] * ONLINE_ROUNDS):
+        raise AssertionError(f"serve --online: {res.history}")
+
+
+def online_phase(counters, decode_cli: dict):
+    """Phase 16: OnlineLearner at full width (SmolLM-135M, then Mamba2-370M),
+    SmolLM-135M again with a failure injected, then the CLI."""
+    print(f"card: {gpu_name_and_power()}")
+    out = {arch: online_arch(counters, arch, decode_cli) for arch in ONLINE_ARCHS}
+    online_arch(counters, ONLINE_ARCHS[0], decode_cli, fail=True)
+    online_cli(counters)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-15), and print no result lines")
+                    help="run phases 1, 2 and these only (3-17), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -2465,6 +2751,10 @@ def main(argv=None):
         phase("14 strategies and policies on the main path")
         strategy_phase(counters, cfg, fused_runs)
 
+    if run(17):
+        phase("17 the domain-incremental and blurry-boundary scenarios on the main path")
+        vision_scenario_phase(counters, cfg, fused_runs)
+
     tf32_off()
     if run(8):
         phase("8 flash attention against its plain version")
@@ -2483,15 +2773,20 @@ def main(argv=None):
         phase("11 LM main path: prefill at full width, kernels against the plain path")
         launches = prefill_phase(counters, ssd, weights)
 
+    decode_cli = {}
     if run(12):
         phase("12 LM serving: greedy decode at full width")
-        serving_phase(weights)
+        decode_cli = serving_phase(weights)
     del weights
     torch.cuda.empty_cache()
 
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
         lm_runs = lm_train_phase(counters, qz, ops, ref)
+
+    if run(16):
+        phase("16 online serving: OnlineLearner at full width")
+        online_phase(counters, decode_cli)
     phase.end()
 
     if only:

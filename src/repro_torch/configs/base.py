@@ -2,10 +2,10 @@
 training and the run itself.
 
 The port's own copy of the fields of ``repro.configs.base`` that the ported
-slices read: the class-incremental rehearsal trainer, and the language-model
-inference path (``ModelConfig``, ``reduce_model``). Field names, defaults and
-validation match the reference, so a config written for one package reads
-the same in the other.
+slices read: the rehearsal trainer and its scenarios, the language-model
+path (``ModelConfig``, ``reduce_model``) and online serving
+(``OnlineConfig``). Field names, defaults and validation match the
+reference, so a config written for one package reads the same in the other.
 """
 from __future__ import annotations
 
@@ -253,11 +253,14 @@ class ScenarioConfig:
     steps_per_epoch: int = 50
     batch_size: int = 16
     seed: int = 0
-    classes_per_task: int = 10
+    classes_per_task: int = 10  # class_incremental / blurry_boundary (vision)
+    num_classes: int = 10  # domain_incremental: shared label space size
     image_size: int = 32
     noise: float = 0.35
     vocab_size: int = 256  # tokens modality
     seq_len: int = 32  # tokens modality
+    domain_shift: float = 1.0  # domain_incremental: per-domain transform strength
+    blur: float = 0.25  # blurry_boundary: blurred fraction of each task's span
     # Let the scenario fill rehearsal fields still at their dataclass defaults.
     auto_defaults: bool = True
 
@@ -302,6 +305,51 @@ class StrategyConfig:
 
 
 @dataclass(frozen=True)
+class OnlineConfig:
+    """Knobs of the online serve/train interleave (``repro_torch.serving``).
+
+    ``enabled=False`` runs the pure serving loop. Enabled, each serve round's
+    request batch (prompt + the decode continuation) is admitted into the
+    rehearsal buffer and ``train_every`` pipelined train steps run after the
+    round's decode; the updated weights are handed to serving at the round
+    boundary."""
+
+    enabled: bool = False
+    rounds: int = 8  # serve rounds (one request batch each)
+    requests_per_round: int = 4  # decode batch size per round
+    prompt_len: int = 16  # request prefix fed through prefill
+    # Greedy continuation length; 0 derives seq_len + 1 - prompt_len so the
+    # admitted record (prompt ++ continuation, shifted) exactly fills the
+    # scenario's [seq_len] token/label layout.
+    gen_len: int = 0
+    train_every: int = 1  # train steps interleaved per round (0 = serve-only)
+    # Admit the decode continuation with the prompt; False stores the raw
+    # request stream rows instead.
+    store_decode: bool = True
+    freshness_every: int = 0  # rounds between drifted-slice evals (0 = end only)
+
+    def __post_init__(self):
+        if self.rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {self.rounds}")
+        if self.prompt_len < 1:
+            raise ValueError(f"prompt_len must be >= 1, got {self.prompt_len}")
+        if self.gen_len < 0 or self.train_every < 0:
+            raise ValueError("gen_len and train_every must be >= 0")
+
+    def resolved_gen_len(self, seq_len: int) -> int:
+        """Continuation length: explicit, else sized so that
+        ``prompt_len + gen_len == seq_len + 1`` (record = shifted pair)."""
+        if self.gen_len:
+            return self.gen_len
+        g = seq_len + 1 - self.prompt_len
+        if g < 1:
+            raise ValueError(
+                f"prompt_len={self.prompt_len} leaves no room for a "
+                f"continuation at seq_len={seq_len}")
+        return g
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Everything one run needs. ``model=None`` lets the scenario supply its
     default model (the reduced CNN)."""
@@ -315,6 +363,8 @@ class RunConfig:
     # Fault-tolerant loop config; the port does not have it yet and the
     # trainer raises when it is set.
     resilience: Optional[Any] = None
+    # Online continual serving (``repro_torch.serving.OnlineLearner``).
+    online: OnlineConfig = OnlineConfig()
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

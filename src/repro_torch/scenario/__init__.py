@@ -13,13 +13,15 @@ from repro_torch.scenario.base import (
     register_scenario,
 )
 from repro_torch.scenario.scenarios import (
+    BlurryBoundary,
     ClassIncremental,
+    DomainIncremental,
     DriftStream,
     TokenClassIncremental,
     build_token_lm,
 )
 from repro_torch.scenario.trainer import ContinualTrainer
 
-__all__ = ["ClassIncremental", "ContinualTrainer", "DriftStream", "Problem", "SCENARIOS",
-           "Scenario", "TokenClassIncremental", "build_token_lm", "get_scenario",
-           "register_scenario"]
+__all__ = ["BlurryBoundary", "ClassIncremental", "ContinualTrainer", "DomainIncremental",
+           "DriftStream", "Problem", "SCENARIOS", "Scenario", "TokenClassIncremental",
+           "build_token_lm", "get_scenario", "register_scenario"]

@@ -83,7 +83,8 @@ class Scenario(abc.ABC):
 
     @property
     def buffer_task_field(self) -> str:
-        """The field the buffer buckets by: the task id when one exists."""
+        """The field the buffer buckets by: the task id when one exists, else
+        the label (the task-free path: blurry boundaries)."""
         return self.task_field if self.task_field is not None else self.label_field
 
     def __repr__(self) -> str:
@@ -107,7 +108,6 @@ def get_scenario(cfg) -> Scenario:
     try:
         factory = SCENARIOS[cfg.name]
     except KeyError:
-        raise NotImplementedError(
-            f"scenario {cfg.name!r} is not ported yet (ROADMAP Queue 1 item 9); "
-            f"registered: {sorted(SCENARIOS)}") from None
+        raise KeyError(
+            f"unknown scenario {cfg.name!r}; registered: {sorted(SCENARIOS)}") from None
     return factory(cfg)

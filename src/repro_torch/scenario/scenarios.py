@@ -1,8 +1,7 @@
 """The shipped scenarios: class-incremental over images (paper §VI-A) or
-over token distributions (``modality="tokens"``), and the task-free drifting
-token stream (``drift_stream``).
-
-Domain-incremental and blurry-boundary scenarios are ROADMAP Queue 1 item 9.
+over token distributions (``modality="tokens"``), domain-incremental and
+blurry-boundary over images, and the task-free drifting token stream
+(``drift_stream``).
 """
 from __future__ import annotations
 
@@ -16,7 +15,11 @@ from repro_torch.buffer.state import ItemSpec
 from repro_torch.configs import resnet50_cl
 from repro_torch.configs.base import ScenarioConfig
 from repro_torch.data import (
+    BlurryBoundaryImages,
+    BlurryStreamConfig,
     ClassIncrementalImages,
+    DomainIncrementalImages,
+    DomainStreamConfig,
     DriftStreamConfig,
     DriftTokenStream,
     ImageStreamConfig,
@@ -36,20 +39,11 @@ def _stream_seed(cfg: ScenarioConfig) -> int:
     return 1234 + cfg.seed
 
 
-class ClassIncremental(Scenario):
-    """The paper's scenario: T disjoint tasks, each introducing new classes.
-    Buckets by task id, reservoir policy: exactly Algorithm 1."""
+class _VisionScenario(Scenario):
+    """Shared vision plumbing: the CNN problem and its top-1 accuracy eval."""
 
-    name = "class_incremental"
     label_field = "label"
-    task_field = "task"
-
-    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None):
-        cfg = cfg or ScenarioConfig()
-        self.stream = stream if stream is not None else ClassIncrementalImages(
-            ImageStreamConfig(
-                num_tasks=cfg.num_tasks, classes_per_task=cfg.classes_per_task,
-                image_size=cfg.image_size, noise=cfg.noise, seed=_stream_seed(cfg)))
+    stream: Any  # set by subclass __init__
 
     @property
     def num_tasks(self) -> int:
@@ -62,9 +56,11 @@ class ClassIncremental(Scenario):
     @property
     def item_spec(self) -> Dict[str, Any]:
         c = self.stream.cfg
-        return {"images": ItemSpec((c.image_size, c.image_size, c.channels), torch.float32),
-                "label": ItemSpec((), torch.int32),
-                self.task_field: ItemSpec((), torch.int32)}
+        spec = {"images": ItemSpec((c.image_size, c.image_size, c.channels), torch.float32),
+                "label": ItemSpec((), torch.int32)}
+        if self.task_field is not None:
+            spec[self.task_field] = ItemSpec((), torch.int32)
+        return spec
 
     def batch(self, task, batch_size, cursor):
         return self.stream.batch(task, batch_size, cursor)
@@ -74,10 +70,6 @@ class ClassIncremental(Scenario):
 
     def eval_set(self, task):
         return self.stream.eval_set(task)
-
-    def recommended(self):
-        return {"num_buckets": self.num_tasks, "policy": "reservoir",
-                "label_field": "label", "task_field": "task"}
 
     def build_problem(self, run, device) -> Problem:
         from repro_torch.core.cl_loop import topk_accuracy
@@ -116,6 +108,73 @@ class ClassIncremental(Scenario):
             return hits / n
 
         return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs)
+
+
+class ClassIncremental(_VisionScenario):
+    """The paper's scenario: T disjoint tasks, each introducing new classes.
+    Buckets by task id, reservoir policy: exactly Algorithm 1."""
+
+    name = "class_incremental"
+    task_field = "task"
+
+    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None):
+        cfg = cfg or ScenarioConfig()
+        self.stream = stream if stream is not None else ClassIncrementalImages(
+            ImageStreamConfig(
+                num_tasks=cfg.num_tasks, classes_per_task=cfg.classes_per_task,
+                image_size=cfg.image_size, noise=cfg.noise, seed=_stream_seed(cfg)))
+
+    def recommended(self):
+        return {"num_buckets": self.num_tasks, "policy": "reservoir",
+                "label_field": "label", "task_field": "task"}
+
+
+class DomainIncremental(_VisionScenario):
+    """One label space, T input distributions (a style transform per
+    domain). Buckets by domain; the class-balanced policy keeps per-class
+    coverage inside each domain bucket, which reservoir sampling does not
+    guarantee when domains repeat classes unevenly."""
+
+    name = "domain_incremental"
+    task_field = "task"
+
+    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None):
+        cfg = cfg or ScenarioConfig(name="domain_incremental")
+        self.stream = stream if stream is not None else DomainIncrementalImages(
+            DomainStreamConfig(
+                num_tasks=cfg.num_tasks, num_classes=cfg.num_classes,
+                image_size=cfg.image_size, noise=cfg.noise,
+                domain_shift=cfg.domain_shift, seed=_stream_seed(cfg)))
+
+    def recommended(self):
+        return {"num_buckets": self.num_tasks, "policy": "class_balanced",
+                "label_field": "label", "task_field": "task"}
+
+
+class BlurryBoundary(_VisionScenario):
+    """Probabilistic task mixing near boundaries. Batches carry no task id,
+    so the buffer buckets by label: K = num_classes, one bucket per class."""
+
+    name = "blurry_boundary"
+    task_field = None
+
+    def __init__(self, cfg: Optional[ScenarioConfig] = None, stream=None):
+        cfg = cfg or ScenarioConfig(name="blurry_boundary")
+        self.stream = stream if stream is not None else BlurryBoundaryImages(
+            BlurryStreamConfig(
+                num_tasks=cfg.num_tasks, classes_per_task=cfg.classes_per_task,
+                image_size=cfg.image_size, noise=cfg.noise,
+                task_len=cfg.steps_per_task, blur=cfg.blur, seed=_stream_seed(cfg)))
+
+    def recommended(self):
+        # task_field -> the label field: bucketing keyed on class ids
+        return {"num_buckets": self.num_classes, "policy": "reservoir",
+                "label_field": "label", "task_field": "label"}
+
+    def cumulative_batch(self, upto_task, batch_size, cursor):
+        raise NotImplementedError(
+            "blurry_boundary has no clean per-task view to accumulate (no task ids): "
+            "the from_scratch strategy does not apply")
 
 
 # ---------------------------------------------------------------------------
@@ -270,4 +329,6 @@ def _class_incremental_factory(cfg: ScenarioConfig) -> Scenario:
 
 
 register_scenario("class_incremental", _class_incremental_factory)
+register_scenario("domain_incremental", DomainIncremental)
+register_scenario("blurry_boundary", BlurryBoundary)
 register_scenario("drift_stream", DriftStream)

@@ -275,7 +275,7 @@ def test_serve_is_reproducible_from_its_seed():
     assert torch.equal(serve.main(argv).tokens, serve.main(argv).tokens)
 
 
-@pytest.mark.parametrize("flags", [["--online"], ["--mesh", "2x2"], ["--obs", "out"],
+@pytest.mark.parametrize("flags", [["--ckpt-dir", "d"], ["--mesh", "2x2"], ["--obs", "out"],
                                    ["--metrics-port", "0"]])
 def test_serve_rejects_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -130,22 +130,29 @@ def test_token_scenarios_match_jax(name):
 
 
 def test_scenario_and_train_config_fields_match_the_reference():
+    from repro.configs.base import OnlineConfig as JOnlineConfig
     from repro.configs.base import TrainConfig as JTrainConfig
+    from repro_torch.configs.base import OnlineConfig
 
-    assert (ScenarioConfig().vocab_size, ScenarioConfig().seq_len) == (
-        JScenario().vocab_size, JScenario().seq_len)
-    ours, theirs = TrainConfig(), JTrainConfig()
-    for f in dataclasses.fields(TrainConfig):
-        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert [f.name for f in dataclasses.fields(ScenarioConfig)] == [
+        f.name for f in dataclasses.fields(JScenario)]
+    assert [f.name for f in dataclasses.fields(OnlineConfig)] == [
+        f.name for f in dataclasses.fields(JOnlineConfig)]
+    for ours, theirs in ((ScenarioConfig(), JScenario()), (TrainConfig(), JTrainConfig()),
+                         (OnlineConfig(), JOnlineConfig())):
+        for f in dataclasses.fields(ours):
+            assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
 
 
 def test_the_factory_dispatches_on_modality_and_registers_drift_stream():
     assert isinstance(get_scenario(ScenarioConfig(modality="tokens")), TokenClassIncremental)
     assert type(get_scenario(ScenarioConfig(image_size=8))).__name__ == "ClassIncremental"
     assert isinstance(get_scenario(ScenarioConfig(name="drift_stream")), DriftStream)
-    for name in ("domain_incremental", "blurry_boundary"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_scenario(ScenarioConfig(name=name))
+    for name, cls in (("domain_incremental", "DomainIncremental"),
+                      ("blurry_boundary", "BlurryBoundary")):
+        assert type(get_scenario(ScenarioConfig(name=name, image_size=8))).__name__ == cls
+    with pytest.raises(KeyError, match="unknown scenario"):
+        get_scenario(ScenarioConfig(name="no_such_scenario"))
 
 
 def test_build_token_lm_defaults_to_the_two_layer_reduced_smollm():

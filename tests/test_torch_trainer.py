@@ -123,8 +123,15 @@ def test_unported_configs_raise():
         RUN.scenario, modality="tokens")), device="cpu")
     assert type(tokens.scenario).__name__ == "TokenClassIncremental"
     assert set(tokens.item_spec) == {"tokens", "labels", "task"}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ContinualTrainer(RUN, scenario="domain_incremental", device="cpu")
+    # and so are the domain-incremental and blurry-boundary scenarios (item 9)
+    domain = ContinualTrainer(RUN, scenario="domain_incremental", device="cpu")
+    assert type(domain.scenario).__name__ == "DomainIncremental"
+    assert set(domain.item_spec) == {"images", "label", "task"}
+    blurry = ContinualTrainer(RUN, scenario="blurry_boundary", device="cpu")
+    assert type(blurry.scenario).__name__ == "BlurryBoundary"
+    assert set(blurry.item_spec) == {"images", "label"}
+    with pytest.raises(KeyError, match="unknown scenario"):
+        ContinualTrainer(RUN, scenario="no_such_scenario", device="cpu")
 
 
 def test_prefetcher_serves_the_stream_in_order_and_ends():
