@@ -77,6 +77,24 @@ Phases (any failure exits non-zero):
      launch a step and no other kernel, finite losses, buffer_fill growing
      and a finite accuracy matrix, and prints its median step beside phase
      5's.
+ 18. the resilient main path (after phase 17, TF32 on), in deterministic
+     mode (cuDNN and PyTorch deterministic, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``;
+     ops without a deterministic implementation are reported), checkpoints
+     in temporary directories deleted after each run: (a) phase 5's flat
+     configuration with ``ResilienceConfig(checkpoint_every=3,
+     max_restarts=2)``, a clean run and one with a failure injected before
+     step 5: restarts 0 and 1, histories, losses, accuracy matrices and final
+     checkpoints bit for bit, 8 and 10 update+sample launches; (b) the same
+     on phase 7's fused tiered store, its int8 kernels once a step, replays
+     included, the restored cold tier pinned; (c) stale steps (delay 0.5,
+     staleness 2): update+sample launches = steps - stale steps; (d)
+     ``scale_carry`` 1 -> 2 -> 1 of the restored flat and tiered carries,
+     every record kept; (e) ``OnlineLearner`` at SmolLM-135M full width, 4
+     rounds, a transient failure (a restart, every round trained) and a
+     persistent one (training off, serving on the last checkpoint's weights
+     bit for bit); (f) the train CLI with ``--ckpt-dir --resilience``.
+     Checkpoint bytes, save (snapshot, write) and restore ms, the median
+     step beside phase 5's.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's (hd 64)
      and Gemma-2B's (hd 256, MQA) prefill shapes (f32 on the 3xTF32 wgmma
@@ -144,6 +162,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1042,29 +1061,71 @@ def model_phase(cfg):
 # ---------------------------------------------------------------------------
 
 
-def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
-    """The flat main path through ``ContinualTrainer(step_form=...)``
-    (``fit_flat``). Returns the update+sample launches, the fingerprints and
-    the median step in ms."""
-    from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
+class EvalCachedStream:
+    """A stream whose eval sets are drawn once: they are pure functions of
+    (seed, task), and the runs of one phase share them instead of drawing
+    hundreds of 224x224x3 images on the host for every evaluation."""
+
+    def __init__(self, stream):
+        self._stream, self._evals = stream, {}
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+    def eval_set(self, task: int):
+        if task not in self._evals:
+            self._evals[task] = self._stream.eval_set(task)
+        return self._evals[task]
+
+
+@functools.lru_cache(maxsize=None)
+def class_incremental_stream(cfg, seed: int = 0):
+    """The main path's ``ScenarioConfig`` (4 tasks x 250 classes, its cuts)
+    and its class-incremental stream (``EVAL_PER_CLASS`` eval images a
+    class), built once a (config, seed): the stream is a pure function of
+    its config, and the ResNet runs of every phase share it and its eval
+    sets (``EvalCachedStream``)."""
+    from repro_torch.configs.base import ScenarioConfig
     from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
-    from repro_torch.scenario import ClassIncremental, ContinualTrainer
 
     sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=cfg.image_size,
                         batch_size=BATCH, epochs_per_task=1,
                         steps_per_epoch=STEPS_PER_TASK, seed=seed)
-    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
-        slots_per_bucket=SLOTS, num_representatives=REPS, num_candidates=CANDS,
-        mode="async", policy="reservoir", tiering="off"))
-    stream = ClassIncrementalImages(ImageStreamConfig(
+    return sc, EvalCachedStream(ClassIncrementalImages(ImageStreamConfig(
         num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
         image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
-        seed=1234 + seed))
-    print(f"cuts (data scale only): tasks run {TASKS_RUN} of {sc.num_tasks}, "
+        seed=1234 + seed)))
+
+
+def class_incremental_trainer(cfg, rehearsal, seed: int = 0, **kw):
+    """``ContinualTrainer`` on ``cfg`` over ``class_incremental_stream`` with
+    the rehearsal fields ``rehearsal`` (r, c and async mode fixed); ``kw``
+    goes to the trainer."""
+    from repro_torch.configs.base import RehearsalConfig, RunConfig
+    from repro_torch.scenario import ClassIncremental, ContinualTrainer
+
+    sc, stream = class_incremental_stream(cfg, seed)
+    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
+        num_representatives=REPS, num_candidates=CANDS, mode="async", **rehearsal))
+    return ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda", **kw)
+
+
+FLAT = dict(slots_per_bucket=SLOTS, policy="reservoir", tiering="off")
+
+
+def tiered_rehearsal(fused: bool) -> dict:
+    return dict(policy="reservoir", tiering="host", hot_slots=HOT, cold_slots=COLD,
+                fused_kernels=fused)
+
+
+def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
+    """The flat main path through ``ContinualTrainer(step_form=...)``
+    (``fit_flat``). Returns the update+sample launches, the fingerprints and
+    the median step in ms."""
+    print(f"cuts (data scale only): tasks run {TASKS_RUN} of 4, "
           f"{STEPS_PER_TASK} steps per task, eval_per_class {EVAL_PER_CLASS}; "
-          f"b={BATCH} r={REPS} c={CANDS}, {sc.num_tasks} buckets x {SLOTS} slots")
-    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda",
-                               step_form=step_form)
+          f"b={BATCH} r={REPS} c={CANDS}, 4 buckets x {SLOTS} slots")
+    trainer = class_incremental_trainer(cfg, FLAT, seed, step_form=step_form)
     return fit_flat(counters, trainer, f"flat, step_form={step_form!r}")
 
 
@@ -1219,22 +1280,8 @@ def tiered_phase(cfg, steps: int = 6, seed: int = 3):
 def tiered_main_path(counters, cfg, fused: bool, seed: int = 0, step_form: str = "fused"):
     """The trainer of phase 5 on the tiered store. Returns the launches of
     each kernel, the fingerprints and the median step in ms."""
-    from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
-    from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
-    from repro_torch.scenario import ClassIncremental, ContinualTrainer
-
-    sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=cfg.image_size,
-                        batch_size=BATCH, epochs_per_task=1,
-                        steps_per_epoch=STEPS_PER_TASK, seed=seed)
-    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
-        num_representatives=REPS, num_candidates=CANDS, mode="async", policy="reservoir",
-        tiering="host", hot_slots=HOT, cold_slots=COLD, fused_kernels=fused))
-    stream = ClassIncrementalImages(ImageStreamConfig(
-        num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
-        image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
-        seed=1234 + seed))
-    trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda",
-                               step_form=step_form)
+    trainer = class_incremental_trainer(cfg, tiered_rehearsal(fused), seed,
+                                        step_form=step_form)
     rcfg = trainer.rcfg
     print(f"tiered, fused_kernels={fused}, step_form={step_form!r}: {rcfg.num_buckets} buckets"
           f" x {rcfg.resolved_hot_slots} hot + {rcfg.resolved_cold_slots} cold slots, stage "
@@ -1364,23 +1411,16 @@ def strategy_main_path(counters, cfg, strategy: str, *, policy: str = "reservoir
     once a step, that der's distillation term is finite and positive once
     replay rows are valid, and that the policy's aux stays on the card.
     Returns the launches, the fingerprints and the median step in ms."""
-    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
-                                          StrategyConfig)
-    from repro_torch.data import ClassIncrementalImages, ImageStreamConfig
+    from repro_torch.configs.base import RehearsalConfig, RunConfig, StrategyConfig
     from repro_torch.scenario import ClassIncremental, ContinualTrainer
 
-    sc = ScenarioConfig(num_tasks=4, classes_per_task=250, image_size=cfg.image_size,
-                        batch_size=BATCH, epochs_per_task=1,
-                        steps_per_epoch=STEPS_PER_TASK, seed=seed, strategy=strategy)
+    sc, stream = class_incremental_stream(cfg, seed)
+    sc = dataclasses.replace(sc, strategy=strategy)
     store = (dict(tiering="host", hot_slots=HOT, cold_slots=COLD, fused_kernels=fused)
              if tiered else dict(slots_per_bucket=SLOTS, tiering="off"))
     run = RunConfig(model=cfg, scenario=sc, strategy=StrategyConfig(top_k=top_k),
                     rehearsal=RehearsalConfig(num_representatives=REPS, num_candidates=CANDS,
                                               mode="async", policy=policy, **store))
-    stream = ClassIncrementalImages(ImageStreamConfig(
-        num_tasks=sc.num_tasks, classes_per_task=sc.classes_per_task,
-        image_size=sc.image_size, noise=sc.noise, eval_per_class=EVAL_PER_CLASS,
-        seed=1234 + seed))
     trainer = ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda")
     if trainer.rcfg.policy != policy:
         raise AssertionError(f"the trainer runs policy {trainer.rcfg.policy!r}, not {policy!r}")
@@ -2668,10 +2708,408 @@ def online_phase(counters, decode_cli: dict):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the resilient main path
+# ---------------------------------------------------------------------------
+
+# ResilienceConfig of cases (a)-(c): full-carry checkpoints every 3 steps and
+# at each task's start, and a failure injected before absolute step 5 (mid
+# task 1, off a checkpoint), so that the restart restores the checkpoint of
+# step 4 (task 1's start) and replays step 4.
+RES_EVERY, RES_FAIL_AT, RES_ONLINE_ROUNDS = 3, 5, 4
+RES_REPLAYED = RES_FAIL_AT - max(RES_FAIL_AT // RES_EVERY * RES_EVERY,
+                                 RES_FAIL_AT // STEPS_PER_TASK * STEPS_PER_TASK)
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """cuDNN and PyTorch in deterministic mode and cuBLAS on a fixed
+    workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) for the phase, restored
+    after. ``warn_only``: an op without a deterministic implementation warns
+    instead of raising, and the caller reports those warnings (yielded).
+    Uninitialised memory is not filled (``fill_uninitialized_memory``): the
+    fills are launches of their own on a host-bound step, and determinism
+    does not need them."""
+    import warnings
+
+    import torch.utils.deterministic as det
+
+    prev = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        if prev[0] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[0]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[1:3]
+        torch.use_deterministic_algorithms(prev[3], warn_only=prev[4])
+        det.fill_uninitialized_memory = prev[5]
+
+
+def _fail_once(at: int):
+    from repro_torch.runtime import InjectedFailure
+
+    fired = []
+
+    def hook(step):
+        if step == at and not fired:
+            fired.append(step)
+            raise InjectedFailure(f"injected failure before step {step}")
+
+    return hook
+
+
+def _state_of(path: str):
+    """Every array of a checkpoint's ``state.npz``: sha256 digests, and the
+    model's arrays themselves."""
+    import hashlib
+
+    digests, params = {}, {}
+    with np.load(os.path.join(path, "state.npz")) as z:
+        for k in z.files:
+            a = z[k]
+            digests[k] = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            if k.startswith("params/"):
+                params[k] = a
+    return digests, params
+
+
+def resilient_fit(counters, cfg, rehearsal, res, hook=None, keep_carry=False,
+                  tasks=TASKS_RUN):
+    """One resilient fit of phase 5's configuration (``rehearsal`` for the
+    buffer) over ``tasks`` tasks, with checkpoints in a temporary directory,
+    deleted after. Every counter is set to 0 just before ``fit`` and read
+    just after. Returns the result, the launches, the final per-task
+    checkpoint (digests and model arrays), and with ``keep_carry`` the final
+    state restored into a fresh carry, with its restore timed and a
+    synchronous save of it (bytes, snapshot and write seconds)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    tmp = tempfile.mkdtemp(prefix="repro_phase18_")
+    try:
+        trainer = class_incremental_trainer(cfg, rehearsal, ckpt_dir=tmp, resilience=res,
+                                            overrides={"failure_hook": hook} if hook else None)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.fit(num_tasks=tasks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        final = _state_of(os.path.join(tmp, f"step_{tasks - 1:010d}"))
+        carry = timing = None
+        if keep_carry:
+            template = trainer._init(trainer.seed)
+            t0 = time.perf_counter()
+            carry, _ = CheckpointManager(tmp).restore(template)
+            restore = time.perf_counter() - t0
+            mgr = CheckpointManager(os.path.join(tmp, "timed"), async_save=False)
+            mgr.save(0, carry)
+            timing = dict(mgr.last_save, restore_seconds=restore)
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result, launches, final, wall, carry, timing
+
+
+def _prints(result):
+    return [(h["task"], h["step"], h["loss"], h["rep_checksum"], h["buffer_fill"])
+            for h in result.history]
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a)
+
+
+def resilient_case(counters, cfg, name, rehearsal, float_kernels, base_ms):
+    """Cases (a) and (b): a clean resilient fit, then one with a failure
+    injected before step ``RES_FAIL_AT``. Holds: restarts 0 then 1; the
+    histories (loss, ``rep_checksum``, ``buffer_fill``), losses, accuracy
+    matrices and final checkpoints (model, optimizer, buffer, pending slot)
+    bit for bit; update+sample launches (3 a tiered step) and the float
+    kernels' once a step, replayed steps included; restore seconds above 0.
+    When the two runs differ, a second clean run measures the card's own
+    spread: if it differs too, that is reported, the fingerprints are held
+    bit for bit and the losses and the model within that spread."""
+    from repro_torch.configs.base import ResilienceConfig
+
+    res = ResilienceConfig(checkpoint_every=RES_EVERY, max_restarts=2)
+    steps = TASKS_RUN * STEPS_PER_TASK
+    clean, cl_launch, cl_final, cl_wall, _, _ = resilient_fit(counters, cfg, rehearsal, res)
+    chaos, ch_launch, ch_final, ch_wall, carry, timing = resilient_fit(
+        counters, cfg, rehearsal, res, hook=_fail_once(RES_FAIL_AT), keep_carry=True)
+    per_step = 3 if rehearsal.get("tiering") == "host" else 1
+    step_ms = statistics.median(clean.step_seconds) * 1e3
+    print(f"{name}: clean fit {cl_wall:.1f} s, failed fit {ch_wall:.1f} s; restarts "
+          f"{clean.restarts}, {chaos.restarts}; restore {chaos.resilience_stats}; "
+          f"median step {step_ms:.1f} ms (all {[round(t * 1e3, 1) for t in clean.step_seconds]})"
+          f" beside phase 5's {base_ms}")
+    snap, write = timing["snapshot_seconds"] * 1e3, timing["write_seconds"] * 1e3
+    print(f"  checkpoint {timing['bytes'] / 1e9:.3f} GB: save {snap + write:.1f} ms "
+          f"(snapshot {snap:.1f} ms: card to host and host copies; write {write:.1f} ms), "
+          f"restore {timing['restore_seconds'] * 1e3:.1f} ms")
+    print(f"  launches clean {({k: v for k, v in cl_launch.items() if v})}, failed "
+          f"{({k: v for k, v in ch_launch.items() if v})}")
+    want = {k: 0 for k in counters}
+    for run_launches, n in ((cl_launch, steps), (ch_launch, steps + RES_REPLAYED)):
+        w = dict(want, rehearsal_update_sample=per_step * n, **{k: n for k in float_kernels})
+        if run_launches != w:
+            raise AssertionError(f"{name}: expected launches {w}, saw {run_launches}")
+    if clean.restarts != 0 or chaos.restarts != 1:
+        raise AssertionError(f"{name}: restarts {clean.restarts}, {chaos.restarts}")
+    if not chaos.resilience_stats["restore_seconds"] > 0:
+        raise AssertionError(f"{name}: restore_seconds {chaos.resilience_stats}")
+    if not all(math.isfinite(x) for x in clean.losses + chaos.losses):
+        raise AssertionError(f"{name}: non-finite losses {clean.losses} {chaos.losses}")
+    same = (_prints(clean) == _prints(chaos) and clean.losses == chaos.losses
+            and np.array_equal(clean.accuracy_matrix, chaos.accuracy_matrix)
+            and cl_final[0] == ch_final[0])
+    if same:
+        print(f"  failed run == clean run bit for bit: {len(clean.history)} history "
+              f"entries, {steps} losses, the accuracy matrix and all "
+              f"{len(cl_final[0])} arrays of the final checkpoint")
+    else:
+        again = resilient_fit(counters, cfg, rehearsal, res)
+        spread = max(abs(a - b) for a, b in zip(clean.losses, again[0].losses))
+        p_spread = _max_diff(cl_final[1], again[2][1])
+        print(f"  FINDING: the failed run differs from the clean one; two clean runs "
+              f"differ by {spread:.3e} in loss and {p_spread:.3e} in the model")
+        if spread == 0 and p_spread == 0:
+            raise AssertionError(f"{name}: the clean runs agree bit for bit, the failed "
+                                 f"run does not: {_prints(clean)} vs {_prints(chaos)}")
+        fp = [(t, s, c, f) for t, s, _, c, f in _prints(clean)]
+        if fp != [(t, s, c, f) for t, s, _, c, f in _prints(chaos)]:
+            raise AssertionError(f"{name}: fingerprints differ: {_prints(chaos)}")
+        loss_d = max(abs(a - b) for a, b in zip(clean.losses, chaos.losses))
+        par_d = _max_diff(cl_final[1], ch_final[1])
+        if loss_d > spread or par_d > p_spread:
+            raise AssertionError(f"{name}: failed run off by {loss_d:.3e} (loss), "
+                                 f"{par_d:.3e} (model), beyond the clean spread")
+    return carry, step_ms, cl_launch, ch_launch
+
+
+def record_multiset(state) -> dict:
+    """Each tier's stored records as a multiset of (bucket, sha256 of every
+    leaf's bytes), the labels included."""
+    import collections
+    import hashlib
+
+    from repro_torch.buffer.state import tree_map
+    from repro_torch.buffer.tiered import TieredState
+
+    tiers = {"hot": state.hot, "cold": state.cold} if isinstance(state, TieredState) else {
+        "flat": state}
+    out = {}
+    for tier, buf in tiers.items():
+        counts = buf.counts.tolist()
+        leaves = []
+        tree_map(lambda leaf: leaves.append(leaf), buf.data)
+        bag = collections.Counter()
+        for b, n in enumerate(counts):
+            for s in range(n):
+                h = hashlib.sha256()
+                for leaf in leaves:
+                    h.update(leaf[b, s].detach().cpu().numpy().tobytes())
+                bag[(b, h.hexdigest())] += 1
+        out[tier] = bag
+    return out
+
+
+def scale_case(carry, policy: str, what: str):
+    """Case (d): ``scale_carry`` 1 -> 2 -> 1 of a restored carry: every
+    record kept (a multiset per tier), the cold tier still pinned."""
+    from repro_torch.buffer.tiered import TieredState
+    from repro_torch.runtime import scale_carry
+
+    def pooled(carries):
+        out = {}
+        for c in carries:
+            for tier, bag in record_multiset(c.buffer).items():
+                out[tier] = out.get(tier, bag - bag) + bag
+        return out
+
+    before = pooled([carry])
+    two, s_grow = scale_carry([carry], 2, policy=policy)
+    one, s_shrink = scale_carry(two, 1, policy=policy)
+    n = sum(sum(b.values()) for b in before.values())
+    if pooled(two) != before or pooled(one) != before:
+        raise AssertionError(f"{what}: records changed across 1 -> 2 -> 1")
+    if isinstance(carry.buffer, TieredState):
+        for c in two + one:
+            for leaf in c.buffer.cold.data.values():
+                if not all(t.is_pinned() for t in leaf.values()):
+                    raise AssertionError(f"{what}: the cold tier left pinned memory")
+    print(f"{what}: scale_carry 1 -> 2 in {s_grow * 1e3:.1f} ms, 2 -> 1 in "
+          f"{s_shrink * 1e3:.1f} ms; all {n} records kept "
+          f"({({t: sum(b.values()) for t, b in before.items()})})")
+
+
+def online_resilient(counters, persistent: bool):
+    """Case (e): ``OnlineLearner`` at SmolLM-135M full width on the serve
+    CLI's ``--online`` run, ``RES_ONLINE_ROUNDS`` rounds, checkpoints every
+    step. Transient: a failure before step 1, absorbed by a restart, every
+    round trained. Persistent: every step from 1 fails, the budget is spent,
+    every round is still served and serving ends on the last checkpoint's
+    weights bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ResilienceConfig
+    from repro_torch.runtime import InjectedFailure
+    from repro_torch.serving import OnlineLearner
+
+    run = online_run("smollm-135m")
+    run = dataclasses.replace(
+        run, online=dataclasses.replace(run.online, rounds=RES_ONLINE_ROUNDS),
+        resilience=ResilienceConfig(checkpoint_every=1, max_restarts=1 if persistent else 2))
+
+    def dead(step):
+        if step >= 1:
+            raise InjectedFailure(f"train step {step} down")
+
+    tmp = tempfile.mkdtemp(prefix="repro_phase18_online_")
+    try:
+        learner = OnlineLearner(run, ckpt_dir=tmp,
+                                failure_hook=dead if persistent else _fail_once(1))
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = learner.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        trained = [int(h["trained"]) for h in res.history]
+        name = "persistent" if persistent else "transient"
+        print(f"online, {name} failure: restarts {res.restarts}, trained {trained}, "
+              f"freshness {[int(h['freshness']) for h in res.history]}, train disabled "
+              f"{res.train_disabled}, launches {({k: v for k, v in launches.items() if v})}, "
+              f"{seconds:.1f} s")
+        if launches != dict({k: 0 for k in counters}, rehearsal_update_sample=sum(trained)):
+            raise AssertionError(f"online {name}: launches {launches}")
+        if len(res.history) != RES_ONLINE_ROUNDS:
+            raise AssertionError(f"online {name}: {len(res.history)} rounds served")
+        if persistent:
+            if not res.train_disabled or trained != [1] + [0] * (RES_ONLINE_ROUNDS - 1):
+                raise AssertionError(f"online persistent: trained {trained}")
+            last, meta = CheckpointManager(os.path.join(tmp, "resilient")).restore(
+                learner.trainer._init(learner.trainer.seed))
+            if not _same_weights(res.params.state_dict(), last.params.state_dict()):
+                raise AssertionError("online persistent: serving is not the last checkpoint")
+            print(f"  serving == the last checkpoint's weights (step {meta['step']}) bit for bit")
+        elif res.restarts < 1 or res.train_disabled or trained != [1] * RES_ONLINE_ROUNDS:
+            raise AssertionError(f"online transient: restarts {res.restarts}, trained {trained}")
+        del learner, res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli_resilient(counters):
+    """Case (f): ``launch.train.main`` at SmolLM-135M full width, 1 task x 4
+    steps, with ``--ckpt-dir --resilience --resilience-checkpoint-every 2``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+
+    tmp = tempfile.mkdtemp(prefix="repro_phase18_cli_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        res = train.main(["--arch", "smollm-135m", "--tasks", "1", "--steps-per-task", "4",
+                          "--ckpt-dir", tmp, "--resilience",
+                          "--resilience-checkpoint-every", "2"])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps = CheckpointManager(os.path.join(tmp, "resilient")).list_steps()
+        print(f"train CLI --resilience: losses {[round(x, 4) for x in res.losses]}, restarts "
+              f"{res.restarts}, stats {res.resilience_stats}, restart checkpoints {steps}, "
+              f"launches {({k: v for k, v in launches.items() if v})}")
+        if (res.restarts or len(res.losses) != 4
+                or not all(math.isfinite(x) for x in res.losses) or steps != [0, 2, 4]
+                or launches != dict({k: 0 for k in counters}, rehearsal_update_sample=4)):
+            raise AssertionError(f"train CLI --resilience: {res.losses}, {steps}, {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resilient_phase(counters, cfg, fused_runs: dict):
+    """Phase 18, in deterministic mode: (a) flat and (b) fused tiered
+    restarts, (c) stale steps, (d) scale, (e) online, (f) the train CLI.
+    Returns each run's launches by kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ResilienceConfig
+    from repro_torch.runtime import TRANSIENT_EXCEPTIONS
+
+    print(f"card: {gpu_name_and_power()}; free disk under {tempfile.gettempdir()}: "
+          f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f} GB (a flat checkpoint "
+          f"is about 1.3 GB, and a run keeps up to 3 + {TASKS_RUN})")
+    print(f"retried: {[e.__name__ for e in TRANSIENT_EXCEPTIONS]}")
+    base = fused_runs.get("flat")
+    base_ms = f"{base[2]:.1f} ms" if base else "not run"
+    launches = {}
+    with deterministic_mode() as caught:
+        flat, flat_ms, launches["flat_clean"], launches["flat_failed"] = resilient_case(
+            counters, cfg, "(a) flat", FLAT, (), base_ms)
+        tiered, _, launches["tiered_fused_clean"], launches["tiered_fused_failed"] = \
+            resilient_case(counters, cfg, "(b) tiered, fused kernels", tiered_rehearsal(True),
+                           ("gather_dequant_rows", "encode_scatter_rows"), base_ms)
+        if not all(t.is_pinned() for leaf in tiered.buffer.cold.data.values()
+                   for t in leaf.values()):
+            raise AssertionError("(b): the restored cold tier is not in pinned memory")
+        print("(b): the restored cold tier is in pinned memory")
+        stale = ResilienceConfig(checkpoint_every=RES_EVERY, max_restarts=2,
+                                 straggler_delay_prob=0.5, max_staleness=2)
+        result, launches["stale"], _, wall, _, _ = resilient_fit(counters, cfg, FLAT, stale,
+                                                                 tasks=1)
+        n_stale, fresh = (int(result.resilience_stats["stale_steps"]),
+                          launches["stale"]["rehearsal_update_sample"])
+        steps = STEPS_PER_TASK
+        print(f"(c) stale steps: {n_stale} of {steps}, update+sample launches {fresh}, "
+              f"losses {result.losses}, {wall:.1f} s")
+        if (not n_stale > 0 or fresh != steps - n_stale
+                or not all(math.isfinite(x) for x in result.losses)):
+            raise AssertionError(f"(c): stale {n_stale}, launches {launches['stale']}")
+        scale_case(flat, "reservoir", "(d) flat")
+        scale_case(tiered, "reservoir", "(d) tiered")
+        del flat, tiered
+        torch.cuda.empty_cache()
+        launches["online_transient"] = online_resilient(counters, persistent=False)
+        launches["online_persistent"] = online_resilient(counters, persistent=True)
+        launches["train_cli"] = train_cli_resilient(counters)
+    ops = sorted({str(w.message).split(" does not")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    print(f"ops without a deterministic implementation on this path: {ops or 'none'}")
+    print(f"median resilient flat step {flat_ms:.1f} ms beside phase 5's {base_ms}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-17), and print no result lines")
+                    help="run phases 1, 2 and these only (3-18), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -2755,6 +3193,10 @@ def main(argv=None):
         phase("17 the domain-incremental and blurry-boundary scenarios on the main path")
         vision_scenario_phase(counters, cfg, fused_runs)
 
+    if run(18):
+        phase("18 the resilient main path: checkpoints, restarts, stale steps, scale")
+        res_launches = resilient_phase(counters, cfg, fused_runs)
+
     tf32_off()
     if run(8):
         phase("8 flash attention against its plain version")
@@ -2804,6 +3246,9 @@ def main(argv=None):
     for e in [entry] + int8_entries:
         e["launches_lm_train"] = {name: n[e["name"]] for name, n in lm_launches.items()
                                   if n[e["name"]]}
+        # phase 18's runs, each counted from 0 (failed runs: replays included)
+        e["launches_resilient"] = {name: n[e["name"]] for name, n in res_launches.items()
+                                   if n[e["name"]]}
     # phase 11's launches a forward: SmolLM-135M's, then every arch's
     flash_entry["launches"] = launches["smollm-135m"][1]
     flash_entry["launches_by_arch"] = {a: n for a, (k, n) in launches.items()

@@ -3,8 +3,8 @@ training and the run itself.
 
 The port's own copy of the fields of ``repro.configs.base`` that the ported
 slices read: the rehearsal trainer and its scenarios, the language-model
-path (``ModelConfig``, ``reduce_model``) and online serving
-(``OnlineConfig``). Field names, defaults and validation match the
+path (``ModelConfig``, ``reduce_model``), online serving
+(``OnlineConfig``) and the fault-tolerant loop (``ResilienceConfig``). Field names, defaults and validation match the
 reference, so a config written for one package reads the same in the other.
 """
 from __future__ import annotations
@@ -350,6 +350,38 @@ class OnlineConfig:
 
 
 @dataclass(frozen=True)
+class ResilienceConfig:
+    """Knobs of the fault-tolerant training loop (``runtime.ResilientLoop``).
+
+    ``ContinualTrainer(resilience=...)`` wraps each task's step loop in a
+    ``ResilientLoop``: periodic full-carry checkpoints and a cursor rewind give
+    a bit-exact restart after a failure (the stream and every key are pure
+    functions of (seed, step)), transient exceptions get bounded retry with
+    exponential backoff, and a wall-clock step timeout feeds the
+    ``StragglerPolicy`` bounded-staleness reuse path instead of blocking."""
+
+    checkpoint_every: int = 25  # steps between periodic full-carry snapshots
+    max_restarts: int = 3  # bounded retry: restarts beyond this re-raise
+    backoff_base: float = 0.0  # s; restart r sleeps min(max, base * 2**(r-1))
+    backoff_max: float = 30.0
+    # Wall-clock step budget (seconds); a step exceeding it marks the next
+    # step's exchange as straggling, and the trainer reuses the pending
+    # representatives instead of waiting. 0 disables the timeout.
+    step_timeout: float = 0.0
+    straggler_delay_prob: float = 0.0  # simulated late-exchange probability
+    max_staleness: int = 4  # bound on consecutive representative reuses
+    # True: retry the transient set (``runtime.TRANSIENT_EXCEPTIONS``).
+    # False: only InjectedFailure (chaos hooks) is retried.
+    retry_transient: bool = True
+
+    def __post_init__(self):
+        if self.checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
+        if self.max_restarts < 0:
+            raise ValueError(f"max_restarts must be >= 0, got {self.max_restarts}")
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Everything one run needs. ``model=None`` lets the scenario supply its
     default model (the reduced CNN)."""
@@ -360,11 +392,15 @@ class RunConfig:
     # Strategy hyper-parameters; the strategy name is ScenarioConfig.strategy.
     strategy: StrategyConfig = StrategyConfig()
     scenario: ScenarioConfig = ScenarioConfig()
-    # Fault-tolerant loop config; the port does not have it yet and the
-    # trainer raises when it is set.
-    resilience: Optional[Any] = None
+    # None: no fault-tolerant loop; a ResilienceConfig turns on checkpointed
+    # restart and bounded-staleness straggler handling in ContinualTrainer.
+    resilience: Optional[ResilienceConfig] = None
     # Online continual serving (``repro_torch.serving.OnlineLearner``).
     online: OnlineConfig = OnlineConfig()
+    # Pipeline race sanitizer (``runtime.sanitizer``): checks the one-step-
+    # stale slot discipline on the host; values are bit-identical on or off.
+    # Also armed by REPRO_SANITIZE=1.
+    sanitize: bool = False
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

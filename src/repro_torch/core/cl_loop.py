@@ -7,7 +7,7 @@ The loop itself lives in ``repro_torch.scenario.trainer.ContinualTrainer``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,6 +20,11 @@ class CLRunResult:
     task_runtimes: List[float]
     final_accuracy: float  # Eq. 1 at the end of training
     history: List[Dict[str, float]] = field(default_factory=list)
+    # Resilience (ContinualTrainer(resilience=...)): restarts absorbed, and
+    # the ResilientLoop's per-fit counters summed over tasks (restarts,
+    # stale_steps, restore_seconds); None without resilience.
+    restarts: int = 0
+    resilience_stats: Optional[Dict[str, float]] = None
     # Per-step records of the port's trainer: the loss of every step, the
     # host wall time of every step (from the batch fetch to the loss on the
     # host) and the part of it spent waiting on the prefetcher.

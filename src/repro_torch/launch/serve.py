@@ -15,6 +15,8 @@ traffic is admitted into the rehearsal buffer, and train steps between the
 rounds keep the served weights current. As in the reference, it serves the
 reduced 2-layer LM over a vocab of 128 (``--arch`` and ``--reduced`` do not
 apply) on one device: a ``--mesh`` other than 1x1 is logged and ignored.
+``--ckpt-dir`` gives the learner its checkpoint directory, where a resilient
+run (``RunConfig.resilience``) keeps its restart checkpoints.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def parse_args(argv=None):
                     help="--online: train steps interleaved per round")
     ap.add_argument("--phases", type=int, default=3,
                     help="--online: anchor distributions the traffic drifts across")
-    ap.add_argument("--ckpt-dir", default="", help="not ported yet")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="--online: the learner's checkpoint directory")
     ap.add_argument("--obs", default="", metavar="DIR", help="not ported yet")
     ap.add_argument("--metrics-port", type=int, default=-1, metavar="PORT",
                     help="not ported yet")
@@ -63,17 +66,15 @@ def parse_args(argv=None):
 
 
 # Flags the port does not have yet, by ROADMAP Queue 1 item: the mesh (13,
-# ignored under --online as in the reference), checkpointed restarts (10),
-# telemetry (14).
-UNPORTED_ITEMS = {"--mesh": 13, "--ckpt-dir": 10, "--obs": 14, "--metrics-port": 14}
+# ignored under --online as in the reference) and telemetry (14).
+UNPORTED_ITEMS = {"--mesh": 13, "--obs": 14, "--metrics-port": 14}
 
 
 def main(argv=None):
     """Serve once (returns the ``GenResult``) or, with ``--online``, run the
     serve/train interleave (returns the ``OnlineResult``)."""
     args = parse_args(argv)
-    given = {"--mesh": args.mesh != "1x1" and not args.online,
-             "--ckpt-dir": bool(args.ckpt_dir), "--obs": bool(args.obs),
+    given = {"--mesh": args.mesh != "1x1" and not args.online, "--obs": bool(args.obs),
              "--metrics-port": args.metrics_port >= 0}
     unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
                 for flag, on in given.items() if on]
@@ -133,8 +134,8 @@ def _serve_online(args):
     if args.mesh != "1x1":
         log.info("--online trains on the single-device carry backend; --mesh %s ignored",
                  args.mesh)
-    learner = OnlineLearner(build_online_run(args), serve_dtype=DTYPES[args.dtype],
-                            device=args.device)
+    learner = OnlineLearner(build_online_run(args), ckpt_dir=args.ckpt_dir,
+                            serve_dtype=DTYPES[args.dtype], device=args.device)
     result = learner.run()
     log.info("online: device=%s rounds=%d decode=%.1f tok/s/seq admission=%.2f "
              "freshness=%d restarts=%d acc=%s", learner.trainer.device, args.rounds,

@@ -12,10 +12,18 @@ one device, computing in f32, as the reference sets for one device.
 
 The scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
 the model keeps its full vocabulary, as in the reference. Weights are
-random, drawn from ``--seed``. The options that need a mesh, checkpoints or
-the resilient loop (``--exchange``, ``--ckpt-dir`` and ``--resilience`` with
-their settings) raise ``NotImplementedError`` naming their ROADMAP item
-whenever they are given.
+random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full carry
+after every task; with ``--resilience`` each task's steps run in the
+``ResilientLoop`` (restart checkpoints every ``--resilience-checkpoint-every``
+steps under ``<ckpt-dir>/resilient``, bounded retry with backoff, and
+bounded-staleness reuse past ``--step-timeout``):
+
+    python -m repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
+        --tasks 1 --steps-per-task 4 --ckpt-dir /tmp/ck --resilience
+
+The options that need a mesh (``--mesh`` other than 1x1, ``--exchange`` and
+``--ckpt-every``, which only the pjit backend reads) raise
+``NotImplementedError`` naming their ROADMAP item whenever they are given.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import time
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import (
     RehearsalConfig,
+    ResilienceConfig,
     RunConfig,
     ScenarioConfig,
     StrategyConfig,
@@ -37,12 +46,9 @@ log = logging.getLogger("repro_torch.train")
 
 # Options of the reference's CLI that the port has not yet, and their items.
 # Each is refused whenever it is given: the exchange has peers only on a mesh,
-# and the checkpoint and restart settings mean something only beside
-# --ckpt-dir or --resilience.
+# and only the pjit backend reads --ckpt-every.
 UNPORTED_ITEMS = {"--mesh": 13, "--exchange": 13, "--exchange pod_local": "2-3",
-                  "--ckpt-dir": 10, "--ckpt-every": 10, "--resilience": 10,
-                  "--resilience-checkpoint-every": 10, "--max-restarts": 10,
-                  "--backoff-base": 10, "--backoff-max": 10, "--step-timeout": 10}
+                  "--ckpt-every": 13}
 
 
 def parse_args(argv=None):
@@ -81,12 +87,21 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
-    ap.add_argument("--resilience", action="store_true", help="not ported yet")
-    for flag, kind in (("--ckpt-every", int), ("--resilience-checkpoint-every", int),
-                       ("--max-restarts", int), ("--backoff-base", float),
-                       ("--backoff-max", float), ("--step-timeout", float)):
-        ap.add_argument(flag, type=kind, default=None, help="not ported yet")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint the full carry after every task")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="not ported yet: only the pjit backend reads it")
+    ap.add_argument("--resilience", action="store_true",
+                    help="run the steps in runtime.ResilientLoop (checkpointed restart; "
+                         "needs --ckpt-dir)")
+    ap.add_argument("--resilience-checkpoint-every", type=int, default=25)
+    ap.add_argument("--max-restarts", type=int, default=3)
+    ap.add_argument("--backoff-base", type=float, default=0.0,
+                    help="restart r sleeps min(backoff-max, base * 2^(r-1)) s")
+    ap.add_argument("--backoff-max", type=float, default=30.0)
+    ap.add_argument("--step-timeout", type=float, default=0.0,
+                    help="wall-clock step budget (s); an overrun flags the next exchange "
+                         "as straggling (bounded-staleness reuse)")
     ap.add_argument("--device", default=None, help="default: the card (cuda)")
     return ap.parse_args(argv)
 
@@ -96,7 +111,7 @@ def check_ported(args) -> None:
     that was given, naming each with its ROADMAP Queue 1 item."""
     given = {flag: getattr(args, flag[2:].replace("-", "_")) is not None
              for flag in UNPORTED_ITEMS if " " not in flag}
-    given.update({"--mesh": args.mesh != "1x1", "--resilience": args.resilience,
+    given.update({"--mesh": args.mesh != "1x1",
                   "--exchange": args.exchange in ("full", "local"),
                   "--exchange pod_local": args.exchange == "pod_local"})
     unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
@@ -124,7 +139,12 @@ def build_run(args) -> RunConfig:
             num_tasks=args.tasks, epochs_per_task=1, steps_per_epoch=args.steps_per_task,
             batch_size=args.global_batch, seed=args.seed,
             vocab_size=min(cfg.vocab_size, 2048), seq_len=args.seq_len,
-            auto_defaults=False))  # the CLI's rehearsal flags are authoritative
+            auto_defaults=False),  # the CLI's rehearsal flags are authoritative
+        resilience=ResilienceConfig(
+            checkpoint_every=args.resilience_checkpoint_every,
+            max_restarts=args.max_restarts, backoff_base=args.backoff_base,
+            backoff_max=args.backoff_max,
+            step_timeout=args.step_timeout) if args.resilience else None)
 
 
 def main(argv=None):
@@ -133,7 +153,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     run = build_run(args)
     cfg, strategy = run.model, run.scenario.strategy
-    trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario), device=args.device)
+    trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario), device=args.device,
+                               ckpt_dir=args.ckpt_dir)
     log.info("arch=%s params=%.1fM device=%s mode=%s strategy=%s", cfg.name,
              cfg.param_count() / 1e6, trainer.device, args.mode, strategy)
     if strategy in ("der", "der_pp") and args.der_top_k:
@@ -154,6 +175,10 @@ def main(argv=None):
         for j in range(task + 1):
             log.info("eval after task %d on task %d: loss=%.4f", task, j,
                      res.accuracy_matrix[task, j])
+    if res.resilience_stats is not None:
+        log.info("resilience: restarts=%d stale_steps=%d restore=%.3fs", res.restarts,
+                 int(res.resilience_stats.get("stale_steps", 0)),
+                 res.resilience_stats.get("restore_seconds", 0.0))
     log.info("done: %d steps in %.1fs", args.tasks * args.steps_per_task,
              time.time() - t_start)
     return res

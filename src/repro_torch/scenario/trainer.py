@@ -10,6 +10,8 @@
         │  (step_form='split': make_pipelined_halves, the issue half on its
         │   own CUDA stream)
         ├─ Prefetcher                               # background Load stage
+        ├─ ResilientLoop + CheckpointManager        # resilience=: restarts,
+        │                                           # stale steps; per-task saves
         └─ accuracy-matrix evaluation               # paper Eq. (1)
 
 The model is the scenario's ``nn.Module``: the CNN of the vision scenario,
@@ -19,14 +21,15 @@ plain mixers with autograd. The buffer buckets by the scenario's
 while the loss reads ``"labels"``).
 
 The reference's other options are not ported yet and raise: ``mesh`` (the
-pjit backend, ROADMAP Queue 1 item 13), ``resilience`` and ``ckpt_dir``
-(item 10) and ``obs`` (item 14).
+pjit backend, ROADMAP Queue 1 item 13) and ``obs`` (item 14).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -58,26 +61,51 @@ class ContinualTrainer:
       step_form: ``'fused'`` (one call a step) or ``'split'`` (the train half,
         then the issue half on its own CUDA stream; the pipelined
         ``rehearsal`` strategy only, as in the reference).
+      ckpt_dir: checkpoints of the full carry (model, optimizer, buffer with
+        its policy aux, pending slot) after every task, as ``step_<task>``.
+      ckpt_every: read only by the pjit backend (ROADMAP Queue 1 item 13);
+        accepted, as in the reference.
+      resilience: a ``ResilienceConfig`` (or None; ``run.resilience`` is the
+        config-file spelling) runs each task's steps in a
+        ``runtime.ResilientLoop``: periodic full-carry checkpoints under
+        ``ckpt_dir/resilient`` and a cursor rewind give a bit-exact restart
+        after a transient failure, and the wall-clock ``step_timeout`` feeds
+        the bounded-staleness straggler path (the plain pipelined rehearsal
+        step only). Needs ``ckpt_dir`` and ``step_form='fused'``.
+      overrides: ``{"failure_hook": fn}``, the chaos injection point: called
+        with the absolute step id before each resilient step.
     The trainer is one process, so the rehearsal exchange has no peers.
     """
 
     def __init__(self, run: RunConfig, scenario=None, *, device=None,
                  strategy: Optional[str] = None, mesh=None, step_form: str = "fused",
-                 resilience=None, ckpt_dir: str = "", obs=None):
+                 resilience=None, ckpt_dir: str = "", ckpt_every: int = 0, obs=None,
+                 overrides: Optional[Dict[str, Any]] = None):
         from repro_torch.optim import make_optimizer
+        from repro_torch.runtime.sanitizer import sanitize_enabled
         from repro_torch.strategy import (STRATEGIES, get_strategy, make_cl_step,
-                                          make_pipelined_halves)
+                                          make_pipelined_halves, make_stale_step)
 
         if mesh is not None:
             _not_ported("the mesh (pjit) backend", 13)
         if step_form not in ("fused", "split"):
             raise ValueError(f"unknown step_form {step_form!r}")
-        if resilience is not None or run.resilience is not None:
-            _not_ported("the resilient loop", 10)
-        if ckpt_dir:
-            _not_ported("checkpointing", 10)
         if obs is not None:
             _not_ported("telemetry (obs)", 14)
+        unknown = set(overrides or {}) - {"failure_hook"}
+        if unknown:
+            raise TypeError(f"unknown trainer overrides: {sorted(unknown)}")
+        self._failure_hook = (overrides or {}).get("failure_hook")
+        self.resilience = resilience if resilience is not None else run.resilience
+        if self.resilience is not None and not ckpt_dir:
+            raise ValueError("resilience= needs ckpt_dir: the ResilientLoop's restart "
+                             "path restores from ckpt_dir/resilient")
+        if self.resilience is not None and step_form != "fused":
+            raise ValueError("resilience= needs step_form='fused': the split form's two "
+                             "halves have no single step the ResilientLoop can retry "
+                             "atomically")
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
         self.device = resolve_device(device)
         self.run = run
 
@@ -124,21 +152,35 @@ class ContinualTrainer:
                 f"scenario {self.scenario.name!r} declares bucket field "
                 f"{self.scenario.buffer_task_field!r} but its records only carry "
                 f"{sorted(self.item_spec)}")
-        self._step_fn = self._halves = None
+        # one sanitizer a trainer: the fused, stale and split-half wrappers
+        # share a single slot clock
+        sanitize = sanitize_enabled(run)
+        self._step_fn = self._halves = self._stale_step_fn = None
         if step_form == "split":
             if self.strategy != "rehearsal" or not rcfg.is_pipelined:
                 raise ValueError("step_form='split' needs the single-device "
                                  "pipelined rehearsal path (mode='async')")
             self._halves = make_pipelined_halves(
                 self.loss_fn, opt_update, rcfg, label_field=self.label_field,
-                task_field=self.scenario.buffer_task_field, device=self.device)
+                task_field=self.scenario.buffer_task_field, device=self.device,
+                sanitize=sanitize)
         else:
             self._step_fn = make_cl_step(
                 self.loss_fn, opt_update, rcfg, strategy=self.strat,
                 label_field=self.label_field, task_field=self.scenario.buffer_task_field,
                 compress=run.train.grad_compress, strategy_cfg=self.scfg,
                 forward_outputs=self.forward_outputs, aux_spec=self.aux_spec,
-                device=self.device)
+                device=self.device, sanitize=sanitize)
+        # The bounded-staleness reuse path: only the plain pipelined rehearsal
+        # step carries a pending sample to consume again (tap strategies need
+        # the fresh forward's values); elsewhere a straggling exchange is
+        # waited for, never replaced by another program.
+        if (self.resilience is not None and self.strat.uses_buffer
+                and not self.strat.needs_outputs and rcfg.enabled and rcfg.is_pipelined):
+            self._stale_step_fn = make_stale_step(
+                self.loss_fn, opt_update, rcfg, label_field=self.label_field,
+                device=self.device,
+                sanitize=getattr(self._step_fn, "_sanitizer", None) or sanitize)
 
     def _strategy_aux_spec(self):
         """The strategy's extra record field specs (``{}`` without a tap):
@@ -204,22 +246,80 @@ class ContinualTrainer:
                                                      self.label_field))
         return TrainCarry(model, opt, buffer, pipe), metrics
 
+    def _resilient_loop(self, step_fn, stale_step_fn=None):
+        """The ``ResilientLoop`` of ``self.resilience``: its checkpoints live
+        under ``ckpt_dir/resilient`` (global-step ids; the per-task saves use
+        task ids, so the two must not share a directory), and the straggler
+        policy is seeded anew, so that every fit draws the same delays."""
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.runtime.fault_tolerance import (InjectedFailure, ResilientLoop,
+                                                         StragglerPolicy)
+
+        res = self.resilience
+        straggler = None
+        if res.straggler_delay_prob > 0.0 or res.step_timeout > 0.0:
+            straggler = StragglerPolicy(res.straggler_delay_prob, res.max_staleness,
+                                        seed=self.seed)
+        return ResilientLoop(
+            step_fn=step_fn, ckpt=CheckpointManager(os.path.join(self.ckpt_dir, "resilient")),
+            checkpoint_every=res.checkpoint_every, max_restarts=res.max_restarts,
+            retry_on=None if res.retry_transient else (InjectedFailure,),
+            backoff_base=res.backoff_base, backoff_max=res.backoff_max,
+            step_timeout=res.step_timeout, straggler=straggler,
+            stale_step_fn=stale_step_fn)
+
+    def _timed(self, fn, loads: Dict[str, float]):
+        """``fn`` with ``step_seconds`` (from the batch load to the loss on
+        the host, as in the plain loop) and ``prefetch_wait_seconds`` (the
+        batch load: no prefetcher reads ahead of a loop that can rewind) in
+        its metrics; ``loads["last"]`` holds the last load's seconds."""
+
+        @functools.wraps(fn)
+        def step(carry, batch, key):
+            t0 = time.perf_counter()
+            carry, metrics = fn(carry, batch, key)
+            loss = float(metrics["loss"])  # waits for the step's work on the card
+            return carry, dict(metrics, loss=loss, prefetch_wait_seconds=loads["last"],
+                               step_seconds=time.perf_counter() - t0 + loads["last"])
+
+        return step
+
+    def _checkpoint_task(self, task: int, carry, global_step: int, manager):
+        """The full carry: the buffer with its policy aux (and the tiered
+        stage) and the pending slot, so that a restore rebuilds none of them
+        from init."""
+        if manager is not None:
+            manager.save(task, {"params": carry.params, "opt": carry.opt,
+                                "buffer": carry.buffer, "pipe": carry.pipe},
+                         {"task": task, "global_step": global_step})
+
     def fit(self, num_tasks: Optional[int] = None):
         """Train through the first ``num_tasks`` tasks (default: all) and
         return a ``CLRunResult`` (Eq.-1 matrix, runtimes, loss history).
 
         The loss of every step is read back to the host (one synchronisation
         with the card per step) and recorded with the step's wall time and
-        the time it waited on the prefetcher."""
+        the time it waited on the prefetcher. With ``resilience``, the steps
+        run in the ``ResilientLoop``, batches come straight off the
+        cursor-pure stream (a prefetcher's read-ahead cannot be rewound), and
+        the per-step records are those of the committed steps."""
+        from repro_torch.checkpoint import CheckpointManager
         from repro_torch.core.cl_loop import CLRunResult
 
         T = self.num_tasks if num_tasks is None else num_tasks
         if not 1 <= T <= self.num_tasks:
             raise ValueError(f"num_tasks={num_tasks} outside 1..{self.num_tasks}")
+        manager = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
+        rloop, loads = None, {"last": 0.0}
+        if self.resilience is not None:
+            rloop = self._resilient_loop(
+                self._timed(self._step_fn, loads),
+                self._stale_step_fn and self._timed(self._stale_step_fn, loads))
         carry = self._init(self.seed)
         acc = np.zeros((T, T))
         runtimes, history = [], []
         losses, step_seconds, waits = [], [], []
+        res_stats: Dict[str, float] = {}
         global_step = 0
         for task in range(T):
             if self.strat.fresh_params_per_task:
@@ -228,36 +328,61 @@ class ContinualTrainer:
             else:
                 n_steps = self.epochs_per_task * self.steps_per_epoch
             source = self._source(task)
-            pf = Prefetcher(lambda cur, _src=source: _src(cur.step),
-                            cursor=Cursor(task, global_step),
-                            convert=self._to_device, limit=n_steps).start()
             t0 = time.perf_counter()
-            try:
-                for s in range(n_steps):
-                    t_step = time.perf_counter()
-                    _, batch = pf.next()
-                    waits.append(time.perf_counter() - t_step)
-                    record = s % max(1, n_steps // 4) == 0
-                    key = fold_in(self.seed, global_step)
-                    if self._halves is not None:
-                        carry, metrics = self._split_step(carry, batch, key, record)
-                    else:
-                        carry, metrics = self._step_fn(carry, batch, key)
-                    loss = float(metrics["loss"])
-                    step_seconds.append(time.perf_counter() - t_step)
-                    losses.append(loss)
-                    global_step += 1
-                    if record:
-                        history.append(self._history_entry(task, s, loss, metrics))
-            finally:
-                pf.stop()
+            if rloop is not None:
+                def batch_fn(cur, _src=source):
+                    t_load = time.perf_counter()
+                    batch = {k: self._to_device(v) for k, v in _src(cur).items()}
+                    loads["last"] = time.perf_counter() - t_load
+                    return batch
+
+                carry, loop_hist, _ = rloop.run(carry, batch_fn, self.seed, n_steps,
+                                                start_step=global_step,
+                                                failure_hook=self._failure_hook)
+                global_step += n_steps
+                for s, m in enumerate(loop_hist):
+                    losses.append(m["loss"])
+                    step_seconds.append(m["step_seconds"])
+                    waits.append(m["prefetch_wait_seconds"])
+                    if s % max(1, n_steps // 4) == 0:
+                        history.append(self._history_entry(task, s, m["loss"], m))
+                for k, v in rloop.stats.items():
+                    res_stats[k] = res_stats.get(k, 0.0) + v
+            else:
+                pf = Prefetcher(lambda cur, _src=source: _src(cur.step),
+                                cursor=Cursor(task, global_step),
+                                convert=self._to_device, limit=n_steps).start()
+                try:
+                    for s in range(n_steps):
+                        t_step = time.perf_counter()
+                        _, batch = pf.next()
+                        waits.append(time.perf_counter() - t_step)
+                        record = s % max(1, n_steps // 4) == 0
+                        key = fold_in(self.seed, global_step)
+                        if self._halves is not None:
+                            carry, metrics = self._split_step(carry, batch, key, record)
+                        else:
+                            carry, metrics = self._step_fn(carry, batch, key)
+                        loss = float(metrics["loss"])
+                        step_seconds.append(time.perf_counter() - t_step)
+                        losses.append(loss)
+                        global_step += 1
+                        if record:
+                            history.append(self._history_entry(task, s, loss, metrics))
+                finally:
+                    pf.stop()
             self._sync()
             runtimes.append(time.perf_counter() - t0)
             for j in range(task + 1):
                 acc[task, j] = self.eval_fn(carry.params, j)
+            self._checkpoint_task(task, carry, global_step, manager)
 
+        if manager is not None:
+            manager.wait()
         final = float(np.mean(acc[T - 1, :T]))
         return CLRunResult(strategy=self.strategy, accuracy_matrix=acc,
                            task_runtimes=runtimes, final_accuracy=final,
                            history=history, losses=losses, step_seconds=step_seconds,
-                           prefetch_wait_seconds=waits)
+                           prefetch_wait_seconds=waits,
+                           restarts=int(res_stats.get("restarts", 0)),
+                           resilience_stats=res_stats or None)

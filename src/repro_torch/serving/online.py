@@ -14,17 +14,23 @@ optimizer has written some of its tensors therefore never reaches serving,
 which keeps the last handed-off weights bit for bit. The reference gets the
 same guarantee from its undonated carry.
 
-Failure containment, without resilience: any exception on the train side
-disables training for the rest of the run (logged at WARNING), and every
-later round still serves. Freshness is measured in rounds since the last
-weight handoff as the serving step sees it: 1 in steady state, the one-step
-staleness the paper trades for never blocking.
+Failure containment. With ``run.resilience`` (and a ``ckpt_dir``), a
+round's steps run in the trainer's ``ResilientLoop``: a transient failure is
+restored from the round's last checkpoint and replayed, and ``restarts``
+counts the restarts absorbed. When the restart budget is spent, the last
+checkpoint is restored into the carry, serving's copy is refreshed from the
+restored weights, and training is disabled. Without resilience, any
+exception on the train side disables training for the rest of the run.
+Either way it is logged at WARNING, and every later round still serves.
+Freshness is measured in rounds since the last weight handoff as the
+serving step sees it: 1 in steady state, the one-step staleness the paper
+trades for never blocking.
 
-Not ported yet, and refused: the resilient loop and its restart checkpoints
-(``run.resilience``, ``ckpt_dir``; ROADMAP Queue 1 item 10) and the metrics
-registry (``registry``; item 14). The reference's tracer spans, event-bus
-publications and pipeline-sanitizer check wait for the same two items. The
-trainer is one process, so the rehearsal exchange has no peers.
+Not ported yet, and refused: the metrics registry (``registry``; ROADMAP
+Queue 1 item 14). The reference's tracer spans and event-bus publications
+wait for the same item; its check that serving reads live (undonated)
+arrays has no counterpart, since the port donates nothing. The trainer is
+one process, so the rehearsal exchange has no peers.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ class OnlineResult(NamedTuple):
     admission_rate: float  # admitted request rows / served request rows
     freshness_rounds: float  # freshness the final round decoded with (steady state: 1)
     accuracy: List[float]  # per-anchor-phase next-token accuracy at the end
-    restarts: int  # resilient-loop restarts absorbed: always 0 (no resilient loop yet)
+    restarts: int  # restarts the train side's ResilientLoop absorbed
     train_disabled: bool  # True once a train step has failed
     freshness_evals: List[Dict[str, float]]  # periodic drifted-slice evals
     params: Any  # the weights serving ended on (its own copy)
@@ -69,12 +75,13 @@ class OnlineLearner:
         training.
       scenario: optional explicit Scenario (else resolved from ``run``). Must
         be a token scenario whose records carry ``tokens``/``labels`` rows.
-      ckpt_dir: not ported yet (item 10); must be empty.
+      ckpt_dir: the trainer's checkpoint directory; with ``run.resilience``
+        the ``ResilientLoop`` keeps its restart checkpoints under it.
       serve_dtype: compute and cache dtype of the serving forward; training
         keeps ``run.train.compute_dtype``.
       registry: not ported yet (item 14); must be None.
       failure_hook: fault injection point, called with the absolute
-        train-step id before each train step.
+        train-step id before each train step (replayed steps included).
       device: ``None`` (the card) or ``"cpu"``.
     """
 
@@ -85,7 +92,6 @@ class OnlineLearner:
                 "the online gauges (registry) are not ported yet (ROADMAP Queue 1 item 14)")
         self.ocfg = run.online
         self.failure_hook = failure_hook
-        # raises for run.resilience and ckpt_dir (item 10)
         self.trainer = ContinualTrainer(run, scenario, device=device, ckpt_dir=ckpt_dir)
         tr = self.trainer
         if "tokens" not in tr.scenario.item_spec:
@@ -152,14 +158,28 @@ class OnlineLearner:
             carry, metrics = tr._step_fn(carry, records, fold_in(tr.seed, train_step + i))
         return carry, metrics
 
+    def _resilient_round(self, rloop, carry, records, train_step: int):
+        """``train_every`` steps on this round's records in the trainer's
+        ``ResilientLoop`` (the round's first checkpoint is taken at its
+        start); returns the carry, the last step's metrics and the restarts
+        absorbed. Raises when the restart budget is spent."""
+        tr = self.trainer
+        carry, hist, restarts = rloop.run(carry, lambda step: records, tr.seed,
+                                          self.ocfg.train_every, start_step=train_step,
+                                          failure_hook=self.failure_hook)
+        return carry, hist[-1] if hist else {}, restarts
+
     def run(self) -> OnlineResult:
         tr, ocfg = self.trainer, self.ocfg
         carry = tr._init(tr.seed)
         serving = copy.deepcopy(carry.params).requires_grad_(False)  # serving's own weights
+        rloop = None
+        if tr.resilience is not None:
+            rloop = tr._resilient_loop(tr._step_fn, tr._stale_step_fn)
         history: List[Dict[str, float]] = []
         freshness_evals: List[Dict[str, float]] = []
         tok_s: List[float] = []
-        served = admitted = 0
+        served = admitted = restarts = 0
         train_disabled = False
         last_handoff = -1  # the round whose training produced the serving weights
         train_step = 0
@@ -179,12 +199,22 @@ class OnlineLearner:
             if ocfg.enabled and ocfg.train_every > 0 and not train_disabled:
                 records = self._admit_records(req, res)
                 try:
-                    carry, metrics = self._train_round(carry, records, train_step)
+                    if rloop is not None:
+                        carry, metrics, n = self._resilient_round(rloop, carry, records,
+                                                                  train_step)
+                        restarts += n
+                    else:
+                        carry, metrics = self._train_round(carry, records, train_step)
                     loss = float(metrics["loss"])  # waits for the round's steps
                 except Exception as e:  # noqa: BLE001 -- serving must survive the train side
                     train_disabled = True
                     log.warning("online: training disabled at round %d: %s: %s", r,
                                 type(e).__name__, str(e)[:200], exc_info=True)
+                    if rloop is not None:
+                        # the failed step wrote the carry in place: go back to
+                        # the last checkpoint and serve its weights
+                        carry, _ = rloop.ckpt.restore(carry)
+                        self._handoff(serving, carry.params)
                 else:
                     trained = True
                     train_step += ocfg.train_every
@@ -209,6 +239,6 @@ class OnlineLearner:
             decode_tokens_per_second=float(np.mean(tok_s)),
             admission_rate=admitted / served,
             freshness_rounds=history[-1]["freshness"],
-            accuracy=accuracy, restarts=0, train_disabled=train_disabled,
+            accuracy=accuracy, restarts=restarts, train_disabled=train_disabled,
             freshness_evals=freshness_evals, params=serving, carry=carry,
             last_tokens=last_tokens)

@@ -32,6 +32,7 @@ from repro_torch.strategy.step import (
     init_carry,
     make_cl_step,
     make_pipelined_halves,
+    make_stale_step,
     rep_checksum,
 )
 
@@ -40,6 +41,6 @@ __all__ = [
     "IncrementalStrategy", "PipelinedRehearsalCarry", "RehearsalStrategy", "STRATEGIES",
     "Strategy", "TrainCarry", "attach_logits", "batch_rows", "ce_from_outputs", "der_loss",
     "distill_mse", "get_strategy", "init_carry", "make_cl_step", "make_der_loss",
-    "make_pipelined_halves", "make_tap_ce_loss", "mask_rows", "outputs_row_spec",
+    "make_pipelined_halves", "make_stale_step", "make_tap_ce_loss", "mask_rows", "outputs_row_spec",
     "register_strategy", "rep_checksum", "resolve_strategy",
 ]

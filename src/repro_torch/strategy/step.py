@@ -169,6 +169,7 @@ def make_cl_step(
     forward_outputs: Optional[Callable] = None,
     aux_spec=None,
     device=None,
+    sanitize=None,
 ):
     """Build ``step(carry, batch, key, rows=None) -> (carry, metrics)``.
 
@@ -192,6 +193,11 @@ def make_cl_step(
     (their extra record field specs, from ``Strategy.record_fields``) and a
     ``StrategyConfig`` in ``strategy_cfg``; they run the pipelined path only
     (``mode='async'``).
+
+    ``sanitize`` arms the pipeline race sanitizer (``runtime.sanitizer``):
+    True, an existing ``PipelineRaceSanitizer`` to share its slot clock, or
+    None to follow ``REPRO_SANITIZE``. Host-side bookkeeping only: the
+    step's values are bit-identical with it on or off.
     """
     try:
         strat = resolve_strategy(strategy)
@@ -290,6 +296,62 @@ def make_cl_step(
             metrics = _mean_over(group, n_workers, metrics)
         return TrainCarry(model, opt, buf, pipe, ef), metrics
 
+    from repro_torch.runtime.sanitizer import resolve_sanitizer, wrap_fused_step
+
+    san = resolve_sanitizer(sanitize, "cl_step")
+    if san is not None:
+        step = wrap_fused_step(step, san, pipelined=pipelined)
+    return step
+
+
+def make_stale_step(
+    loss_fn: Callable,
+    opt_update: Callable,
+    rcfg,
+    *,
+    label_field: Optional[str] = None,
+    device=None,
+    sanitize=None,
+):
+    """The bounded-staleness step (single process): the optimizer step of
+    the pipelined ``make_cl_step``, but the rehearsal exchange is presumed
+    late, so it consumes the carried pending representatives *again* and
+    leaves the buffer and the pipe untouched (no push, no sample, no
+    exchange). This is the ``StragglerPolicy`` reuse path: training never
+    waits on the rehearsal service; the same pending slot serves one more
+    step. Skipping the push is deliberate: Alg-1's accounting and the
+    sampling lineage both advance per exchange, so the next fresh step
+    rejoins the lineage as if the slow step had merely taken long.
+
+    ``step(carry, batch, key) -> (carry, metrics)``, with ``stale_step`` 1.0
+    in the metrics. Plain rehearsal only. ``sanitize`` as in
+    ``make_cl_step``; pass the fused step's sanitizer so that a stale
+    re-consume is checked on the same slot clock."""
+    label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "label")
+    device = resolve_device(device)
+
+    def step(carry: TrainCarry, batch, key: int):
+        model, pipe = carry.params, carry.pipe
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        train_reps, train_valid = rdist.consume_reps(
+            rdist.PendingSample(pipe.reps, pipe.valid), label_field)
+        train_batch = rb.augment_batch(batch, train_reps, train_valid, label_field)
+        opt, loss, aux_metrics, opt_metrics = _train(model, carry.opt, opt_update, loss_fn,
+                                                     train_batch)
+        metrics = dict(
+            {k: v.detach() if isinstance(v, torch.Tensor) else v
+             for k, v in aux_metrics.items()}, **opt_metrics, loss=loss.detach(),
+            stale_step=torch.ones((), device=device),
+            buffer_fill=buffer_api.buffer_fill(carry.buffer).float(),
+            rep_checksum=rep_checksum(train_reps, train_valid, label_field))
+        # the buffer and the pipe pass through: the pending sample stays pending
+        return TrainCarry(model, opt, carry.buffer, pipe, carry.ef), metrics
+
+    from repro_torch.runtime.sanitizer import resolve_sanitizer, wrap_stale_step
+
+    san = resolve_sanitizer(sanitize, "stale_step")
+    if san is not None:
+        step = wrap_stale_step(step, san)
     return step
 
 
@@ -326,6 +388,7 @@ def make_pipelined_halves(
     label_field: Optional[str] = None,
     task_field: Optional[str] = None,
     device=None,
+    sanitize=None,
 ):
     """The pipelined step as two separately dispatched calls (single process):
 
@@ -353,9 +416,9 @@ def make_pipelined_halves(
     ``issue_half.stream`` is None.
 
     Plain rehearsal only, ``rcfg.is_pipelined``, as in the reference: tap
-    strategies need the fused form. The reference's sanitizer hook
-    (``wrap_halves``) belongs to the runtime (ROADMAP Queue 1 item 10) and
-    is not here."""
+    strategies need the fused form. ``sanitize`` as in ``make_cl_step``: the
+    two halves then share one slot clock (``runtime.sanitizer.wrap_halves``),
+    the issue logged when its half is dispatched."""
     if rcfg is None or not rcfg.is_pipelined:
         raise ValueError("make_pipelined_halves needs the pipelined rehearsal path "
                          "(mode='async')")
@@ -408,4 +471,9 @@ def make_pipelined_halves(
 
     issue_half.stream = None if side is None else side.stream
     issue_half.join = (lambda: None) if side is None else side.wait_issued
+    from repro_torch.runtime.sanitizer import resolve_sanitizer, wrap_halves
+
+    san = resolve_sanitizer(sanitize, "pipelined_halves")
+    if san is not None:
+        return wrap_halves(train_half, issue_half, san)
     return train_half, issue_half

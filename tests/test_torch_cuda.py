@@ -1023,3 +1023,124 @@ def test_adamw_on_the_card_matches_the_cpu(cuda):
             assert (params["cuda"][k].cpu() - want).abs().max() <= 1e-6 * want.abs().max()
             assert torch.allclose(states["cuda"].nu[k].cpu(), states["cpu"].nu[k], rtol=1e-6,
                                   atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints and the resilient loop on the card
+# ---------------------------------------------------------------------------
+
+
+def _vision_run(tiered, fused=False):
+    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+                                          TrainConfig)
+
+    rk = dict(tiering="host", hot_slots=3, cold_slots=9, fused_kernels=fused) if tiered else {}
+    return RunConfig(
+        train=TrainConfig(optimizer="sgd", peak_lr=0.05, warmup_steps=5, linear_scaling=False),
+        rehearsal=RehearsalConfig(num_buckets=4, slots_per_bucket=6, num_representatives=3,
+                                  num_candidates=6, mode="async", label_field="label",
+                                  policy="fifo", **rk),
+        scenario=ScenarioConfig(num_tasks=2, epochs_per_task=1, steps_per_epoch=8,
+                                batch_size=8, image_size=8, classes_per_task=4,
+                                auto_defaults=False))
+
+
+@pytest.mark.cuda
+def test_snapshot_on_the_card_waits_for_its_writers_and_never_aliases(cuda, tmp_path):
+    """A card tensor still being written by a queued kernel and a pinned
+    table written by a queued copy: the snapshot holds their values after
+    that work, and writing them right after ``save`` returns changes
+    nothing the checkpoint holds."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    a = torch.randn(2048, 2048, device=cuda)
+    dev = a @ a  # queued
+    pinned = torch.zeros(2048, 2048).pin_memory()
+    pinned.copy_(dev, non_blocking=True)  # queued behind the product
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"dev": dev, "pinned": pinned})
+    want = dev.cpu()
+    assert torch.equal(pinned, want)
+    dev.zero_()
+    pinned.zero_()
+    mgr.wait()
+    template = {"dev": torch.zeros_like(dev), "pinned": torch.zeros(2048, 2048).pin_memory()}
+    got, _ = mgr.restore(template)
+    assert got["pinned"].is_pinned() and got["dev"].device.type == "cuda"
+    assert torch.equal(got["dev"].cpu(), want) and torch.equal(got["pinned"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_tiered_carry_restores_in_place_pinned_and_continues(cuda, fused, tmp_path):
+    """A tiered carry on the card saved at step 6 and restored into a fresh
+    carry: the cold tier is still in pinned memory (the int8 kernels refuse
+    pageable tables), every tensor keeps its device, and the continued run's
+    fingerprints and launches equal the uninterrupted run's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import snapshot
+    from repro_torch.rng import fold_in
+    from repro_torch.scenario import ContinualTrainer
+
+    tr = ContinualTrainer(_vision_run(True, fused), device=cuda)
+
+    def advance(carry, start, end):
+        out = []
+        for s in range(start, end):
+            carry, m = tr._step_fn(carry, tr._source(int(s >= 4))(s), fold_in(5, s))
+            out.append((float(m["rep_checksum"]), float(m["buffer_fill"])))
+        return carry, out
+
+    ref, ref_prints = advance(tr._init(tr.seed), 0, 10)
+    half, _ = advance(tr._init(tr.seed), 0, 6)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(6, half)
+    template = tr._init(tr.seed)
+    restored, _ = mgr.restore(template)
+    for leaf in restored.buffer.cold.data.values():
+        for t in leaf.values():
+            assert t.is_pinned() and t.device.type == "cpu"
+    assert restored.buffer.hot.counts.device.type == "cuda"
+    assert next(restored.params.parameters()).device.type == "cuda"
+    before = ops.rehearsal_update_sample.launches
+    resumed, prints = advance(restored, 6, 10)
+    assert ops.rehearsal_update_sample.launches - before == 3 * 4
+    assert prints == ref_prints[6:]
+    saved, ref_state = snapshot(resumed)[0], snapshot(ref)[0]
+    for k, v in ref_state.items():
+        if "buffer" in k or "pipe" in k:
+            assert np.array_equal(saved[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiered", [False, True], ids=["flat", "tiered"])
+def test_resilient_fit_on_the_card_replays_a_failure(cuda, tiered, tmp_path):
+    """A failure injected at step 11 on the card: one restart, the same
+    ``rep_checksum`` / ``buffer_fill`` history as the clean run, losses at
+    rtol 1e-4 (cuDNN may pick another algorithm on a replay), and one
+    update+sample launch per executed step (3 tiered), replays included."""
+    from repro_torch.configs.base import ResilienceConfig
+    from repro_torch.runtime import InjectedFailure
+    from repro_torch.scenario import ContinualTrainer
+
+    res = ResilienceConfig(checkpoint_every=3, max_restarts=2)
+    clean = ContinualTrainer(_vision_run(tiered), device=cuda, ckpt_dir=str(tmp_path / "c"),
+                             resilience=res).fit()
+    fired = []
+
+    def hook(step):
+        if step == 11 and not fired:
+            fired.append(step)
+            raise InjectedFailure("simulated preemption")
+
+    before = ops.rehearsal_update_sample.launches
+    chaotic = ContinualTrainer(_vision_run(tiered), device=cuda,
+                               ckpt_dir=str(tmp_path / "x"), resilience=res,
+                               overrides={"failure_hook": hook}).fit()
+    replayed = 11 - 9  # restored at step 9
+    assert ops.rehearsal_update_sample.launches - before == (3 if tiered else 1) * (
+        16 + replayed)
+    assert clean.restarts == 0 and chaotic.restarts == 1
+    assert [(h["rep_checksum"], h["buffer_fill"]) for h in chaotic.history] == [
+        (h["rep_checksum"], h["buffer_fill"]) for h in clean.history]
+    np.testing.assert_allclose(chaotic.losses, clean.losses, rtol=1e-4, atol=0)

@@ -511,18 +511,51 @@ def test_train_cli_run_config_is_the_references_at_one_device():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "item 13"), (["--ckpt-dir", "/nonexistent"], "item 10"),
-    (["--resilience"], "item 10"), (["--exchange", "pod_local"], "item 2-3"),
+    (["--mesh", "2x1"], "item 13"), (["--exchange", "pod_local"], "item 2-3"),
     (["--exchange", "full"], "item 13"), (["--exchange", "local"], "item 13"),
-    (["--ckpt-every", "100"], "--ckpt-every .*item 10"),
-    (["--resilience-checkpoint-every", "25"], "--resilience-checkpoint-every .*item 10"),
-    (["--max-restarts", "3"], "--max-restarts .*item 10"),
-    (["--backoff-base", "0"], "--backoff-base .*item 10"),
-    (["--backoff-max", "30"], "--backoff-max .*item 10"),
-    (["--step-timeout", "0"], "--step-timeout .*item 10")])
+    (["--ckpt-every", "100"], "--ckpt-every .*item 13")])
 def test_train_cli_unported_flags_raise_and_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--reduced", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flag,value,field", [
+    ("--resilience-checkpoint-every", "7", "checkpoint_every"),
+    ("--max-restarts", "5", "max_restarts"), ("--backoff-base", "0.5", "backoff_base"),
+    ("--backoff-max", "4", "backoff_max"), ("--step-timeout", "2.5", "step_timeout")])
+def test_train_cli_resilience_flags_set_the_reference_config(flag, value, field):
+    """Each resilience setting lands in the run's ``ResilienceConfig``, with
+    the reference CLI's defaults for the others; without ``--resilience``
+    the run has none."""
+    from repro_torch.configs.base import ResilienceConfig
+
+    args = ["--reduced", flag, value]
+    assert train_cli.build_run(train_cli.parse_args(args)).resilience is None
+    res = train_cli.build_run(train_cli.parse_args(args + ["--resilience"])).resilience
+    want = dict(checkpoint_every=25, max_restarts=3, backoff_base=0.0, backoff_max=30.0,
+                step_timeout=0.0)
+    want[field] = type(want[field])(value)
+    assert res == ResilienceConfig(**want)
+
+
+def test_train_cli_runs_resilient_with_a_checkpoint_dir(tmp_path, caplog):
+    """``--ckpt-dir --resilience`` on the CPU: the steps run in the
+    ResilientLoop, its restart checkpoints and the per-task checkpoint land
+    under the directory, and the resilience line is logged."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    with caplog.at_level("INFO", logger="repro_torch.train"):
+        res = train_cli.main(
+            ["--arch", "smollm-135m", "--reduced", "--tasks", "1", "--steps-per-task", "4",
+             "--seq-len", "16", "--global-batch", "2", "--device", "cpu", "--ckpt-dir",
+             str(tmp_path), "--resilience", "--resilience-checkpoint-every", "2"])
+    assert res.restarts == 0 and res.resilience_stats["stale_steps"] == 0
+    assert len(res.losses) == 4 and np.isfinite(res.losses).all()
+    assert CheckpointManager(str(tmp_path / "resilient")).list_steps() == [0, 2, 4]
+    assert CheckpointManager(str(tmp_path)).list_steps() == [0]
+    assert "resilience: restarts=0 stale_steps=0" in caplog.text
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        train_cli.main(["--reduced", "--device", "cpu", "--resilience"])
 
 
 # ---------------------------------------------------------------------------

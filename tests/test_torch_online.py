@@ -29,6 +29,7 @@ from repro_torch.configs.base import (OnlineConfig, RehearsalConfig, RunConfig, 
                                       TrainConfig)
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import serve
+from repro_torch.runtime import InjectedFailure
 from repro_torch.serving import DecodeEngine, OnlineLearner
 
 PROMPT = 12
@@ -143,15 +144,58 @@ def test_online_learner_needs_a_token_scenario():
         OnlineLearner(vision, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(ckpt_dir="ckpt"), "item 10"), (dict(resilience=True), "item 10"),
-    (dict(registry=object()), "item 14")])
+@pytest.mark.parametrize("kwargs,item", [(dict(registry=object()), "item 14")])
 def test_unported_online_options_raise(kwargs, item):
     _, run = _runs()
-    if kwargs.pop("resilience", False):
-        run = run.replace(resilience=object())
     with pytest.raises(NotImplementedError, match=item):
         OnlineLearner(run, device="cpu", **kwargs)
+
+
+def test_online_resilient_restart_then_disable(tmp_path):
+    """The reference's case (``tests/test_serving.py``): with
+    ``run.resilience`` a transient failure is absorbed by a restart and
+    every round trains; a persistent one spends the budget, training stops
+    after round 0, every round is still served, and serving ends on the
+    last checkpoint's weights, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ResilienceConfig
+
+    _, run = _runs(rounds=3)
+    fired = []
+
+    def transient(step):
+        if step == 1 and not fired:
+            fired.append(step)
+            raise InjectedFailure("blip")
+
+    lrn = OnlineLearner(run.replace(resilience=ResilienceConfig(checkpoint_every=1,
+                                                                max_restarts=3)),
+                        ckpt_dir=str(tmp_path / "a"), failure_hook=transient, device="cpu")
+    res = lrn.run()
+    assert res.restarts >= 1 and not res.train_disabled
+    assert len(res.history) == 3 and res.admission_rate == 1.0
+    assert _same_params(res.params, res.carry.params)
+
+    def persistent(step):
+        if step >= 1:
+            raise InjectedFailure("dead")
+
+    lrn2 = OnlineLearner(run.replace(resilience=ResilienceConfig(checkpoint_every=1,
+                                                                 max_restarts=1)),
+                         ckpt_dir=str(tmp_path / "b"), failure_hook=persistent, device="cpu")
+    res2 = lrn2.run()
+    assert len(res2.history) == 3 and res2.train_disabled  # serving survived
+    assert [h["trained"] for h in res2.history] == [1.0, 0.0, 0.0]  # round 0 only
+    assert np.isfinite([h["tokens_per_second"] for h in res2.history]).all()
+    assert res2.history[-1]["freshness"] == 2.0  # staleness grows once dead
+    mgr = CheckpointManager(str(tmp_path / "b" / "resilient"))
+    last, meta = mgr.restore(lrn2.trainer._init(lrn2.trainer.seed))
+    assert meta["cursor"] == 1  # after round 0's step
+    assert _same_params(res2.params, last.params)
+    assert _same_params(res2.carry.params, last.params)  # the train side restored too
+    round0 = OnlineLearner(run.replace(online=dataclasses.replace(run.online, rounds=1)),
+                           device="cpu").run()
+    assert _same_params(res2.params, round0.params)
 
 
 # ---------------------------------------------------------------------------
@@ -238,10 +282,6 @@ def test_online_freshness_evals_run_at_the_stream_phase():
 # ---------------------------------------------------------------------------
 
 
-class InjectedFailure(RuntimeError):
-    pass
-
-
 def test_online_train_failure_never_kills_serving_unresilient():
     steps = []
 
@@ -314,6 +354,10 @@ def test_serve_online_runs_on_the_cpu(capsys):
     assert "final round" in capsys.readouterr().out
 
 
-def test_serve_online_refuses_a_checkpoint_dir(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve.main(["--online", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+def test_serve_online_takes_a_checkpoint_dir(tmp_path):
+    """``--ckpt-dir`` reaches the learner (the reference's spelling): it runs
+    and serves every round."""
+    res = serve.main(["--online", "--device", "cpu", "--rounds", "2", "--batch", "2",
+                      "--prompt-len", "8", "--gen-len", "4", "--phases", "2",
+                      "--ckpt-dir", str(tmp_path)])
+    assert len(res.history) == 2 and res.admission_rate == 1.0 and res.restarts == 0
