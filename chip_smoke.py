@@ -133,7 +133,10 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      int8 kernels once a step on ``logit_vals``, no flash or scan launch;
      median step, peak memory, prefetch-wait share and the accuracy matrix
      printed. Then SmolLM-135M through the CLI's ``main`` on the card (2 x
-     4, its eval lines and launches), update+sample and the int8 kernels on
+     8, its eval lines and launches; the mesh backend at 1x1, 1
+     representative a step) and through the mesh backend with exchange
+     local (2 x 8, the carry run's rows and fingerprints), each median step
+     beside the carry run's; update+sample and the int8 kernels on
      these token records against their plain versions, and reduced LM steps
      on the card against the CPU through the ``rows`` seam.
  16. online serving (after phase 15, TF32 off): ``OnlineLearner(run).run()``
@@ -148,6 +151,21 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      injected before round 5's step: every round still served and serving
      ends on round 4's handed-off weights bit for bit. Then
      ``serve.main(["--online"])`` on the card at the CLI's defaults.
+ 19. the mesh backend (after phase 16): (a) phase 5's flat configuration
+     through ``ContinualTrainer(mesh=make_mesh((1, 1), ...),
+     exchange='local')`` with TF32 on, as phase 5 ran: its ``rep_checksum``
+     and ``buffer_fill`` history equal to phase 5's, losses within rtol
+     1e-4; (c) phase 7's tiered store, unfused then fused, 1 task through
+     the same backend: 3 update+sample launches a step and the setting's
+     int8 kernels once a step, phase 7's task-0 fingerprints, the cold tier
+     pinned; (b) SmolLM-135M at full width through ``launch.train.main``
+     with ``--mesh 1x1 --exchange full --ckpt-every 2``, 1 task x 4 steps,
+     in a world-1 NCCL group and deterministic mode (TF32 off): one
+     update+sample launch a step and no other kernel, an
+     ``all_to_all_single`` on NCCL for each record leaf and the valid mask
+     every step, a 1-row pending slot, finite losses, and the step-2
+     checkpoint restored in a new group and replayed to step 4 bit for bit.
+     Median steps beside phases 5's and 15's, peak memory.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -1118,24 +1136,25 @@ def tiered_rehearsal(fused: bool) -> dict:
                 fused_kernels=fused)
 
 
-def main_path(counters, cfg, seed: int = 0, step_form: str = "fused"):
+def main_path(counters, cfg, seed: int = 0, step_form: str = "fused", losses_out=None):
     """The flat main path through ``ContinualTrainer(step_form=...)``
     (``fit_flat``). Returns the update+sample launches, the fingerprints and
-    the median step in ms."""
+    the median step in ms; the losses go into ``losses_out`` when given."""
     print(f"cuts (data scale only): tasks run {TASKS_RUN} of 4, "
           f"{STEPS_PER_TASK} steps per task, eval_per_class {EVAL_PER_CLASS}; "
           f"b={BATCH} r={REPS} c={CANDS}, 4 buckets x {SLOTS} slots")
     trainer = class_incremental_trainer(cfg, FLAT, seed, step_form=step_form)
-    return fit_flat(counters, trainer, f"flat, step_form={step_form!r}")
+    return fit_flat(counters, trainer, f"flat, step_form={step_form!r}", losses_out)
 
 
-def fit_flat(counters, trainer, what: str):
+def fit_flat(counters, trainer, what: str, losses_out=None):
     """``trainer.fit`` over the first ``TASKS_RUN`` tasks, every launch
     counter set to 0 just before and read just after. Checks one
     update+sample launch a step (a flat buffer) and no other kernel, finite
     losses, a growing ``buffer_fill`` and a finite accuracy matrix. Returns
     the update+sample launches, the ``(rep_checksum, buffer_fill)`` history
-    and the median step in ms."""
+    and the median step in ms; the losses go into ``losses_out`` when
+    given."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -1174,6 +1193,8 @@ def fit_flat(counters, trainer, what: str):
     if acc.shape != (TASKS_RUN, TASKS_RUN) or not np.isfinite(acc).all():
         raise AssertionError(f"bad accuracy matrix {acc}")
     prints = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    if losses_out is not None:
+        losses_out.extend(result.losses)
     return launches, prints, step_ms
 
 
@@ -2254,9 +2275,11 @@ def lm_cli_run(arch: str, *, steps: int, tasks: int = 2, strategy: str = "",
 def lm_train_run(counters, arch: str, *, steps: int, tasks: int = 2,
                  strategy: str = "rehearsal", top_k: int = 0, tiered: bool = False,
                  fused: bool = False, dtype: str = "float32",
-                 scenario: str = "class_incremental", seed: int = 0):
+                 scenario: str = "class_incremental", seed: int = 0, mesh_local: bool = False):
     """``ContinualTrainer`` on a token scenario at full width, on the train
-    CLI's run (``lm_cli_run``). Every counter is set to 0 just before
+    CLI's run (``lm_cli_run``): the carry backend, or with ``mesh_local``
+    the mesh backend at 1x1 with ``exchange='local'`` (the carry backend's
+    r rows a step). Every counter is set to 0 just before
     ``fit`` and read just after. Checks every loss finite, task 0's loss
     (der: its CE on the new rows) lower at its last step than at its first,
     one update+sample launch a flat step (three a tiered step), the int8
@@ -2270,16 +2293,25 @@ def lm_train_run(counters, arch: str, *, steps: int, tasks: int = 2,
                      tiered=tiered, fused=fused, dtype=dtype, scenario=scenario, seed=seed)
     name = (f"{arch} {scenario} {strategy}" + (f" top-{top_k}" if top_k else "")
             + (f", tiered {'fused' if fused else 'unfused'}" if tiered else ", flat")
-            + f", {dtype}, {tasks} x {steps} steps")
-    trainer = ContinualTrainer(run, device="cuda")
-    step, ce = trainer._step_fn, []
+            + f", {dtype}, {tasks} x {steps} steps" + (", mesh 1x1 local" if mesh_local else ""))
+    if mesh_local:
+        from repro_torch.launch.mesh import make_mesh
 
-    def watched(carry, batch, key, rows=None):
-        carry, m = step(carry, batch, key, rows)
-        ce.append(m.get("ce"))
-        return carry, m
+        if strategy.startswith("der"):
+            raise ValueError("the mesh run reads no per-step ce")
+        trainer = ContinualTrainer(run, device="cuda", mesh=make_mesh((1, 1), ("data", "model")),
+                                   exchange="local")
+        ce = []
+    else:
+        trainer = ContinualTrainer(run, device="cuda")
+        step, ce = trainer._step_fn, []
 
-    trainer._step_fn = watched
+        def watched(carry, batch, key, rows=None):
+            carry, m = step(carry, batch, key, rows)
+            ce.append(m.get("ce"))
+            return carry, m
+
+        trainer._step_fn = watched
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -2325,7 +2357,7 @@ def lm_train_run(counters, arch: str, *, steps: int, tasks: int = 2,
     history = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
     del trainer, result
     torch.cuda.empty_cache()
-    return {"launches": launches, "history": history}
+    return {"launches": launches, "history": history, "step_ms": step_ms}
 
 
 def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int = 4):
@@ -2333,7 +2365,8 @@ def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int 
     default device (the card), ``tasks`` x ``steps`` steps. Counters are set
     to 0 just before and read just after. Checks one update+sample launch a
     step and no other kernel, every logged loss finite and an eval line for
-    every task seen after each task; prints the CLI's log lines."""
+    every task seen after each task; prints the CLI's log lines. Returns the
+    launches and the median step in ms."""
     import logging
 
     from repro_torch.launch import train as train_cli
@@ -2366,7 +2399,7 @@ def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int 
         raise AssertionError(f"train CLI: log lines {lines}")
     if len(result.losses) != tasks * steps or not all(math.isfinite(x) for x in result.losses):
         raise AssertionError(f"train CLI: non-finite or missing losses {result.losses}")
-    return {"launches": launches}
+    return {"launches": launches, "step_ms": statistics.median(result.step_seconds) * 1e3}
 
 
 def token_record_kernels(qz, ops, ref, seed: int = 15):
@@ -2491,9 +2524,13 @@ def lm_train_phase(counters, qz, ops, ref):
     of TokenClassIncremental; SmolLM-135M with der_pp top-16 on the tiered
     store, unfused then fused (identical fingerprints), at bf16 compute, and
     on DriftStream, each on the train CLI's run; SmolLM-135M through the
-    train CLI's ``main``, 2 tasks x 4 steps; the token records' kernels
-    against their plain versions; the reduced card-against-CPU steps. Returns each run's
-    launches and history by name."""
+    train CLI's ``main`` (the mesh backend at 1x1, exchange full: 1
+    representative a step), 2 tasks x 8 steps, and through the mesh backend
+    with exchange local (the carry run's rows; its fingerprints equal the
+    carry run's), each median step printed beside the carry run's; the
+    token records' kernels against their plain versions; the reduced
+    card-against-CPU steps. Returns each run's launches and history by
+    name."""
     print(f"card: {gpu_name_and_power()}")
     print(f"data-scale cuts (widths and depths are the published ones): seq {LM_SEQ}, "
           f"batch {LM_BATCH} + r {LM_REPS}, {LM_STEPS} steps a task, 2 tasks, 16 eval "
@@ -2513,7 +2550,18 @@ def lm_train_phase(counters, qz, ops, ref):
     runs["smollm-135m drift_stream"] = lm_train_run(counters, "smollm-135m", steps=4,
                                                     scenario="drift_stream")
     print(f"der_pp tiered: fused == unfused fingerprints over {len(der[True]['history'])} steps")
-    runs["smollm-135m train CLI"] = lm_cli_main(counters)
+    smol = LM_STEPS["smollm-135m"]
+    runs["smollm-135m train CLI"] = cli = lm_cli_main(counters, steps=smol)
+    runs["smollm-135m mesh 1x1 local"] = mesh = lm_train_run(counters, "smollm-135m", steps=smol,
+                                                             mesh_local=True)
+    carry = runs["smollm-135m"]
+    if mesh["history"] != carry["history"]:
+        raise AssertionError(f"mesh 1x1 local fingerprints {mesh['history']} differ from the "
+                             f"carry backend's {carry['history']}")
+    print(f"SmolLM-135M f32, 2 x {smol} steps, median step: carry backend "
+          f"{carry['step_ms']:.2f} ms (r {LM_REPS}); mesh backend 1x1, exchange local "
+          f"{mesh['step_ms']:.2f} ms (r {LM_REPS}, the same fingerprints); the train CLI, "
+          f"mesh 1x1, exchange full {cli['step_ms']:.2f} ms (1 representative a step)")
     token_record_kernels(qz, ops, ref)
     lm_train_card_against_cpu()
     return runs
@@ -3106,10 +3154,242 @@ def resilient_phase(counters, cfg, fused_runs: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the mesh backend
+# ---------------------------------------------------------------------------
+
+# The train CLI's SmolLM-135M run of phase 19 (b): its defaults at full
+# width, 1 task of MESH_LM_STEPS steps, a checkpoint every MESH_CKPT_EVERY.
+MESH_LM_STEPS, MESH_CKPT_EVERY = 4, 2
+
+
+@contextlib.contextmanager
+def tf32_as_phase_5():
+    """TF32 on for the phase, as phase 5 ran, restored after."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def mesh_flat(counters, cfg, base, base_losses):
+    """(a) phase 5's flat configuration through ``ContinualTrainer(mesh=1x1,
+    exchange='local')``: its ``(rep_checksum, buffer_fill)`` history equal
+    to phase 5's (``base``) and its losses within rtol 1e-4 of phase 5's.
+    Returns the update+sample launches and the median step in ms."""
+    from repro_torch.launch.mesh import make_mesh
+
+    trainer = class_incremental_trainer(cfg, FLAT, mesh=make_mesh((1, 1), ("data", "model")),
+                                        exchange="local")
+    losses = []
+    launches, prints, step_ms = fit_flat(counters, trainer, "(a) flat, mesh 1x1, "
+                                         "exchange='local'", losses)
+    if prints != base[1]:
+        raise AssertionError(f"(a) mesh fingerprints {prints} != phase 5's {base[1]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    if len(losses) != len(base_losses) or rel > 1e-4:
+        raise AssertionError(f"(a) losses {losses} vs phase 5's {base_losses}: rel {rel}")
+    print(f"(a) fingerprints == phase 5's over {len(prints)} steps; largest relative loss "
+          f"difference {rel:.3e}; median step {step_ms:.1f} ms beside phase 5's "
+          f"{base[2]:.1f} ms")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def mesh_tiered(counters, cfg, fused: bool, base_prints):
+    """(c) phase 7's tiered store (unfused or fused kernels) through the mesh
+    backend at 1x1, ``exchange='local'``, 1 task: 3 update+sample launches a
+    step and the setting's int8 kernels once a step, the fingerprints of
+    phase 7's first task, the cold tier pinned. Returns the launches."""
+    from repro_torch.launch.mesh import make_mesh
+
+    trainer = class_incremental_trainer(cfg, tiered_rehearsal(fused),
+                                        mesh=make_mesh((1, 1), ("data", "model")),
+                                        exchange="local")
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    result = trainer.fit(num_tasks=1)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    floats = ("encode_scatter_rows", "gather_dequant_rows") if fused else ("quantize_rows",)
+    want = {name: STEPS_PER_TASK if name in floats else 0 for name in counters}
+    want["rehearsal_update_sample"] = 3 * STEPS_PER_TASK
+    prints = [(h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+    buffer = trainer.final_state[2]
+    pinned = all(t.is_pinned() for leaf in buffer.cold.data.values() for t in leaf.values())
+    print(f"(c) tiered {'fused' if fused else 'unfused'}, mesh 1x1: launches {launches}; "
+          f"cold tier pinned {pinned}, placement {trainer.built.meta['cold_placement']}; "
+          f"median step {statistics.median(result.step_seconds) * 1e3:.1f} ms")
+    if launches != want:
+        raise AssertionError(f"(c) expected launches {want}, saw {launches}")
+    if prints != base_prints[:STEPS_PER_TASK]:
+        raise AssertionError(f"(c) mesh fingerprints {prints} != phase 7's {base_prints}")
+    if not pinned or trainer.built.meta["cold_placement"] != "pinned_host":
+        raise AssertionError("(c) the cold tier is not in pinned host memory")
+    if not all(math.isfinite(x) for x in result.losses):
+        raise AssertionError(f"(c) non-finite losses {result.losses}")
+    del trainer, result, buffer
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def world_of_one(rendezvous: str):
+    """The ``runtime.multiproc`` environment of a one-rank group meeting
+    through ``rendezvous``, restored after."""
+    from repro_torch.runtime import multiproc
+
+    keys = (multiproc.ENV_RENDEZVOUS, multiproc.ENV_NPROCS, multiproc.ENV_PID)
+    prev = {k: os.environ.get(k) for k in keys}
+    os.environ.update(dict(zip(keys, (rendezvous, "1", "0"))))
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_lm_cli(counters, lm_ms):
+    """(b) SmolLM-135M at full width through ``launch.train.main(["--mesh",
+    "1x1", "--exchange", "full", "--ckpt-every", "2", ...])`` in a world-1
+    NCCL group (the CLI joins it through ``runtime.multiproc``), in
+    deterministic mode: one update+sample launch a step and no other kernel,
+    ``all_to_all_single`` on the card for every record leaf and the valid
+    mask each step, a 1-row pending slot, finite losses. Then a new world-1
+    group restores the step-2 checkpoint, replays steps 2-3, and ends on the
+    step-4 checkpoint bit for bit. Returns the launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import snapshot
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import shard_host_batch
+    from repro_torch.rng import fold_in
+    from repro_torch.runtime import multiproc
+    from repro_torch.scenario import ContinualTrainer, TokenClassIncremental
+
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    flags = ["--arch", "smollm-135m", "--mesh", "1x1", "--exchange", "full", "--tasks", "1",
+             "--steps-per-task", str(MESH_LM_STEPS), "--ckpt-every", str(MESH_CKPT_EVERY),
+             "--ckpt-dir", os.path.join(tmp, "ckpt")]
+    a2a, calls = dist.all_to_all_single, []
+
+    def counted(out, inp, *args, **kwargs):
+        calls.append((inp.device.type, dist.get_backend(kwargs.get("group"))))
+        return a2a(out, inp, *args, **kwargs)
+
+    try:
+        with deterministic_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            dist.all_to_all_single = counted
+            try:
+                with world_of_one(os.path.join(tmp, "rendezvous")):
+                    res = train_cli.main(flags)
+            finally:
+                dist.all_to_all_single = a2a
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            step_ms = statistics.median(res.step_seconds) * 1e3
+            leaves = 3  # tokens, labels, task; then the valid mask
+            print(f"(b) SmolLM-135M through the train CLI, mesh 1x1, exchange full, world-1 "
+                  f"group: losses {[round(x, 4) for x in res.losses]}; launches "
+                  f"{({k: v for k, v in launches.items() if v})}; all_to_all_single calls "
+                  f"{len(calls)} on {sorted(set(calls))}; median step {step_ms:.2f} ms "
+                  f"beside phase 15's SmolLM-135M {lm_ms}; peak device memory "
+                  f"{peak / 2**30:.2f} GiB")
+            want = dict({k: 0 for k in counters}, rehearsal_update_sample=MESH_LM_STEPS)
+            if launches != want:
+                raise AssertionError(f"(b) expected launches {want}, saw {launches}")
+            if calls != [("cuda", "nccl")] * ((leaves + 1) * MESH_LM_STEPS):
+                raise AssertionError(f"(b) all_to_all_single calls {calls}")
+            if not all(math.isfinite(x) for x in res.losses):
+                raise AssertionError(f"(b) non-finite losses {res.losses}")
+            # the restart, in a new world-1 group
+            with world_of_one(os.path.join(tmp, "rendezvous2")):
+                multiproc.init_from_env("nccl")
+            try:
+                run = train_cli.build_run(train_cli.parse_args(flags))
+                mesh = make_mesh((1, 1), ("data", "model"))
+                trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario),
+                                           device="cuda", mesh=mesh, exchange="full",
+                                           ckpt_dir=os.path.join(tmp, "ckpt"))
+                state, meta = trainer.restore_mesh_state(step=MESH_CKPT_EVERY)
+                step = trainer.mesh_step()
+                for s in range(int(meta["global_step"]), MESH_LM_STEPS):
+                    batch = shard_host_batch(trainer.scenario.batch(0, LM_BATCH, s), mesh)
+                    state, _ = step(state, batch, fold_in(run.scenario.seed, s))
+                want_state, _ = trainer.restore_mesh_state(step=MESH_LM_STEPS)
+                got, ref = snapshot(state)[0], snapshot(want_state)[0]
+                same = set(got) == set(ref) and all(np.array_equal(got[k], ref[k]) for k in ref)
+                rows = int(want_state[4].shape[0])
+                print(f"(b) pending slot {rows} row(s), valid {want_state[4].tolist()}; "
+                      f"step-{MESH_CKPT_EVERY} checkpoint restored and replayed to step "
+                      f"{MESH_LM_STEPS}: {len(ref)} leaves bit for bit {same}")
+                if rows != 1 or not bool(want_state[4].all()):
+                    raise AssertionError(f"(b) the pending slot holds {rows} rows")
+                if not same:
+                    bad = [k for k in ref if not np.array_equal(got[k], ref[k])]
+                    raise AssertionError(f"(b) the replay differs from the step-"
+                                         f"{MESH_LM_STEPS} checkpoint in {bad[:8]}")
+                del trainer, state, want_state, step, got, ref
+            finally:
+                gc.collect()
+                dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def mesh_phase(counters, cfg, fused_runs: dict, base_losses: list, lm_runs: dict):
+    """Phase 19: (a) and (c) on the ResNet with TF32 on (phase 5's
+    setting; phases 5 and 7 run here when they did not), then (b) on the LM
+    with TF32 off (phase 15's). Returns each run's launches by kernel."""
+    print(f"card: {gpu_name_and_power()}")
+    launches = {}
+    with tf32_as_phase_5():
+        if "flat" not in fused_runs:
+            base_losses.clear()
+            fused_runs["flat"] = main_path(counters, cfg, losses_out=base_losses)
+        flat, flat_ms = mesh_flat(counters, cfg, fused_runs["flat"], base_losses)
+        launches["flat_1x1_local"] = {"rehearsal_update_sample": flat}
+        for fused in (False, True):
+            name = f"tiered, {'fused' if fused else 'unfused'}"
+            if name not in fused_runs:
+                fused_runs[name] = tiered_main_path(counters, cfg, fused)
+            launches[f"tiered_{'fused' if fused else 'unfused'}_1x1_local"] = mesh_tiered(
+                counters, cfg, fused, fused_runs[name][1])
+    lm, lm_cli = lm_runs.get("smollm-135m"), lm_runs.get("smollm-135m train CLI")
+    lm_ms = f"{lm['step_ms']:.2f} ms" if lm else "not run"
+    launches["smollm_cli_1x1_nccl"], cli_ms = mesh_lm_cli(counters, lm_ms)
+    print(f"median steps: (a) flat mesh {flat_ms:.1f} ms beside phase 5's "
+          f"{fused_runs['flat'][2]:.1f} ms; (b) SmolLM-135M CLI {cli_ms:.2f} ms beside phase "
+          f"15's carry run {lm_ms} and phase 15's CLI run (no checkpoint, not deterministic) "
+          + (f"{lm_cli['step_ms']:.2f} ms" if lm_cli else "not run"))
+    return launches
+
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-18), and print no result lines")
+                    help="run phases 1, 2 and these only (3-19), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -3161,10 +3441,10 @@ def main(argv=None):
         phase("4 model on the card against the CPU")
         model_phase(cfg)
 
-    fused_runs = {}
+    fused_runs, phase5_losses, lm_runs = {}, [], {}
     if run(5):
         phase("5 main path: ContinualTrainer on resnet50_cl.full()")
-        fused_runs["flat"] = main_path(counters, cfg)
+        fused_runs["flat"] = main_path(counters, cfg, losses_out=phase5_losses)
         flat_launches = fused_runs["flat"][0]
 
     if run(6):
@@ -3174,7 +3454,7 @@ def main(argv=None):
     if run(7):
         phase("7 tiered main path: ContinualTrainer, tiering='host', unfused then fused")
         runs = {fused: tiered_main_path(counters, cfg, fused) for fused in (False, True)}
-        fused_runs["tiered, unfused"] = runs[False]
+        fused_runs["tiered, unfused"], fused_runs["tiered, fused"] = runs[False], runs[True]
         if runs[False][1] != runs[True][1]:
             raise AssertionError("fused and unfused tiered runs differ in rep_checksum / "
                                  f"buffer_fill: {runs[False][1]} vs {runs[True][1]}")
@@ -3229,6 +3509,10 @@ def main(argv=None):
     if run(16):
         phase("16 online serving: OnlineLearner at full width")
         online_phase(counters, decode_cli)
+
+    if run(19):
+        phase("19 the mesh backend: ContinualTrainer(mesh=1x1) and launch.train --mesh 1x1")
+        mesh_launches = mesh_phase(counters, cfg, fused_runs, phase5_losses, lm_runs)
     phase.end()
 
     if only:
@@ -3249,6 +3533,9 @@ def main(argv=None):
         # phase 18's runs, each counted from 0 (failed runs: replays included)
         e["launches_resilient"] = {name: n[e["name"]] for name, n in res_launches.items()
                                    if n[e["name"]]}
+        # phase 19's runs through the mesh backend, each counted from 0
+        e["launches_mesh"] = {name: n[e["name"]] for name, n in mesh_launches.items()
+                              if n.get(e["name"])}
     # phase 11's launches a forward: SmolLM-135M's, then every arch's
     flash_entry["launches"] = launches["smollm-135m"][1]
     flash_entry["launches_by_arch"] = {a: n for a, (k, n) in launches.items()

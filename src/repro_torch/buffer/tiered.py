@@ -33,8 +33,9 @@ then moves the bytes in this order on one stream:
      overwrite, copied into a new stage before the push writes them (one
      launch);
   3. the hot tier: push the candidates and draw the hot sample (one launch).
-Telemetry gauges (``tiered_obs``) are ROADMAP Queue 1 item 14; placing a
-distributed tiered state on a mesh (``cold_shardings``) is item 13.
+On a mesh every rank holds its own store, its cold tier in pinned host
+memory on CUDA (``resolve_cold_placement``). Telemetry gauges
+(``tiered_obs``) are ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -88,9 +89,10 @@ def _compression():
 
 
 def resolve_cold_placement(device) -> str:
-    """Where the cold tier's data leaves live: ``'pinned_host'`` for a CUDA
-    device, ``'host'`` (ordinary memory) for the CPU. Never the device."""
-    return "pinned_host" if torch.device(device).type == "cuda" else "host"
+    """Where the cold tier's data leaves live, by the reference's rule:
+    ``'pinned_host'`` where the device has that memory kind (CUDA), else
+    ``'device'`` (the CPU, whose device memory is the host's)."""
+    return "pinned_host" if torch.device(device).type == "cuda" else "device"
 
 
 def init_tiered(item_spec: Dict[str, ItemSpec], num_buckets: int, hot_slots: int,

@@ -8,14 +8,25 @@ One process per GPU. Global sampling is a fixed-shape exchange over a
     one candidate from every peer,
   * each worker keeps a uniformly random r-subset, valid candidates first.
 
-Exchange modes: ``full`` exchanges over the given group (the world group for a
-run); ``local``, no group, or a world of one takes the no-collective branch
-(the paper's biased embarrassingly-parallel baseline). ``pod_local`` node
-groups are ROADMAP Queue 1 item 3.
+Exchange modes: ``full`` exchanges over the given group (on a mesh: every
+data-parallel worker, ``pod`` and ``data`` axes); ``pod_local`` over the
+given group too, which on a mesh is the innermost ``data`` sub-group, so a
+sample never leaves its pod; ``local`` takes the no-collective branch (the
+paper's biased embarrassingly-parallel baseline).
 
 With fewer peers than representatives (N < r) the exchange keeps all N
-received candidates, so the pending slot holds N rows, not r: the reference's
-``argsort(scores)[:r]`` behaves the same way.
+received candidates, so the pending slot holds N rows, not r: the
+reference's ``argsort(scores)[:r]`` behaves the same way. Two callers differ
+on a world of one. The carry backend (``make_cl_step``) takes the
+no-collective branch there and keeps r. The mesh backend
+(``make_sharded_update``) exchanges over the axis whatever its size, as the
+reference's one-device mesh does, so one worker keeps ``min(1, r) = 1``
+row (over no process group at all, the exchange is the identity).
+
+The mesh backend's layout helpers (``augment_global``,
+``global_replay_mask``, ``global_batch_rows``) take the reference's
+``n_dp``: each rank calls them with ``n_dp=1`` on its own shard, its ``b``
+new rows followed by its representatives.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from repro_torch.buffer import api as buffer_api
 from repro_torch.buffer import state as rb
 from repro_torch.rng import fold_in, generator
 
+EXCHANGES = ("full", "pod_local", "local")
+
 
 class PendingSample(NamedTuple):
     """An in-flight global sample: representatives drawn + exchanged at step
@@ -36,6 +49,16 @@ class PendingSample(NamedTuple):
 
     reps: Any  # {name: [r, ...]}
     valid: Any  # bool[r]
+
+
+class ExchangeRows(NamedTuple):
+    """The parity seam of an exchanging issue: the local plan (an
+    ``UpdateSampleRows``, or a ``TieredRows``) and which of the received
+    candidates to keep (``take``, i64[min(peers, r)]), in place of the
+    generator's draws."""
+
+    local: Any
+    take: torch.Tensor
 
 
 def _world(group) -> int:
@@ -48,18 +71,20 @@ def rank_in(group) -> int:
 
 
 def is_local(group, exchange: str) -> bool:
-    """Whether sampling takes the no-collective branch."""
-    if exchange not in ("full", "local", "pod_local"):
+    """Whether the carry backend's sampling takes the no-collective branch:
+    ``exchange='local'``, no group, or a world of one."""
+    if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange mode {exchange!r}")
-    if exchange == "pod_local":
-        raise NotImplementedError(
-            "exchange='pod_local' is not ported yet (ROADMAP Queue 1 item 3)")
     return exchange == "local" or _world(group) == 1
 
 
 def _exchange(items, valid, group):
     """One all_to_all per leaf: send item j to peer j, receive one item from
-    every peer. Deterministic; draws nothing."""
+    every peer. Deterministic; draws nothing. Without a group (one worker)
+    the items come back as they are."""
+    if group is None:
+        return items, valid
+
     def a2a(x):
         x = x.contiguous()
         out = torch.empty_like(x)
@@ -71,13 +96,16 @@ def _exchange(items, valid, group):
     return recv, recv_valid
 
 
-def _pick(recv, recv_valid, gen, r: int):
+def _pick(recv, recv_valid, gen, r: int, take=None):
     """Keep a uniformly random r-subset of the received candidates, valid
-    ones first (``argsort(scores)[:r]``: min(n, r) rows)."""
-    n = recv_valid.shape[0]
-    scores = torch.rand(n, generator=gen, device=recv_valid.device)
-    scores = scores + torch.where(recv_valid, 0.0, 1e3)
-    take = torch.argsort(scores)[:r]
+    ones first (``argsort(scores)[:r]``: min(n, r) rows); ``take`` replaces
+    the draw."""
+    if take is None:
+        n = recv_valid.shape[0]
+        scores = torch.rand(n, generator=gen, device=recv_valid.device)
+        scores = scores + torch.where(recv_valid, 0.0, 1e3)
+        take = torch.argsort(scores)[:r]
+    take = take.to(recv_valid.device)
     return {k: v[take] for k, v in recv.items()}, recv_valid[take]
 
 
@@ -92,24 +120,40 @@ def sample_global(state, gen, r: int, group=None, exchange: str = "full",
 
 
 def issue_sample(state, items, labels, gen, rcfg, group=None,
-                 exchange: str = "full", rows=None):
+                 exchange: str = "full", rows=None, peers: Optional[int] = None):
     """Producer half of the paper's ``update`` primitive, per worker: push
     candidates from the incoming mini-batch (Alg. 1), then draw the next
     global sample. The row vectors of both come first (``rows``, an
     ``UpdateSampleRows`` or for the tiered store a ``TieredRows``, overrides
-    them: the parity seam), then the kernels move the bytes of the push and
+    them: the parity seam; an ``ExchangeRows`` also fixes which received
+    candidates are kept), then the kernels move the bytes of the push and
     the local draw (for the flat store ONE call per record leaf), then the
     exchange runs.
 
+    ``peers`` is the mesh backend's: the size of the exchange axis, over
+    which the exchange runs even at one worker (``group`` None: the
+    identity). Without it, the carry backend's rule holds (``is_local``).
+
     Returns ``(new_state, PendingSample)``; the buffer is updated in place."""
-    local = is_local(group, exchange)
-    n = rcfg.num_representatives if local else _world(group)
+    if exchange not in EXCHANGES:
+        raise ValueError(f"unknown exchange mode {exchange!r}")
+    if peers is None:
+        local, peers = is_local(group, exchange), _world(group)
+    else:
+        local = exchange == "local"
+        if _world(group) != peers:
+            raise ValueError(f"an exchange over {peers} peers needs a group of that size, "
+                             f"got {_world(group)}")
+    take = None
+    if isinstance(rows, ExchangeRows):
+        rows, take = rows.local, rows.take
+    n = rcfg.num_representatives if local else peers
     if rows is None:
         rows = buffer_api.plan_update_and_sample(state, labels, gen, n, rcfg, items)
     new_state, reps, valid = buffer_api.buffer_update_sample(state, items, rows, rcfg)
     if not local:
         recv, recv_valid = _exchange(reps, valid, group)
-        reps, valid = _pick(recv, recv_valid, gen, rcfg.num_representatives)
+        reps, valid = _pick(recv, recv_valid, gen, rcfg.num_representatives, take)
     return new_state, PendingSample(reps, valid)
 
 
@@ -130,3 +174,95 @@ def update_and_sample(state, items, labels, key: int, rcfg, group=None,
     new_state, pending = issue_sample(state, items, labels, gen, rcfg, group, exchange)
     reps, valid = consume_reps(pending, label_field)
     return new_state, reps, valid
+
+
+# ---------------------------------------------------------------------------
+# The mesh backend's update and layout
+# ---------------------------------------------------------------------------
+
+
+def exchange_group(mesh, dp_axes: Tuple[str, ...], exchange: str):
+    """``(group, peers)`` of ``exchange`` on ``mesh``: every dp worker for
+    ``full``, the innermost dp axis (within-pod ``data``) for
+    ``pod_local``, ``(None, None)`` for ``local``. ``group`` is None on a
+    mesh without a process group (one worker)."""
+    if exchange not in EXCHANGES:
+        raise ValueError(f"unknown exchange mode {exchange!r}")
+    if exchange == "local":
+        return None, None
+    axes = dp_axes if exchange == "full" else dp_axes[-1:]
+    peers = 1
+    for a in axes:
+        peers *= mesh.size(mesh.mesh_dim_names.index(a))
+    group = mesh.get_group(axes[0])  # None on a mesh without a process group
+    if len(axes) > 1 and group is not None:
+        # model == 1, so the dp axes together span the mesh: the default group
+        group = dist.group.WORLD
+    return group, peers
+
+
+def make_sharded_update(mesh, dp_axes: Tuple[str, ...], rcfg, exchange: str = "full",
+                        label_field: Optional[str] = None, device=None):
+    """Build ``fn(state, items, labels, key, rows=None) -> (new_state, reps
+    [r', ...], valid [r'])`` for this rank: the reference's ``shard_map``
+    body over one worker's shard. The worker's generator is rooted at
+    ``fold_in(key, linear dp index)``; the update is ``issue_sample`` over
+    ``exchange``'s group, then ``consume_reps`` (invalid labels masked).
+    ``r'`` is ``min(peers, r)`` when exchanging, else ``r``. ``rows`` (an
+    ``UpdateSampleRows``/``TieredRows``, or an ``ExchangeRows``) is the
+    parity seam. ``label_field=None`` inherits ``rcfg.label_field``."""
+    from repro_torch.parallel import dp_index
+
+    label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "labels")
+    group, peers = exchange_group(mesh, dp_axes, exchange)
+    index = dp_index(mesh)
+
+    def update(state, items, labels, key: int, rows=None):
+        gen = generator(fold_in(key, index), device if device is not None else labels.device)
+        new_state, pending = issue_sample(state, items, labels, gen, rcfg, group, exchange,
+                                          rows=rows, peers=peers)
+        reps, valid = consume_reps(pending, label_field)
+        return new_state, reps, valid
+
+    return update
+
+
+def global_replay_mask(global_batch: int, n_dp: int, valid):
+    """The ``is_replay`` row mask of an ``augment_global`` layout: f32
+    [B_g + N_dp*r], 1.0 exactly on *valid* replay rows (each worker's shard
+    is its b new rows followed by its r representatives)."""
+    bw = global_batch // n_dp
+    m = torch.cat([torch.zeros((n_dp, bw), dtype=torch.float32, device=valid.device),
+                   valid.float()], dim=1)
+    return m.reshape(-1)
+
+
+def global_batch_rows(aug_tree, global_batch: int, n_dp: int, r: int):
+    """Inverse of ``augment_global`` for the new rows: the b-per-worker batch
+    rows of augmented [B_g + N_dp*r, ...] leaves, in the original [B_g, ...]
+    order (the rows ``on_store`` attaches extra fields to)."""
+    bw = global_batch // n_dp
+
+    def one(x):
+        x2 = x.reshape((n_dp, bw + r) + tuple(x.shape[1:]))
+        return x2[:, :bw].reshape((global_batch,) + tuple(x.shape[1:]))
+
+    return {k: one(v) for k, v in aug_tree.items()}
+
+
+def augment_global(batch, reps, valid, n_dp: int, label_field: str = "labels"):
+    """Concatenate per-worker shards: batch [B_g, ...] + reps [N_dp, r, ...]
+    -> augmented [B_g + N_dp*r, ...], each worker's shard its own b + r rows.
+    Invalid representatives get their ``label_field`` masked to -1
+    (idempotent after ``consume_reps``)."""
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in reps.items()}
+    flat = rb.mask_invalid(flat, valid.reshape(-1), label_field)
+    reps = {k: flat[k].reshape(v.shape) for k, v in reps.items()}
+
+    def cat(b_leaf, r_leaf):
+        bg = b_leaf.shape[0]
+        b2 = b_leaf.reshape((n_dp, bg // n_dp) + tuple(b_leaf.shape[1:]))
+        out = torch.cat([b2, r_leaf.to(b_leaf.dtype)], dim=1)
+        return out.reshape((bg + n_dp * r_leaf.shape[1],) + tuple(b_leaf.shape[1:]))
+
+    return {k: cat(v, reps[k]) for k, v in batch.items()}

@@ -1,0 +1,97 @@
+"""Meshes of the port: ``torch.distributed`` device meshes over one process
+per device.
+
+Single pod: axes ``('data', 'model')``. Multi-pod: ``('pod', 'data',
+'model')``: the ``pod`` axis composes with ``data`` for batch and buffer
+sharding, so the data-parallel workers span pods, and the rehearsal
+exchange chooses whether to cross pods (``exchange='full'``) or stay inside
+one (``'pod_local'``: over the innermost ``data`` sub-group).
+
+The ``model`` axis must be 1: tensor parallelism over it is ROADMAP Queue 1
+item 21. A mesh of one worker needs no process group: without one,
+``make_mesh`` returns a ``SingleDeviceMesh`` (the exchange over it is the
+identity). Otherwise every rank of the default group calls ``make_mesh``
+with the same arguments, and the mesh covers the group, rank ``i`` at
+row-major position ``i`` (``pod`` major).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 21"
+
+
+class SingleDeviceMesh:
+    """A mesh of one worker and no process group, with the ``DeviceMesh``
+    surface the port reads (``device_type``, ``mesh_dim_names``, ``size``,
+    ``get_group``, ``get_coordinate``). ``get_group`` is None: nothing to
+    exchange with but itself."""
+
+    def __init__(self, device_type: str, axes: Tuple[str, ...]):
+        self.device_type = device_type
+        self.mesh_dim_names = tuple(axes)
+
+    def size(self, mesh_dim=None) -> int:
+        return 1
+
+    def get_group(self, mesh_dim=None):
+        return None
+
+    def get_coordinate(self):
+        return [0] * len(self.mesh_dim_names)
+
+    def __repr__(self) -> str:
+        return f"SingleDeviceMesh({self.device_type!r}, {self.mesh_dim_names})"
+
+
+def _device_type() -> str:
+    if dist.is_initialized():
+        return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = None):
+    """A mesh of ``shape`` over ``axes`` (``('data', 'model')`` or
+    ``('pod', 'data', 'model')``). ``device_type``: the default group's
+    (``cuda`` under NCCL, ``cpu`` under gloo), else ``cuda`` when a card is
+    visible. A ``model`` axis over 1 raises."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    unknown = set(axes) - {"pod", "data", "model"}
+    if unknown or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes must be distinct names of pod, data, model: {axes}")
+    if dict(zip(axes, shape)).get("model", 1) != 1:
+        raise NotImplementedError(
+            f"a model axis of {dict(zip(axes, shape))['model']} (tensor parallelism) is "
+            f"not ported yet ({MODEL_AXIS_ITEM}); the port's meshes have model=1")
+    device_type = device_type or _device_type()
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized():
+        if n != 1:
+            raise RuntimeError(f"a mesh of {n} workers needs a process group: start one "
+                               f"process per worker (torchrun, or runtime.multiproc)")
+        return SingleDeviceMesh(device_type, axes)
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {shape} has {n} workers but the process group has "
+                         f"{dist.get_world_size()}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+def memory_kinds(mesh) -> set:
+    """Memory kinds a rank of ``mesh`` can place the tiered store in:
+    ``{'device', 'pinned_host'}`` on CUDA (the cold tier's pinned host
+    memory), ``{'device'}`` on the CPU, whose device memory is the host's."""
+    return {"device", "pinned_host"} if mesh.device_type == "cuda" else {"device"}
+
+
+def describe(mesh) -> str:
+    """``'data=2 x model=1'``: each axis and its size, in the mesh's order."""
+    return " x ".join(f"{a}={mesh.size(i)}" for i, a in enumerate(mesh.mesh_dim_names))

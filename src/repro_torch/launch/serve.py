@@ -65,9 +65,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-# Flags the port does not have yet, by ROADMAP Queue 1 item: the mesh (13,
-# ignored under --online as in the reference) and telemetry (14).
-UNPORTED_ITEMS = {"--mesh": 13, "--obs": 14, "--metrics-port": 14}
+# Flags the port does not have yet, by ROADMAP Queue 1 item: the mesh (21:
+# the prefill and decode steps shard over the model axis; ignored under
+# --online as in the reference) and telemetry (14).
+UNPORTED_ITEMS = {"--mesh": 21, "--obs": 14, "--metrics-port": 14}
 
 
 def main(argv=None):
@@ -132,8 +133,8 @@ def _serve_online(args):
     from repro_torch.serving import OnlineLearner
 
     if args.mesh != "1x1":
-        log.info("--online trains on the single-device carry backend; --mesh %s ignored",
-                 args.mesh)
+        log.info("--online trains on the single-device carry backend; --mesh %s ignored "
+                 "(a serving mesh is ROADMAP Queue 1 item 21)", args.mesh)
     learner = OnlineLearner(build_online_run(args), ckpt_dir=args.ckpt_dir,
                             serve_dtype=DTYPES[args.dtype], device=args.device)
     result = learner.run()

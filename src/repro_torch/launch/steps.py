@@ -1,0 +1,305 @@
+"""The mesh backend's train step: the reference's pjit route, one process a
+device, on a mesh whose ``model`` axis is 1.
+
+The step is the paper's Fig. 4 pipeline (``rehearsal.mode='async'`` or
+``rehearsal.pipelined=True`` selects it, ``mode='sync'`` the blocking
+baseline), run by every data-parallel rank on its own shard:
+
+  pipelined (the paper's contribution):
+      buffer, reps' <- update+sample(buffer, batch)      # all_to_all over the group
+      grads  <- loss(params, batch + reps)                # reps sampled at t-1
+      params <- opt(params, sum of grads over the ranks)
+  sync (the paper's blocking baseline, Fig. 6):
+      buffer, reps' <- update+sample(buffer, batch)
+      grads  <- loss(params, batch + reps')               # exchange on the critical path
+  pipelined tap (der, der_pp, grasp_embed): the forward on batch + reps, the
+      update of the new rows with this forward's outputs, then the backward.
+
+Each rank holds the parameters and optimizer state whole (``model`` = 1), its
+own buffer (the reference's worker axis), its pending slot and its slice of
+the global batch (``shard_host_batch``). The loss is the reference's global
+token mean: every count a loss divides by is summed over the data-parallel
+group (``parallel.global_mean``), each rank differentiates its share, and
+the gradients and the loss are summed over the group before the optimizer
+step (the clip sees the global gradient). ``buffer_fill`` and
+``rep_checksum`` are summed too: the reference reads them off global arrays.
+Every rank thus ends a step with the same parameters and metrics.
+
+The model side comes from the scenario (``Scenario.build_problem``): the
+LMs of the token scenarios, as in the reference, and the CNN of the vision
+scenarios. The gradient reduction is exact; ``TrainConfig.grad_compress``
+is the carry backend's, as in the reference. Nothing is donated: the steps
+write the carry's tensors in place (ROADMAP Queue 3).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.buffer import api as buffer_api
+from repro_torch.buffer.state import ItemSpec
+from repro_torch.buffer.tiered import resolve_cold_placement
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import distributed as rdist
+from repro_torch.device import resolve_device
+from repro_torch.parallel import dp_axes, dp_size, global_mean
+from repro_torch.strategy import outputs_row_spec, rep_checksum, resolve_strategy
+
+MAX_SLOTS = 1024
+
+
+def _nbytes(spec: ItemSpec) -> int:
+    return int(np.prod(spec.shape)) * torch.tensor([], dtype=spec.dtype).element_size()
+
+
+def slots_for_budget(item_spec, num_buckets: int, budget_bytes: int) -> int:
+    """Paper §VII: a worker's buffer memory S_max is a fixed budget, and
+    slots = S_max / (K x record bytes), within [1, MAX_SLOTS]."""
+    item_bytes = sum(_nbytes(s) for s in item_spec.values())
+    return max(1, min(MAX_SLOTS, budget_bytes // max(1, num_buckets * item_bytes)))
+
+
+@dataclass
+class BuiltStep:
+    """One rank's step and what it runs on.
+
+    ``fn(params, opt, buffer, reps, valid, batch, key, rows=None) -> (params,
+    opt, buffer, reps, valid, metrics)`` with rehearsal, ``fn(params, opt,
+    batch, key) -> (params, opt, metrics)`` without (``meta["mode"] ==
+    "off"``); ``batch`` is this rank's shard, ``key`` the integer key the
+    issue draws with, ``rows`` the parity seam of ``make_sharded_update``.
+    ``problem`` is the scenario's model side, ``item_spec`` the stored
+    record (a tap strategy's extra fields joined), ``rcfg`` the rehearsal
+    config the step runs (its slots resolved), ``pending_rows`` the rows of
+    this rank's pending slot (``min(peers, r)`` when exchanging, else ``r``)
+    and ``device`` the rank's device. Each rank's tensors live where it puts
+    them (``meta["cold_placement"]`` names the cold tier's memory)."""
+
+    fn: Any
+    meta: Dict[str, Any]
+    problem: Any
+    item_spec: Dict[str, ItemSpec]
+    rcfg: Any
+    pending_rows: int
+    device: torch.device
+
+
+def shard_host_batch(batch, mesh):
+    """This rank's slice ``[w*b, (w+1)*b)`` of a global host batch (each leaf
+    [B_g, ...]): the reference's ``P(dp)`` layout, one slice a process."""
+    from repro_torch.parallel import batch_slice
+
+    rows = batch_slice(len(next(iter(batch.values()))), mesh)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _sum_over(tensors: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """``tensors`` summed over ``group``: one ``all_reduce`` a dtype, on a
+    flat copy."""
+    if group is None or dist.get_world_size(group) == 1:
+        return tensors
+    out = dict(tensors)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k, t in tensors.items():
+        by_dtype.setdefault(t.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = torch.cat([tensors[k].reshape(-1) for k in keys])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for k, part in zip(keys, torch.split(flat, [tensors[k].numel() for k in keys])):
+            out[k] = part.view_as(tensors[k])
+    return out
+
+
+def build_train_step(
+    run: RunConfig,
+    mesh,
+    *,
+    scenario=None,
+    rehearsal_mode: Optional[str] = None,  # None -> run.rehearsal.mode
+    exchange: str = "full",
+    buffer_budget_bytes: Optional[int] = 64 << 20,
+    strategy=None,  # None -> run.scenario.strategy; name or Strategy
+    device=None,
+    problem=None,
+    aux_spec=None,
+    label_field: Optional[str] = None,
+    task_field: Optional[str] = None,
+) -> BuiltStep:
+    """The mesh backend's step for this rank of ``mesh``, with the
+    reference's guards. ``scenario`` (default: ``run.scenario``'s) gives the
+    model side and the record; ``problem`` and ``aux_spec`` pass ones
+    already built (the trainer's). ``buffer_budget_bytes=None`` takes
+    ``rehearsal.slots_per_bucket`` as it is (the trainer's path); a budget
+    derives the slots the paper's S_max way. ``label_field`` and
+    ``task_field`` default to the rehearsal config's."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.sanitizer import resolve_sanitizer, wrap_built_step
+    from repro_torch.scenario.base import get_scenario
+
+    scenario = get_scenario(scenario if scenario is not None else run.scenario)
+    tcfg, rcfg = run.train, run.rehearsal
+    strat = resolve_strategy(strategy if strategy is not None else run.scenario.strategy)
+    scfg = run.strategy
+    mode = rehearsal_mode if rehearsal_mode is not None else rcfg.mode
+    rcfg = dataclasses.replace(rcfg, mode=mode)
+    pipelined = rcfg.is_pipelined
+    device = resolve_device(device)
+    names = tuple(mesh.mesh_dim_names)
+    if "model" in names and mesh.size(names.index("model")) != 1:
+        from repro_torch.launch.mesh import MODEL_AXIS_ITEM
+
+        raise NotImplementedError(f"a model axis of {mesh.size(names.index('model'))} "
+                                  f"(tensor parallelism) is not ported yet ({MODEL_AXIS_ITEM})")
+    dp = dp_axes(mesh)
+    n_dp = dp_size(mesh)
+    # the global batch and its positions, from the scenario (1 a vision record)
+    bg, seq_len = run.scenario.batch_size, getattr(scenario, "seq_len", 1)
+    if bg % n_dp:
+        raise ValueError(f"global batch {bg} does not split over {n_dp} data-parallel "
+                         f"workers")
+    use_rehearsal = mode != "off" and strat.uses_buffer
+    if strat.fresh_params_per_task or strat.cumulative_data:
+        raise NotImplementedError(
+            f"strategy {strat.name!r} needs per-task re-init / cumulative sampling, which "
+            f"the mesh step builder does not implement; use the carry backend (mesh=None)")
+    if not strat.uses_buffer and mode != "off":
+        raise ValueError(f"strategy {strat.name!r} never touches the buffer; build with "
+                         f"rehearsal.mode='off'")
+    if strat.needs_outputs and strat.uses_buffer and not use_rehearsal:
+        raise ValueError(
+            f"strategy {strat.name!r} stores extra fields in the rehearsal buffer; "
+            f"rehearsal.mode='off' would silently degrade it to 'incremental': set "
+            f"mode='async'")
+    if use_rehearsal:
+        buffer_api.check_supported(rcfg)
+    label_field = label_field or rcfg.label_field
+    task_field = task_field or rcfg.task_field
+    problem = problem if problem is not None else scenario.build_problem(run, device)
+    item_spec = dict(scenario.item_spec)
+    r = rcfg.num_representatives
+    tap = use_rehearsal and strat.needs_outputs
+    if tap:
+        if not pipelined:
+            raise ValueError(
+                f"strategy {strat.name!r} requires the pipelined rehearsal path "
+                f"(rehearsal.mode='async'): the sync form would need the sampled "
+                f"representatives before the forward that produces the values to store")
+        if problem.forward_outputs is None:
+            raise NotImplementedError(f"the scenario's model exposes no outputs tap; "
+                                      f"strategy {strat.name!r} is unavailable for it")
+        if aux_spec is None:
+            row_spec = outputs_row_spec(problem.forward_outputs,
+                                        problem.init_params_fn(run.scenario.seed), item_spec,
+                                        device)
+            aux_spec = dict(strat.record_fields(item_spec, row_spec, scfg))
+        item_spec = dict(item_spec, **aux_spec)
+        tap_loss = strat.build_loss(problem.loss_fn, problem.forward_outputs, scfg,
+                                    label_field=label_field)
+    aux_spec = aux_spec if tap else {}
+    tiered = use_rehearsal and rcfg.tiered
+    if tiered:
+        slots = rcfg.resolved_hot_slots
+    elif use_rehearsal:
+        slots = (rcfg.slots_per_bucket if buffer_budget_bytes is None
+                 else slots_for_budget(item_spec, rcfg.num_buckets, buffer_budget_bytes))
+        rcfg = dataclasses.replace(rcfg, slots_per_bucket=slots)
+    else:
+        slots = 0
+    grad_group, _ = rdist.exchange_group(mesh, dp, "full")
+    loss_fn = problem.loss_fn
+    opt_update = make_optimizer(tcfg, n_workers=n_dp)[1]
+
+    def on_device(batch):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def finish(params, opt, loss, aux_metrics, fingerprints):
+        """The backward, the sums over the group, the optimizer step."""
+        loss.backward()
+        named = dict(params.named_parameters())
+        grads = _sum_over({k: p.grad if p.grad is not None else torch.zeros_like(p)
+                           for k, p in named.items()}, grad_group)
+        _, opt, opt_metrics = opt_update(grads, opt, named)
+        params.zero_grad(set_to_none=True)
+        summed = dict(fingerprints, loss=loss.detach(),
+                      **{k: v.detach() for k, v in aux_metrics.items()
+                         if isinstance(v, torch.Tensor)})
+        keys = sorted(summed)
+        vec = _sum_over({"m": torch.stack([summed[k].float().reshape(()) for k in keys])},
+                        grad_group)["m"]
+        return opt, dict(opt_metrics, **{k: vec[i] for i, k in enumerate(keys)})
+
+    if not use_rehearsal:
+        def step(params, opt, batch, key):
+            params.zero_grad(set_to_none=True)
+            with global_mean(grad_group):
+                loss, aux_metrics = loss_fn(params, on_device(batch))
+            opt, metrics = finish(params, opt, loss, aux_metrics, {})
+            return params, opt, metrics
+    else:
+        update = rdist.make_sharded_update(mesh, dp, rcfg, exchange, label_field, device)
+
+        def fingerprints(buffer, reps, valid):
+            return {"buffer_fill": buffer_api.buffer_fill(buffer).float(),
+                    "rep_checksum": rep_checksum(reps, valid, label_field)}
+
+        def augmented(batch, reps, valid):
+            return rdist.augment_global(batch, {k: v[None] for k, v in reps.items()},
+                                        valid[None], 1, label_field)
+
+        def step(params, opt, buffer, reps, valid, batch, key, rows=None):
+            params.zero_grad(set_to_none=True)
+            batch = on_device(batch)
+            b = next(iter(batch.values())).shape[0]
+            if tap:
+                aug = augmented(dict(batch, **strat.placeholder_fields(aux_spec, b, device)),
+                                reps, valid)
+                aug["is_replay"] = rdist.global_replay_mask(b, 1, valid[None])
+                with global_mean(grad_group):
+                    loss, (aux_metrics, outs) = tap_loss(params, aug)
+                # the new rows with this forward's outputs: the update needs the
+                # forward, not the gradients
+                outs_b = rdist.global_batch_rows(
+                    {k: v.detach() for k, v in outs.items() if v.dim()}, b, 1,
+                    valid.shape[0])
+                store = strat.on_store(batch, outs_b, scfg)
+                buffer, next_reps, next_valid = update(buffer, store, batch[task_field], key,
+                                                       rows)
+                consumed = (reps, valid)
+            else:
+                buffer, next_reps, next_valid = update(buffer, batch, batch[task_field], key,
+                                                       rows)
+                consumed = (reps, valid) if pipelined else (next_reps, next_valid)
+                with global_mean(grad_group):
+                    loss, aux_metrics = loss_fn(params, augmented(batch, *consumed))
+            opt, metrics = finish(params, opt, loss, aux_metrics,
+                                  fingerprints(buffer, *consumed))
+            return params, opt, buffer, next_reps, next_valid, metrics
+
+    san = resolve_sanitizer(True if run.sanitize else None, "mesh_step")
+    if san is not None:
+        step = wrap_built_step(step, san, pipelined=bool(use_rehearsal and pipelined))
+
+    rep_rows = n_dp * r if use_rehearsal else 0
+    meta = {
+        "kind": "train",
+        "mode": mode if use_rehearsal else "off",
+        "pipelined": bool(use_rehearsal and pipelined),
+        "strategy": strat.name,
+        "aux_fields": {name: _nbytes(s) for name, s in aux_spec.items()},
+        "n_dp": n_dp,
+        "slots_per_bucket": slots,
+        "tiering": rcfg.tiering if use_rehearsal else "off",
+        "cold_slots_per_bucket": rcfg.resolved_cold_slots if tiered else 0,
+        "cold_placement": resolve_cold_placement(device) if tiered else None,
+        "augmented_global_batch": bg + rep_rows,
+        "tokens_per_step": (bg + rep_rows) * seq_len,
+        "sanitize": san is not None,
+    }
+    peers = rdist.exchange_group(mesh, dp, exchange)[1]
+    return BuiltStep(fn=step, meta=meta, problem=problem, item_spec=item_spec, rcfg=rcfg,
+                     pending_rows=r if peers is None else min(peers, r), device=device)

@@ -1,29 +1,38 @@
-"""Training entry: continual LM training with rehearsal, on one device.
+"""Training entry: continual LM training with distributed rehearsal.
 
-The CLI builds a ``RunConfig`` (and its ``ScenarioConfig``) and a token
-class-incremental scenario, and ``ContinualTrainer`` trains it task after
-task, evaluating every task seen so far after each (per-task eval loss,
-lower is better). ``--mesh 1x1`` is the one layout ported: one process on
-one device, computing in f32, as the reference sets for one device.
+The CLI builds a ``RunConfig`` (with its ``ScenarioConfig``) and a token
+class-incremental scenario, and ``ContinualTrainer``'s mesh backend
+(``launch.steps.build_train_step``, the reference's pjit route) trains it
+task after task, evaluating every task seen so far after each (per-task
+eval loss, lower is better). Every ``--mesh DATAx1`` goes through the mesh
+backend, 1x1 included, as in the reference; it computes in f32 on one
+worker and in bf16 on more. A model axis over 1 is ROADMAP Queue 1 item
+21, and ``--resilience`` on more than one worker item 22.
 
-    python -m repro_torch.launch.train --arch smollm-135m                 # on the card
+    python -m repro_torch.launch.train --arch smollm-135m                 # one card
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1    # four cards
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --tasks 2 --steps-per-task 4 --seq-len 32 --global-batch 4 --device cpu
 
+Each rank is one process: started by torchrun, or by
+``runtime.multiproc.launch_workers`` (a file rendezvous, the CPU's gloo
+ranks), and each joins the group through ``runtime.multiproc.init_from_env``
+(NCCL on cards, gloo on the CPU). Without either, the run is one process on
+a mesh of one worker, with no group. ``--exchange`` picks the rehearsal
+exchange (``full`` over every rank, ``pod_local`` within the ``data`` axis,
+``local`` none); a one-worker mesh's full exchange keeps one representative
+a step, as the reference's does.
+
 The scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
 the model keeps its full vocabulary, as in the reference. Weights are
-random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full carry
-after every task; with ``--resilience`` each task's steps run in the
+random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full state
+every ``--ckpt-every`` steps and after every task (one directory a rank on
+more than one worker); with ``--resilience`` each task's steps run in the
 ``ResilientLoop`` (restart checkpoints every ``--resilience-checkpoint-every``
-steps under ``<ckpt-dir>/resilient``, bounded retry with backoff, and
-bounded-staleness reuse past ``--step-timeout``):
+steps under ``<ckpt-dir>/resilient``, bounded retry with backoff):
 
     python -m repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
         --tasks 1 --steps-per-task 4 --ckpt-dir /tmp/ck --resilience
-
-The options that need a mesh (``--mesh`` other than 1x1, ``--exchange`` and
-``--ckpt-every``, which only the pjit backend reads) raise
-``NotImplementedError`` naming their ROADMAP item whenever they are given.
 """
 from __future__ import annotations
 
@@ -40,15 +49,16 @@ from repro_torch.configs.base import (
     StrategyConfig,
     TrainConfig,
 )
+from repro_torch.launch.mesh import describe, make_mesh, memory_kinds
 from repro_torch.scenario import ContinualTrainer, TokenClassIncremental
 
 log = logging.getLogger("repro_torch.train")
 
-# Options of the reference's CLI that the port has not yet, and their items.
-# Each is refused whenever it is given: the exchange has peers only on a mesh,
-# and only the pjit backend reads --ckpt-every.
-UNPORTED_ITEMS = {"--mesh": 13, "--exchange": 13, "--exchange pod_local": "2-3",
-                  "--ckpt-every": 13}
+# Options of the reference's CLI that the port has not yet, and their items:
+# a model axis over 1 (tensor parallelism), and restarts that every rank of
+# a mesh agrees on.
+UNPORTED_ITEMS = {"--mesh DATAxMODEL with MODEL > 1": 21,
+                  "--resilience on --mesh DATAx1 with DATA > 1": 22}
 
 
 def parse_args(argv=None):
@@ -56,7 +66,8 @@ def parse_args(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true", help="reduced config (CPU)")
-    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL; only 1x1 is ported")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL, one process a data worker; MODEL must be 1")
     ap.add_argument("--tasks", type=int, default=2)
     ap.add_argument("--steps-per-task", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -72,8 +83,7 @@ def parse_args(argv=None):
     ap.add_argument("--der-top-k", type=int, default=0,
                     help="store top-k (value, index) logit pairs instead of the dense "
                          "vocab row (0 = dense)")
-    ap.add_argument("--exchange", default=None, choices=["full", "pod_local", "local"],
-                    help="not ported yet: one process has no peers to exchange with")
+    ap.add_argument("--exchange", default="full", choices=["full", "pod_local", "local"])
     ap.add_argument("--policy", default="reservoir",
                     help="buffer policy (reservoir|fifo|class_balanced|grasp)")
     ap.add_argument("--tiering", default="off", choices=["off", "host", "on"],
@@ -89,8 +99,8 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint the full carry after every task")
-    ap.add_argument("--ckpt-every", type=int, default=None,
-                    help="not ported yet: only the pjit backend reads it")
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="with --ckpt-dir: checkpoint every this many steps")
     ap.add_argument("--resilience", action="store_true",
                     help="run the steps in runtime.ResilientLoop (checkpointed restart; "
                          "needs --ckpt-dir)")
@@ -106,14 +116,18 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def mesh_shape(args):
+    """``(data, model)`` of ``--mesh``."""
+    d, m = (int(x) for x in args.mesh.split("x"))
+    return d, m
+
+
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every option the port has not yet
     that was given, naming each with its ROADMAP Queue 1 item."""
-    given = {flag: getattr(args, flag[2:].replace("-", "_")) is not None
-             for flag in UNPORTED_ITEMS if " " not in flag}
-    given.update({"--mesh": args.mesh != "1x1",
-                  "--exchange": args.exchange in ("full", "local"),
-                  "--exchange pod_local": args.exchange == "pod_local"})
+    d, m = mesh_shape(args)
+    given = {"--mesh DATAxMODEL with MODEL > 1": m != 1,
+             "--resilience on --mesh DATAx1 with DATA > 1": args.resilience and d > 1}
     unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
                 for flag, on in given.items() if on]
     if unported:
@@ -121,13 +135,16 @@ def check_ported(args) -> None:
 
 
 def build_run(args) -> RunConfig:
-    """The reference CLI's ``RunConfig`` for one device (f32 compute)."""
+    """The reference CLI's ``RunConfig``: f32 compute on a mesh of one
+    worker, bf16 on more."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     strategy = args.strategy or ("rehearsal" if args.mode != "off" else "incremental")
+    d, m = mesh_shape(args)
     return RunConfig(
         model=cfg,
         train=TrainConfig(optimizer=args.optimizer, peak_lr=args.lr, warmup_steps=20,
-                          linear_scaling=False, compute_dtype="float32"),
+                          linear_scaling=False,
+                          compute_dtype="float32" if d * m == 1 else "bfloat16"),
         rehearsal=RehearsalConfig(num_buckets=max(args.tasks, 2), mode=args.mode,
                                   slots_per_bucket=args.slots_per_bucket,
                                   policy=args.policy, tiering=args.tiering,
@@ -147,25 +164,62 @@ def build_run(args) -> RunConfig:
             step_timeout=args.step_timeout) if args.resilience else None)
 
 
+def join_group(device):
+    """This rank's device, and whether this call joined a process group:
+    under torchrun or ``runtime.multiproc`` each rank joins its group (NCCL
+    on cards, gloo on the CPU) on the card of its local rank; otherwise the
+    run is one process and no group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+    from repro_torch.runtime import multiproc
+
+    device = resolve_device(device)
+    if not multiproc.launched() or dist.is_initialized():
+        return device, False
+    if device.type == "cuda":
+        device = torch.device("cuda", multiproc.local_rank())
+        torch.cuda.set_device(device)
+    multiproc.init_from_env("nccl" if device.type == "cuda" else "gloo")
+    return device, True
+
+
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     run = build_run(args)
+    device, joined = join_group(args.device)
+    try:
+        res = _train(args, run, device)
+    finally:
+        if joined:
+            import gc
+
+            import torch.distributed as dist
+
+            gc.collect()  # the trainer's step held the group
+            dist.destroy_process_group()
+    return res
+
+
+def _train(args, run, device):
     cfg, strategy = run.model, run.scenario.strategy
-    trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario), device=args.device,
-                               ckpt_dir=args.ckpt_dir)
-    log.info("arch=%s params=%.1fM device=%s mode=%s strategy=%s", cfg.name,
-             cfg.param_count() / 1e6, trainer.device, args.mode, strategy)
+    mesh = make_mesh(mesh_shape(args), ("data", "model"), device.type)
+    trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario), device=device,
+                               mesh=mesh, exchange=args.exchange, ckpt_dir=args.ckpt_dir,
+                               ckpt_every=args.ckpt_every)
+    log.info("arch=%s params=%.1fM device=%s mesh=%s mode=%s strategy=%s", cfg.name,
+             cfg.param_count() / 1e6, trainer.device, describe(mesh), args.mode, strategy)
     if strategy in ("der", "der_pp") and args.der_top_k:
         log.info("der: storing top-%d logit (val,idx) pairs per position (alpha=%.2f "
                  "beta=%.2f)", args.der_top_k, args.der_alpha, args.der_beta)
     if run.rehearsal.tiered:
-        from repro_torch.buffer.tiered import resolve_cold_placement
-
-        log.info("tiered buffer: hot=%d cold=%d slots/bucket; cold tier in %s",
-                 run.rehearsal.resolved_hot_slots, run.rehearsal.resolved_cold_slots,
-                 resolve_cold_placement(trainer.device))
+        log.info("tiered buffer: hot=%d cold=%d slots/bucket; mesh memory kinds: %s; cold "
+                 "tier in %s", run.rehearsal.resolved_hot_slots,
+                 run.rehearsal.resolved_cold_slots, sorted(memory_kinds(mesh)),
+                 trainer.built.meta["cold_placement"])
     t_start = time.time()
     res = trainer.fit()
     for i, loss in enumerate(res.losses):

@@ -17,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import transformer as tf
+from repro_torch.parallel import global_count
 
 # MoE load-balance aux-loss weight, as in the reference (0 aux for the ported
 # families).
@@ -27,14 +28,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token-level CE in f32; labels < 0 are ignored.
 
     Divides by ``max(#valid, 1)``, so a batch whose rows are all masked gives
-    0, where ``F.cross_entropy(ignore_index=-1)`` gives NaN."""
+    0, where ``F.cross_entropy(ignore_index=-1)`` gives NaN. Inside
+    ``parallel.global_mean(group)`` the count is the group's (the mesh
+    step's global token mean)."""
     logits = logits.float()
     valid = labels >= 0
     labels_safe = labels.clamp(min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels_safe[..., None])[..., 0]
     nll = logz - gold
-    denom = valid.sum().clamp(min=1)
+    denom = global_count(valid.sum()).clamp(min=1)
     return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
 
 

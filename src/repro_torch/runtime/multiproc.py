@@ -9,7 +9,9 @@ card and is not exercised here.
 
 Topology travels in ``REPRO_MP_*`` environment variables: the parent builds
 each child's (``worker_env``), spawns plain ``python -c`` children
-(``launch_workers``), and each child calls ``init_from_env()`` first. The
+(``launch_workers``), and each child calls ``init_from_env()`` first.
+``init_from_env`` also joins a group started by torchrun (its ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``). The
 ranks meet through a file (``init_method="file://..."``), not a port chosen
 ahead: a port closed by the parent can be taken by another process before
 rank 0 binds it.
@@ -62,14 +64,37 @@ def worker_env(num_processes: int, process_id: int, rendezvous: str,
     return env
 
 
+def launched() -> bool:
+    """Whether this process's environment describes a group to join:
+    ``REPRO_MP_*`` (``launch_workers``) or torchrun's ``RANK`` and
+    ``WORLD_SIZE``."""
+    return ENV_RENDEZVOUS in os.environ or {"RANK", "WORLD_SIZE"} <= set(os.environ)
+
+
+def local_rank() -> int:
+    """This process's index on its host: torchrun's ``LOCAL_RANK``, else
+    the ``REPRO_MP_*`` rank (one host), else 0."""
+    return int(os.environ.get("LOCAL_RANK", os.environ.get(ENV_PID, 0)))
+
+
 def init_from_env(backend: str = "gloo") -> Tuple[int, int]:
-    """Join the group described by ``REPRO_MP_*``. Returns (rank, world)."""
+    """Join the group the environment describes: ``REPRO_MP_*`` (through
+    the rendezvous file), else torchrun's (``init_method="env://"``: its
+    ``MASTER_ADDR``/``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``). Under
+    ``nccl``, pick the card (``torch.cuda.set_device(local_rank())``) first.
+    Returns (rank, world)."""
     import torch.distributed as dist
 
-    rank, world = int(os.environ[ENV_PID]), int(os.environ[ENV_NPROCS])
-    dist.init_process_group(backend, init_method=f"file://{os.environ[ENV_RENDEZVOUS]}",
-                            rank=rank, world_size=world)
-    return rank, world
+    if ENV_RENDEZVOUS in os.environ:
+        rank, world = int(os.environ[ENV_PID]), int(os.environ[ENV_NPROCS])
+        dist.init_process_group(backend, init_method=f"file://{os.environ[ENV_RENDEZVOUS]}",
+                                rank=rank, world_size=world)
+        return rank, world
+    if not launched():
+        raise RuntimeError("no group in the environment: start the ranks with torchrun "
+                           "or runtime.multiproc.launch_workers")
+    dist.init_process_group(backend, init_method="env://")
+    return dist.get_rank(), dist.get_world_size()
 
 
 def launch_workers(worker_src: str, num_processes: int, *, timeout: float = 240.0,

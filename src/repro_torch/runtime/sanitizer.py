@@ -27,8 +27,9 @@ the carry's tensors in place, so no input is ever dead after a step.
 
 Enable with ``REPRO_SANITIZE=1`` (any value but ``0``/``false``/``no``/
 ``off``/empty) or ``RunConfig(sanitize=True)``. The mode is wired through
-``make_cl_step``, ``make_stale_step``, ``make_pipelined_halves``,
-``ResilientLoop`` and ``ContinualTrainer``.
+``make_cl_step``, ``make_stale_step``, ``make_pipelined_halves``, the mesh
+backend's ``launch.steps.build_train_step``, ``ResilientLoop`` and
+``ContinualTrainer``.
 """
 from __future__ import annotations
 
@@ -206,5 +207,26 @@ def wrap_halves(train_half, issue_half, san: PipelineRaceSanitizer):
     return train, issue
 
 
+def wrap_built_step(fn, san: PipelineRaceSanitizer, *, pipelined: bool):
+    """Slot bookkeeping around a ``launch.steps`` built step, positional
+    ``(params, opt, [buffer, reps, valid,] batch, key)``: a pipelined step
+    consumes the pending slot and issues the next. The reference also
+    checks the donated state's liveness; the port donates nothing."""
+
+    @functools.wraps(fn)
+    def step(*args, **kwargs):
+        if pipelined:
+            san.consume()
+        out = fn(*args, **kwargs)
+        if pipelined:
+            san.issue()
+        san.tick()
+        return out
+
+    step._sanitizer = san
+    return step
+
+
 __all__ = ["PipelineRaceSanitizer", "SanitizerError", "resolve_sanitizer",
-           "sanitize_enabled", "wrap_fused_step", "wrap_halves", "wrap_stale_step"]
+           "sanitize_enabled", "wrap_built_step", "wrap_fused_step", "wrap_halves",
+           "wrap_stale_step"]

@@ -1,4 +1,4 @@
-"""ContinualTrainer: the entry path for continual training (carry backend).
+"""ContinualTrainer: the entry path for continual training.
 
 ``ContinualTrainer(run, scenario).fit()`` composes
 
@@ -6,9 +6,10 @@
         ├─ scenario.apply_defaults(run.rehearsal)   # policy/bucketing defaults
         ├─ scenario.build_problem(run, device)      # init_params / loss / eval / tap
         ├─ Strategy.record_fields                   # tap strategies' extra fields
-        ├─ make_cl_step + init_carry                # buffer + pipeline slot
+        ├─ make_cl_step + init_carry   (carry)      # buffer + pipeline slot
         │  (step_form='split': make_pipelined_halves, the issue half on its
         │   own CUDA stream)
+        │  ──or── build_train_step + materialize_state (mesh backend)
         ├─ Prefetcher                               # background Load stage
         ├─ ResilientLoop + CheckpointManager        # resilience=: restarts,
         │                                           # stale steps; per-task saves
@@ -20,8 +21,12 @@ plain mixers with autograd. The buffer buckets by the scenario's
 ``buffer_task_field`` (``DriftStream``: the content label ``"label"``,
 while the loss reads ``"labels"``).
 
-The reference's other options are not ported yet and raise: ``mesh`` (the
-pjit backend, ROADMAP Queue 1 item 13) and ``obs`` (item 14).
+With ``mesh`` (``launch.mesh.make_mesh``), the trainer is one rank of a
+data-parallel run: the mesh backend (``launch.steps.build_train_step``, the
+reference's pjit route) steps this rank's buffer, pending slot and slice of
+the global batch, with the exchange over the mesh's group and the gradients
+summed over every rank. Every rank runs the same ``fit``. The reference's
+``obs`` is not ported yet and raises (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -42,10 +47,6 @@ from repro_torch.rng import fold_in
 from repro_torch.scenario.base import Scenario, get_scenario
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 class ContinualTrainer:
     """Scenario-first continual-training facade.
 
@@ -63,35 +64,41 @@ class ContinualTrainer:
         ``rehearsal`` strategy only, as in the reference).
       ckpt_dir: checkpoints of the full carry (model, optimizer, buffer with
         its policy aux, pending slot) after every task, as ``step_<task>``.
-      ckpt_every: read only by the pjit backend (ROADMAP Queue 1 item 13);
-        accepted, as in the reference.
+      mesh: a mesh (``launch.mesh.make_mesh``) trains through the mesh
+        backend instead of ``make_cl_step``; ``None`` is the carry backend.
+      exchange: the rehearsal exchange (full | pod_local | local).
+      ckpt_every: the mesh backend also saves every ``ckpt_every`` steps
+        (0: after every task only), as ``step_<global step>``; each rank of
+        an N-rank run saves under ``ckpt_dir/rank_<dp index>``.
       resilience: a ``ResilienceConfig`` (or None; ``run.resilience`` is the
         config-file spelling) runs each task's steps in a
         ``runtime.ResilientLoop``: periodic full-carry checkpoints under
         ``ckpt_dir/resilient`` and a cursor rewind give a bit-exact restart
         after a transient failure, and the wall-clock ``step_timeout`` feeds
         the bounded-staleness straggler path (the plain pipelined rehearsal
-        step only). Needs ``ckpt_dir`` and ``step_form='fused'``.
+        step only). Needs ``ckpt_dir`` and ``step_form='fused'``; on a mesh,
+        one worker (ROADMAP Queue 1 item 22).
       overrides: ``{"failure_hook": fn}``, the chaos injection point: called
         with the absolute step id before each resilient step.
-    The trainer is one process, so the rehearsal exchange has no peers.
+    Without a mesh the trainer is one process, so the rehearsal exchange
+    has no peers.
     """
 
     def __init__(self, run: RunConfig, scenario=None, *, device=None,
-                 strategy: Optional[str] = None, mesh=None, step_form: str = "fused",
-                 resilience=None, ckpt_dir: str = "", ckpt_every: int = 0, obs=None,
+                 strategy: Optional[str] = None, mesh=None, exchange: str = "full",
+                 step_form: str = "fused", resilience=None, ckpt_dir: str = "",
+                 ckpt_every: int = 0, obs=None,
                  overrides: Optional[Dict[str, Any]] = None):
         from repro_torch.optim import make_optimizer
         from repro_torch.runtime.sanitizer import sanitize_enabled
         from repro_torch.strategy import (STRATEGIES, get_strategy, make_cl_step,
                                           make_pipelined_halves, make_stale_step)
 
-        if mesh is not None:
-            _not_ported("the mesh (pjit) backend", 13)
         if step_form not in ("fused", "split"):
             raise ValueError(f"unknown step_form {step_form!r}")
         if obs is not None:
-            _not_ported("telemetry (obs)", 14)
+            raise NotImplementedError(
+                "telemetry (obs) is not ported yet (ROADMAP Queue 1 item 14)")
         unknown = set(overrides or {}) - {"failure_hook"}
         if unknown:
             raise TypeError(f"unknown trainer overrides: {sorted(unknown)}")
@@ -106,6 +113,7 @@ class ContinualTrainer:
                              "atomically")
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
+        self.mesh, self.exchange = mesh, exchange
         self.device = resolve_device(device)
         self.run = run
 
@@ -155,8 +163,33 @@ class ContinualTrainer:
         # one sanitizer a trainer: the fused, stale and split-half wrappers
         # share a single slot clock
         sanitize = sanitize_enabled(run)
-        self._step_fn = self._halves = self._stale_step_fn = None
-        if step_form == "split":
+        self._step_fn = self._halves = self._stale_step_fn = self.built = None
+        if mesh is not None:
+            from repro_torch.launch.steps import build_train_step
+
+            from repro_torch.parallel import dp_size
+
+            if step_form != "fused":
+                raise ValueError("step_form='split' needs the single-device pipelined "
+                                 "rehearsal path (mode='async')")
+            if self.resilience is not None and dp_size(mesh) > 1:
+                # each rank would restore and replay alone while its peers go
+                # on, pairing the collectives of different steps
+                raise NotImplementedError(
+                    f"resilience= on a mesh of {dp_size(mesh)} workers needs the ranks to "
+                    f"agree on every restart, which is not ported yet (ROADMAP Queue 1 "
+                    f"item 22); run it on one worker")
+            # the effective rehearsal config (scenario defaults applied above)
+            # drives the builder too: both backends bucket and mask alike
+            mesh_run = dataclasses.replace(
+                run, rehearsal=rcfg,
+                scenario=dataclasses.replace(sc, strategy=self.strategy))
+            self.built = build_train_step(
+                mesh_run, mesh, scenario=self.scenario, exchange=exchange,
+                buffer_budget_bytes=None, strategy=self.strat, device=self.device,
+                problem=problem, aux_spec=self.aux_spec, label_field=self.label_field,
+                task_field=self.scenario.buffer_task_field)
+        elif step_form == "split":
             if self.strategy != "rehearsal" or not rcfg.is_pipelined:
                 raise ValueError("step_form='split' needs the single-device "
                                  "pipelined rehearsal path (mode='async')")
@@ -175,7 +208,7 @@ class ContinualTrainer:
         # step carries a pending sample to consume again (tap strategies need
         # the fresh forward's values); elsewhere a straggling exchange is
         # waited for, never replaced by another program.
-        if (self.resilience is not None and self.strat.uses_buffer
+        if (self.resilience is not None and mesh is None and self.strat.uses_buffer
                 and not self.strat.needs_outputs and rcfg.enabled and rcfg.is_pipelined):
             self._stale_step_fn = make_stale_step(
                 self.loss_fn, opt_update, rcfg, label_field=self.label_field,
@@ -246,6 +279,15 @@ class ContinualTrainer:
                                                      self.label_field))
         return TrainCarry(model, opt, buffer, pipe), metrics
 
+    def _rank_dir(self) -> str:
+        """This rank's checkpoint directory: ``ckpt_dir``, or
+        ``ckpt_dir/rank_<dp index>`` on a mesh of more than one worker."""
+        if self.built is None or self.built.meta["n_dp"] == 1:
+            return self.ckpt_dir
+        from repro_torch.parallel import dp_index
+
+        return os.path.join(self.ckpt_dir, f"rank_{dp_index(self.mesh)}")
+
     def _resilient_loop(self, step_fn, stale_step_fn=None):
         """The ``ResilientLoop`` of ``self.resilience``: its checkpoints live
         under ``ckpt_dir/resilient`` (global-step ids; the per-task saves use
@@ -293,6 +335,52 @@ class ContinualTrainer:
                                 "buffer": carry.buffer, "pipe": carry.pipe},
                          {"task": task, "global_step": global_step})
 
+    def _run_task(self, state, step, source, task: int, n_steps: int, start: int, rloop,
+                  loads: Dict[str, float], rec: "_Records", after_step=None):
+        """One task's ``n_steps`` steps from the absolute step ``start``:
+        ``step(state, batch, key, record) -> (state, metrics)``, batches
+        from ``source(cursor)``. With ``rloop`` the steps run in the
+        ``ResilientLoop`` (batches straight off the cursor-pure stream: a
+        prefetcher's read-ahead cannot be rewound) and the records are those
+        of the committed steps; otherwise behind a prefetcher, and
+        ``after_step(state, global_step, task)`` follows each step. Returns
+        the state."""
+        if rloop is not None:
+            def batch_fn(cur):
+                t_load = time.perf_counter()
+                batch = {k: self._to_device(v) for k, v in source(cur).items()}
+                loads["last"] = time.perf_counter() - t_load
+                return batch
+
+            state, loop_hist, _ = rloop.run(state, batch_fn, self.seed, n_steps,
+                                            start_step=start, failure_hook=self._failure_hook)
+            for s, m in enumerate(loop_hist):
+                rec.add(task, s, n_steps, m["loss"], m, m["step_seconds"],
+                        m["prefetch_wait_seconds"])
+            for k, v in rloop.stats.items():
+                rec.res_stats[k] = rec.res_stats.get(k, 0.0) + v
+            return state
+        pf = Prefetcher(lambda cur: source(cur.step), cursor=Cursor(task, start),
+                        convert=self._to_device, limit=n_steps).start()
+        try:
+            for s in range(n_steps):
+                t_step = time.perf_counter()
+                _, batch = pf.next()
+                wait = time.perf_counter() - t_step
+                state, metrics = step(state, batch, fold_in(self.seed, start + s),
+                                      s % max(1, n_steps // 4) == 0)
+                loss = float(metrics["loss"])
+                rec.add(task, s, n_steps, loss, metrics, time.perf_counter() - t_step, wait)
+                if after_step is not None:
+                    after_step(state, start + s + 1, task)
+        finally:
+            pf.stop()
+        return state
+
+    def _evaluate(self, acc, task: int, params):
+        for j in range(task + 1):
+            acc[task, j] = self.eval_fn(params, j)
+
     def fit(self, num_tasks: Optional[int] = None):
         """Train through the first ``num_tasks`` tasks (default: all) and
         return a ``CLRunResult`` (Eq.-1 matrix, runtimes, loss history).
@@ -304,22 +392,26 @@ class ContinualTrainer:
         cursor-pure stream (a prefetcher's read-ahead cannot be rewound), and
         the per-step records are those of the committed steps."""
         from repro_torch.checkpoint import CheckpointManager
-        from repro_torch.core.cl_loop import CLRunResult
 
         T = self.num_tasks if num_tasks is None else num_tasks
         if not 1 <= T <= self.num_tasks:
             raise ValueError(f"num_tasks={num_tasks} outside 1..{self.num_tasks}")
+        if self.built is not None:
+            return self._fit_mesh(T)
         manager = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
         rloop, loads = None, {"last": 0.0}
         if self.resilience is not None:
             rloop = self._resilient_loop(
                 self._timed(self._step_fn, loads),
                 self._stale_step_fn and self._timed(self._stale_step_fn, loads))
+
+        def step(carry, batch, key, record):
+            if self._halves is not None:
+                return self._split_step(carry, batch, key, record)
+            return self._step_fn(carry, batch, key)
+
         carry = self._init(self.seed)
-        acc = np.zeros((T, T))
-        runtimes, history = [], []
-        losses, step_seconds, waits = [], [], []
-        res_stats: Dict[str, float] = {}
+        acc, rec = np.zeros((T, T)), _Records()
         global_step = 0
         for task in range(T):
             if self.strat.fresh_params_per_task:
@@ -327,62 +419,160 @@ class ContinualTrainer:
                 n_steps = self.epochs_per_task * self.steps_per_epoch * (task + 1)
             else:
                 n_steps = self.epochs_per_task * self.steps_per_epoch
-            source = self._source(task)
             t0 = time.perf_counter()
-            if rloop is not None:
-                def batch_fn(cur, _src=source):
-                    t_load = time.perf_counter()
-                    batch = {k: self._to_device(v) for k, v in _src(cur).items()}
-                    loads["last"] = time.perf_counter() - t_load
-                    return batch
-
-                carry, loop_hist, _ = rloop.run(carry, batch_fn, self.seed, n_steps,
-                                                start_step=global_step,
-                                                failure_hook=self._failure_hook)
-                global_step += n_steps
-                for s, m in enumerate(loop_hist):
-                    losses.append(m["loss"])
-                    step_seconds.append(m["step_seconds"])
-                    waits.append(m["prefetch_wait_seconds"])
-                    if s % max(1, n_steps // 4) == 0:
-                        history.append(self._history_entry(task, s, m["loss"], m))
-                for k, v in rloop.stats.items():
-                    res_stats[k] = res_stats.get(k, 0.0) + v
-            else:
-                pf = Prefetcher(lambda cur, _src=source: _src(cur.step),
-                                cursor=Cursor(task, global_step),
-                                convert=self._to_device, limit=n_steps).start()
-                try:
-                    for s in range(n_steps):
-                        t_step = time.perf_counter()
-                        _, batch = pf.next()
-                        waits.append(time.perf_counter() - t_step)
-                        record = s % max(1, n_steps // 4) == 0
-                        key = fold_in(self.seed, global_step)
-                        if self._halves is not None:
-                            carry, metrics = self._split_step(carry, batch, key, record)
-                        else:
-                            carry, metrics = self._step_fn(carry, batch, key)
-                        loss = float(metrics["loss"])
-                        step_seconds.append(time.perf_counter() - t_step)
-                        losses.append(loss)
-                        global_step += 1
-                        if record:
-                            history.append(self._history_entry(task, s, loss, metrics))
-                finally:
-                    pf.stop()
+            carry = self._run_task(carry, step, self._source(task), task, n_steps,
+                                   global_step, rloop, loads, rec)
+            global_step += n_steps
             self._sync()
-            runtimes.append(time.perf_counter() - t0)
-            for j in range(task + 1):
-                acc[task, j] = self.eval_fn(carry.params, j)
+            rec.runtimes.append(time.perf_counter() - t0)
+            self._evaluate(acc, task, carry.params)
             self._checkpoint_task(task, carry, global_step, manager)
 
         if manager is not None:
             manager.wait()
-        final = float(np.mean(acc[T - 1, :T]))
-        return CLRunResult(strategy=self.strategy, accuracy_matrix=acc,
-                           task_runtimes=runtimes, final_accuracy=final,
-                           history=history, losses=losses, step_seconds=step_seconds,
-                           prefetch_wait_seconds=waits,
-                           restarts=int(res_stats.get("restarts", 0)),
-                           resilience_stats=res_stats or None)
+        return rec.result(self.strategy, acc)
+
+    # ------------------------------------------------------------------ mesh
+    def mesh_step(self):
+        """The mesh backend's step on a state tuple ``(params, opt, buffer,
+        reps, valid, issue_key)`` (``(params, opt)`` without rehearsal):
+        ``step(state, batch, key) -> (state, metrics)`` with ``batch`` this
+        rank's shard. Step t's issue draws with the key carried from step
+        t-1 (``issue_key``), and ``key``, step t's own, is carried to step
+        t+1: the carry backend's RNG lineage, so both backends draw the same
+        sequence for the same run."""
+        fn, off = self.built.fn, self.built.meta["mode"] == "off"
+
+        def step(state, batch, key: int):
+            if off:
+                params, opt, metrics = fn(state[0], state[1], batch, key)
+                return (params, opt), metrics
+            *out, metrics = fn(*state[:5], batch, state[5])
+            return (*out, key), metrics
+
+        step._sanitizer = getattr(fn, "_sanitizer", None)
+        return step
+
+    def mesh_state(self):
+        """The mesh backend's initial state tuple (see ``mesh_step``)."""
+        state = materialize_state(self.built, self.run, self.mesh, self.seed)
+        if self.built.meta["mode"] == "off":
+            return state[:2]
+        return state + (self.seed,)
+
+    _TREE = ("params", "opt", "buffer", "reps", "valid", "issue_key")
+
+    def mesh_tree(self, state) -> Dict[str, Any]:
+        """The checkpoint tree of a mesh state tuple: ``{"params", "opt"}``,
+        plus ``"buffer"``, ``"reps"``, ``"valid"`` and ``"issue_key"`` with
+        rehearsal."""
+        return dict(zip(self._TREE, state))
+
+    def restore_mesh_state(self, step: Optional[int] = None):
+        """This rank's state tuple restored from its checkpoint at ``step``
+        (``None``: the newest readable one) under ``ckpt_dir``, and the
+        checkpoint's metadata (``global_step``, ``task``)."""
+        from repro_torch.checkpoint import CheckpointManager
+
+        tree, meta = CheckpointManager(self._rank_dir()).restore(
+            self.mesh_tree(self.mesh_state()), step)
+        return tuple(tree[k] for k in self._TREE if k in tree), meta
+
+    def _fit_mesh(self, T: int):
+        """``fit`` through the mesh backend: this rank's state, its shard of
+        every global batch, a save every ``ckpt_every`` steps (outside the
+        ``ResilientLoop``, which keeps its own) and after every task unless
+        the last step just saved, and per-task eval. The last state tuple
+        stays on ``self.final_state``."""
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.launch.steps import shard_host_batch
+
+        manager = CheckpointManager(self._rank_dir()) if self.ckpt_dir else None
+        mesh_step, loads = self.mesh_step(), {"last": 0.0}
+        rloop = None
+        if self.resilience is not None:
+            rloop = self._resilient_loop(self._timed(mesh_step, loads))
+        saved = {"at": None}
+
+        def save(state, global_step: int, task: int):
+            manager.save(global_step, self.mesh_tree(state),
+                         {"task": task, "global_step": global_step})
+            saved["at"] = global_step
+
+        def after_step(state, global_step: int, task: int):
+            if manager is not None and self.ckpt_every and global_step % self.ckpt_every == 0:
+                save(state, global_step, task)
+
+        state = self.mesh_state()
+        acc, rec = np.zeros((T, T)), _Records()
+        global_step = 0
+        for task in range(T):
+            n_steps = self.epochs_per_task * self.steps_per_epoch
+            t0 = time.perf_counter()
+            state = self._run_task(
+                state, lambda st, batch, key, _: mesh_step(st, batch, key),
+                lambda cur, _src=self._source(task): shard_host_batch(_src(cur), self.mesh),
+                task, n_steps, global_step, rloop, loads, rec, after_step)
+            global_step += n_steps
+            self._sync()
+            rec.runtimes.append(time.perf_counter() - t0)
+            self._evaluate(acc, task, state[0])
+            if manager is not None and saved["at"] != global_step:
+                save(state, global_step, task)
+
+        if manager is not None:
+            manager.wait()
+        self.final_state = state
+        return rec.result(self.strategy, acc)
+
+
+class _Records:
+    """The per-step records of a fit and the ``CLRunResult`` they make."""
+
+    def __init__(self):
+        self.history, self.losses, self.step_seconds, self.waits = [], [], [], []
+        self.runtimes, self.res_stats = [], {}
+
+    def add(self, task: int, s: int, n_steps: int, loss: float, metrics, seconds: float,
+            wait: float):
+        self.losses.append(loss)
+        self.step_seconds.append(seconds)
+        self.waits.append(wait)
+        if s % max(1, n_steps // 4) == 0:
+            self.history.append(ContinualTrainer._history_entry(task, s, loss, metrics))
+
+    def result(self, strategy: str, acc):
+        from repro_torch.core.cl_loop import CLRunResult
+
+        T = acc.shape[0]
+        return CLRunResult(strategy=strategy, accuracy_matrix=acc, task_runtimes=self.runtimes,
+                           final_accuracy=float(np.mean(acc[T - 1, :T])),
+                           history=self.history, losses=self.losses,
+                           step_seconds=self.step_seconds, prefetch_wait_seconds=self.waits,
+                           restarts=int(self.res_stats.get("restarts", 0)),
+                           resilience_stats=self.res_stats or None)
+
+
+def materialize_state(built, run, mesh, key: int):
+    """This rank's initial ``(params, opt, buffer, reps, valid)`` for a
+    built mesh step (``(params, opt, None, None, None)`` without rehearsal):
+    the model from ``key``, its optimizer state, the empty buffer the config
+    describes (flat or tiered, its policy's aux initialised, the cold tier
+    in pinned host memory on CUDA) and a pending slot of
+    ``built.pending_rows`` invalid records (their labels masked to -1: the
+    first step trains un-augmented)."""
+    from repro_torch.buffer import api as buffer_api
+    from repro_torch.buffer.state import mask_invalid
+    from repro_torch.optim import make_optimizer
+
+    params = built.problem.init_params_fn(key)
+    opt = make_optimizer(run.train, n_workers=built.meta["n_dp"])[0](
+        dict(params.named_parameters()))
+    if built.meta["mode"] == "off":
+        return params, opt, None, None, None
+    device, rcfg, rows = built.device, built.rcfg, built.pending_rows
+    buffer = buffer_api.init_from_config(built.item_spec, rcfg, device)
+    reps = {k: torch.zeros((rows,) + tuple(s.shape), dtype=s.dtype, device=device)
+            for k, s in built.item_spec.items()}
+    valid = torch.zeros((rows,), dtype=torch.bool, device=device)
+    return params, opt, buffer, mask_invalid(reps, valid, rcfg.label_field), valid

@@ -55,8 +55,11 @@ def make_der_loss(forward_outputs: Callable, *, alpha: float = 0.5, beta: float 
     rows. Replayed rows carry stored logits; new rows carry zero
     placeholders, masked out by ``is_replay`` (1.0 on valid replay rows).
     One forward feeds the CE terms, the distillation term and (through the
-    returned outputs) the logits stored for this batch."""
+    returned outputs) the logits stored for this batch. Every term is a
+    mean over its valid rows or tokens, counted over the mesh step's group
+    inside ``parallel.global_mean``."""
     from repro_torch.models.model_zoo import DEFAULT_AUX_WEIGHT, cross_entropy
+    from repro_torch.parallel import global_count
 
     def loss_fn(model, batch):
         outputs = forward_outputs(model, batch)
@@ -65,7 +68,8 @@ def make_der_loss(forward_outputs: Callable, *, alpha: float = 0.5, beta: float 
         is_replay = batch["is_replay"].float()
         ce_new = cross_entropy(logits, mask_rows(labels, 1.0 - is_replay))
         mse = distill_mse(logits, batch, top_k)
-        distill = torch.sum(mse * is_replay) / torch.clamp(is_replay.sum(), min=1.0)
+        distill = torch.sum(mse * is_replay) / torch.clamp(global_count(is_replay.sum()),
+                                                           min=1.0)
         total = ce_new + alpha * distill
         metrics = {"ce": ce_new, "distill": distill}
         if beta:

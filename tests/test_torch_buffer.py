@@ -197,7 +197,8 @@ def test_api_flat_branch_only():
 
 def test_sample_global_without_peers_draws_r_filled_records():
     """One process (no group): the no-collective branch, r valid records
-    drawn from the filled slots only; unported exchange modes raise."""
+    drawn from the filled slots only, for the full and pod_local exchanges;
+    an unknown exchange mode raises."""
     from repro_torch.core import distributed as tdist
 
     rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4)
@@ -207,7 +208,9 @@ def test_sample_global_without_peers_draws_r_filled_records():
     reps, valid = tdist.sample_global(buf, _gen(1), 5, rcfg=rcfg)
     assert reps["images"].shape == (5, 2, 2, 3) and bool(valid.all())
     assert (reps["images"] == 7.0).all()  # never an empty (zero) slot
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tdist.sample_global(buf, _gen(1), 5, exchange="pod_local", rcfg=rcfg)
+    # pod_local without a group: no peers inside the pod, the same branch
+    reps, valid = tdist.sample_global(buf, _gen(1), 5, exchange="pod_local", rcfg=rcfg)
+    assert reps["images"].shape == (5, 2, 2, 3) and bool(valid.all())
+    assert (reps["images"] == 7.0).all()
     with pytest.raises(ValueError):
         tdist.sample_global(buf, _gen(1), 5, exchange="ring", rcfg=rcfg)

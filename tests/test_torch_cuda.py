@@ -1144,3 +1144,75 @@ def test_resilient_fit_on_the_card_replays_a_failure(cuda, tiered, tmp_path):
     assert [(h["rep_checksum"], h["buffer_fill"]) for h in chaotic.history] == [
         (h["rep_checksum"], h["buffer_fill"]) for h in clean.history]
     np.testing.assert_allclose(chaotic.losses, clean.losses, rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The mesh backend on the card (chip_smoke.py phase 19, reduced)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiered,fused", [(False, False), (True, False), (True, True)],
+                         ids=["flat", "tiered", "tiered_fused"])
+def test_mesh_backend_at_1x1_on_the_card_follows_the_carry_backend(cuda, tiered, fused):
+    """``ContinualTrainer(mesh=1x1, exchange='local')`` on the card: the
+    carry backend's ``rep_checksum`` / ``buffer_fill`` history, losses at
+    rtol 1e-4 (cuDNN may pick another algorithm), 1 update+sample launch a
+    flat step and 3 a tiered one, the int8 kernels once a step, and the
+    cold tier pinned."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.scenario import ContinualTrainer
+
+    counters = [ops.rehearsal_update_sample, qz.quantize_rows, ops.encode_scatter_rows,
+                ops.gather_dequant_rows]
+    want_res = ContinualTrainer(_vision_run(tiered, fused), device=cuda).fit()
+    before = [fn.launches for fn in counters]
+    trainer = ContinualTrainer(_vision_run(tiered, fused), device=cuda,
+                               mesh=make_mesh((1, 1), ("data", "model")), exchange="local")
+    res = trainer.fit()
+    got = [fn.launches - b for fn, b in zip(counters, before)]
+    steps = 16
+    assert got == [steps * (3 if tiered else 1), steps * (tiered and not fused),
+                   steps * fused, steps * fused]
+    assert [(h["rep_checksum"], h["buffer_fill"]) for h in res.history] == [
+        (h["rep_checksum"], h["buffer_fill"]) for h in want_res.history]
+    np.testing.assert_allclose(res.losses, want_res.losses, rtol=1e-4, atol=0)
+    if tiered:
+        cold = trainer.final_state[2].cold.data
+        assert all(t.is_pinned() for leaf in cold.values() for t in leaf.values())
+        assert trainer.built.meta["cold_placement"] == "pinned_host"
+
+
+@pytest.mark.cuda
+def test_train_cli_at_1x1_in_a_world_one_nccl_group(cuda, tmp_path, monkeypatch):
+    """The reduced SmolLM through ``launch.train.main(['--mesh', '1x1',
+    '--exchange', 'full', ...])`` in a world-1 NCCL group: one update+sample
+    launch a step, an ``all_to_all_single`` on the card for each record leaf
+    and the valid mask every step, and a 1-row pending slot in the last
+    checkpoint."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import multiproc
+
+    monkeypatch.setenv(multiproc.ENV_RENDEZVOUS, str(tmp_path / "rendezvous"))
+    monkeypatch.setenv(multiproc.ENV_NPROCS, "1")
+    monkeypatch.setenv(multiproc.ENV_PID, "0")
+    a2a, calls = dist.all_to_all_single, []
+
+    def counted(out, inp, *args, **kwargs):
+        calls.append((inp.device.type, dist.get_backend(kwargs.get("group"))))
+        return a2a(out, inp, *args, **kwargs)
+
+    monkeypatch.setattr(dist, "all_to_all_single", counted)
+    before = ops.rehearsal_update_sample.launches
+    res = train_cli.main(["--arch", "smollm-135m", "--reduced", "--tasks", "1",
+                          "--steps-per-task", "4", "--seq-len", "16", "--global-batch", "4",
+                          "--mesh", "1x1", "--exchange", "full", "--ckpt-every", "2",
+                          "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not dist.is_initialized()  # the CLI left its group
+    assert ops.rehearsal_update_sample.launches - before == 4
+    assert calls == [("cuda", "nccl")] * (4 * 4)
+    assert np.isfinite(res.losses).all() and len(res.losses) == 4
+    state = np.load(str(tmp_path / "ckpt" / "step_0000000004" / "state.npz"))
+    assert state["reps/tokens"].shape == (1, 16) and state["valid"].tolist() == [True]

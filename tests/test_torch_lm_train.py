@@ -502,6 +502,7 @@ def test_train_cli_runs_as_a_module():
 def test_train_cli_run_config_is_the_references_at_one_device():
     run = train_cli.build_run(train_cli.parse_args(["--reduced", "--tasks", "3"]))
     assert run.train.optimizer == "adamw" and run.train.compute_dtype == "float32"
+    assert run.scenario.batch_size == 8
     assert run.train.peak_lr == 3e-3 and run.train.warmup_steps == 20
     assert run.rehearsal.num_buckets == 3 and run.rehearsal.slots_per_bucket == 16
     assert run.scenario.modality == "tokens" and run.scenario.seq_len == 128
@@ -510,13 +511,112 @@ def test_train_cli_run_config_is_the_references_at_one_device():
     assert full.model.vocab_size == 49152 and full.scenario.vocab_size == 2048
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x1"], "item 13"), (["--exchange", "pod_local"], "item 2-3"),
-    (["--exchange", "full"], "item 13"), (["--exchange", "local"], "item 13"),
-    (["--ckpt-every", "100"], "--ckpt-every .*item 13")])
+@pytest.mark.parametrize("flags,item", [(["--mesh", "1x2"], "--mesh .*item 21"),
+                                        (["--mesh", "4x2"], "--mesh .*item 21"),
+                                        (["--mesh", "2x1", "--resilience"],
+                                         "--resilience .*item 22")])
 def test_train_cli_unported_flags_raise_and_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--reduced", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--exchange", "full"], ["--exchange", "local"],
+                                   ["--exchange", "pod_local"], ["--ckpt-every", "1"]])
+def test_train_cli_takes_the_exchange_and_ckpt_every(flags, tmp_path):
+    """The mesh flags run on one worker: the exchange modes, and
+    ``--ckpt-every`` saving every step beside the end of the task."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    res = train_cli.main(["--arch", "smollm-135m", "--reduced", "--tasks", "1",
+                          "--steps-per-task", "2", "--seq-len", "16", "--global-batch", "2",
+                          "--device", "cpu", "--ckpt-dir", str(tmp_path)] + flags)
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    every = int(flags[1]) if flags[0] == "--ckpt-every" else 100
+    assert CheckpointManager(str(tmp_path)).list_steps() == ([1, 2] if every == 1 else [2])
+
+
+def _cli_args(extra=()):
+    return ["--arch", "smollm-135m", "--reduced", "--tasks", "2", "--steps-per-task", "4",
+            "--seq-len", "16", "--global-batch", "4"] + list(extra)
+
+
+def test_train_cli_at_1x1_follows_the_reference_cli(tmp_path):
+    """Both CLIs train through their mesh routes at 1x1 with the full
+    exchange: one representative a step (the pending slot of the last
+    checkpoint holds 1 row), and, every candidate being offered (c >= b),
+    the same ``buffer_fill`` at every step of the history."""
+    from repro.launch import train as jtrain
+
+    from repro_torch.checkpoint.manager import snapshot
+
+    want = jtrain.main(_cli_args())
+    trainer_dir = str(tmp_path / "port")
+    got = train_cli.main(_cli_args(["--device", "cpu", "--ckpt-dir", trainer_dir]))
+    assert [(h["task"], h["step"], h["buffer_fill"]) for h in got.history] == [
+        (h["task"], h["step"], float(h["buffer_fill"])) for h in want.history]
+    assert got.accuracy_matrix.shape == want.accuracy_matrix.shape
+    run = train_cli.build_run(train_cli.parse_args(_cli_args()))
+    from repro_torch.launch.mesh import make_mesh
+
+    trainer = ContinualTrainer(run, device="cpu", mesh=make_mesh((1, 1), ("data", "model")),
+                               ckpt_dir=trainer_dir)
+    state, meta = trainer.restore_mesh_state()
+    assert meta["global_step"] == 8 and state[3]["tokens"].shape == (1, 16)
+    assert bool(state[4].all()) and snapshot(state)[0]["3/labels"].shape == (1, 16)
+
+
+def test_train_cli_tiered_at_1x1_local_follows_the_carry_backend():
+    """The tiered store through the CLI's mesh route with ``--exchange
+    local`` draws as the port's carry backend does (the reference's tiered
+    pjit parity tests are caveats on this jax): fingerprints and losses bit
+    for bit."""
+    args = _cli_args(["--tiering", "host", "--hot-slots", "2", "--cold-slots", "4",
+                      "--exchange", "local"])
+    got = train_cli.main(args + ["--device", "cpu"])
+    run = train_cli.build_run(train_cli.parse_args(args))
+    from repro_torch.scenario import TokenClassIncremental
+
+    want = ContinualTrainer(run, TokenClassIncremental(run.scenario), device="cpu").fit()
+    assert got.history == want.history and got.losses == want.losses
+    assert max(h["buffer_fill"] for h in got.history) > 2 * 2
+
+
+def test_train_cli_runs_on_two_gloo_ranks(tmp_path):
+    """``--mesh 2x1`` on two gloo ranks (``runtime.multiproc``: a file
+    rendezvous): both ranks report the same global losses and eval lines,
+    compute in bf16 (the reference's rule off one worker) and checkpoint
+    under their own directories every ``--ckpt-every`` steps."""
+    import json
+    import os
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import multiproc
+
+    src = r"""
+import json, logging, sys, torch
+torch.set_num_threads(1)
+from repro_torch.launch import train
+res = train.main(sys.argv[1:] if len(sys.argv) > 1 else %r)
+print(json.dumps({"losses": res.losses, "history": res.history,
+                  "acc": res.accuracy_matrix.tolist()}))
+""" % (_cli_args(["--device", "cpu", "--mesh", "2x1", "--exchange", "pod_local",
+                  "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ck")]),)
+    path = str(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    outs = multiproc.launch_workers(src, 2, timeout=300, pythonpath=path,
+                                    extra_env={"OMP_NUM_THREADS": "1"},
+                                    rendezvous_dir=str(tmp_path))
+    for o in outs:
+        assert o.returncode == 0, o.stderr[-4000:]
+        assert "mesh=data=2 x model=1" in o.stderr and "eval after task 1 on task 0" in o.stderr
+    res = [json.loads(o.stdout.strip().splitlines()[-1]) for o in outs]
+    assert res[0] == res[1] and len(res[0]["losses"]) == 8
+    assert np.isfinite(res[0]["losses"]).all()
+    assert res[0]["history"][-1]["buffer_fill"] > 0 and res[0]["history"][-1]["rep_checksum"] > 0
+    for rank in range(2):
+        assert CheckpointManager(str(tmp_path / "ck" / f"rank_{rank}")).list_steps() == [2, 4, 6,
+                                                                                          8][-3:]
+    assert train_cli.build_run(train_cli.parse_args(["--mesh", "2x1"])).train.compute_dtype == \
+        "bfloat16"
 
 
 @pytest.mark.parametrize("flag,value,field", [
@@ -541,7 +641,8 @@ def test_train_cli_resilience_flags_set_the_reference_config(flag, value, field)
 def test_train_cli_runs_resilient_with_a_checkpoint_dir(tmp_path, caplog):
     """``--ckpt-dir --resilience`` on the CPU: the steps run in the
     ResilientLoop, its restart checkpoints and the per-task checkpoint land
-    under the directory, and the resilience line is logged."""
+    under the directory (the mesh backend names it by the global step, as
+    the reference's CLI does), and the resilience line is logged."""
     from repro_torch.checkpoint import CheckpointManager
 
     with caplog.at_level("INFO", logger="repro_torch.train"):
@@ -552,7 +653,7 @@ def test_train_cli_runs_resilient_with_a_checkpoint_dir(tmp_path, caplog):
     assert res.restarts == 0 and res.resilience_stats["stale_steps"] == 0
     assert len(res.losses) == 4 and np.isfinite(res.losses).all()
     assert CheckpointManager(str(tmp_path / "resilient")).list_steps() == [0, 2, 4]
-    assert CheckpointManager(str(tmp_path)).list_steps() == [0]
+    assert CheckpointManager(str(tmp_path)).list_steps() == [4]
     assert "resilience: restarts=0 stale_steps=0" in caplog.text
     with pytest.raises(ValueError, match="ckpt_dir"):
         train_cli.main(["--reduced", "--device", "cpu", "--resilience"])

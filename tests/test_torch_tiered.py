@@ -239,7 +239,7 @@ def test_tiered_from_jax_roundtrip():
     assert int(jnp.sum(js.cold.counts)) > 0
     ts = tiered_from_jax(js, "cpu")
     _assert_states(ts, js)
-    assert T.resolve_cold_placement("cpu") == "host"
+    assert T.resolve_cold_placement("cpu") == "device"
     assert T.resolve_cold_placement("cuda") == "pinned_host"
 
 

@@ -76,8 +76,17 @@ def test_constructors_default_to_the_card(name):
         make()
 
 
+class _TwoModelRanks:
+    """A mesh with a model axis of 2 (tensor parallelism, not ported)."""
+
+    device_type, mesh_dim_names = "cpu", ("data", "model")
+
+    def size(self, mesh_dim=None):
+        return (1, 2)[mesh_dim]
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "item 13"), (dict(obs=object()), "item 14")])
+    (dict(mesh=_TwoModelRanks()), "item 21"), (dict(obs=object()), "item 14")])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ContinualTrainer(RUN, device="cpu", **kwargs)
@@ -101,7 +110,7 @@ def test_trainer_checkpoints_the_full_carry_per_task(tmp_path):
                                 batch_size=8, image_size=8, classes_per_task=4,
                                 auto_defaults=False))
     trainer = ContinualTrainer(run, device="cpu", ckpt_dir=str(tmp_path), ckpt_every=3)
-    assert trainer.ckpt_every == 3  # read by the pjit backend only
+    assert trainer.ckpt_every == 3  # read by the mesh backend only
     trainer.fit()
     with _np.load(str(tmp_path / "step_0000000000" / "state.npz")) as z:
         keys = set(z.files)
