@@ -51,11 +51,11 @@ Phases (any failure exits non-zero):
  13. the split pipelined step (run after phase 7, with TF32 still on):
      ``ContinualTrainer(step_form='split')`` on phase 5's flat and phase 7's
      unfused tiered configuration, the issue half on its own CUDA stream;
-     fingerprints and launches equal to the fused runs', then both forms
-     profiled (``repro_torch.profile_main_path``, one process each, so that
-     no profiler session runs in this one): median step, idle share,
-     the stream each kernel ran on, and the issue half's time during the
-     train half's kernels.
+     fingerprints and launches equal to the fused runs', then the flat
+     step's two forms profiled (``repro_torch.profile_main_path``, one
+     process each, so that no profiler session runs in this one): median
+     step, idle share, the stream each kernel ran on, and the issue half's
+     time during the train half's kernels.
  14. strategies and policies on the main path (after phase 13, TF32 on):
      ``ContinualTrainer`` on phase 5's configuration with der_pp (dense
      logits, flat), der with top_k 8 on phase 7's tiered store (unfused,
@@ -166,6 +166,23 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      every step, a 1-row pending slot, finite losses, and the step-2
      checkpoint restored in a new group and replayed to step 4 bit for bit.
      Median steps beside phases 5's and 15's, peak memory.
+ 20. telemetry (after phase 19), in deterministic mode, TF32 on for the
+     ResNet: (a) phase 5's flat configuration, 1 task, with ``run.obs`` off
+     and then on (a ``dir``): the loss, ``rep_checksum`` and ``buffer_fill``
+     histories bit for bit, the same launches, ``obs/fill`` equal to
+     ``buffer_fill`` every step, a valid ``trace.json`` with ``eval`` and
+     ``checkpoint_save`` spans, the median steps side by side; the same
+     toggle on phase 7's fused tiered store (off, on); (b)
+     ``obs.PhasePipeline`` on the flat and the fused tiered store, 4 steps
+     each against the fused step bit for bit, the mean of each phase span
+     (the paper's Fig. 6 breakdown) and the launches (the flat step's one
+     update+sample launch split in two); (c) the mesh backend at 1x1 in a
+     world-1 NCCL group, resilient with obs on, a failure injected: the
+     ranks' agreement runs as collectives, the final state equals the
+     clean run's bit for bit, and ``events.jsonl`` holds one ``restart``
+     and the trace one ``restore`` span; (d) ``serve --obs DIR
+     --metrics-port 0`` at SmolLM-135M full width: ``/metrics`` scraped
+     once, and ``prefill`` and ``decode`` spans in the trace.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -1115,15 +1132,15 @@ def class_incremental_stream(cfg, seed: int = 0):
         seed=1234 + seed)))
 
 
-def class_incremental_trainer(cfg, rehearsal, seed: int = 0, **kw):
+def class_incremental_trainer(cfg, rehearsal, seed: int = 0, obs=None, **kw):
     """``ContinualTrainer`` on ``cfg`` over ``class_incremental_stream`` with
-    the rehearsal fields ``rehearsal`` (r, c and async mode fixed); ``kw``
-    goes to the trainer."""
-    from repro_torch.configs.base import RehearsalConfig, RunConfig
+    the rehearsal fields ``rehearsal`` (r, c and async mode fixed) and the
+    ``ObsConfig`` ``obs`` (default: off); ``kw`` goes to the trainer."""
+    from repro_torch.configs.base import ObsConfig, RehearsalConfig, RunConfig
     from repro_torch.scenario import ClassIncremental, ContinualTrainer
 
     sc, stream = class_incremental_stream(cfg, seed)
-    run = RunConfig(model=cfg, scenario=sc, rehearsal=RehearsalConfig(
+    run = RunConfig(model=cfg, scenario=sc, obs=obs or ObsConfig(), rehearsal=RehearsalConfig(
         num_representatives=REPS, num_candidates=CANDS, mode="async", **rehearsal))
     return ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda", **kw)
 
@@ -1395,8 +1412,11 @@ def split_phase(counters, cfg, fused_runs: dict):
         steps_ms[name] = (fused[2], split[2])
         print(f"{name}: split == fused fingerprints over {len(split[1])} steps, launches "
               f"{split[0]}; median step fused {fused[2]:.1f} ms, split {split[2]:.1f} ms")
+    # the flat step's profiles only: the tiered pair's took about 60 s a
+    # process of the script's 1200 (PERF.md section 5 keeps their last
+    # reading)
     profiles = {}
-    for name, tiered in (("flat", False), ("tiered, unfused", True)):
+    for name, tiered in (("flat", False),):
         for form in ("fused", "split"):
             out = profile_subprocess(tiered, form == "split")
             st = out["streams"]
@@ -1407,7 +1427,7 @@ def split_phase(counters, cfg, fused_runs: dict):
                                      f"{st['train_stream']}")
             profiles[(name, form)] = out
             torch.cuda.empty_cache()
-    for name in steps_ms:
+    for name in ("flat",):
         f, sp = profiles[(name, "fused")], profiles[(name, "split")]
         print(f"{name}: trainer median step fused {steps_ms[name][0]:.1f} ms, split "
               f"{steps_ms[name][1]:.1f} ms; profiled step wall fused "
@@ -3386,10 +3406,383 @@ def mesh_phase(counters, cfg, fused_runs: dict, base_losses: list, lm_runs: dict
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: telemetry on the main path, and an agreed restart
+# ---------------------------------------------------------------------------
+
+# Phase 20's cuts: phase 5's configuration for 1 task of STEPS_PER_TASK
+# steps; restart checkpoints every OBS_RES_EVERY steps and a failure before
+# step OBS_FAIL_AT, so that the step-2 checkpoint is restored and one step
+# replays. Serving: SmolLM-135M at full width, a short prompt and generation.
+OBS_RES_EVERY, OBS_FAIL_AT, OBS_PROMPT, OBS_GEN = 2, 3, 8, 8
+
+
+def _fingerprint_rows(result):
+    return [(h["loss"], h["rep_checksum"], h["buffer_fill"]) for h in result.history]
+
+
+def _zero(counters):
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters) -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _state_tensors(tree, path=""):
+    """``(path, tensor or host value)`` of every leaf of a state tuple."""
+    if isinstance(tree, torch.nn.Module):
+        for name, t in tree.named_parameters():
+            yield f"{path}/{name}", t.detach()
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _state_tensors(v, f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _state_tensors(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def _same_state(a, b) -> bool:
+    la, lb = list(_state_tensors(a)), list(_state_tensors(b))
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def obs_toggle(counters, cfg, tmp: str):
+    """(a) phase 5's flat configuration, 1 task, each run checkpointing its
+    task, in turns: obs off, on (with ``dir``), on, off. The histories of
+    loss, ``rep_checksum`` and ``buffer_fill`` bit for bit, the same
+    launches, ``obs/fill`` equal to ``buffer_fill`` every step, and a valid
+    ``trace.json`` with ``eval`` and ``checkpoint_save`` spans. The medians
+    leave out each fit's first step (the card's set-up, 3.4 s in the first
+    fit of a process). Returns the launches of each setting."""
+    from repro_torch import obs
+    from repro_torch.configs.base import ObsConfig
+
+    runs, launches, steps = [], {}, {"off": [], "on": []}
+    for i, name in enumerate(("off", "on", "on", "off")):
+        ocfg = (ObsConfig(enabled=True, dir=os.path.join(tmp, "obs_a")) if name == "on"
+                else ObsConfig())
+        trainer = class_incremental_trainer(cfg, FLAT, obs=ocfg,
+                                            ckpt_dir=os.path.join(tmp, f"ckpt_a_{i}"))
+        _zero(counters)
+        result = trainer.fit(num_tasks=1)
+        launches[name] = _read(counters)
+        runs.append((name, result))
+        steps[name] += [t * 1e3 for t in result.step_seconds[1:]]
+        del trainer
+        torch.cuda.empty_cache()
+    obs.shutdown()
+    off, on = runs[0][1], runs[1][1]
+    ms = {k: statistics.median(v) for k, v in steps.items()}
+    print(f"(a) flat, 1 task x {STEPS_PER_TASK} steps, fits off, on, on, off: median step "
+          f"(steps 2-{STEPS_PER_TASK} of each fit) obs off {ms['off']:.2f} ms, obs on "
+          f"{ms['on']:.2f} ms; all steps "
+          f"{[(n, [round(t * 1e3, 1) for t in r.step_seconds]) for n, r in runs]}; launches "
+          f"{({k: v for k, v in launches['on'].items() if v})}")
+    print(f"(a) gauges of the last step: "
+          f"{ {k: v for k, v in on.history[-1].items() if k.startswith('obs/')} }")
+    for name, r in runs:
+        if _fingerprint_rows(r) != _fingerprint_rows(off) or r.losses != off.losses:
+            raise AssertionError(f"(a) obs {name} changed the run: {_fingerprint_rows(off)} "
+                                 f"vs {_fingerprint_rows(r)}")
+    want = dict({k: 0 for k in counters}, rehearsal_update_sample=STEPS_PER_TASK)
+    if launches["off"] != want or launches["on"] != want:
+        raise AssertionError(f"(a) launches {launches}, expected {want}")
+    if [h["obs/fill"] for h in on.history] != [h["buffer_fill"] for h in on.history]:
+        raise AssertionError(f"(a) obs/fill != buffer_fill: {on.history}")
+    if off.obs is not None or "obs/grad_norm" not in on.obs:
+        raise AssertionError(f"(a) result.obs {off.obs} / {on.obs}")
+    with open(os.path.join(tmp, "obs_a", "trace.json")) as f:
+        doc = json.load(f)
+    problems = obs.validate_trace(doc)
+    spans = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+    print(f"(a) trace.json: {len(doc['traceEvents'])} events, spans {sorted(spans)}, "
+          f"problems {problems}")
+    if problems or not {"eval", "checkpoint_save"} <= spans:
+        raise AssertionError(f"(a) trace: {problems}, spans {spans}")
+    return launches
+
+
+def obs_toggle_tiered(counters, cfg):
+    """(a) on phase 7's fused tiered store, 1 task: obs off, then on. The
+    histories bit for bit, the same launches (3 update+sample, one
+    ``encode_scatter_rows`` and one ``gather_dequant_rows`` a step), the
+    tiered gauges present and ``obs/fill`` equal to ``buffer_fill``.
+    Returns the launches of each run."""
+    from repro_torch.configs.base import ObsConfig
+
+    runs, launches = {}, {}
+    for name, ocfg in (("off", ObsConfig()), ("on", ObsConfig(enabled=True))):
+        trainer = class_incremental_trainer(cfg, tiered_rehearsal(True), obs=ocfg)
+        _zero(counters)
+        runs[name] = trainer.fit(num_tasks=1)
+        launches[name] = _read(counters)
+        del trainer
+        torch.cuda.empty_cache()
+    off, on = runs["off"], runs["on"]
+    last = {k: v for k, v in on.history[-1].items() if k.startswith("obs/")}
+    print(f"(a) fused tiered, 1 task x {STEPS_PER_TASK} steps: median step (steps 2-"
+          f"{STEPS_PER_TASK}) obs off {statistics.median(off.step_seconds[1:]) * 1e3:.2f} ms, "
+          f"on {statistics.median(on.step_seconds[1:]) * 1e3:.2f} ms; launches "
+          f"{({k: v for k, v in launches['on'].items() if v})}; gauges of the last step {last}")
+    if _fingerprint_rows(off) != _fingerprint_rows(on) or off.losses != on.losses:
+        raise AssertionError(f"(a) tiered: obs on changed the run: {_fingerprint_rows(off)} "
+                             f"vs {_fingerprint_rows(on)}")
+    want = dict({k: 0 for k in counters}, rehearsal_update_sample=3 * STEPS_PER_TASK,
+                encode_scatter_rows=STEPS_PER_TASK, gather_dequant_rows=STEPS_PER_TASK)
+    if launches["off"] != want or launches["on"] != want:
+        raise AssertionError(f"(a) tiered: launches {launches}, expected {want}")
+    if ([h["obs/fill"] for h in on.history] != [h["buffer_fill"] for h in on.history]
+            or not {"obs/hot_fill", "obs/cold_fill", "obs/demotions"} <= set(last)):
+        raise AssertionError(f"(a) tiered gauges: {on.history}")
+    return launches
+
+
+def gauge_cost(carry, rcfg, calls: int = 20):
+    """The host's time for one step's gauges on a live flat carry (each call
+    ended by a synchronisation; their device work is a few small kernels):
+    ``step_metrics`` whole, the parameter norm alone, and ``step_metrics``
+    with its one read back (``read_gauges``)."""
+    from repro_torch.configs.base import ObsConfig
+    from repro_torch.obs.metrics import read_gauges, step_metrics, tree_l2
+
+    norm, ocfg = torch.zeros((), device="cuda"), ObsConfig(enabled=True)
+
+    def gauges():
+        return step_metrics(buffer=carry.buffer, rcfg=rcfg, valid=carry.pipe.valid,
+                            new_rows=BATCH, grad_norm=norm, params=carry.params,
+                            staleness=1.0, cfg=ocfg)
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    ms = {"step_metrics": timed(gauges), "param_norm": timed(lambda: tree_l2(carry.params)),
+          "with_read": timed(lambda: read_gauges(gauges()))}
+    print(f"(b) the gauges' host cost a step (ms, mean of {calls} calls each ended by a "
+          f"synchronisation): {({k: round(v, 3) for k, v in ms.items()})}")
+
+
+def phase_pipeline_case(counters, cfg, name: str, rehearsal):
+    """(b) ``obs.PhasePipeline`` against the fused step (``make_cl_step``,
+    the trainer's own) on the same batches, from the same initial carry:
+    the loss, ``rep_checksum`` and ``buffer_fill`` of every step bit for
+    bit. Prints the mean of each phase span and the fused step's time.
+    Returns the launches of each."""
+    from repro_torch.obs import PHASES, PhasePipeline, Tracer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.rng import fold_in
+
+    trainer = class_incremental_trainer(cfg, rehearsal)
+    source, seed = trainer._source(0), trainer.seed
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in source(s).items()}
+               for s in range(STEPS_PER_TASK)]
+    pipeline = PhasePipeline(trainer.loss_fn, make_optimizer(trainer.run.train)[1],
+                             trainer.rcfg, label_field=trainer.label_field,
+                             task_field=trainer.scenario.buffer_task_field,
+                             tracer=Tracer(enabled=True), device="cuda")
+    prints, launches, step_ms = {}, {}, {}
+    for form, step in (("fused", trainer._step_fn), ("phases", pipeline.step)):
+        carry = trainer._init(seed)
+        rows, times = [], []
+        _zero(counters)
+        for s, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            carry, m = step(carry, batch, fold_in(seed, s))
+            rows.append((float(m["loss"]), float(m["rep_checksum"]), float(m["buffer_fill"])))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches[form], prints[form], step_ms[form] = _read(counters), rows, times
+        if form == "fused" and name == "flat":
+            gauge_cost(carry, trainer.rcfg)
+        del carry
+        torch.cuda.empty_cache()
+    stats = pipeline.tracer.span_stats()
+    means = {p: round(stats[p]["mean_us"] / 1e3, 3) for p in PHASES if p in stats}
+    print(f"(b) {name}: PhasePipeline {STEPS_PER_TASK} steps, phase means (ms, first step "
+          f"included) {means}, their sum {sum(means.values()):.3f} ms; per step "
+          f"{[round(t, 1) for t in step_ms['phases']]} ms; the fused step "
+          f"{[round(t, 1) for t in step_ms['fused']]} ms; launches fused "
+          f"{({k: v for k, v in launches['fused'].items() if v})}, phases "
+          f"{({k: v for k, v in launches['phases'].items() if v})}")
+    if prints["phases"] != prints["fused"]:
+        raise AssertionError(f"(b) {name}: PhasePipeline {prints['phases']} != fused "
+                             f"{prints['fused']}")
+    if (rehearsal.get("tiering") != "host"
+            and launches["phases"]["rehearsal_update_sample"] != 2 * STEPS_PER_TASK):
+        # the fused step's one update+sample launch is two here: the update
+        # (issue_sample), then the sample's gather (all_to_all)
+        raise AssertionError(f"(b) {name}: launches {launches['phases']}")
+    want = set(PHASES) if rehearsal.get("tiering") == "host" else set(PHASES) - {"demote_stage"}
+    if set(stats) != want or any(v["count"] != STEPS_PER_TASK for v in stats.values()):
+        raise AssertionError(f"(b) {name}: spans {stats}")
+    del trainer, pipeline
+    return launches
+
+
+def agreed_restart(counters, cfg, tmp: str):
+    """(c) phase 5's flat configuration through the mesh backend at 1x1
+    (``exchange='local'``) in a world-1 NCCL group, so that the
+    ``ResilientLoop``'s decisions run as collectives, with obs on: a clean
+    resilient fit of 1 task, then one with a failure before step
+    ``OBS_FAIL_AT``. Restarts 0 and 1, the histories, losses and the final
+    state bit for bit; ``events.jsonl`` holds one ``restart`` and the trace
+    one ``restore`` span. Returns the launches of each run."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.configs.base import ObsConfig, ResilienceConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    with world_of_one(os.path.join(tmp, "rendezvous_c")):
+        multiproc.init_from_env("nccl")
+    runs, states, launches = {}, {}, {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        res = ResilienceConfig(checkpoint_every=OBS_RES_EVERY, max_restarts=2)
+        obs_dir = os.path.join(tmp, "obs_c")
+        for name, ocfg, hook in (("clean", ObsConfig(enabled=True), None),
+                                 ("failed", ObsConfig(enabled=True, dir=obs_dir),
+                                  _fail_once(OBS_FAIL_AT))):
+            trainer = class_incremental_trainer(
+                cfg, FLAT, obs=ocfg, mesh=mesh, exchange="local",
+                ckpt_dir=os.path.join(tmp, f"ckpt_c_{name}"), resilience=res,
+                overrides={"failure_hook": hook} if hook else None)
+            _zero(counters)
+            runs[name] = trainer.fit(num_tasks=1)
+            launches[name] = _read(counters)
+            states[name] = trainer.final_state
+            del trainer
+        restores = [e for e in obs.get_tracer().events() if e["name"] == "restore"]
+        obs.shutdown()
+        events = obs.read_events(os.path.join(obs_dir, "events.jsonl"))
+        same = _same_state(states["clean"], states["failed"])
+        del states
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    clean, failed = runs["clean"], runs["failed"]
+    restarts = [e for e in events if e["kind"] == "restart"]
+    replayed = OBS_FAIL_AT - OBS_FAIL_AT // OBS_RES_EVERY * OBS_RES_EVERY
+    print(f"(c) mesh 1x1 in a world-1 NCCL group, restart checkpoints every {OBS_RES_EVERY}: "
+          f"restarts {clean.restarts}, {failed.restarts}; restart events {restarts}; restore "
+          f"span {[round(e['dur'] / 1e3, 1) for e in restores]} ms; resilience "
+          f"{failed.resilience_stats}; launches clean "
+          f"{({k: v for k, v in launches['clean'].items() if v})}, failed "
+          f"{({k: v for k, v in launches['failed'].items() if v})}; final state bit for bit "
+          f"{same}; median step {statistics.median(clean.step_seconds) * 1e3:.1f} ms")
+    if clean.restarts != 0 or failed.restarts != 1 or len(restarts) != 1 or len(restores) != 1:
+        raise AssertionError(f"(c) restarts {clean.restarts} {failed.restarts}, events "
+                             f"{restarts}, restore spans {restores}")
+    if (_fingerprint_rows(clean) != _fingerprint_rows(failed) or clean.losses != failed.losses
+            or not same):
+        raise AssertionError(f"(c) the failed run differs from the clean one: "
+                             f"{_fingerprint_rows(clean)} vs {_fingerprint_rows(failed)}, "
+                             f"state equal {same}")
+    for name, n in (("clean", STEPS_PER_TASK), ("failed", STEPS_PER_TASK + replayed)):
+        if launches[name] != dict({k: 0 for k in counters}, rehearsal_update_sample=n):
+            raise AssertionError(f"(c) {name}: launches {launches[name]}")
+    return launches
+
+
+def serve_with_obs(tmp: str):
+    """(d) ``serve --obs DIR --metrics-port 0`` at SmolLM-135M full width:
+    the endpoint scraped once while it is up (just before the CLI shuts it
+    down), its ``repro_serve_decode_tokens_per_second`` equal to the
+    result's, and ``prefill`` and ``decode`` spans in the trace."""
+    import urllib.request
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    real, scraped = obs.start_metrics_server, []
+
+    def start(registry, port=0, host="127.0.0.1"):
+        server, bound = real(registry, port=port, host=host)
+        stop = server.shutdown
+
+        def shutdown():
+            url = f"http://127.0.0.1:{bound}/metrics"
+            scraped.append(urllib.request.urlopen(url, timeout=30).read().decode())
+            stop()
+
+        server.shutdown = shutdown
+        return server, bound
+
+    d = os.path.join(tmp, "obs_d")
+    obs.start_metrics_server = start
+    try:
+        res = serve.main(["--arch", "smollm-135m", "--batch", str(SERVE_B), "--prompt-len",
+                          str(OBS_PROMPT), "--gen-len", str(OBS_GEN), "--obs", d,
+                          "--metrics-port", "0"])
+    finally:
+        obs.start_metrics_server = real
+    lines = [line for text in scraped for line in text.splitlines()
+             if line.startswith("repro_serve_decode_tokens_per_second ")]
+    with open(os.path.join(d, "trace.json")) as f:
+        doc = json.load(f)
+    spans = {e["name"]: e["dur"] / 1e3 for e in doc["traceEvents"] if e.get("ph") == "X"}
+    print(f"(d) serve --obs --metrics-port 0, SmolLM-135M, batch {SERVE_B}, prompt "
+          f"{OBS_PROMPT}, gen {OBS_GEN}: scraped {lines}; spans (ms) "
+          f"{ {k: round(v, 2) for k, v in spans.items()} }; prefill "
+          f"{res.prefill_seconds:.4f} s, decode {res.tokens_per_second:.1f} tok/s per sequence")
+    if len(scraped) != 1 or lines != [f"repro_serve_decode_tokens_per_second "
+                                      f"{res.tokens_per_second!r}"]:
+        raise AssertionError(f"(d) scraped {scraped}")
+    if obs.validate_trace(doc) or not {"prefill", "decode"} <= set(spans):
+        raise AssertionError(f"(d) trace {obs.validate_trace(doc)}, spans {spans}")
+
+
+def obs_phase(counters, cfg):
+    """Phase 20, in deterministic mode, TF32 on for the ResNet (phase 5's
+    setting): (a) the obs toggle, flat and fused tiered, (b) PhasePipeline
+    flat and fused tiered,
+    (c) an agreed restart with obs on, (d) serving with obs. Temporary
+    directories are deleted after. Returns each run's launches by kernel."""
+    import shutil
+    import tempfile
+
+    print(f"card: {gpu_name_and_power()}")
+    tmp = tempfile.mkdtemp(prefix="repro_phase20_")
+    launches = {}
+    try:
+        with deterministic_mode(), tf32_as_phase_5():
+            a = obs_toggle(counters, cfg, tmp)
+            launches["obs_off"], launches["obs_on"] = a["off"], a["on"]
+            a = obs_toggle_tiered(counters, cfg)
+            launches["obs_off_tiered_fused"] = a["off"]
+            launches["obs_on_tiered_fused"] = a["on"]
+            for name, rehearsal in (("flat", FLAT), ("tiered_fused", tiered_rehearsal(True))):
+                b = phase_pipeline_case(counters, cfg, name, rehearsal)
+                launches[f"phase_pipeline_{name}"] = b["phases"]
+                launches[f"fused_{name}"] = b["fused"]
+            c = agreed_restart(counters, cfg, tmp)
+            launches["restart_clean"], launches["restart_failed"] = c["clean"], c["failed"]
+        serve_with_obs(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-19), and print no result lines")
+                    help="run phases 1, 2 and these only (3-20), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -3513,6 +3906,10 @@ def main(argv=None):
     if run(19):
         phase("19 the mesh backend: ContinualTrainer(mesh=1x1) and launch.train --mesh 1x1")
         mesh_launches = mesh_phase(counters, cfg, fused_runs, phase5_losses, lm_runs)
+
+    if run(20):
+        phase("20 telemetry: obs on the main path, PhasePipeline, an agreed restart, serving")
+        obs_launches = obs_phase(counters, cfg)
     phase.end()
 
     if only:
@@ -3536,6 +3933,10 @@ def main(argv=None):
         # phase 19's runs through the mesh backend, each counted from 0
         e["launches_mesh"] = {name: n[e["name"]] for name, n in mesh_launches.items()
                               if n.get(e["name"])}
+        # phase 20's runs (obs off and on, PhasePipeline and the fused step
+        # beside it, the agreed restart), each counted from 0
+        e["launches_obs"] = {name: n[e["name"]] for name, n in obs_launches.items()
+                             if n.get(e["name"])}
     # phase 11's launches a forward: SmolLM-135M's, then every arch's
     flash_entry["launches"] = launches["smollm-135m"][1]
     flash_entry["launches_by_arch"] = {a: n for a, (k, n) in launches.items()

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Union
 
+import torch
+
 from repro_torch.buffer.policies import resolve_policy
 from repro_torch.buffer.state import (
     BufferState,
@@ -21,6 +23,8 @@ from repro_torch.buffer.tiered import (
     init_tiered,
     plan_tiered,
     tiered_fill,
+    tiered_obs_from_parts,
+    tiered_obs_parts,
     tiered_sample,
     tiered_update_sample,
 )
@@ -83,6 +87,43 @@ def buffer_fill(state: AnyBufferState):
     if isinstance(state, TieredState):
         return tiered_fill(state)
     return state.counts.sum()
+
+
+def buffer_obs_parts(state: AnyBufferState, rcfg=None):
+    """The additive parts (f32, the per-bucket records a [K] vector) of the
+    store's ``obs/*`` gauges, the policy's included: summed over the ranks
+    of a mesh, ``obs_from_parts`` makes the global store's gauges of them,
+    as the reference reads them off its ``[N_dp, K]`` state. Pure reads: no
+    draw, no state change."""
+    if isinstance(state, TieredState):
+        parts, governed = tiered_obs_parts(state), state.hot  # the policy's tier
+    else:
+        parts = {"bucket_counts": state.counts.float(),
+                 "offered": state.seen.sum().float()}
+        governed = state
+    parts.update(_policy_of(rcfg).obs_parts(governed))
+    return parts
+
+
+def obs_from_parts(parts, rcfg=None):
+    """The gauges of (summed) ``buffer_obs_parts``: the fill, the per-bucket
+    minimum and maximum, offered-minus-resident evictions (and the tiered
+    store's tier fills, demotions and staged rows), and the policy's."""
+    if "hot_fill" in parts:
+        out = tiered_obs_from_parts(parts)
+    else:
+        counts = parts["bucket_counts"]
+        fill = counts.sum()
+        out = {"obs/fill": fill, "obs/bucket_fill_min": counts.min(),
+               "obs/bucket_fill_max": counts.max(),
+               "obs/evictions": torch.clamp(parts["offered"] - fill, min=0.0)}
+    out.update(_policy_of(rcfg).obs_finish(parts))
+    return out
+
+
+def buffer_obs(state: AnyBufferState, rcfg=None):
+    """The ``obs/*`` gauges of either store (f32 scalars)."""
+    return obs_from_parts(buffer_obs_parts(state, rcfg), rcfg)
 
 
 def resolve_field(explicit, rcfg, attr: str, default: str) -> str:

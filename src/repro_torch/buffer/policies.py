@@ -93,6 +93,20 @@ class Policy:
         by an elastic reshard. Stateless policies return ()."""
         return ()
 
+    # -- gauges (repro_torch.obs) ------------------------------------------
+    def obs_parts(self, state: BufferState):
+        """The additive parts (f32 scalars) of the policy's ``obs/*`` gauges:
+        summed over ranks, ``obs_finish`` makes the global gauges of them.
+        Pure reads: no draw, no state change. Stateless policies: none."""
+        return {}
+
+    def obs_finish(self, parts):
+        return {}
+
+    def obs_aux(self, state: BufferState):
+        """The policy's ``obs/*`` gauges of one buffer (``buffer_api.buffer_obs``)."""
+        return self.obs_finish(self.obs_parts(state))
+
     # -- decision hooks ----------------------------------------------------
     def select_candidates(self, state: BufferState, labels, gen, num_candidates: int):
         """Every incoming sample enters with probability c/b."""
@@ -254,6 +268,18 @@ class GraspPolicy(Policy):
         dist = torch.linalg.vector_norm(feats - proto[:, None, :], dim=-1)
         return {"proto": proto, "proto_n": proto_n,
                 "dist": torch.where(filled, dist, torch.full_like(dist, _BIG))}
+
+    def obs_parts(self, state: BufferState):
+        # the mean prototype distance over filled slots, the selection
+        # pressure GRASP makes visible, as its sum and its count
+        dist = state.aux["dist"]
+        filled = torch.arange(dist.shape[-1], device=dist.device) < state.counts[..., None]
+        return {"grasp_dist_sum": torch.where(filled, dist, torch.zeros_like(dist)).sum(),
+                "grasp_filled": filled.float().sum()}
+
+    def obs_finish(self, parts):
+        return {"obs/grasp_mean_dist":
+                parts["grasp_dist_sum"] / torch.clamp(parts["grasp_filled"], min=1.0)}
 
     def sample(self, state: BufferState, gen, n: int):
         k_buckets, cap = buffer_dims(state)

@@ -264,3 +264,32 @@ def tiered_fill(state: TieredState) -> torch.Tensor:
     """Total records resident across both tiers (the ``buffer_fill`` metric)."""
     return state.hot.counts.sum() + state.cold.counts.sum()
 
+
+def tiered_obs_parts(state: TieredState) -> Dict[str, torch.Tensor]:
+    """The additive parts (f32) of a tiered store's ``obs/*`` gauges: the
+    per-bucket records of both tiers [K], each tier's fill, the hot tier's
+    offered candidates, the cold tier's (every staged demotion enters it)
+    and the staged rows. Summed over ranks, ``tiered_obs_from_parts`` makes
+    the global gauges of them."""
+    hot, cold = state.hot.counts.float(), state.cold.counts.float()
+    return {"bucket_counts": hot + cold, "hot_fill": hot.sum(), "cold_fill": cold.sum(),
+            "hot_offered": state.hot.seen.sum().float(),
+            "demotions": state.cold.seen.sum().float(),
+            "stage_pending": state.stage_valid.sum().float()}
+
+
+def tiered_obs_from_parts(parts) -> Dict[str, torch.Tensor]:
+    """``evictions`` and ``demotions`` are offered-minus-resident bounds:
+    ``seen`` counts every offered candidate, accepted or not."""
+    hot_fill, cold_fill, per_bucket = parts["hot_fill"], parts["cold_fill"], \
+        parts["bucket_counts"]
+    return {"obs/fill": hot_fill + cold_fill, "obs/hot_fill": hot_fill,
+            "obs/cold_fill": cold_fill, "obs/bucket_fill_min": per_bucket.min(),
+            "obs/bucket_fill_max": per_bucket.max(),
+            "obs/evictions": torch.clamp(parts["hot_offered"] - hot_fill, min=0.0),
+            "obs/demotions": parts["demotions"], "obs/stage_pending": parts["stage_pending"]}
+
+
+def tiered_obs(state: TieredState) -> Dict[str, torch.Tensor]:
+    """The ``obs/*`` gauges of one tiered store (f32 scalars): pure reads."""
+    return tiered_obs_from_parts(tiered_obs_parts(state))

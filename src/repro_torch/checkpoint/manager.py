@@ -17,14 +17,14 @@ tensor's device, dtype and pinning (the kernels refuse a cold tier in
 pageable memory). ``reshard_buffer`` redistributes rehearsal records when the
 worker count changes (elastic scaling).
 
-The reference's tracer spans and event-bus publications around save and
-restore belong to the telemetry (ROADMAP Queue 1 item 14).
+A save's write and a restore's load are each a span (``checkpoint_save``,
+on the writer thread's track, tid 1, when the save is asynchronous;
+``checkpoint_restore``) and an event of the same name (``repro_torch.obs``).
 """
 from __future__ import annotations
 
 import itertools
 import json
-import logging
 import os
 import shutil
 import threading
@@ -36,7 +36,11 @@ import numpy as np
 import torch
 from numpy.lib import format as npformat
 
-log = logging.getLogger("repro_torch.checkpoint")
+from repro_torch.obs.events import get_event_bus
+from repro_torch.obs.trace import get_tracer
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("repro_torch.checkpoint")
 
 # numpy has no bfloat16: such a leaf is stored as its 16-bit view, and its
 # dtype is written into meta.json under "dtypes"
@@ -266,20 +270,25 @@ class CheckpointManager:
 
     def _write(self, step: int, arrays: Dict[str, np.ndarray], meta: Dict):
         t0 = time.perf_counter()
-        final = self._path(step)
-        tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        _write_npz(os.path.join(tmp, "state.npz"), arrays)
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        if os.path.exists(final):
-            shutil.rmtree(tmp)
-        else:
-            os.replace(tmp, final)
-        self._gc()
+        nbytes = int(sum(a.nbytes for a in arrays.values()))
+        with get_tracer().span("checkpoint_save", cat="checkpoint",
+                               tid=1 if self.async_save else 0, step=int(step), bytes=nbytes):
+            final = self._path(step)
+            tmp = final + ".tmp"
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            _write_npz(os.path.join(tmp, "state.npz"), arrays)
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            if os.path.exists(final):
+                shutil.rmtree(tmp)
+            else:
+                os.replace(tmp, final)
+            self._gc()
         self.last_save["write_seconds"] = time.perf_counter() - t0
+        get_event_bus().publish("checkpoint_save", source="checkpoint", step=int(step),
+                                bytes=nbytes, dir=self.dir)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")
@@ -334,10 +343,14 @@ class CheckpointManager:
 
     def _load(self, template, step: int, strict: bool) -> Tuple[Any, Dict]:
         path = self._path(step)
-        arrays = _read_npz(os.path.join(path, "state.npz"), _card_in_use())
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
-        return _unflatten(template, arrays, meta.get("dtypes", {}), strict), meta
+        with get_tracer().span("checkpoint_restore", cat="checkpoint", step=int(step)):
+            arrays = _read_npz(os.path.join(path, "state.npz"), _card_in_use())
+            with open(os.path.join(path, "meta.json")) as f:
+                meta = json.load(f)
+            state = _unflatten(template, arrays, meta.get("dtypes", {}), strict)
+        get_event_bus().publish("checkpoint_restore", source="checkpoint", step=int(step),
+                                dir=self.dir)
+        return state, meta
 
 
 # ---------------------------------------------------------------------------

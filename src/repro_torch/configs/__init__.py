@@ -12,6 +12,7 @@ from repro_torch.configs import (
 )
 from repro_torch.configs.base import (
     ModelConfig,
+    ObsConfig,
     OnlineConfig,
     RehearsalConfig,
     RunConfig,
@@ -48,6 +49,6 @@ def get_reduced(arch_id: str) -> ModelConfig:
     return _module(arch_id).reduced()
 
 
-__all__ = ["ARCHS", "REGISTRY", "ModelConfig", "OnlineConfig", "RehearsalConfig", "RunConfig",
-           "ScenarioConfig", "StrategyConfig", "TrainConfig", "get_config", "get_reduced",
-           "reduce_model", "resnet50_cl"]
+__all__ = ["ARCHS", "REGISTRY", "ModelConfig", "ObsConfig", "OnlineConfig", "RehearsalConfig",
+           "RunConfig", "ScenarioConfig", "StrategyConfig", "TrainConfig", "get_config",
+           "get_reduced", "reduce_model", "resnet50_cl"]

@@ -4,7 +4,8 @@ training and the run itself.
 The port's own copy of the fields of ``repro.configs.base`` that the ported
 slices read: the rehearsal trainer and its scenarios, the language-model
 path (``ModelConfig``, ``reduce_model``), online serving
-(``OnlineConfig``) and the fault-tolerant loop (``ResilienceConfig``). Field names, defaults and validation match the
+(``OnlineConfig``), the fault-tolerant loop (``ResilienceConfig``) and the
+telemetry (``ObsConfig``). Field names, defaults and validation match the
 reference, so a config written for one package reads the same in the other.
 """
 from __future__ import annotations
@@ -382,6 +383,26 @@ class ResilienceConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """Switches of the telemetry layer (``repro_torch.obs``).
+
+    ``enabled=False`` (the default) runs the step as it is without the
+    layer: no extra gauge, no tracer, no event sink. Turned on, it never
+    changes the ``rep_checksum``/``buffer_fill``/loss fingerprints or the
+    generators' draws: every gauge is a pure read of state the step already
+    has."""
+
+    enabled: bool = False
+    # Where trace.json and events.jsonl land ('' keeps both in memory; the
+    # gauges still reach the fit's history and CLRunResult.obs).
+    dir: str = ""
+    step_metrics: bool = True  # the obs/* gauges in the step's metrics
+    grad_norms: bool = True  # obs/grad_norm and obs/param_norm among them
+    trace: bool = True  # host-side Tracer spans (checkpoint, restore, eval, ...)
+    events: bool = True  # EventBus publications of the runtime
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Everything one run needs. ``model=None`` lets the scenario supply its
     default model (the reduced CNN)."""
@@ -397,6 +418,8 @@ class RunConfig:
     resilience: Optional[ResilienceConfig] = None
     # Online continual serving (``repro_torch.serving.OnlineLearner``).
     online: OnlineConfig = OnlineConfig()
+    # Telemetry (``repro_torch.obs``): step gauges, trace spans, event log.
+    obs: ObsConfig = ObsConfig()
     # Pipeline race sanitizer (``runtime.sanitizer``): checks the one-step-
     # stale slot discipline on the host; values are bit-identical on or off.
     # Also armed by REPRO_SANITIZE=1.

@@ -31,6 +31,9 @@ class CLRunResult:
     losses: List[float] = field(default_factory=list)
     step_seconds: List[float] = field(default_factory=list)
     prefetch_wait_seconds: List[float] = field(default_factory=list)
+    # {last, mean, max, n} a key of the obs/* gauges in ``history`` (None
+    # unless the run had ``run.obs.enabled``)
+    obs: Optional[Dict[str, Dict[str, float]]] = None
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 5) -> torch.Tensor:

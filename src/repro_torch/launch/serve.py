@@ -17,20 +17,28 @@ reduced 2-layer LM over a vocab of 128 (``--arch`` and ``--reduced`` do not
 apply) on one device: a ``--mesh`` other than 1x1 is logged and ignored.
 ``--ckpt-dir`` gives the learner its checkpoint directory, where a resilient
 run (``RunConfig.resilience``) keeps its restart checkpoints.
+
+``--obs DIR`` writes the trace (``prefill`` and ``decode`` spans; under
+``--online`` also each round's ``serve_round``, ``online_train`` and
+``weight_handoff``) and the event log there; ``--metrics-port PORT``
+serves the gauges (prefill seconds, decode tokens/s, batch size; the online
+learner's round gauges) in the Prometheus text format at
+``http://127.0.0.1:PORT/metrics`` while it runs (0: a free port, logged).
 """
 from __future__ import annotations
 
 import argparse
-import logging
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.device import resolve_device
 from repro_torch.models import StackCtx, build_model
 from repro_torch.serving import DecodeEngine
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.serve")
+log = get_logger("repro_torch.serve")
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,36 +67,49 @@ def parse_args(argv=None):
                     help="--online: anchor distributions the traffic drifts across")
     ap.add_argument("--ckpt-dir", default="",
                     help="--online: the learner's checkpoint directory")
-    ap.add_argument("--obs", default="", metavar="DIR", help="not ported yet")
+    ap.add_argument("--obs", default="", metavar="DIR",
+                    help="write trace.json and events.jsonl under DIR")
     ap.add_argument("--metrics-port", type=int, default=-1, metavar="PORT",
-                    help="not ported yet")
+                    help="serve Prometheus text gauges at /metrics on PORT (0: a free "
+                         "port; default: no endpoint)")
     return ap.parse_args(argv)
 
 
 # Flags the port does not have yet, by ROADMAP Queue 1 item: the mesh (21:
 # the prefill and decode steps shard over the model axis; ignored under
-# --online as in the reference) and telemetry (14).
-UNPORTED_ITEMS = {"--mesh": 21, "--obs": 14, "--metrics-port": 14}
+# --online as in the reference).
+UNPORTED_ITEMS = {"--mesh": 21}
 
 
 def main(argv=None):
     """Serve once (returns the ``GenResult``) or, with ``--online``, run the
     serve/train interleave (returns the ``OnlineResult``)."""
     args = parse_args(argv)
-    given = {"--mesh": args.mesh != "1x1" and not args.online, "--obs": bool(args.obs),
-             "--metrics-port": args.metrics_port >= 0}
-    unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
-                for flag, on in given.items() if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.online:
-        return _serve_online(args)
-    return _serve_once(args)
+    if args.mesh != "1x1" and not args.online:
+        raise NotImplementedError(f"not ported yet: --mesh (ROADMAP Queue 1 item "
+                                  f"{UNPORTED_ITEMS['--mesh']})")
+    registry = server = None
+    if args.obs:
+        obs.configure(args.obs)
+    if args.metrics_port >= 0:
+        registry = obs.MetricsRegistry()
+        server, port = obs.start_metrics_server(registry, port=args.metrics_port)
+        log.info("prometheus /metrics on http://127.0.0.1:%d/metrics", port)
+    # the endpoint and the trace come down on every exit path
+    try:
+        if args.online:
+            return _serve_online(args, registry)
+        return _serve_once(args, registry)
+    finally:
+        if args.obs:
+            obs.shutdown()  # writes trace.json, closes events.jsonl
+        if server is not None:
+            server.shutdown()
 
 
-def _serve_once(args):
-    """One prefill + greedy generation pass. Returns the ``GenResult``."""
+def _serve_once(args, registry=None):
+    """One prefill + greedy generation pass. Returns the ``GenResult``;
+    its rates go to ``registry`` when given."""
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
@@ -104,6 +125,12 @@ def _serve_once(args):
              "(%.1f tok/s/seq)", cfg.name, device, args.batch, args.prompt_len,
              res.prefill_seconds, res.tokens.shape[1], res.decode_seconds,
              res.tokens_per_second)
+    if registry is not None:
+        registry.set("repro_serve_prefill_seconds", res.prefill_seconds,
+                     help="wall-clock seconds to prefill the prompt batch")
+        registry.set("repro_serve_decode_tokens_per_second", res.tokens_per_second,
+                     help="greedy-decode throughput per sequence")
+        registry.set("repro_serve_batch_size", args.batch)
     print("generated token ids (first sequence):", res.tokens[0].tolist())
     return res
 
@@ -127,16 +154,17 @@ def build_online_run(args):
                             prompt_len=args.prompt_len, train_every=args.train_every))
 
 
-def _serve_online(args):
+def _serve_online(args, registry=None):
     """Continual serving: drift_stream traffic in, fresh weights out.
-    Returns the ``OnlineResult``."""
+    Returns the ``OnlineResult``; the round gauges go to ``registry``."""
     from repro_torch.serving import OnlineLearner
 
     if args.mesh != "1x1":
         log.info("--online trains on the single-device carry backend; --mesh %s ignored "
                  "(a serving mesh is ROADMAP Queue 1 item 21)", args.mesh)
     learner = OnlineLearner(build_online_run(args), ckpt_dir=args.ckpt_dir,
-                            serve_dtype=DTYPES[args.dtype], device=args.device)
+                            serve_dtype=DTYPES[args.dtype], registry=registry,
+                            device=args.device)
     result = learner.run()
     log.info("online: device=%s rounds=%d decode=%.1f tok/s/seq admission=%.2f "
              "freshness=%d restarts=%d acc=%s", learner.trainer.device, args.rounds,

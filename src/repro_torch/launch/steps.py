@@ -23,7 +23,10 @@ group (``parallel.global_mean``), each rank differentiates its share, and
 the gradients and the loss are summed over the group before the optimizer
 step (the clip sees the global gradient). ``buffer_fill`` and
 ``rep_checksum`` are summed too: the reference reads them off global arrays.
-Every rank thus ends a step with the same parameters and metrics.
+Every rank thus ends a step with the same parameters and metrics. With
+``run.obs`` on, the ``obs/*`` gauges are the global store's too: their
+additive parts travel in one more ``all_reduce`` a step
+(``obs.metrics.step_metrics``).
 
 The model side comes from the scenario (``Scenario.build_problem``): the
 LMs of the token scenarios, as in the reference, and the CNN of the vision
@@ -47,6 +50,7 @@ from repro_torch.buffer.tiered import resolve_cold_placement
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.parallel import dp_axes, dp_size, global_mean
 from repro_torch.strategy import outputs_row_spec, rep_checksum, resolve_strategy
 
@@ -213,12 +217,17 @@ def build_train_step(
     grad_group, _ = rdist.exchange_group(mesh, dp, "full")
     loss_fn = problem.loss_fn
     opt_update = make_optimizer(tcfg, n_workers=n_dp)[1]
+    ocfg = run.obs
+    obs_on = obs_metrics.gauges_on(ocfg)
+    aux_bytes = obs_metrics.aux_row_bytes(aux_spec) if tap else None
 
     def on_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
-    def finish(params, opt, loss, aux_metrics, fingerprints):
-        """The backward, the sums over the group, the optimizer step."""
+    def finish(params, opt, loss, aux_metrics, fingerprints, gauges=None):
+        """The backward, the sums over the group, the optimizer step; with
+        the gauges on, ``gauges`` (``step_metrics``' buffer and replay
+        arguments) and the norms."""
         loss.backward()
         named = dict(params.named_parameters())
         grads = _sum_over({k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -231,7 +240,12 @@ def build_train_step(
         keys = sorted(summed)
         vec = _sum_over({"m": torch.stack([summed[k].float().reshape(()) for k in keys])},
                         grad_group)["m"]
-        return opt, dict(opt_metrics, **{k: vec[i] for i, k in enumerate(keys)})
+        metrics = dict(opt_metrics, **{k: vec[i] for i, k in enumerate(keys)})
+        if obs_on:
+            metrics.update(obs_metrics.step_metrics(
+                **(gauges or {}), grad_norm=obs_metrics.grad_norm_of(opt_metrics, grads),
+                params=params, cfg=ocfg, group=grad_group))
+        return opt, metrics
 
     if not use_rehearsal:
         def step(params, opt, batch, key):
@@ -276,8 +290,12 @@ def build_train_step(
                 consumed = (reps, valid) if pipelined else (next_reps, next_valid)
                 with global_mean(grad_group):
                     loss, aux_metrics = loss_fn(params, augmented(batch, *consumed))
+            gauges = dict(buffer=buffer, rcfg=rcfg, valid=consumed[1], new_rows=b * n_dp,
+                          staleness=(obs_metrics.STALENESS_PIPELINED if pipelined
+                                     else obs_metrics.STALENESS_SYNC),
+                          aux_bytes=aux_bytes) if obs_on else None
             opt, metrics = finish(params, opt, loss, aux_metrics,
-                                  fingerprints(buffer, *consumed))
+                                  fingerprints(buffer, *consumed), gauges)
             return params, opt, buffer, next_reps, next_valid, metrics
 
     san = resolve_sanitizer(True if run.sanitize else None, "mesh_step")
@@ -298,8 +316,13 @@ def build_train_step(
         "cold_placement": resolve_cold_placement(device) if tiered else None,
         "augmented_global_batch": bg + rep_rows,
         "tokens_per_step": (bg + rep_rows) * seq_len,
+        "obs": obs_on,
         "sanitize": san is not None,
     }
+    if obs_on:
+        meta["obs_metrics"] = obs_metrics.obs_keys(
+            rcfg if use_rehearsal else None, grad_norms=ocfg.grad_norms,
+            has_aux=bool(aux_spec), policy=rcfg.policy if use_rehearsal else None)
     peers = rdist.exchange_group(mesh, dp, exchange)[1]
     return BuiltStep(fn=step, meta=meta, problem=problem, item_spec=item_spec, rcfg=rcfg,
                      pending_rows=r if peers is None else min(peers, r), device=device)

@@ -7,7 +7,7 @@ task after task, evaluating every task seen so far after each (per-task
 eval loss, lower is better). Every ``--mesh DATAx1`` goes through the mesh
 backend, 1x1 included, as in the reference; it computes in f32 on one
 worker and in bf16 on more. A model axis over 1 is ROADMAP Queue 1 item
-21, and ``--resilience`` on more than one worker item 22.
+21.
 
     python -m repro_torch.launch.train --arch smollm-135m                 # one card
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1    # four cards
@@ -29,7 +29,8 @@ random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full state
 every ``--ckpt-every`` steps and after every task (one directory a rank on
 more than one worker); with ``--resilience`` each task's steps run in the
 ``ResilientLoop`` (restart checkpoints every ``--resilience-checkpoint-every``
-steps under ``<ckpt-dir>/resilient``, bounded retry with backoff):
+steps under ``resilient`` in the rank's directory, bounded retry with
+backoff; on more than one worker the ranks agree on every restart):
 
     python -m repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
         --tasks 1 --steps-per-task 4 --ckpt-dir /tmp/ck --resilience
@@ -37,7 +38,6 @@ steps under ``<ckpt-dir>/resilient``, bounded retry with backoff):
 from __future__ import annotations
 
 import argparse
-import logging
 import time
 
 from repro_torch.configs import get_config, get_reduced
@@ -51,14 +51,13 @@ from repro_torch.configs.base import (
 )
 from repro_torch.launch.mesh import describe, make_mesh, memory_kinds
 from repro_torch.scenario import ContinualTrainer, TokenClassIncremental
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.train")
+log = get_logger("repro_torch.train")
 
 # Options of the reference's CLI that the port has not yet, and their items:
-# a model axis over 1 (tensor parallelism), and restarts that every rank of
-# a mesh agrees on.
-UNPORTED_ITEMS = {"--mesh DATAxMODEL with MODEL > 1": 21,
-                  "--resilience on --mesh DATAx1 with DATA > 1": 22}
+# a model axis over 1 (tensor parallelism).
+UNPORTED_ITEMS = {"--mesh DATAxMODEL with MODEL > 1": 21}
 
 
 def parse_args(argv=None):
@@ -125,9 +124,7 @@ def mesh_shape(args):
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every option the port has not yet
     that was given, naming each with its ROADMAP Queue 1 item."""
-    d, m = mesh_shape(args)
-    given = {"--mesh DATAxMODEL with MODEL > 1": m != 1,
-             "--resilience on --mesh DATAx1 with DATA > 1": args.resilience and d > 1}
+    given = {"--mesh DATAxMODEL with MODEL > 1": mesh_shape(args)[1] != 1}
     unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
                 for flag, on in given.items() if on]
     if unported:
@@ -188,7 +185,6 @@ def join_group(device):
 def main(argv=None):
     args = parse_args(argv)
     check_ported(args)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
     run = build_run(args)
     device, joined = join_group(args.device)
     try:

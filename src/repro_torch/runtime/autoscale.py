@@ -12,8 +12,8 @@ Scale-down is the half that makes rehearsal interesting: evicting a worker
 must not evict its shard of the replay memory. Pool and re-deal keeps every
 stored representative, up to the aggregate capacity.
 
-The reference's ``autoscale`` and ``reshard`` events and span belong to the
-telemetry (ROADMAP Queue 1 item 14).
+A decision publishes an ``autoscale`` event, and a reshard a ``reshard``
+span and event (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ import dataclasses
 import math
 import time
 from typing import List, Optional, Tuple
+
+from repro_torch.obs.events import get_event_bus
+from repro_torch.obs.trace import get_tracer
 
 
 class TrafficSignal:
@@ -109,6 +112,11 @@ class Autoscaler:
             return None
         self._last_change = step
         self.events.append((step, current, target))
+        get_event_bus().publish(
+            "autoscale", source="autoscaler", step=step, old=current, new=target,
+            load=float(load), utilization=float(util),
+            upscale_threshold=self.upscale_threshold,
+            downscale_threshold=self.downscale_threshold, cooldown_steps=self.cooldown_steps)
         return target
 
 
@@ -122,7 +130,10 @@ def scale_carry(carries, n_new: int, policy=None):
     from repro_torch.runtime.elastic import reshard_carry
 
     t0 = time.perf_counter()
-    new = reshard_carry(carries, n_new, policy=policy)
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    return new, time.perf_counter() - t0
+    with get_tracer().span("reshard", cat="elastic", n_new=n_new):
+        new = reshard_carry(carries, n_new, policy=policy)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    get_event_bus().publish("reshard", source="scale_carry", n_new=n_new, seconds=seconds)
+    return new, seconds

@@ -24,24 +24,37 @@ can leave them half written. Rollback copies the checkpoint back into every
 one of them (``CheckpointManager.restore``), and the checkpoint holds host
 copies taken before the step ran, never views of the live tensors.
 
-The reference's restart events and restore spans belong to the telemetry
-(ROADMAP Queue 1 item 14).
+On a mesh every rank runs its own loop, and the ranks' steps pair their
+collectives (the exchange, the gradient sum). So with a ``group`` every
+decision of the loop is collective: whether the step fails (one MAX
+all-reduce before the step's first collective, one after it together with
+the straggler's deadline), and which checkpoint every rank restores (the
+MIN of each rank's newest complete step). A rank that dies inside a
+collective, stranding its peers there, is not covered: that needs the
+group's timeout or abort and a new group.
+
+A restart publishes a ``restart`` event and its restore a ``restore`` span
+(``repro_torch.obs``), a stale dispatch a ``stale_dispatch`` event.
 """
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
-from typing import Callable, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.obs.events import get_event_bus
+from repro_torch.obs.metrics import host_metrics
+from repro_torch.obs.trace import get_tracer
 from repro_torch.rng import fold_in
 from repro_torch.runtime.sanitizer import SanitizerError
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.runtime")
+log = get_logger("repro_torch.runtime")
 
 
 class InjectedFailure(RuntimeError):
@@ -72,6 +85,16 @@ def _wait_for_card() -> None:
         torch.cuda.synchronize()
 
 
+def _all_reduce(values, op, group):
+    """``values`` (ints) reduced by ``op`` over ``group``, on the device its
+    backend takes (the current card under NCCL, else the CPU)."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    t = torch.tensor(values, dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=op, group=group)
+    return t.tolist()
+
+
 @dataclasses.dataclass
 class ResilientLoop:
     """Checkpointed training loop with bounded-retry restart on failure.
@@ -92,6 +115,16 @@ class ResilientLoop:
     ``stale_step_fn`` (the same optimizer step, consuming the pending
     representatives again and skipping the exchange) instead of blocking.
     Timing a step synchronises the card.
+
+    ``group`` (a ``torch.distributed`` group: a mesh's data-parallel ranks,
+    each running its own loop over its own ``ckpt``) makes every decision
+    collective, so that the ranks stay in lockstep: a failure of the hook
+    or the batch on any rank is agreed on before the step runs, so that no
+    rank enters the step's collectives alone; a failure the step raises and
+    the straggler's deadline are agreed on after it; every rank restores
+    the newest step that all of them hold complete; and the restart count,
+    the backoff, the sanitizer's rewind and the history follow the agreed
+    decision. ``None`` (one worker) runs no collective.
     """
 
     step_fn: Callable  # (carry, batch, key) -> (carry, metrics)
@@ -105,72 +138,123 @@ class ResilientLoop:
     straggler: Optional["StragglerPolicy"] = None
     stale_step_fn: Optional[Callable] = None  # (carry, batch, key) -> (carry, metrics)
     sleep_fn: Callable[[float], None] = time.sleep  # injectable for tests
+    group: Any = None  # the ranks whose loops decide together; None: one worker
 
     def _backoff(self, restarts: int) -> float:
         if self.backoff_base <= 0.0:
             return 0.0
         return min(self.backoff_max, self.backoff_base * (2.0 ** (restarts - 1)))
 
+    def _any(self, *flags: bool):
+        """Each flag, true on any rank of the group (MAX), in one all_reduce."""
+        if self.group is None:
+            return [bool(f) for f in flags]
+        return [bool(v) for v in _all_reduce([int(f) for f in flags], dist.ReduceOp.MAX,
+                                             self.group)]
+
+    def _restore(self, carry):
+        """Restore every rank from the same checkpoint: the newest readable
+        one on one worker; on a group, the newest step every rank holds
+        complete (a rank's asynchronous save may not be published yet when
+        a peer's is)."""
+        if self.group is None:
+            return self.ckpt.restore(carry)
+        self.ckpt.wait()
+        latest = self.ckpt.latest_step()
+        step, = _all_reduce([-1 if latest is None else latest], dist.ReduceOp.MIN, self.group)
+        if step < 0:
+            raise FileNotFoundError(f"a rank of the group has no checkpoint (this one: "
+                                    f"{self.ckpt.dir})")
+        return self.ckpt.restore(carry, step=step)
+
     def run(self, carry, batch_fn, key: int, num_steps: int, start_step: int = 0,
             failure_hook: Optional[Callable[[int], None]] = None):
         """``batch_fn(step) -> batch``. Returns ``(carry, metrics_history,
-        restarts)``. The run's counters land on ``self.stats``: restarts,
-        stale_steps and restore_seconds (wall time spent restoring)."""
+        restarts)``: one entry of host floats a committed step, from
+        ``start_step`` on. The run's counters land on ``self.stats``:
+        restarts, stale_steps and restore_seconds (wall time spent
+        restoring)."""
         retry_on = tuple(self.retry_on) if self.retry_on is not None else TRANSIENT_EXCEPTIONS
+
+        def caught(e: BaseException) -> BaseException:
+            if isinstance(e, SanitizerError):
+                # a race is a bug of the calling loop, not a fault: a replay would fail
+                # the same way, so it propagates even under a broad retry_on
+                raise e
+            return e
+
         restarts = stale_steps = 0
         restore_seconds = 0.0
         step = start_step
         history: list = []
-        self.ckpt.save(step, carry, {"cursor": step, "history_len": 0})
+        # skipped when this step is already published (a previous task's loop
+        # saved it): the history is counted from start_step, not read from it
+        self.ckpt.save(step, carry, {"cursor": step})
         while step < start_step + num_steps:
+            error = None
             try:
                 if failure_hook is not None:
                     failure_hook(step)  # chaos injection point
                 batch = batch_fn(step)
+            except retry_on as e:
+                error = caught(e)
+            # agreed before the step: no rank enters its collectives alone
+            failed, = self._any(error is not None)
+            if not failed:
                 use_stale = (self.straggler is not None and self.stale_step_fn is not None
                              and not self.straggler.use_fresh())
                 fn = self.stale_step_fn if use_stale else self.step_fn
-                t0 = time.monotonic()
-                # step s's key derives from the root as the reference's
-                # jax.random.fold_in(key, step) does; nothing else draws from it
-                carry, metrics = fn(carry, batch, fold_in(key, step))  # replint: disable=RPL001
-                if self.step_timeout > 0.0:
-                    _wait_for_card()
-                    if time.monotonic() - t0 > self.step_timeout and self.straggler is not None:
-                        # over budget: the exchange for t+1 is presumed late,
-                        # so the next step reuses instead of waiting
-                        self.straggler.record_slow()
+                slow = False
+                try:
+                    t0 = time.monotonic()
+                    # step s's key derives from the root as the reference's
+                    # jax.random.fold_in(key, step) does; nothing else draws from it
+                    carry, metrics = fn(carry, batch, fold_in(key, step))  # replint: disable=RPL001
+                    if self.step_timeout > 0.0:
+                        _wait_for_card()
+                        slow = time.monotonic() - t0 > self.step_timeout
+                    if (step + 1) % self.checkpoint_every == 0:
+                        # a failed save fails the step; a save of a step the
+                        # group then rolls back is the state its replay
+                        # reaches again, so it is kept
+                        self.ckpt.save(step + 1, carry, {"cursor": step + 1})
+                except retry_on as e:
+                    error = caught(e)
+                failed, slow = self._any(error is not None, slow)
+            if not failed:
+                if slow and self.straggler is not None:
+                    # over budget: the exchange for t+1 is presumed late, so
+                    # the next step reuses instead of waiting
+                    self.straggler.record_slow()
                 stale_steps += int(use_stale)
                 step += 1
-                # history before the checkpoint: the snapshot's history_len then
-                # counts exactly the committed steps, and a restore truncates
-                # the replayed entries instead of duplicating them
-                history.append({k: float(v) for k, v in metrics.items()})
-                if step % self.checkpoint_every == 0:
-                    self.ckpt.save(step, carry, {"cursor": step, "history_len": len(history)})
-            except retry_on as e:
-                if isinstance(e, SanitizerError):
-                    # a race is a bug of the calling loop, not a fault: a replay would fail
-                    # the same way, so it propagates even under a broad retry_on
-                    raise
-                restarts += 1
-                if restarts > self.max_restarts:
-                    raise RuntimeError(f"exceeded max_restarts={self.max_restarts}") from e
-                pause = self._backoff(restarts)
-                t0 = time.monotonic()
-                carry, meta = self.ckpt.restore(carry)
-                restore_seconds += time.monotonic() - t0
-                step = int(meta["cursor"])  # rewind the data cursor with the state
-                del history[int(meta.get("history_len", len(history))):]
-                # keep the sanitizer's slot clock in step with the restored
-                # carry, whose pipe holds a sample ready to consume
-                san = getattr(self.step_fn, "_sanitizer", None)
-                if san is not None:
-                    san.rewind(step)
-                log.warning("failure at restart %d (%s); restored step %d, backoff %.2fs",
-                            restarts, e, step, pause)
-                if pause > 0.0:
-                    self.sleep_fn(pause)
+                history.append(host_metrics(metrics))
+                continue
+            restarts += 1
+            if restarts > self.max_restarts:
+                raise RuntimeError(f"exceeded max_restarts={self.max_restarts}") from error
+            pause = self._backoff(restarts)
+            t0 = time.monotonic()
+            with get_tracer().span("restore", cat="resilience", restart=restarts):
+                carry, meta = self._restore(carry)
+            restore_seconds += time.monotonic() - t0
+            step = int(meta["cursor"])  # rewind the data cursor with the state
+            if step < start_step:
+                raise RuntimeError(f"restored step {step} precedes this run's start "
+                                   f"{start_step}")
+            del history[step - start_step:]  # the rolled-back steps replay
+            # keep the sanitizer's slot clock in step with the restored
+            # carry, whose pipe holds a sample ready to consume
+            san = getattr(self.step_fn, "_sanitizer", None)
+            if san is not None:
+                san.rewind(step)
+            name = type(error).__name__ if error is not None else "a peer's failure"
+            get_event_bus().publish("restart", source="resilient_loop", step=step,
+                                    restarts=restarts, error=name, backoff_s=pause)
+            log.warning("failure at restart %d (%s: %s); restored step %d, backoff %.2fs",
+                        restarts, name, error, step, pause)
+            if pause > 0.0:
+                self.sleep_fn(pause)
         self.ckpt.wait()
         self.stats = {"restarts": restarts, "stale_steps": stale_steps,
                       "restore_seconds": restore_seconds}
@@ -210,6 +294,8 @@ class StragglerPolicy:
             if self.staleness < self.max_staleness:
                 self.staleness += 1
                 self.reuses += 1
+                get_event_bus().publish("stale_dispatch", source="straggler",
+                                        staleness=self.staleness, detected=bool(slow))
                 return False
         self.staleness = 0
         return True

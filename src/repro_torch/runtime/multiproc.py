@@ -35,9 +35,10 @@ import sys
 import tempfile
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.utils.logging import ENV_PID  # the rank variable; logging reads it too
+
 ENV_RENDEZVOUS = "REPRO_MP_RENDEZVOUS"
 ENV_NPROCS = "REPRO_MP_NPROCS"
-ENV_PID = "REPRO_MP_PID"
 
 
 def distributed_available() -> Tuple[bool, str]:

@@ -25,8 +25,12 @@ With ``mesh`` (``launch.mesh.make_mesh``), the trainer is one rank of a
 data-parallel run: the mesh backend (``launch.steps.build_train_step``, the
 reference's pjit route) steps this rank's buffer, pending slot and slice of
 the global batch, with the exchange over the mesh's group and the gradients
-summed over every rank. Every rank runs the same ``fit``. The reference's
-``obs`` is not ported yet and raises (ROADMAP Queue 1 item 14).
+summed over every rank. Every rank runs the same ``fit``.
+
+``run.obs`` (``ObsConfig``) turns the telemetry on: the steps' ``obs/*``
+gauges in the history and in ``CLRunResult.obs``, and with ``run.obs.dir``
+the trace (``eval`` spans here, the runtime's checkpoint, restore and
+reshard spans) and the event log written there.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from repro_torch.buffer.api import resolve_field
 from repro_torch.configs.base import RehearsalConfig, RunConfig
 from repro_torch.data import Cursor, Prefetcher
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import read_gauges
+from repro_torch.obs.trace import get_tracer
 from repro_torch.rng import fold_in
 from repro_torch.scenario.base import Scenario, get_scenario
 
@@ -76,8 +82,10 @@ class ContinualTrainer:
         ``ckpt_dir/resilient`` and a cursor rewind give a bit-exact restart
         after a transient failure, and the wall-clock ``step_timeout`` feeds
         the bounded-staleness straggler path (the plain pipelined rehearsal
-        step only). Needs ``ckpt_dir`` and ``step_form='fused'``; on a mesh,
-        one worker (ROADMAP Queue 1 item 22).
+        step only). Needs ``ckpt_dir`` and ``step_form='fused'``. On a mesh
+        of more than one worker each rank's loop keeps its checkpoints under
+        ``ckpt_dir/rank_<dp index>/resilient``, and the ranks agree on every
+        restart over the data group (``ResilientLoop(group=...)``).
       overrides: ``{"failure_hook": fn}``, the chaos injection point: called
         with the absolute step id before each resilient step.
     Without a mesh the trainer is one process, so the rehearsal exchange
@@ -87,8 +95,7 @@ class ContinualTrainer:
     def __init__(self, run: RunConfig, scenario=None, *, device=None,
                  strategy: Optional[str] = None, mesh=None, exchange: str = "full",
                  step_form: str = "fused", resilience=None, ckpt_dir: str = "",
-                 ckpt_every: int = 0, obs=None,
-                 overrides: Optional[Dict[str, Any]] = None):
+                 ckpt_every: int = 0, overrides: Optional[Dict[str, Any]] = None):
         from repro_torch.optim import make_optimizer
         from repro_torch.runtime.sanitizer import sanitize_enabled
         from repro_torch.strategy import (STRATEGIES, get_strategy, make_cl_step,
@@ -96,9 +103,6 @@ class ContinualTrainer:
 
         if step_form not in ("fused", "split"):
             raise ValueError(f"unknown step_form {step_form!r}")
-        if obs is not None:
-            raise NotImplementedError(
-                "telemetry (obs) is not ported yet (ROADMAP Queue 1 item 14)")
         unknown = set(overrides or {}) - {"failure_hook"}
         if unknown:
             raise TypeError(f"unknown trainer overrides: {sorted(unknown)}")
@@ -167,18 +171,9 @@ class ContinualTrainer:
         if mesh is not None:
             from repro_torch.launch.steps import build_train_step
 
-            from repro_torch.parallel import dp_size
-
             if step_form != "fused":
                 raise ValueError("step_form='split' needs the single-device pipelined "
                                  "rehearsal path (mode='async')")
-            if self.resilience is not None and dp_size(mesh) > 1:
-                # each rank would restore and replay alone while its peers go
-                # on, pairing the collectives of different steps
-                raise NotImplementedError(
-                    f"resilience= on a mesh of {dp_size(mesh)} workers needs the ranks to "
-                    f"agree on every restart, which is not ported yet (ROADMAP Queue 1 "
-                    f"item 22); run it on one worker")
             # the effective rehearsal config (scenario defaults applied above)
             # drives the builder too: both backends bucket and mask alike
             mesh_run = dataclasses.replace(
@@ -196,14 +191,14 @@ class ContinualTrainer:
             self._halves = make_pipelined_halves(
                 self.loss_fn, opt_update, rcfg, label_field=self.label_field,
                 task_field=self.scenario.buffer_task_field, device=self.device,
-                sanitize=sanitize)
+                obs=run.obs, sanitize=sanitize)
         else:
             self._step_fn = make_cl_step(
                 self.loss_fn, opt_update, rcfg, strategy=self.strat,
                 label_field=self.label_field, task_field=self.scenario.buffer_task_field,
                 compress=run.train.grad_compress, strategy_cfg=self.scfg,
                 forward_outputs=self.forward_outputs, aux_spec=self.aux_spec,
-                device=self.device, sanitize=sanitize)
+                device=self.device, obs=run.obs, sanitize=sanitize)
         # The bounded-staleness reuse path: only the plain pipelined rehearsal
         # step carries a pending sample to consume again (tap strategies need
         # the fresh forward's values); elsewhere a straggling exchange is
@@ -212,7 +207,7 @@ class ContinualTrainer:
                 and not self.strat.needs_outputs and rcfg.enabled and rcfg.is_pipelined):
             self._stale_step_fn = make_stale_step(
                 self.loss_fn, opt_update, rcfg, label_field=self.label_field,
-                device=self.device,
+                device=self.device, obs=run.obs,
                 sanitize=getattr(self._step_fn, "_sanitizer", None) or sanitize)
 
     def _strategy_aux_spec(self):
@@ -241,10 +236,13 @@ class ContinualTrainer:
 
     @staticmethod
     def _history_entry(task: int, step: int, loss: float, metrics) -> Dict[str, float]:
+        """One history record: the loss, the buffer fingerprints, and the
+        ``obs/*`` gauges when the step emits them (one copy to the host)."""
         entry = {"task": task, "step": step, "loss": loss}
         for k in ("rep_checksum", "buffer_fill"):
             if k in metrics:
                 entry[k] = float(metrics[k])
+        entry.update(read_gauges(metrics))
         return entry
 
     def _init(self, seed: int):
@@ -290,9 +288,11 @@ class ContinualTrainer:
 
     def _resilient_loop(self, step_fn, stale_step_fn=None):
         """The ``ResilientLoop`` of ``self.resilience``: its checkpoints live
-        under ``ckpt_dir/resilient`` (global-step ids; the per-task saves use
-        task ids, so the two must not share a directory), and the straggler
-        policy is seeded anew, so that every fit draws the same delays."""
+        under ``resilient`` in this rank's directory (global-step ids; the
+        per-task saves use task ids, so the two must not share a directory),
+        and the straggler policy is seeded anew, so that every fit draws the
+        same delays. On a mesh with a process group, the loop's decisions
+        are collective over the data-parallel ranks."""
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.runtime.fault_tolerance import (InjectedFailure, ResilientLoop,
                                                          StragglerPolicy)
@@ -302,13 +302,20 @@ class ContinualTrainer:
         if res.straggler_delay_prob > 0.0 or res.step_timeout > 0.0:
             straggler = StragglerPolicy(res.straggler_delay_prob, res.max_staleness,
                                         seed=self.seed)
+        group = None
+        if self.mesh is not None:
+            from repro_torch.core.distributed import exchange_group
+            from repro_torch.parallel import dp_axes
+
+            group = exchange_group(self.mesh, dp_axes(self.mesh), "full")[0]
         return ResilientLoop(
-            step_fn=step_fn, ckpt=CheckpointManager(os.path.join(self.ckpt_dir, "resilient")),
+            step_fn=step_fn,
+            ckpt=CheckpointManager(os.path.join(self._rank_dir(), "resilient")),
             checkpoint_every=res.checkpoint_every, max_restarts=res.max_restarts,
             retry_on=None if res.retry_transient else (InjectedFailure,),
             backoff_base=res.backoff_base, backoff_max=res.backoff_max,
             step_timeout=res.step_timeout, straggler=straggler,
-            stale_step_fn=stale_step_fn)
+            stale_step_fn=stale_step_fn, group=group)
 
     def _timed(self, fn, loads: Dict[str, float]):
         """``fn`` with ``step_seconds`` (from the batch load to the loss on
@@ -378,8 +385,11 @@ class ContinualTrainer:
         return state
 
     def _evaluate(self, acc, task: int, params):
-        for j in range(task + 1):
-            acc[task, j] = self.eval_fn(params, j)
+        """Row ``task`` of the accuracy matrix, in one ``eval`` span (each
+        eval reads its result back: the span ends with the card's work)."""
+        with get_tracer().span("eval", cat="trainer", task=task):
+            for j in range(task + 1):
+                acc[task, j] = self.eval_fn(params, j)
 
     def fit(self, num_tasks: Optional[int] = None):
         """Train through the first ``num_tasks`` tasks (default: all) and
@@ -390,14 +400,39 @@ class ContinualTrainer:
         the time it waited on the prefetcher. With ``resilience``, the steps
         run in the ``ResilientLoop``, batches come straight off the
         cursor-pure stream (a prefetcher's read-ahead cannot be rewound), and
-        the per-step records are those of the committed steps."""
-        from repro_torch.checkpoint import CheckpointManager
+        the per-step records are those of the committed steps.
+
+        With ``run.obs.enabled`` the history entries carry the ``obs/*``
+        gauges, folded into ``result.obs`` (``{last, mean, max, n}`` a key);
+        with ``run.obs.dir`` too, the fit installs a live tracer and event
+        bus (``obs.configure``) and writes ``trace.json`` there at its end
+        (``obs.flush``; ``events.jsonl`` streams)."""
+        from repro_torch import obs
 
         T = self.num_tasks if num_tasks is None else num_tasks
         if not 1 <= T <= self.num_tasks:
             raise ValueError(f"num_tasks={num_tasks} outside 1..{self.num_tasks}")
-        if self.built is not None:
-            return self._fit_mesh(T)
+        ocfg = self.run.obs
+        to_dir = ocfg.enabled and bool(ocfg.dir)
+        if to_dir:
+            obs.configure(ocfg.dir, trace=ocfg.trace, events=ocfg.events)
+        try:
+            result = self._fit_mesh(T) if self.built is not None else self._fit_carry(T)
+        finally:
+            if to_dir:
+                obs.flush()
+        if ocfg.enabled:
+            writer = obs.MetricsWriter()
+            for entry in result.history:
+                writer.add(entry)
+            if writer.series:
+                result.obs = writer.summary()
+        return result
+
+    def _fit_carry(self, T: int):
+        """``fit`` through the carry backend (``make_cl_step``)."""
+        from repro_torch.checkpoint import CheckpointManager
+
         manager = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
         rloop, loads = None, {"last": 0.0}
         if self.resilience is not None:

@@ -5,7 +5,9 @@ feeds the prompt one position at a time through the decode step
 (cache-building prefill), then greedy argmax generation continues to
 ``prompt_len + gen_len``. On the same weights and prompts it gives the
 reference's token ids. Neither phase runs a hand-written kernel: the decode
-step is one token against the cache.
+step is one token against the cache. Each phase is a trace span
+(``prefill``, ``decode``; ``repro_torch.obs``) that ends when the card has
+finished the phase's work.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import time
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.obs.trace import get_tracer
 
 
 class GenResult(NamedTuple):
@@ -45,22 +49,25 @@ class DecodeEngine:
         max_len = prompt_len + gen_len
         device = prompts.device
         caches = self.model.init_cache(params, batch, max_len, dtype=self.cache_dtype)
-        decode = self.model.decode
+        decode, tracer = self.model.decode, get_tracer()
         t0 = time.perf_counter()
         logits = None
-        for t in range(prompt_len):
-            logits, caches = decode(params, {"token": prompts[:, t:t + 1]}, caches, t, self.ctx)
-        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-        _wait(device)
+        with tracer.span("prefill", cat="serve", tokens=prompt_len, batch=batch):
+            for t in range(prompt_len):
+                logits, caches = decode(params, {"token": prompts[:, t:t + 1]}, caches, t,
+                                        self.ctx)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            _wait(device)
         t_prefill = time.perf_counter() - t0
 
         out = [tok]
         t0 = time.perf_counter()
-        for t in range(prompt_len, max_len - 1):
-            logits, caches = decode(params, {"token": tok}, caches, t, self.ctx)
-            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-            out.append(tok)
-        _wait(device)
+        with tracer.span("decode", cat="serve", tokens=gen_len, batch=batch):
+            for t in range(prompt_len, max_len - 1):
+                logits, caches = decode(params, {"token": tok}, caches, t, self.ctx)
+                tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                out.append(tok)
+            _wait(device)
         t_gen = time.perf_counter() - t0
         gen = torch.cat(out, dim=1)
         return GenResult(tokens=gen, prefill_seconds=t_prefill, decode_seconds=t_gen,

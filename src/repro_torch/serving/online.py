@@ -26,16 +26,20 @@ Freshness is measured in rounds since the last weight handoff as the
 serving step sees it: 1 in steady state, the one-step staleness the paper
 trades for never blocking.
 
-Not ported yet, and refused: the metrics registry (``registry``; ROADMAP
-Queue 1 item 14). The reference's tracer spans and event-bus publications
-wait for the same item; its check that serving reads live (undonated)
-arrays has no counterpart, since the port donates nothing. The trainer is
-one process, so the rehearsal exchange has no peers.
+Telemetry (``repro_torch.obs``): each round is a ``serve_round`` span, its
+training an ``online_train`` span and the handoff a ``weight_handoff``
+span (which waits for the card's copies when the tracer is live); each
+round publishes an ``online_round`` event, an admission ``online_admit``,
+and a failure that turns training off ``online_train_disabled``. A
+``registry`` (``obs.MetricsRegistry``) gets the freshness, admission-rate,
+decode-rate and restart gauges. The reference's check that serving reads
+live (undonated) arrays has no counterpart, since the port donates
+nothing. The trainer is one process, so the rehearsal exchange has no
+peers.
 """
 from __future__ import annotations
 
 import copy
-import logging
 from typing import Any, Dict, List, NamedTuple
 
 import numpy as np
@@ -43,12 +47,15 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models import StackCtx
+from repro_torch.obs.events import get_event_bus
+from repro_torch.obs.trace import get_tracer
 from repro_torch.rng import fold_in
 from repro_torch.scenario import ContinualTrainer
 from repro_torch.scenario.scenarios import build_token_lm
 from repro_torch.serving.engine import DecodeEngine, GenResult
+from repro_torch.utils.logging import get_logger
 
-log = logging.getLogger("repro_torch.online")
+log = get_logger("repro_torch.online")
 
 
 class OnlineResult(NamedTuple):
@@ -79,7 +86,7 @@ class OnlineLearner:
         the ``ResilientLoop`` keeps its restart checkpoints under it.
       serve_dtype: compute and cache dtype of the serving forward; training
         keeps ``run.train.compute_dtype``.
-      registry: not ported yet (item 14); must be None.
+      registry: an ``obs.MetricsRegistry`` for the round gauges, or None.
       failure_hook: fault injection point, called with the absolute
         train-step id before each train step (replayed steps included).
       device: ``None`` (the card) or ``"cpu"``.
@@ -87,10 +94,8 @@ class OnlineLearner:
 
     def __init__(self, run: RunConfig, scenario=None, *, ckpt_dir: str = "",
                  serve_dtype=torch.float32, registry=None, failure_hook=None, device=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "the online gauges (registry) are not ported yet (ROADMAP Queue 1 item 14)")
         self.ocfg = run.online
+        self.registry = registry
         self.failure_hook = failure_hook
         self.trainer = ContinualTrainer(run, scenario, device=device, ckpt_dir=ckpt_dir)
         tr = self.trainer
@@ -169,8 +174,13 @@ class OnlineLearner:
                                           failure_hook=self.failure_hook)
         return carry, hist[-1] if hist else {}, restarts
 
+    def _gauge(self, name: str, value, help: str = ""):
+        if self.registry is not None:
+            self.registry.set(name, float(value), help=help)
+
     def run(self) -> OnlineResult:
         tr, ocfg = self.trainer, self.ocfg
+        tracer, bus = get_tracer(), get_event_bus()
         carry = tr._init(tr.seed)
         serving = copy.deepcopy(carry.params).requires_grad_(False)  # serving's own weights
         rloop = None
@@ -189,7 +199,10 @@ class OnlineLearner:
             req = self.scenario.batch(0, ocfg.requests_per_round, r)
             prompts = torch.as_tensor(req["tokens"][:, :ocfg.prompt_len], device=tr.device)
             freshness = r - last_handoff
-            res = self.engine.generate(serving, prompts, self.gen_len)
+            self._gauge("repro_online_freshness_rounds", freshness,
+                        help="serve rounds since the last weight handoff (steady state: 1)")
+            with tracer.span("serve_round", cat="serving", round=r, freshness=freshness):
+                res = self.engine.generate(serving, prompts, self.gen_len)
             last_tokens = res.tokens
             served += int(prompts.shape[0])
             tok_s.append(res.tokens_per_second)
@@ -199,13 +212,15 @@ class OnlineLearner:
             if ocfg.enabled and ocfg.train_every > 0 and not train_disabled:
                 records = self._admit_records(req, res)
                 try:
-                    if rloop is not None:
-                        carry, metrics, n = self._resilient_round(rloop, carry, records,
-                                                                  train_step)
-                        restarts += n
-                    else:
-                        carry, metrics = self._train_round(carry, records, train_step)
-                    loss = float(metrics["loss"])  # waits for the round's steps
+                    with tracer.span("online_train", cat="serving", round=r,
+                                     steps=ocfg.train_every):
+                        if rloop is not None:
+                            carry, metrics, n = self._resilient_round(rloop, carry, records,
+                                                                      train_step)
+                            restarts += n
+                        else:
+                            carry, metrics = self._train_round(carry, records, train_step)
+                        loss = float(metrics["loss"])  # waits for the round's steps
                 except Exception as e:  # noqa: BLE001 -- serving must survive the train side
                     train_disabled = True
                     log.warning("online: training disabled at round %d: %s: %s", r,
@@ -215,14 +230,29 @@ class OnlineLearner:
                         # the last checkpoint and serve its weights
                         carry, _ = rloop.ckpt.restore(carry)
                         self._handoff(serving, carry.params)
+                    bus.publish("online_train_disabled", source="serving", round=r,
+                                error=type(e).__name__, detail=str(e)[:200])
                 else:
                     trained = True
                     train_step += ocfg.train_every
                     admitted += int(prompts.shape[0])
-                    self._handoff(serving, carry.params)
+                    with tracer.span("weight_handoff", cat="serving", round=r):
+                        self._handoff(serving, carry.params)
+                        if tracer.enabled and tr.device.type == "cuda":
+                            torch.cuda.synchronize(tr.device)  # the span ends with the copies
                     last_handoff = r
+                    if bus.enabled:  # reading the fill back is the event's cost only
+                        bus.publish("online_admit", source="serving", round=r,
+                                    rows=int(prompts.shape[0]),
+                                    buffer_fill=float(metrics.get("buffer_fill", float("nan"))))
 
             rate = admitted / served
+            self._gauge("repro_online_admission_rate", rate,
+                        help="admitted request rows / served request rows")
+            self._gauge("repro_online_decode_tokens_per_second", res.tokens_per_second,
+                        help="per-sequence greedy decode throughput")
+            bus.publish("online_round", source="serving", round=r, trained=trained,
+                        tokens_per_second=res.tokens_per_second, freshness=freshness)
             history.append({"round": r, "loss": loss, "trained": float(trained),
                             "freshness": float(freshness),
                             "tokens_per_second": res.tokens_per_second,
@@ -234,6 +264,8 @@ class OnlineLearner:
                                         "accuracy": tr.eval_fn(serving, phase)})
 
         accuracy = [tr.eval_fn(serving, p) for p in range(tr.num_tasks)]
+        self._gauge("repro_online_restarts", restarts,
+                    help="train-side ResilientLoop restarts absorbed")
         return OnlineResult(
             history=history,
             decode_tokens_per_second=float(np.mean(tok_s)),

@@ -48,6 +48,7 @@ from repro_torch.buffer import api as buffer_api
 from repro_torch.buffer import state as rb
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim.grad_compress import compressed_psum, plain_psum
 from repro_torch.rng import fold_in, generator
 from repro_torch.strategy.base import STRATEGIES, resolve_strategy
@@ -133,7 +134,7 @@ def _mean_over(group, n_workers: int, metrics):
 def _apply_loss(model, opt, opt_update, loss, reduce=None, ef=None):
     """Backward of ``loss``, the gradients through ``reduce(grads, ef) ->
     (grads, ef)`` when given, and the optimizer step. Returns ``(opt, ef,
-    opt_metrics)``."""
+    opt_metrics, grads)``, the gradients the optimizer took."""
     loss.backward()
     params = dict(model.named_parameters())
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -142,16 +143,20 @@ def _apply_loss(model, opt, opt_update, loss, reduce=None, ef=None):
         grads, ef = reduce(grads, ef)
     _, opt, opt_metrics = opt_update(grads, opt, params)
     model.zero_grad(set_to_none=True)
-    return opt, ef, opt_metrics
+    return opt, ef, opt_metrics, grads
 
 
 def _train(model, opt, opt_update, loss_fn, train_batch):
     """Forward, backward and the optimizer step on one augmented batch.
-    Returns ``(opt, loss, aux_metrics, opt_metrics)``."""
+    Returns ``(opt, loss, aux_metrics, opt_metrics, grads)``."""
     model.zero_grad(set_to_none=True)
     loss, aux_metrics = loss_fn(model, train_batch)
-    opt, _, opt_metrics = _apply_loss(model, opt, opt_update, loss)
-    return opt, loss, aux_metrics, opt_metrics
+    opt, _, opt_metrics, grads = _apply_loss(model, opt, opt_update, loss)
+    return opt, loss, aux_metrics, opt_metrics, grads
+
+
+def _rows(batch) -> int:
+    return next(iter(batch.values())).shape[0]
 
 
 def make_cl_step(
@@ -169,6 +174,7 @@ def make_cl_step(
     forward_outputs: Optional[Callable] = None,
     aux_spec=None,
     device=None,
+    obs=None,
     sanitize=None,
 ):
     """Build ``step(carry, batch, key, rows=None) -> (carry, metrics)``.
@@ -193,6 +199,11 @@ def make_cl_step(
     (their extra record field specs, from ``Strategy.record_fields``) and a
     ``StrategyConfig`` in ``strategy_cfg``; they run the pipelined path only
     (``mode='async'``).
+
+    ``obs`` (an ``ObsConfig``) adds the ``obs/*`` gauges to the metrics
+    (``repro_torch.obs.metrics``): pure reads, so the fingerprints and the
+    draws are the same with them on or off; off (or None), the step
+    launches exactly what it launches without the layer.
 
     ``sanitize`` arms the pipeline race sanitizer (``runtime.sanitizer``):
     True, an existing ``PipelineRaceSanitizer`` to share its slot clock, or
@@ -236,6 +247,8 @@ def make_cl_step(
     n_workers = 1 if group is None else dist.get_world_size(group)
     rank = rdist.rank_in(group)
     ex_group = None if exchange == "local" else group
+    obs_on = obs_metrics.gauges_on(obs)
+    aux_bytes = obs_metrics.aux_row_bytes(aux_spec) if obs_on and tap and aux_spec else None
 
     def reduce(grads, ef):
         if compress == "int8":
@@ -287,11 +300,19 @@ def make_cl_step(
             metrics["buffer_fill"] = buffer_api.buffer_fill(buf).float()
             metrics["rep_checksum"] = rep_checksum(train_reps, train_valid, label_field)
 
-        opt, ef, opt_metrics = _apply_loss(model, carry.opt, opt_update, loss,
-                                           reduce if n_workers > 1 else None, carry.ef)
+        opt, ef, opt_metrics, grads = _apply_loss(model, carry.opt, opt_update, loss,
+                                                  reduce if n_workers > 1 else None, carry.ef)
         metrics.update(loss=loss.detach(), **opt_metrics,
                        **{k: v.detach() if isinstance(v, torch.Tensor) else v
                           for k, v in aux_metrics.items()})
+        if obs_on:
+            staleness = (obs_metrics.STALENESS_PIPELINED if pipelined
+                         else obs_metrics.STALENESS_SYNC)
+            metrics.update(obs_metrics.step_metrics(
+                buffer=buf if rehearse else None, rcfg=rcfg if rehearse else None,
+                valid=train_valid if rehearse else None, new_rows=_rows(batch),
+                grad_norm=obs_metrics.grad_norm_of(opt_metrics, grads), params=model,
+                staleness=staleness if rehearse else None, aux_bytes=aux_bytes, cfg=obs))
         if n_workers > 1:
             metrics = _mean_over(group, n_workers, metrics)
         return TrainCarry(model, opt, buf, pipe, ef), metrics
@@ -311,6 +332,7 @@ def make_stale_step(
     *,
     label_field: Optional[str] = None,
     device=None,
+    obs=None,
     sanitize=None,
 ):
     """The bounded-staleness step (single process): the optimizer step of
@@ -324,11 +346,14 @@ def make_stale_step(
     rejoins the lineage as if the slow step had merely taken long.
 
     ``step(carry, batch, key) -> (carry, metrics)``, with ``stale_step`` 1.0
-    in the metrics. Plain rehearsal only. ``sanitize`` as in
-    ``make_cl_step``; pass the fused step's sanitizer so that a stale
-    re-consume is checked on the same slot clock."""
+    in the metrics. Plain rehearsal only. ``obs`` as in ``make_cl_step``
+    (the staleness gauge stays the slot's structural 1; a reuse is
+    ``StragglerPolicy``'s event). ``sanitize`` as in ``make_cl_step``; pass
+    the fused step's sanitizer so that a stale re-consume is checked on the
+    same slot clock."""
     label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "label")
     device = resolve_device(device)
+    obs_on = obs_metrics.gauges_on(obs)
 
     def step(carry: TrainCarry, batch, key: int):
         model, pipe = carry.params, carry.pipe
@@ -336,14 +361,19 @@ def make_stale_step(
         train_reps, train_valid = rdist.consume_reps(
             rdist.PendingSample(pipe.reps, pipe.valid), label_field)
         train_batch = rb.augment_batch(batch, train_reps, train_valid, label_field)
-        opt, loss, aux_metrics, opt_metrics = _train(model, carry.opt, opt_update, loss_fn,
-                                                     train_batch)
+        opt, loss, aux_metrics, opt_metrics, grads = _train(model, carry.opt, opt_update,
+                                                            loss_fn, train_batch)
         metrics = dict(
             {k: v.detach() if isinstance(v, torch.Tensor) else v
              for k, v in aux_metrics.items()}, **opt_metrics, loss=loss.detach(),
             stale_step=torch.ones((), device=device),
             buffer_fill=buffer_api.buffer_fill(carry.buffer).float(),
             rep_checksum=rep_checksum(train_reps, train_valid, label_field))
+        if obs_on:
+            metrics.update(obs_metrics.step_metrics(
+                buffer=carry.buffer, rcfg=rcfg, valid=train_valid, new_rows=_rows(batch),
+                grad_norm=obs_metrics.grad_norm_of(opt_metrics, grads), params=model,
+                staleness=obs_metrics.STALENESS_PIPELINED, cfg=obs))
         # the buffer and the pipe pass through: the pending sample stays pending
         return TrainCarry(model, opt, carry.buffer, pipe, carry.ef), metrics
 
@@ -388,6 +418,7 @@ def make_pipelined_halves(
     label_field: Optional[str] = None,
     task_field: Optional[str] = None,
     device=None,
+    obs=None,
     sanitize=None,
 ):
     """The pipelined step as two separately dispatched calls (single process):
@@ -416,9 +447,12 @@ def make_pipelined_halves(
     ``issue_half.stream`` is None.
 
     Plain rehearsal only, ``rcfg.is_pipelined``, as in the reference: tap
-    strategies need the fused form. ``sanitize`` as in ``make_cl_step``: the
-    two halves then share one slot clock (``runtime.sanitizer.wrap_halves``),
-    the issue logged when its half is dispatched."""
+    strategies need the fused form. ``obs`` adds the train half's gauges
+    (the norms and the replay's; the buffer's need the buffer and belong to
+    the fused step and ``obs.PhasePipeline``). ``sanitize`` as in
+    ``make_cl_step``: the two halves then share one slot clock
+    (``runtime.sanitizer.wrap_halves``), the issue logged when its half is
+    dispatched."""
     if rcfg is None or not rcfg.is_pipelined:
         raise ValueError("make_pipelined_halves needs the pipelined rehearsal path "
                          "(mode='async')")
@@ -427,6 +461,7 @@ def make_pipelined_halves(
     label_field = buffer_api.resolve_field(label_field, rcfg, "label_field", "label")
     task_field = buffer_api.resolve_field(task_field, rcfg, "task_field", "task")
     side = _IssueStream(device) if device.type == "cuda" else None
+    obs_on = obs_metrics.gauges_on(obs)
 
     def _on_device(batch):
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -442,9 +477,15 @@ def make_pipelined_halves(
         reps, valid = rdist.consume_reps(rdist.PendingSample(pipe.reps, pipe.valid),
                                          label_field)
         train_batch = rb.augment_batch(train_batch, reps, valid, label_field)
-        opt, loss, aux_metrics, opt_metrics = _train(model, opt, opt_update, loss_fn,
-                                                     train_batch)
-        return model, opt, dict(aux_metrics, **opt_metrics, loss=loss.detach())
+        opt, loss, aux_metrics, opt_metrics, grads = _train(model, opt, opt_update, loss_fn,
+                                                            train_batch)
+        metrics = dict(aux_metrics, **opt_metrics, loss=loss.detach())
+        if obs_on:
+            metrics.update(obs_metrics.step_metrics(
+                valid=valid, new_rows=_rows(batch),
+                grad_norm=obs_metrics.grad_norm_of(opt_metrics, grads), params=model,
+                staleness=obs_metrics.STALENESS_PIPELINED, cfg=obs))
+        return model, opt, metrics
 
     def issue(buffer, pipe, batch, key, rows):
         gen = generator(fold_in(pipe.key, 0), device)  # single worker: index 0, as fused

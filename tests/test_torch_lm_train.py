@@ -512,9 +512,7 @@ def test_train_cli_run_config_is_the_references_at_one_device():
 
 
 @pytest.mark.parametrize("flags,item", [(["--mesh", "1x2"], "--mesh .*item 21"),
-                                        (["--mesh", "4x2"], "--mesh .*item 21"),
-                                        (["--mesh", "2x1", "--resilience"],
-                                         "--resilience .*item 22")])
+                                        (["--mesh", "4x2"], "--mesh .*item 21")])
 def test_train_cli_unported_flags_raise_and_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--reduced", "--device", "cpu"] + flags)

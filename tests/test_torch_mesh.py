@@ -7,14 +7,19 @@ package's pjit route, on the CPU.
     exactly;
   * ``build_train_step``'s ``meta`` against the reference's at 1x1 for off,
     sync, pipelined, der_pp and tiered, and the reference's error cases;
+  * a restart right after a task boundary on a checkpoint step (Queue 3
+    F2), on the carry backend and the mesh backend at 1x1, against the
+    clean run;
   * the mesh backend at 1x1 with ``exchange='local'`` against the port's
     carry backend: fingerprints and losses bit for bit, flat and tiered (the
     port of ``test_scenario.py::test_pjit_backend_matches_carry_fingerprints``,
     which fails on this jax for the tiered store);
   * two gloo ranks on a 2x1 mesh against JAX's ``build_train_step`` on a
     2-device CPU mesh (a subprocess with ``XLA_FLAGS``), 3 steps of sync,
-    pipelined and der_pp, the JAX row vectors and exchange picks fed
-    through the ``rows`` seam (``ExchangeRows``). Tolerances, and why:
+    pipelined, der_pp and pipelined with ``run.obs`` on, the JAX row vectors
+    and exchange picks fed through the ``rows`` seam (``ExchangeRows``); the
+    obs gauges are the global store's on every rank (counts exactly, the
+    norms within 1e-6 relative). Tolerances of the rest, and why:
     buffer bytes, the pending slot, ``buffer_fill`` and ``rep_checksum``
     exactly (der_pp's stored logits within 1e-4 of their largest value:
     they are the two frameworks' forwards); the loss within 1e-5 of the
@@ -203,7 +208,7 @@ def test_builder_meta_matches_the_reference_at_1x1(case, budget):
     want = _jax_built(jrun, buffer_budget_bytes=budget)
     mesh = tmesh.make_mesh((1, 1), ("data", "model"))
     got = build_train_step(run, mesh, buffer_budget_bytes=budget, device="cpu")
-    want_meta = {k: v for k, v in want.meta.items() if k != "obs"}
+    want_meta = want.meta
     assert set(got.meta) == set(want_meta)
     for k in want_meta:
         if k == "cold_placement" and case == "tiered":
@@ -257,12 +262,16 @@ def test_trainer_mesh_checks_the_shape_against_the_schedule():
         ContinualTrainer(run, device="cpu", step_form="split", mesh=mesh)
 
 
-def test_trainer_refuses_resilience_on_more_than_one_worker(tmp_path):
-    """Each rank would restore and replay alone while its peers go on, so
-    the ResilientLoop runs on one worker only (item 22)."""
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ContinualTrainer(_runs()[1], device="cpu", mesh=_TwoWorkers("cpu", ("data", "model")),
-                         ckpt_dir=str(tmp_path), resilience=ResilienceConfig())
+def test_trainer_keeps_resilient_checkpoints_per_rank(tmp_path):
+    """On a mesh of more than one worker each rank's ``ResilientLoop`` keeps
+    its restart checkpoints under ``ckpt_dir/rank_<dp index>/resilient``
+    (the ranks' agreement itself runs on gloo ranks in
+    ``tests/test_torch_mesh_ranks.py``)."""
+    trainer = ContinualTrainer(_runs()[1], device="cpu",
+                               mesh=_TwoWorkers("cpu", ("data", "model")),
+                               ckpt_dir=str(tmp_path), resilience=ResilienceConfig())
+    loop = trainer._resilient_loop(trainer.mesh_step())
+    assert loop.ckpt.dir == os.path.join(str(tmp_path), "rank_0", "resilient")
 
 
 # ---------------------------------------------------------------------------
@@ -325,12 +334,44 @@ def test_mesh_backend_restarts_in_the_resilient_loop_bit_for_bit(tmp_path):
     assert np.array_equal(got.accuracy_matrix, want.accuracy_matrix)
 
 
+@pytest.mark.parametrize("backend", ["carry", "mesh"])
+def test_restart_right_after_a_task_boundary_on_a_checkpoint_step(backend, tmp_path):
+    """Queue 3 F2: with checkpoints every 3 steps, task 1's loop starts on
+    step 6, which task 0's loop already saved (its start save is skipped),
+    and a failure before step 7 restores it. The loop counts its history
+    from its own start, so the run equals the clean one: every history
+    entry (loss, ``rep_checksum``, ``buffer_fill``) once, and every loss."""
+    from repro_torch.runtime import InjectedFailure
+
+    _, run = _runs()
+    mesh = tmesh.make_mesh((1, 1), ("data", "model")) if backend == "mesh" else None
+    res = ResilienceConfig(checkpoint_every=3, max_restarts=2)
+    want = ContinualTrainer(run, device="cpu", mesh=mesh, ckpt_dir=str(tmp_path / "c"),
+                            resilience=res).fit()
+    fired = []
+
+    def hook(step):
+        if step == 7 and not fired:
+            fired.append(step)
+            raise InjectedFailure("preempted")
+
+    got = ContinualTrainer(run, device="cpu", mesh=mesh, ckpt_dir=str(tmp_path / "x"),
+                           resilience=res, overrides={"failure_hook": hook}).fit()
+    assert got.restarts == 1 and fired == [7]
+    assert len(got.history) == len(want.history) == 12  # every step of both tasks, once
+    for g, w in zip(got.history, want.history):
+        assert (g["task"], g["step"]) == (w["task"], w["step"])
+        for k in ("loss", "rep_checksum", "buffer_fill"):
+            assert g[k] == w[k], (k, g, w)
+    assert got.losses == want.losses
+
+
 # ---------------------------------------------------------------------------
 # (d) two gloo ranks against JAX's build_train_step on a 2-device CPU mesh
 # ---------------------------------------------------------------------------
 
 CASES = {"sync": ("sync", "rehearsal"), "pipelined": ("async", "rehearsal"),
-         "der_pp": ("async", "der_pp")}
+         "der_pp": ("async", "der_pp"), "pipelined_obs": ("async", "rehearsal")}
 STEPS, N = 3, 2
 
 JAX_SIDE = """
@@ -339,8 +380,8 @@ import numpy as np
 import jax, jax.numpy as jnp
 from repro.buffer import state as jstate
 from repro.configs import get_reduced
-from repro.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig, ShapeConfig,
-                                StrategyConfig, TrainConfig)
+from repro.configs.base import (ObsConfig, RehearsalConfig, RunConfig, ScenarioConfig,
+                                ShapeConfig, StrategyConfig, TrainConfig)
 from repro.data import TaskTokenStream, TokenStreamConfig
 from repro.launch.mesh import make_mesh
 from repro.launch.steps import build_train_step
@@ -366,6 +407,7 @@ for case, (mode, strategy) in CASES.items():
                     train=TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=5,
                                       linear_scaling=False, compute_dtype="float32"),
                     rehearsal=rcfg, strategy=StrategyConfig(),
+                    obs=ObsConfig(enabled=case.endswith("_obs")),
                     scenario=ScenarioConfig(name="class_incremental", modality="tokens",
                                             strategy=strategy, num_tasks=2, batch_size=B,
                                             vocab_size=V, seq_len=S, auto_defaults=False))
@@ -402,6 +444,8 @@ for case, (mode, strategy) in CASES.items():
             issue_key = jax.random.fold_in(key, s)
             for k in ("loss", "rep_checksum", "buffer_fill"):
                 out[f"{{case}}/s{{s}}/{{k}}"] = np.asarray(m[k])
+            out.update({{f"{{case}}/s{{s}}/{{k}}": np.asarray(v) for k, v in m.items()
+                         if k.startswith("obs/")}})
             for w in range(N):
                 for k, v in buf.data.items():
                     out[f"{{case}}/s{{s}}/w{{w}}/buffer/{{k}}"] = np.asarray(v)[w]
@@ -429,9 +473,10 @@ dist.init_process_group("gloo", init_method=f"file://{{rendezvous}}", rank=rank,
                         world_size=world)
 from repro_torch import configs
 from repro_torch.buffer.state import UpdateSampleRows
-from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+from repro_torch.configs.base import (ObsConfig, RehearsalConfig, RunConfig, ScenarioConfig,
                                       StrategyConfig, TrainConfig)
 from repro_torch.convert import load_named
+from repro_torch.obs import read_gauges
 from repro_torch.core.distributed import ExchangeRows
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_train_step, shard_host_batch
@@ -449,7 +494,7 @@ for case, (mode, strategy) in CASES.items():
                                      linear_scaling=False, compute_dtype="float32"),
         rehearsal=RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
                                   num_candidates=6, mode=mode, label_field="labels"),
-        strategy=StrategyConfig(),
+        strategy=StrategyConfig(), obs=ObsConfig(enabled=case.endswith("_obs")),
         scenario=ScenarioConfig(name="class_incremental", modality="tokens", strategy=strategy,
                                 num_tasks=2, batch_size=B, vocab_size=V, seq_len=S,
                                 auto_defaults=False))
@@ -470,6 +515,7 @@ for case, (mode, strategy) in CASES.items():
                                                     rows=rows)
         out.update({{f"{{case}}/s{{s}}/{{k}}": float(m[k])
                     for k in ("loss", "rep_checksum", "buffer_fill")}})
+        out.update({{f"{{case}}/s{{s}}/{{k}}": v for k, v in read_gauges(m).items()}})
         out.update({{f"{{case}}/s{{s}}/buffer/{{k}}": v.numpy().copy()
                     for k, v in buf.data.items()}})
         out.update({{f"{{case}}/s{{s}}/reps/{{k}}": v.numpy().copy() for k, v in reps.items()}})
@@ -567,3 +613,29 @@ def test_two_ranks_match_the_jax_pjit_route(case, two_rank_runs):
                f"update {k}")
         _close(got[f"{case}/params2/{k}"], ref[f"{case}/params2/{k}"], 1e-4, f"params {k}")
         np.testing.assert_array_equal(got[f"{case}/params2/{k}"], ranks[1][f"{case}/params2/{k}"])
+
+
+def test_two_ranks_obs_gauges_match_the_jax_pjit_route(two_rank_runs):
+    """With ``run.obs`` on, every rank's gauges are the reference's global
+    ones (its pjit state is ``[N_dp, K]``, the port's rank holds ``[K]``):
+    the same keys, the buffer and replay gauges exactly (counts), and the
+    norms within 1e-6 relative; and the case's fingerprints equal the
+    obs-off pipelined case's (the parity test above holds the rest)."""
+    ref, ranks = two_rank_runs
+    keys = sorted(f.split("/", 2)[2] for f in ref.files
+                  if f.startswith("pipelined_obs/s0/obs/"))
+    assert "obs/fill" in keys and "obs/grad_norm" in keys and "obs/bucket_fill_max" in keys
+    for s in range(STEPS):
+        for got in ranks:
+            assert sorted(f.split("/", 2)[2] for f in got.files
+                          if f.startswith(f"pipelined_obs/s{s}/obs/")) == keys
+            for k in keys:
+                a, b = float(got[f"pipelined_obs/s{s}/{k}"]), float(ref[f"pipelined_obs/s{s}/{k}"])
+                if k in ("obs/grad_norm", "obs/param_norm"):
+                    assert abs(a - b) <= 1e-6 * abs(b), (s, k, a, b)
+                else:
+                    assert a == b, (s, k, a, b)
+            for k in ("loss", "rep_checksum", "buffer_fill"):
+                assert float(got[f"pipelined_obs/s{s}/{k}"]) == float(got[f"pipelined/s{s}/{k}"])
+        assert float(ranks[0][f"pipelined_obs/s{s}/obs/fill"]) == float(
+            ref[f"pipelined_obs/s{s}/buffer_fill"])

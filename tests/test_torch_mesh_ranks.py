@@ -12,8 +12,11 @@ Four ranks run, in one launch, the port of
     pod_local: every rank ends with the same parameters and metrics.
 Two ranks then hold a step where one rank's representatives are all
 invalid against the reference's global token mean (the JAX model's loss on
-the global augmented batch, within 1e-5 relative), and restore a rank's
-checkpoint and replay it bit for bit.
+the global augmented batch, within 1e-5 relative), restore a rank's
+checkpoint and replay it bit for bit, and run the ``ResilientLoop`` with
+rank 0 alone failing (before a step, after one, and with rank 1's newest
+checkpoint lost): both ranks agree on the restart and end on the clean
+run's state bit for bit. The train CLI runs ``--resilience`` on them too.
 
 Each launch meets through a file in the test's ``tmp_path``.
 """
@@ -293,13 +296,85 @@ out["restored_equal"] = set(got) == set(want) and all(
 out["steps"] = CheckpointManager(trainer._rank_dir()).list_steps()
 out["pending_rows"] = int(trainer.final_state[4].shape[0])
 
-# the ResilientLoop would restart each rank alone: refused on 2 ranks
-try:
-    ContinualTrainer(run, device="cpu", mesh=mesh, ckpt_dir=os.path.join(tmp, "res"),
-                     resilience=ResilienceConfig())
-    out["resilience_refused"] = ""
-except NotImplementedError as e:
-    out["resilience_refused"] = str(e)
+# resilient runs, restart checkpoints every 2 steps, so that task 1 starts on
+# one (step 4): clean; rank 0 alone failing before step 5; rank 0's step 5
+# raising after its collectives; rank 0 failing before step 7 while rank 1's
+# step-6 checkpoint is lost (its newest lags, so both restore step 4)
+import shutil
+import time
+from repro_torch import obs
+from repro_torch.runtime import InjectedFailure
+
+res_cfg = ResilienceConfig(checkpoint_every=2, max_restarts=2)
+
+
+def resilient(name, fail_at=None, after_step=False, lose=None):
+    box, fired = {}, []
+
+    def hook(s):
+        if lose is not None and rank == 1 and s == fail_at and not fired:
+            fired.append(s)  # rank 1 goes on, its newest checkpoint lost once written
+            path = os.path.join(box["t"]._rank_dir(), "resilient", f"step_{lose:010d}")
+            deadline = time.monotonic() + 60
+            while not os.path.exists(path) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            shutil.rmtree(path)
+        if rank == 0 and s == fail_at and not after_step and not fired:
+            fired.append(s)
+            raise InjectedFailure(f"rank 0 before step {s}")
+
+    trainer = ContinualTrainer(run, device="cpu", mesh=mesh, exchange="full",
+                               ckpt_dir=os.path.join(tmp, name), resilience=res_cfg,
+                               overrides={"failure_hook": hook})
+    box["t"] = trainer
+    if after_step:
+        make = trainer.mesh_step
+
+        def mesh_step():
+            inner, calls = make(), []
+
+            def step(state, batch, key):
+                out = inner(state, batch, key)
+                calls.append(1)
+                if rank == 0 and len(calls) == fail_at + 1:
+                    raise InjectedFailure(f"rank 0 after step {fail_at}")
+                return out
+
+            step._sanitizer = inner._sanitizer
+            return step
+
+        trainer.mesh_step = mesh_step
+    _, bus = obs.configure(None)
+    try:
+        r = trainer.fit()
+    finally:
+        obs.shutdown()
+    got = snapshot(trainer.final_state)[0]
+    return r, got, [e["step"] for e in bus.of_kind("restart")]
+
+
+clean, clean_state, _ = resilient("res_clean")
+out["resilient"] = {}
+for name, kw in (("before", dict(fail_at=5)), ("after", dict(fail_at=5, after_step=True)),
+                 ("lagging", dict(fail_at=7, lose=6))):
+    r, got, restored = resilient("res_" + name, **kw)
+    out["resilient"][name] = {
+        "restarts": r.restarts, "restored": restored,
+        "history_equal": r.history == clean.history, "losses_equal": r.losses == clean.losses,
+        "acc_equal": r.accuracy_matrix.tolist() == clean.accuracy_matrix.tolist(),
+        "state_equal": set(got) == set(clean_state) and all(
+            np.array_equal(got[k], clean_state[k]) for k in clean_state)}
+out["resilient_history_len"] = len(clean.history)
+
+# the train CLI with --resilience on the 2 ranks
+from repro_torch.launch import train as train_cli
+cli = train_cli.main(["--arch", "smollm-135m", "--reduced", "--tasks", "1", "--steps-per-task",
+                      "2", "--seq-len", "16", "--global-batch", "4", "--device", "cpu",
+                      "--mesh", "2x1", "--ckpt-dir", os.path.join(tmp, "cli"), "--resilience",
+                      "--resilience-checkpoint-every", "1"])
+out["cli"] = {"losses": cli.losses, "restarts": cli.restarts,
+              "steps": CheckpointManager(os.path.join(tmp, "cli", f"rank_{rank}",
+                                                      "resilient")).list_steps()}
 print(json.dumps(out))
 del trainer, built, step, state, params, opt, buf
 import gc
@@ -309,14 +384,10 @@ dist.destroy_process_group()
 """
 
 
-def test_two_ranks_take_the_global_token_mean_and_restart_bit_for_bit(tmp_path):
-    """Rank 0 consumes 2 valid representatives, rank 1 none: the step's loss
-    (every rank's) is the reference's loss on the global augmented batch
-    (the sum of every valid token's NLL over the global count), not the
-    mean of the two ranks' means. Then a 2-rank run checkpointed every 2
-    steps: each rank's step-2 checkpoint, restored and replayed, ends on
-    its step-4 state bit for bit. ``resilience`` on the 2 ranks raises,
-    naming item 22."""
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The JAX model's loss on a global augmented batch (the reference), and
+    the ``TWO`` launch's report of each rank."""
     import jax
     import jax.numpy as jnp
 
@@ -327,6 +398,7 @@ def test_two_ranks_take_the_global_token_mean_and_restart_bit_for_bit(tmp_path):
     from repro_torch import configs
     from repro_torch.convert import lm_named_from_tree
 
+    tmp_path = tmp_path_factory.mktemp("two_ranks")
     V, S, B, r = 128, 16, 8, 2
     jcfg = dataclasses.replace(jreduced("smollm-135m"), vocab_size=V, num_layers=2)
     tcfg = dataclasses.replace(configs.get_reduced("smollm-135m"), vocab_size=V, num_layers=2)
@@ -355,10 +427,49 @@ def test_two_ranks_take_the_global_token_mean_and_restart_bit_for_bit(tmp_path):
     want = float(jmodel.loss(jparams, aug, ctx)[0])
     halves = [float(jmodel.loss(jparams, {k: v[w * (4 + r):(w + 1) * (4 + r)]
                                           for k, v in aug.items()}, ctx)[0]) for w in range(2)]
-    mean_of_means = sum(halves) / 2
+    return want, sum(halves) / 2, res
+
+
+def test_two_ranks_take_the_global_token_mean_and_restart_bit_for_bit(two_ranks):
+    """Rank 0 consumes 2 valid representatives, rank 1 none: the step's loss
+    (every rank's) is the reference's loss on the global augmented batch
+    (the sum of every valid token's NLL over the global count), not the
+    mean of the two ranks' means. Then a 2-rank run checkpointed every 2
+    steps: each rank's step-2 checkpoint, restored and replayed, ends on
+    its step-4 state bit for bit."""
+    want, mean_of_means, res = two_ranks
     assert abs(mean_of_means - want) > 1e-3  # the two reductions differ here
     for rr in res:
         assert abs(rr["loss"] - want) <= 1e-5 * abs(want), (rr["loss"], want, mean_of_means)
         assert rr["restored_equal"] and rr["steps"] == [2, 4] and rr["pending_rows"] == 2
-        assert "item 22" in rr["resilience_refused"]
     assert res[0]["loss"] == res[1]["loss"]
+
+
+@pytest.mark.parametrize("case", ["before", "after", "lagging"])
+def test_two_ranks_agree_on_every_restart(two_ranks, case):
+    """``ContinualTrainer(mesh=2x1, resilience=...)`` with restart
+    checkpoints every 2 steps, 2 tasks of 4 (task 1 starts on a checkpoint
+    step: Queue 3 F2). Rank 0 alone fails, before step 5 (its hook), after
+    step 5 (its step raises once its collectives are done), or before step 7
+    while rank 1's step-6 checkpoint is lost. Both ranks restart once,
+    restore the same step (the newest both hold: 4 in the lagging case),
+    and end equal to the clean run bit for bit: history, losses, accuracy
+    matrix, and every array of the state (parameters, optimizer, buffer,
+    pending slot, issue key)."""
+    want = {"before": 4, "after": 4, "lagging": 4}[case]
+    for rr in two_ranks[2]:
+        got = rr["resilient"][case]
+        assert got["restarts"] == 1 and got["restored"] == [want], got
+        assert got["history_equal"] and got["losses_equal"] and got["acc_equal"], got
+        assert got["state_equal"], got
+        assert rr["resilient_history_len"] == 8  # every step of both tasks, none twice
+
+
+def test_train_cli_runs_resilient_on_two_ranks(two_ranks):
+    """``launch.train --mesh 2x1 --resilience`` on two gloo ranks: the same
+    losses on both, and each rank's restart checkpoints under its own
+    directory."""
+    a, b = (rr["cli"] for rr in two_ranks[2])
+    assert a["losses"] == b["losses"] and len(a["losses"]) == 2
+    assert np.isfinite(a["losses"]).all() and a["restarts"] == b["restarts"] == 0
+    assert a["steps"] == b["steps"] == [0, 1, 2]

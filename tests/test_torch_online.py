@@ -12,6 +12,7 @@ test holds them). With the reservoir the two draw from different
 generators, so that run is held to the reference's own assertions.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -144,11 +145,35 @@ def test_online_learner_needs_a_token_scenario():
         OnlineLearner(vision, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(registry=object()), "item 14")])
-def test_unported_online_options_raise(kwargs, item):
-    _, run = _runs()
-    with pytest.raises(NotImplementedError, match=item):
-        OnlineLearner(run, device="cpu", **kwargs)
+def test_online_registry_gets_the_round_gauges(tmp_path):
+    """``OnlineLearner(registry=...)`` sets the reference's four gauges, and
+    with a live tracer and bus each round is a ``serve_round`` span (its
+    decode's ``prefill`` and ``decode`` inside) with an ``online_round``
+    event, each admission an ``online_admit`` event after an
+    ``online_train`` and a ``weight_handoff`` span."""
+    from repro_torch import obs
+
+    _, run = _runs(rounds=2)
+    registry = obs.MetricsRegistry()
+    tracer, bus = obs.configure(str(tmp_path), rank=0)
+    try:
+        res = OnlineLearner(run, device="cpu", registry=registry).run()
+    finally:
+        obs.shutdown()
+    text = registry.render()
+    for name in ("repro_online_freshness_rounds", "repro_online_admission_rate",
+                 "repro_online_decode_tokens_per_second", "repro_online_restarts"):
+        assert f"# TYPE {name} gauge" in text, text
+    assert "repro_online_admission_rate 1.0" in text and "repro_online_restarts 0.0" in text
+    assert len(res.history) == 2 and res.admission_rate == 1.0
+    stats = tracer.span_stats()
+    for name in ("serve_round", "prefill", "decode", "online_train", "weight_handoff"):
+        assert stats[name]["count"] == 2, (name, stats)
+    assert [e["round"] for e in bus.of_kind("online_round")] == [0, 1]
+    assert [e["rows"] for e in bus.of_kind("online_admit")] == [4, 4]
+    assert obs.validate_trace(json.load(open(tmp_path / "trace.json"))) == []
+    assert {e["kind"] for e in obs.read_events(str(tmp_path / "events.jsonl"))} >= {
+        "online_round", "online_admit"}
 
 
 def test_online_resilient_restart_then_disable(tmp_path):

@@ -85,8 +85,7 @@ class _TwoModelRanks:
         return (1, 2)[mesh_dim]
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=_TwoModelRanks()), "item 21"), (dict(obs=object()), "item 14")])
+@pytest.mark.parametrize("kwargs,item", [(dict(mesh=_TwoModelRanks()), "item 21")])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ContinualTrainer(RUN, device="cpu", **kwargs)
