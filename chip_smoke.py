@@ -183,6 +183,22 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      and the trace one ``restore`` span; (d) ``serve --obs DIR
      --metrics-port 0`` at SmolLM-135M full width: ``/metrics`` scraped
      once, and ``prefill`` and ``decode`` spans in the trace.
+ 21. the MoE and hybrid stacks (after phase 12, TF32 off): flash attention
+     at Mixtral-8x7B's prefill (hd 128, H 32, KV 8, window 4096, S 8192) and
+     the SSD scan at Jamba-v0.1's (H 128, P 64, N 16), f32 and bf16, against
+     their plain versions, timed beside them (flash also beside SDPA with the
+     window as its mask) and their bounds; then Mixtral-8x7B (4 of 32
+     layers), Phi-3.5-MoE (4 of 32) and Jamba-v0.1 (one 8-layer unit of 32)
+     at the published widths, weights drawn on the card from a seed, one
+     arch at a time: prefill with the kernels against the plain path in f32
+     and bf16 (Mixtral B 1 x S 8192, the others B 4 x S 2048), the routing
+     pinned from the plain f32 forward (``repro_torch.testdata.routing``),
+     4, 4 and 1 flash launches and 21 scan kernels (Jamba) a forward, the
+     pairs that would choose another expert unpinned and the share dropped
+     at capacity factor 1.25; ``DecodeEngine`` (batch 4, prompt 32, gen 16,
+     capacity factor E / k) against the teacher-forced forward, routing
+     pinned to the decode steps', and the serve CLI on the reduced config;
+     the reduced config on the card against the CPU.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -2135,8 +2151,8 @@ def _counted_forward(model, params, toks, ctx, counters):
 
 def prefill_phase(counters, ssd, weights: LMWeights):
     """Prefill at full width with the kernels (the LM main path) against the
-    plain path, in f32 and in bf16. Returns each arch's kernel and its
-    launches per f32 forward."""
+    plain path, in f32 and in bf16. Returns each arch's launches per f32
+    forward by kernel."""
     launches = {}
     for arch in LM_ARCHS:
         with weights.on_card(arch) as (cfg, model, params):
@@ -2144,28 +2160,60 @@ def prefill_phase(counters, ssd, weights: LMWeights):
     return launches
 
 
-def _prefill_arch(counters, ssd, arch, cfg, model, params):
-    from repro_torch.models import StackCtx
+def _mixers(cfg):
+    """(attention layers, SSM layers, MoE layers) of ``cfg``."""
+    n = cfg.num_layers
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(n))
+    return attn, n - attn, sum(cfg.layer_is_moe(i) for i in range(n))
 
-    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+
+def dropped_shares(cfg, pins):
+    """Each MoE layer's share of (token, choice) pairs dropped at the config's
+    capacity, from the routings ``pins``."""
+    from repro_torch.models import moe
+
+    shares = []
+    for _, experts in pins:
+        cap = moe.expert_capacity(experts.shape[0], cfg)
+        keep = moe.dispatch(experts, cfg.num_experts, cap)[2]
+        shares.append(float((~keep).float().mean()))
+    return shares
+
+
+def _prefill_arch(counters, ssd, arch, cfg, model, params, b=PREFILL_B, s=PREFILL_S):
+    """Prefill of B x S tokens with the kernels against the plain path, in
+    f32 and bf16; an MoE layer's routing is pinned from the plain f32
+    forward (``repro_torch.testdata.routing``, which has nothing to pin
+    without one). Returns the launches per f32 forward by kernel."""
+    from repro_torch.models import StackCtx, moe
+    from repro_torch.testdata import moved_pairs, routing
+
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
                          generator=torch.Generator().manual_seed(2)).cuda()
-    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    per_layer = ssd.KERNELS_PER_CALL if kernel == "ssd_scan" else 1
-    expect = {name: (cfg.num_layers * per_layer if name == kernel else 0) for name in counters}
-    tokens = PREFILL_B * PREFILL_S
+    n_attn, n_ssm, n_moe = _mixers(cfg)
+    expect = {name: 0 for name in counters}
+    expect.update(flash_attention=n_attn, ssd_scan=n_ssm * ssd.KERNELS_PER_CALL)
+    tokens = b * s
     with torch.no_grad():
-        want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
+        with routing() as pins:
+            want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
         scale = float(want.abs().max())
+        if n_moe:
+            print(f"{arch} prefill B {b} x S {s}: pairs dropped at capacity factor "
+                  f"{cfg.capacity_factor} by MoE layer: "
+                  + ", ".join(f"{x:.4f}" for x in dropped_shares(cfg, pins))
+                  + f" (capacity {moe.expert_capacity(tokens, cfg)} a layer)")
         for dtype in (torch.float32, torch.bfloat16):
             fast = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
             slow = StackCtx(cfg, use_kernel=False, compute_dtype=dtype)
-            got, seen, peak = _counted_forward(model, params, toks, fast, counters)
+            with routing(pins) as calls:
+                got, seen, peak = _counted_forward(model, params, toks, fast, counters)
             if seen != expect:
                 raise AssertionError(f"{arch} {dtype}: expected launches {expect}, saw {seen}")
-            if got.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or got.dtype != dtype:
+            if got.shape != (b, s, cfg.vocab_size) or got.dtype != dtype:
                 raise AssertionError(f"bad logits {tuple(got.shape)} {got.dtype}")
             if dtype == torch.float32:
-                launched = kernel, seen[kernel]
+                launched = seen
                 # f32 both paths; the kernels sum attention / the scan in
                 # another order than cuBLAS and the plain path's einsums.
                 # The CPU parity tests show ~1e-6 of the largest logit
@@ -2179,7 +2227,8 @@ def _prefill_arch(counters, ssd, arch, cfg, model, params):
                 # at most twice as far as the bf16 plain path does, plus
                 # 1e-3 of the largest logit (the bf16 flash kernel rounds
                 # P to bf16 where the plain path keeps f32 probabilities)
-                plain16, _ = model.forward(params, {"tokens": toks}, slow)
+                with routing(pins):
+                    plain16, _ = model.forward(params, {"tokens": toks}, slow)
                 ref_err = abs_err(plain16.float(), want)
                 tol = 2 * ref_err + 1e-3 * scale
                 err = close(got.float(), want, tol, 0.0, f"{arch} bf16 prefill kernels vs f32")
@@ -2187,15 +2236,18 @@ def _prefill_arch(counters, ssd, arch, cfg, model, params):
                          f"{ref_err:.3e} (tolerance {tol:.3e})")
                 del plain16
             del got
+            routed = (f"; routing pinned, {moved_pairs(calls, pins)} of "
+                      f"{tokens * cfg.num_experts_per_tok * n_moe} pairs would choose another "
+                      f"expert unpinned" if n_moe else "")
             t_fast = _timed_forward(model, params, toks, fast)
             t_slow = _timed_forward(model, params, toks, slow)
             t_again = _timed_forward(model, params, toks, fast)
-            print(f"{arch} prefill {str(dtype)[6:]} B {PREFILL_B} x S {PREFILL_S}: "
-                  f"{seen[kernel]} {kernel} launches per forward ({per_layer} per layer); "
-                  f"logits {check}; median forward with kernels {t_fast * 1e3:.1f} ms (again "
-                  f"{t_again * 1e3:.1f}) = {tokens / t_fast:.0f} tokens/s, plain path "
-                  f"{t_slow * 1e3:.1f} ms = {tokens / t_slow:.0f} tokens/s; peak memory with "
-                  f"kernels {peak / 2**30:.2f} GiB")
+            print(f"{arch} prefill {str(dtype)[6:]} B {b} x S {s}: {seen['flash_attention']} "
+                  f"flash_attention and {seen['ssd_scan']} ssd_scan launches per forward"
+                  f"{routed}; logits {check}; median forward with kernels "
+                  f"{t_fast * 1e3:.1f} ms (again {t_again * 1e3:.1f}) = {tokens / t_fast:.0f} "
+                  f"tokens/s, plain path {t_slow * 1e3:.1f} ms = {tokens / t_slow:.0f} tokens/s; "
+                  f"peak memory with kernels {peak / 2**30:.2f} GiB")
         del want
     return launched
 
@@ -3779,10 +3831,239 @@ def obs_phase(counters, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the MoE and hybrid stacks at full width
+# ---------------------------------------------------------------------------
+
+# Published widths; depth cut to a whole period of the layer pattern (arch:
+# layers, prefill batch, prefill length). Mixtral: every layer MoE, its
+# long-context prefill at S 8192, where the 4096 window masks half the keys
+# of the later queries; Phi-3.5-MoE at phase 11's prefill; Jamba: one unit
+# of 8 layers (attention at 4, MoE at the odd ones).
+MOE_CUTS = {"mixtral-8x7b": (4, 1, 8192), "phi3.5-moe-42b-a6.6b": (4, 4, 2048),
+            "jamba-v0.1-52b": (8, 4, 2048)}
+MOE_SEED = 21
+
+
+def moe_arch(arch: str):
+    """(cfg, model, params) of ``arch`` at MOE_CUTS' depth, its weights drawn
+    on the card from a CUDA generator seeded with MOE_SEED: the init
+    functions' ``torch.randn(..., generator=gen)`` draw there under a
+    ``torch.device("cuda")`` context (``LMWeights`` draws on the host, where
+    a 2.5-2.8 B model takes tens of seconds; Jamba's cut is 13 B)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_CUTS[arch][0])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        params = model.init(torch.Generator(device="cuda").manual_seed(MOE_SEED),
+                            MOE_CUTS[arch][2], device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    if not all(p.is_cuda for p in params.parameters()):
+        raise AssertionError(f"{arch}: a weight was drawn off the card")
+    print(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} layers at the published "
+          f"widths (the host's share of a forward is larger than at full depth), "
+          f"{n / 1e9:.3f} B parameters ({n * 4 / 1e9:.1f} GB f32) drawn on the card from "
+          f"torch.Generator(device='cuda').manual_seed({MOE_SEED}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def moe_serving(arch, cfg, params, seed: int = 12):
+    """DecodeEngine on the full-width weights at ``capacity_factor = E / k``
+    (nothing drops in a prefill of 128 tokens or a decode step of 4): the
+    decode logits at every prompt position against the teacher-forced
+    forward with the kernels, the routing of that forward pinned to the
+    decode loop's; then the serve CLI on the reduced config."""
+    from repro_torch.launch import serve
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.testdata import moved_pairs, routing
+
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    model = build_model(cfg)
+    n_moe = _mixers(cfg)[2]
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT),
+                            generator=torch.Generator().manual_seed(seed + 1)).cuda()
+    ctx = StackCtx(cfg)
+    res = DecodeEngine(model, ctx).generate(params, prompts, GEN)
+    with torch.no_grad():
+        caches = model.init_cache(params, SERVE_B, PROMPT + GEN, dtype=torch.float32)
+        outs = []
+        with routing() as dec_calls:
+            for t in range(PROMPT):
+                logits, caches = model.decode(params, {"token": prompts[:, t:t + 1]}, caches, t,
+                                              ctx)
+                outs.append(logits)
+        dec = torch.cat(outs, dim=1)
+        first = torch.argmax(dec[:, -1], dim=-1)
+        # the decode loop's routings (step-major, [4, k] each) as the
+        # forward's (one a MoE layer over the 4 x 32 tokens, row-major)
+        pins = []
+        for layer in range(n_moe):
+            steps = dec_calls[layer::n_moe]
+            pins.append(tuple(torch.stack([c[j] for c in steps], dim=1).reshape(
+                SERVE_B * PROMPT, -1) for j in (0, 1)))
+        with routing(pins) as calls:
+            full, _ = model.forward(params, {"tokens": prompts}, StackCtx(cfg, use_kernel=True))
+    err = close(dec, full, 2e-3, 2e-3, f"{arch} decode vs teacher-forced forward")
+    if not torch.equal(first, res.tokens[:, 0]):
+        raise AssertionError(f"{arch}: the engine's first token differs from the decode loop's")
+    print(f"{arch} DecodeEngine (capacity factor {cfg.capacity_factor:g}): decode logits at all "
+          f"{PROMPT} prompt positions vs the teacher-forced forward (kernels, routing pinned to "
+          f"the decode steps'; {moved_pairs(calls, pins)} of {2 * SERVE_B * PROMPT * n_moe} "
+          f"pairs would choose another expert unpinned): max abs err {err:.3e} (atol = rtol = "
+          f"2e-3); prefill {res.prefill_seconds:.3f} s, {res.tokens_per_second:.1f} tok/s per "
+          f"sequence (batch {SERVE_B}, gen {GEN})")
+    cli = serve.main(["--arch", arch, "--reduced", "--batch", str(SERVE_B), "--prompt-len",
+                      str(PROMPT), "--gen-len", str(GEN), "--seed", str(seed)])
+    if cli.tokens.shape != (SERVE_B, GEN) or cli.tokens.device.type != "cuda":
+        raise AssertionError(f"bad generation {tuple(cli.tokens.shape)} {cli.tokens.device}")
+    print(f"{arch} serve --reduced on the card (CLI path): prefill {cli.prefill_seconds:.3f} s, "
+          f"{cli.tokens_per_second:.1f} tok/s per sequence")
+
+
+def moe_reduced_card_against_cpu(arch, seed: int = 10):
+    """The reduced config, the same weights on the CPU and on the card, B 1, S
+    128, kernels on (their plain versions on the CPU), the card's routing
+    pinned from the CPU's."""
+    import copy
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.testdata import moved_pairs, routing
+
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(seed), 128, device="cpu")
+    card = copy.deepcopy(host).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        with routing() as pins:
+            want, _ = model.forward(host, {"tokens": toks}, StackCtx(cfg, use_kernel=True))
+        with routing(pins) as calls:
+            got, _ = model.forward(card, {"tokens": toks.cuda()}, StackCtx(cfg, use_kernel=True))
+            got = got.cpu()
+    scale = float(want.abs().max())
+    tol = 1e-4 * scale + 1e-5
+    err = close(got, want, tol, 0.0, f"{arch} reduced card vs cpu")
+    print(f"{arch} reduced ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_experts} "
+          f"experts), B 1, S 128, kernels on the card vs plain versions on the CPU, routing "
+          f"pinned from the CPU ({moved_pairs(calls, pins)} pairs would move unpinned): max "
+          f"|card - cpu| {err:.3e} (tolerance {tol:.3e})")
+
+
+def _window_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal attention over ``s`` positions computes
+    with ``window`` (0: none)."""
+    w = window or s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def moe_kernel_shapes(fa, ssd, ref):
+    """Flash attention at Mixtral's prefill (B 1, S 8192, H 32, KV 8, hd 128,
+    window 4096) and the SSD scan at Jamba's (B 4, S 2048, H 128, P 64, N
+    16, chunk 128), f32 and bf16: against their plain versions, timed beside
+    the plain version, SDPA with the window as its mask (flash) and the
+    bound. Returns the two kernels-line updates."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(21)
+    flash, scan = {}, {}
+    b, s, h, kv, hd, win = 1, 8192, 32, 8, 128, 4096
+    pairs = _window_pairs(s, win)
+    flops = 4 * b * h * hd * pairs  # QK^T and PV over the visible pairs
+    qpos = torch.arange(s, device="cuda")
+    mask = (qpos[None, :] <= qpos[:, None]) & (qpos[None, :] > qpos[:, None] - win)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((b, s, h, hd), gen, dtype)
+        k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
+        got = fa.flash_attention(q, k, v, window=win)
+        want = ref.flash_attention_ref(q, k, v, window=win)
+        torch.cuda.synchronize()
+        err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash Mixtral {dtype}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        lib_err = abs_err(library().transpose(1, 2).float(), want.float())
+        del got, want
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, window=win))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, window=win), iters=5)
+        library_ms = time_ms(library, iters=10)
+        nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (3 * flops / TF32_FLOPS if dtype == torch.float32 else flops / BF16_FLOPS) * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        suffix = "_hd128_swa" + ("" if dtype == torch.float32 else "_bf16")
+        print(f"flash_attention at Mixtral's prefill q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, "
+              f"{kv}, {hd}], window {win}, {dtype}: max abs err {err:.3e} vs plain (atol, rtol "
+              f"{FLASH_TOL[dtype]}), SDPA {lib_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, SDPA (the window as a boolean mask) {library_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP over {pairs} visible pairs a "
+              f"head, {'3 x at TF32' if dtype == torch.float32 else 'at bf16'}; {nbytes} B = "
+              f"{bytes_ms:.4f} ms); kernel at {bound_ms / ms:.3f} of its bound")
+        flash.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                      f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
+                      f"library_ms{suffix}": library_ms, f"max_abs_err{suffix}": err})
+        del q, k, v, qt, kt, vt
+    b, s, h, p, n, chunk = 4, 2048, 128, 64, 16, 128
+    nc = s // chunk
+    flops = b * nc * (chunk * (chunk + 1) * n + h * (chunk * (chunk + 1) * p + 4 * chunk * n * p))
+    for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+        args = _ssd_inputs(gen, b, s, h, p, n, dtype)  # dt = softplus(.) >= 0, A = -exp(.) < 0
+        tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+        err = close(ssd.ssd_scan(*args, chunk=chunk).float(),
+                    ssd_plain(ref, *args, chunk).float(), *tol, f"ssd Jamba {dtype}")
+        stage_err = ssd_stages(ssd, ref, *args, chunk)
+        ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
+        plain_ms = time_ms(lambda: ssd_plain(ref, *args, chunk), iters=10)
+        width = args[0].element_size()
+        nbytes = 2 * args[0].numel() * width + 2 * args[1].numel() * 4 + 2 * args[3].numel() * width
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        suffix = "_jamba" + ("" if dtype == torch.float32 else "_bf16")
+        print(f"ssd_scan at Jamba's prefill x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, {n}], chunk "
+              f"{chunk}, {dtype}: max abs err {err:.3e} vs plain (atol, rtol {tol}), stages "
+              f"{stage_err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"by {by} ({flops / 1e9:.2f} GFLOP = {ops_ms:.4f} ms; {nbytes} B = "
+              f"{bytes_ms:.4f} ms); kernels at {bound_ms / ms:.3f} of their bound")
+        scan.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                     f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
+                     f"max_abs_err{suffix}": err})
+        del args
+    return flash, scan
+
+
+def moe_phase(counters, fa, ssd, ref):
+    """Phase 21: the kernels at the new shapes, then each arch in turn (its
+    weights freed before the next): prefill, serving, the reduced config on
+    the card against the CPU. Returns (launches per f32 forward by arch, the
+    flash and scan entries' updates)."""
+    flash, scan = moe_kernel_shapes(fa, ssd, ref)
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch in MOE_CUTS:
+        cfg, model, params = moe_arch(arch)
+        launches[arch] = _prefill_arch(counters, ssd, arch, cfg, model, params,
+                                       *MOE_CUTS[arch][1:])
+        moe_serving(arch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        moe_reduced_card_against_cpu(arch)
+    return launches, flash, scan
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-20), and print no result lines")
+                    help="run phases 1, 2 and these only (3-21), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -3895,6 +4176,10 @@ def main(argv=None):
     del weights
     torch.cuda.empty_cache()
 
+    if run(21):
+        phase("21 MoE and hybrid stacks at full width: Mixtral-8x7B, Phi-3.5-MoE, Jamba-v0.1")
+        moe_launches, moe_flash, moe_scan = moe_phase(counters, fa, ssd, ref)
+
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
         lm_runs = lm_train_phase(counters, qz, ops, ref)
@@ -3937,11 +4222,16 @@ def main(argv=None):
         # beside it, the agreed restart), each counted from 0
         e["launches_obs"] = {name: n[e["name"]] for name, n in obs_launches.items()
                              if n.get(e["name"])}
-    # phase 11's launches a forward: SmolLM-135M's, then every arch's
-    flash_entry["launches"] = launches["smollm-135m"][1]
-    flash_entry["launches_by_arch"] = {a: n for a, (k, n) in launches.items()
-                                       if k == "flash_attention"}
-    ssd_entry["launches"] = launches["mamba2-370m"][1]  # num_layers x KERNELS_PER_CALL
+    # phase 11's launches a forward: SmolLM-135M's and Mamba2-370M's, then
+    # every arch's, phase 21's at its cuts of depth; phase 21's times at
+    # the MoE and hybrid stacks' shapes
+    launches.update(moe_launches)
+    for target, name, arch, update in (
+            (flash_entry, "flash_attention", "smollm-135m", moe_flash),
+            (ssd_entry, "ssd_scan", "mamba2-370m", moe_scan)):  # scan: layers x 3 kernels
+        target["launches"] = launches[arch][name]
+        target["launches_by_arch"] = {a: n[name] for a, n in launches.items() if n[name]}
+        target.update(update)
     print(card)
     print(json.dumps({"kernels": [entry] + int8_entries + [flash_entry, ssd_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """Configs of the port: ``base`` (LM architecture, run, rehearsal, scenario,
 training), the paper's ResNet (``resnet50_cl``) and the ported LM
-architectures, resolved by ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
+architectures (dense, SSM, MoE and hybrid), resolved by
+``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 """
 from repro_torch.configs import (
     gemma_2b,
     h2o_danube_1_8b,
+    jamba_v01,
     mamba2_370m,
+    mixtral_8x7b,
+    phi35_moe,
     resnet50_cl,
     smollm_135m,
     stablelm_3b,
@@ -23,12 +27,11 @@ from repro_torch.configs.base import (
 )
 
 REGISTRY = {m.ARCH_ID: m for m in (smollm_135m, h2o_danube_1_8b, stablelm_3b, gemma_2b,
-                                   mamba2_370m)}
+                                   mamba2_370m, mixtral_8x7b, phi35_moe, jamba_v01)}
 ARCHS = tuple(REGISTRY)
 # Architectures the JAX package registers that the port does not have yet
-# (ROADMAP Queue 1 item 11: MoE, hybrid, enc-dec and VLM stacks).
-UNPORTED = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "whisper-tiny", "jamba-v0.1-52b",
-            "qwen2-vl-72b")
+# (ROADMAP Queue 1 item 11: the enc-dec and VLM stacks).
+UNPORTED = ("whisper-tiny", "qwen2-vl-72b")
 
 
 def _module(arch_id: str):

@@ -9,12 +9,14 @@ both packages from the same carry. Nothing here imports the JAX package.
                             the port's layout (convolutions HWIO -> OIHW; the
                             head stays a [D, classes] matrix);
   * ``cnn_params_from_jax`` — load such a tree into a fresh ``CNN``;
-  * ``lm_params_from_jax``  — the JAX ``init_decoder`` tree (dense or SSM)
-                            into a fresh ``Decoder``, its stacked
-                            ``units.layer0.*`` leaves split into
-                            ``layers.{i}.*`` (``lm_named_from_tree``, which
-                            also names a gradient or moment tree of that
-                            shape); ``load_named`` loads any module from
+  * ``lm_params_from_jax``  — the JAX ``init_decoder`` tree (dense, SSM,
+                            MoE or hybrid) into a fresh ``Decoder``, its
+                            stacked ``units.layer{i}.*`` leaves (``moe.*``
+                            among them) split into
+                            ``layers.{u * period + i}.*``
+                            (``lm_named_from_tree``, which also names a
+                            gradient or moment tree of that shape);
+                            ``load_named`` loads any module from
                             ``{name: array}``;
   * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` /
     ``ef_from_jax``       — the flat or tiered buffer (every record leaf,
@@ -97,8 +99,9 @@ def lm_named_from_tree(tree, cfg) -> Dict[str, np.ndarray]:
 
 def lm_params_from_jax(np_tree, cfg, device=None):
     """A ``Decoder`` holding the weights of the JAX ``init_decoder`` tree
-    ``np_tree`` (dense or SSM), on ``device`` (the card unless the caller asks
-    for the CPU). Dense weights keep their ``[d_in, d_out]`` layout."""
+    ``np_tree`` (dense, SSM, MoE or hybrid), on ``device`` (the card unless
+    the caller asks for the CPU). Dense weights keep their ``[d_in, d_out]``
+    layout, the experts' theirs (``[E, d, f]``, ``[E, f, d]``)."""
     model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
     return load_named(model, lm_named_from_tree(np_tree, cfg))
 

@@ -1,5 +1,6 @@
-"""Models of the port: the paper's ResNet classifiers, the dense and SSM
-language models (``build_model``), and their loss."""
+"""Models of the port: the paper's ResNet classifiers, the dense, SSM,
+mixture-of-experts and hybrid language models (``build_model``), and their
+loss."""
 from repro_torch.models.model_zoo import LM, build_model, cross_entropy
 from repro_torch.models.resnet import CNN, apply_cnn, cnn_outputs, init_cnn
 from repro_torch.models.transformer import StackCtx

@@ -1,7 +1,8 @@
 """Loss shared by the port's models, and the language models' bundle.
 
 ``build_model(cfg)`` returns an ``LM`` of functions with the reference's
-surface (``models/model_zoo.py``), for the dense and SSM decoders:
+surface (``models/model_zoo.py``), for the dense, SSM, mixture-of-experts
+(Mixtral, Phi-3.5-MoE) and hybrid (Jamba) decoders:
   * ``init(gen, max_seq, device=None)``          -> params (a ``Decoder``)
   * ``forward(params, batch, ctx)``              -> (logits, aux_loss)   (prefill)
   * ``loss(params, batch, ctx)``                 -> (scalar, metrics)
@@ -19,8 +20,8 @@ import torch
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import global_count
 
-# MoE load-balance aux-loss weight, as in the reference (0 aux for the ported
-# families).
+# MoE load-balance aux-loss weight, as in the reference (the aux is 0 without
+# MoE layers).
 DEFAULT_AUX_WEIGHT = 0.01
 
 
@@ -53,8 +54,8 @@ class LM:
 
 
 def build_model(cfg) -> LM:
-    """The bundle for a dense or SSM decoder; other families raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+    """The bundle for a dense, SSM, MoE or hybrid decoder; the encoder-decoder
+    and VLM families raise ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
     tf.check_ported(cfg)
 
     def init(gen: torch.Generator, max_seq: int, device=None):

@@ -1,11 +1,14 @@
-"""Decoder-stack assembly for the dense and SSM language models.
+"""Decoder-stack assembly for the dense, SSM, mixture-of-experts and hybrid
+language models.
 
 The reference stacks each scan unit's weights on a leading axis and iterates
 them with ``lax.scan``; here the stack is an ``nn.ModuleList`` of per-layer
-modules walked by a Python loop (``unit_period`` is 1 for the ported
-families). Mixture-of-experts, hybrid, encoder-decoder and VLM stacks are not
-ported (ROADMAP Queue 1 item 11) and raise ``NotImplementedError``; nor are
-the reference's sharding hook, remat policies and ``scan_layers``.
+modules walked by a Python loop, layer ``u * unit_period + i`` holding unit
+``u``'s layer ``i`` (Jamba's unit: 8 layers, one attention and seven SSM
+mixers, an MoE feed-forward every second layer). Encoder-decoder and VLM
+stacks are not ported (ROADMAP Queue 1 item 11) and raise
+``NotImplementedError``; nor are the reference's sharding hook, remat
+policies and ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn as nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_learned_pos,
@@ -30,7 +34,7 @@ from repro_torch.models.layers import (
     rope_angles,
 )
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 
 @dataclass
@@ -45,11 +49,11 @@ class StackCtx:
 
 def check_ported(cfg) -> None:
     """Raise for the families and options the port does not have yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.is_moe or cfg.frontend != "none":
+    if cfg.family not in PORTED_FAMILIES or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (experts {cfg.num_experts}, frontend "
-            f"{cfg.frontend!r}) is not ported yet (ROADMAP Queue 1 item 11); the port "
-            f"runs the dense and SSM decoders")
+            f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r}) is not ported "
+            f"yet (ROADMAP Queue 1 item 11); the port runs the dense, SSM, MoE and hybrid "
+            f"decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -79,13 +83,12 @@ def num_units(cfg) -> int:
 
 
 class Layer(nn.Module):
-    """``norm1`` + mixer (``attn`` or ``ssm``), then ``norm2`` + ``mlp`` when the
-    config has a feed-forward width."""
+    """``norm1`` + mixer (``attn`` or ``ssm``), then, when the config has a
+    feed-forward width, ``norm2`` + ``moe`` (where ``cfg.layer_is_moe(i)``)
+    or ``mlp``."""
 
     def __init__(self, gen: torch.Generator, cfg, i: int):
         super().__init__()
-        if cfg.layer_is_moe(i):
-            raise NotImplementedError("MoE layers are not ported yet (ROADMAP Queue 1 item 11)")
         self.norm1 = init_norm(cfg)
         if cfg.layer_kind(i) == "attn":
             self.attn = attn.init_attention(gen, cfg)
@@ -93,17 +96,38 @@ class Layer(nn.Module):
             self.ssm = ssm_lib.init_ssm(gen, cfg)
         if cfg.d_ff:
             self.norm2 = init_norm(cfg)
-            self.mlp = init_mlp(gen, cfg)
+            if cfg.layer_is_moe(i):
+                self.moe = moe_lib.init_moe(gen, cfg)
+            else:
+                self.mlp = init_mlp(gen, cfg)
 
 
 def init_layer(gen: torch.Generator, cfg, i: int) -> Layer:
     return Layer(gen, cfg, i)
 
 
-def _ffn(params: Layer, x: torch.Tensor, cfg) -> torch.Tensor:
+def _apply_moe(moe_params, h: torch.Tensor, cfg):
+    """The MoE FFN over the ``B * S`` tokens of ``h`` [B, S, d]: the
+    reference's path for one token shard (``dp_shards == 1``, no
+    ``moe_apply``). Its vmap over data shards is what a rank of the port's
+    mesh does by construction, routing only its own tokens; the explicit
+    ``moe_apply`` over the model axis is ROADMAP Queue 1 item 21's."""
+    b, s, d = h.shape
+    y, aux = moe_lib.moe_ffn(moe_params, h.reshape(b * s, d), cfg)
+    return y.reshape(b, s, d), aux
+
+
+def _ffn(params: Layer, x: torch.Tensor, cfg):
+    """The feed-forward half of a layer: (x, its MoE aux loss, 0 without)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hasattr(params, "norm2"):
-        x = x + apply_mlp(params.mlp, apply_norm(params.norm2, x), cfg.activation)
-    return x
+        h = apply_norm(params.norm2, x)
+        if hasattr(params, "moe"):
+            h, aux = _apply_moe(params.moe, h, cfg)
+        else:
+            h = apply_mlp(params.mlp, h, cfg.activation)
+        x = x + h
+    return x, aux
 
 
 def apply_layer(params: Layer, x: torch.Tensor, i: int, ctx: StackCtx, angles=None,
@@ -116,21 +140,21 @@ def apply_layer(params: Layer, x: torch.Tensor, i: int, ctx: StackCtx, angles=No
                              use_kernel=ctx.use_kernel)
     else:
         h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel)
-    x = _ffn(params, x + h, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(params, x + h, cfg)
 
 
 def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int,
                        ctx: StackCtx, angles=None):
-    """One-token layer step. Returns (x, new_cache, aux)."""
+    """One-token layer step. Returns (x, new_cache, aux); the decode's aux is
+    unused, as in the reference."""
     cfg = ctx.cfg
     h = apply_norm(params.norm1, x)
     if hasattr(params, "attn"):
         h, new_cache = attn.attend_decode(params.attn, h, cache, index, cfg, angles=angles)
     else:
         h, new_cache = ssm_lib.apply_ssm_decode(params.ssm, h, cache, cfg)
-    x = _ffn(params, x + h, cfg)
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _ffn(params, x + h, cfg)
+    return x, new_cache, aux
 
 
 def init_layer_cache(cfg, i: int, batch: int, seq_len: int, dtype=torch.bfloat16,

@@ -188,7 +188,8 @@ def build_token_lm(run, vocab_size: int):
     (``run.train.compute_dtype``) through the plain mixers, as the
     reference trains (it has no backward kernel); ``eval_ctx`` computes in
     f32. Without ``run.model`` the model is the reduced SmolLM-135M, 2
-    layers, over the stream's vocab."""
+    layers, over the stream's vocab. MoE and hybrid models are served but
+    not trained yet: they raise ``NotImplementedError``."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import StackCtx, build_model
 
@@ -196,6 +197,10 @@ def build_token_lm(run, vocab_size: int):
     if cfg is None:
         cfg = dataclasses.replace(get_reduced("smollm-135m"), vocab_size=vocab_size,
                                   num_layers=2)
+    if cfg.family in ("moe", "hybrid") or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} stack is not ported yet (ROADMAP Queue 1 "
+            f"item 11: training of the MoE and hybrid stacks); it is served only")
     dtype = torch.float32 if run.train.compute_dtype == "float32" else torch.bfloat16
     return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype),
             StackCtx(cfg=cfg, compute_dtype=torch.float32))

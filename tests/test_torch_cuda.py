@@ -376,14 +376,16 @@ def _qkv(seed, b, s, t, h, kv, hd, dtype, cuda):
     (1, 640, 640, 9, 3, 64, 0, True), (1, 8192, 8192, 32, 8, 80, 4096, True),
     (4, 2048, 2048, 8, 1, 256, 0, True), (1, 1024, 1024, 8, 1, 256, 300, True),
     (2, 64, 64, 8, 1, 256, 0, True), (2, 37, 37, 2, 1, 256, 0, True),
-    (1, 100, 100, 4, 2, 256, 0, False), (1, 64, 32, 4, 4, 256, 8, False)])
+    (1, 100, 100, 4, 2, 256, 0, False), (1, 64, 32, 4, 4, 256, 8, False),
+    (1, 8192, 8192, 32, 8, 128, 4096, True)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, b, s, t, h, kv, hd, window, causal):
     """GQA, MQA, windows, ragged tiles (S = 37, 100), no causal mask, rows
     without keys (64 queries, 32 keys, window 8), hd 32 at S 64 (less than one
     128-query tile of the bf16 kernel), H2O-Danube (hd 80, window 4096, S 8192);
     at hd 256 Gemma-2B's prefill (B 4, S 2048, H 8, KV 1), a window, S 64
     (less than one tile of either kernel), ragged S 37, no causal mask and
-    rows without keys."""
+    rows without keys; Mixtral-8x7B's long prefill (hd 128, H 32, KV 8,
+    window 4096, S 8192)."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = _qkv(s + hd, b, s, t, h, kv, hd, dtype, cuda)
@@ -404,8 +406,11 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, b, s, t, h, kv, hd, win
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (1, 32, 4, 16, 8, 8), (2, 64, 8, 16, 16, 16), (1, 64, 8, 32, 8, 64),
-    (1, 128, 16, 64, 128, 32), (2, 512, 4, 64, 128, 128), (1, 48, 3, 20, 40, 48)])
+    (1, 128, 16, 64, 128, 32), (2, 512, 4, 64, 128, 128), (1, 48, 3, 20, 40, 48),
+    (4, 2048, 128, 64, 16, 128)])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, b, s, h, p, n, chunk):
+    """Ragged tiles, N below the kernels' 128-wide tiles, and Jamba's prefill
+    (B 4, S 2048, H 128, P 64, N 16, chunk 128)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator().manual_seed(s + n)
@@ -462,13 +467,15 @@ def test_use_kernel_on_the_card_launches_once_per_layer(cuda, arch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [(1, 32, 4, 16, 8, 8), (1, 48, 3, 20, 40, 48),
                                             (2, 512, 4, 64, 128, 128), (1, 256, 20, 64, 128, 64),
-                                            (4, 2048, 32, 64, 128, 128)])
+                                            (4, 2048, 32, 64, 128, 128),
+                                            (4, 2048, 128, 64, 16, 128)])
 def test_ssd_stage_kernels_match_their_plain_stages(cuda, dtype, b, s, h, p, n, chunk):
     """chunk_states, pass_states and chunk_output, one launch each, against
     ref.ssd_chunk_states_ref, ssd_pass_states_ref and ssd_chunk_output_ref on
     the same inputs (kernel layout); an odd head count leaves the last head
     block without its pair; ragged tiles (P 20, N 40, chunk 48); Mamba2-370M's
-    prefill shapes (B 4, S 2048, H 32, P 64, N 128, chunk 128)."""
+    prefill shapes (B 4, S 2048, H 32, P 64, N 128, chunk 128) and Jamba's
+    (H 128, N 16)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     g = torch.Generator().manual_seed(s * n + h)
@@ -525,6 +532,140 @@ def test_bf16_forward_on_the_card_runs_the_kernels(cuda, arch):
     assert counter.launches == before + cfg.num_layers * per_layer and got.dtype == torch.bfloat16
     bound = 2 * float((plain16.float() - want).abs().max()) + 1e-3 * float(want.abs().max())
     assert float((got.float() - want).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer and the MoE and hybrid stacks, their routing pinned
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
+
+
+def _moe_layer(cuda, dtype, seed=0):
+    """Phi-3.5-MoE's layer cut to d 512, f 1024 (16 experts, top-2) on the
+    card and the same weights on the CPU, and 1024 tokens whose shared offset
+    skews the router, so that some experts overflow at 1.25."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), d_model=512, d_ff=1024)
+    cpu = moe.init_moe(torch.Generator().manual_seed(seed), cfg)
+    card = moe.init_moe(torch.Generator().manual_seed(seed), cfg).to(cuda)
+    x = torch.randn((1024, cfg.d_model), generator=torch.Generator().manual_seed(seed + 1)) + 1.0
+    return cfg, cpu, card, x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, dtype):
+    """Routing pinned from the CPU, the same pairs kept (capacity 1.25). f32
+    within 1e-5 of the largest output (cuBLAS and the CPU sum in other
+    orders); bf16 at most twice as far from the CPU's f32 output (on the same
+    bf16-rounded input) as the CPU's bf16 output is."""
+    from repro_torch.models import moe
+    from repro_torch.testdata import moved_pairs, routing
+
+    cfg, cpu, card, x = _moe_layer(cuda, dtype)
+    with torch.no_grad():
+        with routing() as pins:
+            want, want_aux = moe.moe_ffn(cpu, x, cfg)
+        with routing(pins) as calls:
+            got, aux = moe.moe_ffn(card, x.to(cuda), cfg)
+        with routing(pins):
+            want32, _ = moe.moe_ffn(cpu, x.float(), cfg)
+    torch.cuda.synchronize()
+    cap = moe.expert_capacity(1024, cfg)
+    keep = moe.dispatch(pins[0][1], cfg.num_experts, cap)[2]
+    assert not bool(keep.all())  # some pairs drop at 1.25
+    assert torch.equal(moe.dispatch(pins[0][1].to(cuda), cfg.num_experts, cap)[2].cpu(), keep)
+    print(f"pairs that chose another expert unpinned: {moved_pairs(calls, pins)}; dropped "
+          f"at 1.25: {int((~keep).sum())} of {keep.numel()}")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    else:
+        rounding = float((want.float() - want32).abs().max())
+        assert float((got.cpu().float() - want32).abs().max()) <= 2 * rounding
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_the_card_under_deterministic_mode(cuda):
+    """``index_copy_`` and ``index_add_`` are permitted under
+    ``torch.use_deterministic_algorithms`` on CUDA, and two runs agree bit for
+    bit (top-2: each token's sum has two terms, in either order the same)."""
+    import os
+
+    from repro_torch.models import moe
+
+    cfg, _, card, x = _moe_layer(cuda, torch.float32)
+    x = x.to(cuda)
+    was, env = torch.are_deterministic_algorithms_enabled(), os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            a, _ = moe.moe_ffn(card, x, cfg)
+            b, _ = moe.moe_ffn(card, x, cfg)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    with torch.no_grad():
+        c, _ = moe.moe_ffn(card, x, cfg)
+    assert _same(a, b) and _same(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_stacks_on_the_card_run_the_kernels(cuda, arch, dtype):
+    """The reduced MoE and hybrid models with the kernels, routing pinned from
+    the f32 plain path on the card: one flash launch an attention layer and
+    one scan (3 kernels) an SSM layer; f32 within 1e-4 of the largest logit,
+    bf16 at most twice as far from the f32 plain path as the bf16 plain path
+    is, plus 1e-3 of the largest logit; and the reduced model on the card
+    against the CPU, routing pinned from the CPU, within 1e-4."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.testdata import routing
+
+    cfg = _reduced(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), 128, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    with torch.no_grad():
+        with routing() as pins:
+            want, _ = model.forward(params, {"tokens": toks.to(cuda)}, StackCtx(cfg))
+        before = fa.flash_attention.launches, ssd.ssd_scan.launches
+        with routing(pins):
+            got, _ = model.forward(params, {"tokens": toks.to(cuda)},
+                                   StackCtx(cfg, use_kernel=True, compute_dtype=dtype))
+        torch.cuda.synchronize()
+        assert (fa.flash_attention.launches - before[0], ssd.ssd_scan.launches - before[1]) == \
+            (n_attn, (cfg.num_layers - n_attn) * ssd.KERNELS_PER_CALL)
+        scale = float(want.abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+        else:
+            with routing(pins):
+                plain16, _ = model.forward(params, {"tokens": toks.to(cuda)},
+                                           StackCtx(cfg, compute_dtype=dtype))
+            bound = 2 * float((plain16.float() - want).abs().max()) + 1e-3 * scale
+            assert float((got.float() - want).abs().max()) <= bound
+            return
+        host = model.init(torch.Generator().manual_seed(0), 128, device="cpu")
+        with routing() as cpu_pins:
+            on_cpu, _ = model.forward(host, {"tokens": toks}, StackCtx(cfg))
+        with routing(cpu_pins):
+            on_card, _ = model.forward(params, {"tokens": toks.to(cuda)}, StackCtx(cfg))
+    torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-4 * scale, rtol=0)
 
 
 @pytest.mark.cuda

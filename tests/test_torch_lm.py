@@ -22,12 +22,14 @@ from repro.configs import get_reduced as jax_reduced
 from repro.models import StackCtx as JaxCtx
 from repro.models import build_model as jax_build
 from repro.models import layers as JL
+from repro.models.transformer import unit_period as jax_unit_period
 from repro.serving import DecodeEngine as JaxEngine
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax, load_named
 from repro_torch.launch import serve
 from repro_torch.models import StackCtx, build_model
 from repro_torch.models import layers as TL
+from repro_torch.models.transformer import unit_period
 from repro_torch.serving import DecodeEngine
 
 LM_ARCHS = ["smollm-135m", "mamba2-370m", "stablelm-3b", "gemma-2b"]
@@ -73,6 +75,9 @@ def test_configs_match_the_reference(arch):
         assert ours.active_param_count() == theirs.active_param_count()
         assert [ours.layer_kind(i) for i in range(ours.num_layers)] == \
             [theirs.layer_kind(i) for i in range(theirs.num_layers)]
+        assert [ours.layer_is_moe(i) for i in range(ours.num_layers)] == \
+            [theirs.layer_is_moe(i) for i in range(theirs.num_layers)]
+        assert unit_period(ours) == jax_unit_period(theirs)
 
 
 @pytest.mark.parametrize("arch", configs.UNPORTED)
@@ -84,10 +89,16 @@ def test_unported_archs_raise_and_name_the_ported_ones(arch):
         configs.get_reduced(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_unported_families_raise(family):
-    cfg = dataclasses.replace(configs.get_reduced("smollm-135m"), family=family,
-                              num_experts=4 if family == "moe" else 0)
+    cfg = dataclasses.replace(configs.get_reduced("smollm-135m"), family=family)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mixtral-8x7b", "jamba-v0.1-52b"])
+def test_frontends_other_than_none_raise(arch):
+    cfg = dataclasses.replace(configs.get_reduced(arch), frontend="patch_stub")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         build_model(cfg)
 
