@@ -199,6 +199,25 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      capacity factor E / k) against the teacher-forced forward, routing
      pinned to the decode steps', and the serve CLI on the reduced config;
      the reduced config on the card against the CPU.
+ 22. the enc-dec and VLM stacks served, the MoE and hybrid stacks trained
+     (after phase 21, TF32 off): flash attention at Qwen2-VL-72B's prefill
+     (hd 128, H 64 over KV 8: 8 query heads a KV head, causal, S 2048), f32
+     and bf16, against its plain version, timed beside it, SDPA and the
+     bound; Qwen2-VL-72B at its published width cut to 4 of 80 layers,
+     weights drawn on the card: prefill of B 4 x S 2048 patch-stub
+     embeddings at an image block's M-RoPE positions with the kernels
+     against the plain path in f32 and bf16 (phase 11's bounds, 4 flash
+     launches a forward), ``DecodeEngine`` on token prompts against the
+     teacher-forced forward, the serve CLI on the reduced config;
+     Whisper-tiny whole (B 8, 1500 frames, 448 tokens): the kernel flag on,
+     f32 against the CPU, bf16 bit for bit the flag-off forward, 0 launches
+     of every kernel, decode over the encoder's output against the
+     teacher-forced decoder, ``serve.main`` at full width; then
+     ``launch.train.main(["--arch", ...])`` at the CLI's defaults, 2 x 4
+     steps, on Mixtral-8x7B and Phi-3.5-MoE cut to 1 layer at the published
+     widths and on Jamba-v0.1 reduced: finite losses, one update+sample
+     launch a step and no other kernel, and two backward passes of one batch
+     bit for bit in deterministic mode.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -2124,26 +2143,27 @@ def lm_model_phase(weights: LMWeights):
               f"max |card - cpu| {err:.3e} (tolerance {tol:.3e}, |logit| max {scale:.3f})")
 
 
-def _timed_forward(model, params, toks, ctx, reps: int = 4):
-    """Median host time of a synchronised forward over reps - 1 runs after one."""
+def _timed_forward(model, params, batch, ctx, reps: int = 4):
+    """Median host time of a synchronised forward of ``batch`` over reps - 1
+    runs after one."""
     runs = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.forward(params, {"tokens": toks}, ctx)
+        model.forward(params, batch, ctx)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
     return statistics.median(runs[1:])
 
 
-def _counted_forward(model, params, toks, ctx, counters):
-    """One forward with every launch count set to 0 just before it: (logits,
-    launches by kernel, peak device memory)."""
+def _counted_forward(model, params, batch, ctx, counters):
+    """One forward of ``batch`` with every launch count set to 0 just before
+    it: (logits, launches by kernel, peak device memory)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    out, _ = model.forward(params, {"tokens": toks}, ctx)
+    out, _ = model.forward(params, batch, ctx)
     torch.cuda.synchronize()
     return out, {name: fn.launches for name, fn in counters.items()}, \
         torch.cuda.max_memory_allocated()
@@ -2180,23 +2200,25 @@ def dropped_shares(cfg, pins):
     return shares
 
 
-def _prefill_arch(counters, ssd, arch, cfg, model, params, b=PREFILL_B, s=PREFILL_S):
-    """Prefill of B x S tokens with the kernels against the plain path, in
-    f32 and bf16; an MoE layer's routing is pinned from the plain f32
-    forward (``repro_torch.testdata.routing``, which has nothing to pin
-    without one). Returns the launches per f32 forward by kernel."""
+def _prefill_arch(counters, ssd, arch, cfg, model, params, b=PREFILL_B, s=PREFILL_S,
+                  batch=None):
+    """Prefill of B x S tokens (or of ``batch``, the VLM's embeddings and
+    positions) with the kernels against the plain path, in f32 and bf16; an
+    MoE layer's routing is pinned from the plain f32 forward
+    (``repro_torch.testdata.routing``, which has nothing to pin without one).
+    Returns the launches per f32 forward by kernel."""
     from repro_torch.models import StackCtx, moe
     from repro_torch.testdata import moved_pairs, routing
 
-    toks = torch.randint(0, cfg.vocab_size, (b, s),
-                         generator=torch.Generator().manual_seed(2)).cuda()
+    toks = batch if batch is not None else {"tokens": torch.randint(
+        0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(2)).cuda()}
     n_attn, n_ssm, n_moe = _mixers(cfg)
     expect = {name: 0 for name in counters}
     expect.update(flash_attention=n_attn, ssd_scan=n_ssm * ssd.KERNELS_PER_CALL)
     tokens = b * s
     with torch.no_grad():
         with routing() as pins:
-            want, _ = model.forward(params, {"tokens": toks}, StackCtx(cfg, use_kernel=False))
+            want, _ = model.forward(params, toks, StackCtx(cfg, use_kernel=False))
         scale = float(want.abs().max())
         if n_moe:
             print(f"{arch} prefill B {b} x S {s}: pairs dropped at capacity factor "
@@ -2228,7 +2250,7 @@ def _prefill_arch(counters, ssd, arch, cfg, model, params, b=PREFILL_B, s=PREFIL
                 # 1e-3 of the largest logit (the bf16 flash kernel rounds
                 # P to bf16 where the plain path keeps f32 probabilities)
                 with routing(pins):
-                    plain16, _ = model.forward(params, {"tokens": toks}, slow)
+                    plain16, _ = model.forward(params, toks, slow)
                 ref_err = abs_err(plain16.float(), want)
                 tol = 2 * ref_err + 1e-3 * scale
                 err = close(got.float(), want, tol, 0.0, f"{arch} bf16 prefill kernels vs f32")
@@ -2432,13 +2454,33 @@ def lm_train_run(counters, arch: str, *, steps: int, tasks: int = 2,
     return {"launches": launches, "history": history, "step_ms": step_ms}
 
 
-def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int = 4):
-    """The train CLI itself, ``launch.train.main``, at full width on its
-    default device (the card), ``tasks`` x ``steps`` steps. Counters are set
-    to 0 just before and read just after. Checks one update+sample launch a
-    step and no other kernel, every logged loss finite and an eval line for
-    every task seen after each task; prints the CLI's log lines. Returns the
-    launches and the median step in ms."""
+@contextlib.contextmanager
+def cut_depth(train_cli, layers):
+    """The train CLI's ``build_run`` with the model cut to ``layers`` layers
+    (0: as the CLI builds it), restored after."""
+    build_run = train_cli.build_run
+
+    def cut(args):
+        run = build_run(args)
+        return run if not layers else dataclasses.replace(
+            run, model=dataclasses.replace(run.model, num_layers=layers))
+
+    train_cli.build_run = cut
+    try:
+        yield
+    finally:
+        train_cli.build_run = build_run
+
+
+def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int = 4,
+                layers: int = 0, reduced: bool = False):
+    """The train CLI itself, ``launch.train.main``, at full width (or with
+    ``layers`` layers, or ``reduced``) on its default device (the card),
+    ``tasks`` x ``steps`` steps. Counters are set to 0 just before and read
+    just after. Checks one update+sample launch a step and no other kernel,
+    every logged loss finite and an eval line for every task seen after each
+    task; prints the CLI's log lines, every step and the peak memory.
+    Returns the launches and the median step in ms."""
     import logging
 
     from repro_torch.launch import train as train_cli
@@ -2451,18 +2493,24 @@ def lm_cli_main(counters, arch: str = "smollm-135m", tasks: int = 2, steps: int 
 
     keep, log = Keep(), logging.getLogger(train_cli.log.name)
     log.addHandler(keep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     try:
-        result = train_cli.main(["--arch", arch, "--tasks", str(tasks),
-                                 "--steps-per-task", str(steps)])
+        with cut_depth(train_cli, layers):
+            result = train_cli.main(["--arch", arch, "--tasks", str(tasks), "--steps-per-task",
+                                     str(steps)] + (["--reduced"] if reduced else []))
         torch.cuda.synchronize()
     finally:
         log.removeHandler(keep)
     launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"{arch} through the train CLI ({tasks} x {steps} steps): "
+    depth = "reduced" if reduced else f"{layers} layers" if layers else "full depth"
+    print(f"{arch} ({depth}) through the train CLI ({tasks} x {steps} steps): "
           + " | ".join(line for line in lines if not line.startswith("step "))
-          + f"; losses {[round(x, 4) for x in result.losses]}")
+          + f"; losses {[round(x, 4) for x in result.losses]}; steps "
+          f"{[round(t * 1e3, 1) for t in result.step_seconds]} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = dict({k: 0 for k in counters}, rehearsal_update_sample=tasks * steps)
     evals = [line for line in lines if line.startswith("eval after task")]
     if launches != want:
@@ -3845,6 +3893,22 @@ MOE_CUTS = {"mixtral-8x7b": (4, 1, 8192), "phi3.5-moe-42b-a6.6b": (4, 4, 2048),
 MOE_SEED = 21
 
 
+def draw_on_card(cfg, max_seq: int, seed: int):
+    """``cfg``'s weights drawn on the card from a CUDA generator seeded with
+    ``seed`` (the init functions' ``torch.randn(..., generator=gen)`` draw
+    there under a ``torch.device("cuda")`` context), and their count."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    with torch.device("cuda"):
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed), max_seq,
+                            device="cuda")
+    torch.cuda.synchronize()
+    if not all(p.is_cuda for p in params.parameters()):
+        raise AssertionError(f"{cfg.name}: a weight was drawn off the card")
+    return model, params, sum(p.numel() for p in params.parameters())
+
+
 def moe_arch(arch: str):
     """(cfg, model, params) of ``arch`` at MOE_CUTS' depth, its weights drawn
     on the card from a CUDA generator seeded with MOE_SEED: the init
@@ -3852,18 +3916,10 @@ def moe_arch(arch: str):
     ``torch.device("cuda")`` context (``LMWeights`` draws on the host, where
     a 2.5-2.8 B model takes tens of seconds; Jamba's cut is 13 B)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
 
     cfg = dataclasses.replace(get_config(arch), num_layers=MOE_CUTS[arch][0])
-    model = build_model(cfg)
     t0 = time.perf_counter()
-    with torch.device("cuda"):
-        params = model.init(torch.Generator(device="cuda").manual_seed(MOE_SEED),
-                            MOE_CUTS[arch][2], device="cuda")
-    torch.cuda.synchronize()
-    n = sum(p.numel() for p in params.parameters())
-    if not all(p.is_cuda for p in params.parameters()):
-        raise AssertionError(f"{arch}: a weight was drawn off the card")
+    model, params, n = draw_on_card(cfg, MOE_CUTS[arch][2], MOE_SEED)
     print(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} layers at the published "
           f"widths (the host's share of a forward is larger than at full depth), "
           f"{n / 1e9:.3f} B parameters ({n * 4 / 1e9:.1f} GB f32) drawn on the card from "
@@ -4060,10 +4116,270 @@ def moe_phase(counters, fa, ssd, ref):
     return launches, flash, scan
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the enc-dec and VLM stacks served, the MoE and hybrid stacks trained
+# ---------------------------------------------------------------------------
+
+# Qwen2-VL-72B at its published width cut to 4 of 80 layers (6.0 B parameters,
+# 24 GB f32: the whole model is 288 GB); Whisper-tiny whole, at its published
+# context of 1500 encoder frames and 448 decoder tokens; training cuts
+# Mixtral-8x7B and Phi-3.5-MoE to 1 layer each at their published widths
+# (1.71 and 1.57 B parameters, about 28 B a parameter at AdamW's peak) and
+# runs Jamba-v0.1 reduced (one full-width unit is 13.3 B parameters, 370 GB
+# under AdamW).
+VLM_ARCH, VLM_LAYERS, VLM_SEED = "qwen2-vl-72b", 4, 22
+WHISPER_B, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
+TRAIN_CUTS = {"mixtral-8x7b": 1, "phi3.5-moe-42b-a6.6b": 1, "jamba-v0.1-52b": 0}  # 0: reduced
+TRAIN_TASKS, TRAIN_STEPS = 2, 4
+
+
+def _to_card(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()}
+
+
+def vlm_kernel_shape(fa, ref):
+    """Flash attention at Qwen2-VL-72B's prefill (B 4, S 2048, H 64, KV 8:
+    8 query heads a KV head, hd 128, causal, no window), f32 and bf16,
+    against its plain version; timed beside the plain version, SDPA and the
+    bound. Returns the flash entry's update."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(22)
+    b, s, h, kv, hd = PREFILL_B, PREFILL_S, 64, 8, 128
+    pairs = _window_pairs(s, 0)
+    flops = 4 * b * h * hd * pairs  # QK^T and PV over the visible pairs
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((b, s, h, hd), gen, dtype)
+        k, v = _randn((b, s, kv, hd), gen, dtype), _randn((b, s, kv, hd), gen, dtype)
+        got = fa.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash Qwen2-VL {dtype}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        lib_err = abs_err(library().transpose(1, 2).float(), want.float())
+        del got, want
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), iters=5)
+        library_ms = time_ms(library, iters=10)
+        nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (3 * flops / TF32_FLOPS if dtype == torch.float32 else flops / BF16_FLOPS) * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        suffix = "_hd128_g8" + ("" if dtype == torch.float32 else "_bf16")
+        print(f"flash_attention at Qwen2-VL-72B's prefill q [{b}, {s}, {h}, {hd}], k/v [{b}, "
+              f"{s}, {kv}, {hd}] (G = {h // kv}), causal, {dtype}: max abs err {err:.3e} vs "
+              f"plain (atol, rtol {FLASH_TOL[dtype]}), SDPA {lib_err:.3e}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{by} ({flops / 1e9:.2f} GFLOP over {pairs} visible pairs a head, "
+              f"{'3 x at TF32' if dtype == torch.float32 else 'at bf16'}; {nbytes} B = "
+              f"{bytes_ms:.4f} ms); kernel at {bound_ms / ms:.3f} of its bound")
+        out.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
+                    f"library_ms{suffix}": library_ms, f"max_abs_err{suffix}": err})
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def vlm_path(counters, ssd):
+    """Qwen2-VL-72B at its published width, 4 layers: the prefill of B 4 x S
+    2048 patch-stub embeddings at the image block's M-RoPE positions
+    (``repro_torch.testdata.family_batch``) with the kernels against the
+    plain path, f32 and bf16 (phase 11's bounds, 4 flash launches a
+    forward); then DecodeEngine on token prompts, its decode logits at every
+    prompt position against the teacher-forced forward with the kernels, and
+    the serve CLI on the reduced config. Returns the launches a forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.testdata import family_batch
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    model, params, n = draw_on_card(cfg, PREFILL_S, VLM_SEED)
+    print(f"{VLM_ARCH}: {VLM_LAYERS} of {get_config(VLM_ARCH).num_layers} layers at the "
+          f"published widths, {n / 1e9:.3f} B parameters ({n * 4 / 1e9:.1f} GB f32) drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    batch = _to_card({k: v for k, v in family_batch(cfg, PREFILL_B, PREFILL_S, seed=2).items()
+                      if k != "labels"})
+    pos = batch["positions"][0]
+    block = int((pos[:, 0] == 0).sum())  # the patches' t is 0, the text's past the block
+    rows, cols = int(pos[:block, 1].max()) + 1, int(pos[:block, 2].max()) + 1
+    print(f"{VLM_ARCH} inputs: embeddings {tuple(batch['embeddings'].shape)}, M-RoPE positions "
+          f"{tuple(batch['positions'].shape)}: an image block of {rows} x {cols} patches at "
+          f"(0, row, col), then {PREFILL_S - rows * cols} text positions from "
+          f"{int(pos[rows * cols, 0])} in all three components")
+    launches = _prefill_arch(counters, ssd, VLM_ARCH, cfg, model, params, batch=batch)
+    del batch
+    torch.cuda.empty_cache()
+    _decode_arch(VLM_ARCH, cfg, model, params, seed=12)  # token prompts, 1-D positions
+    del params
+    torch.cuda.empty_cache()
+    cli = serve.main(["--arch", VLM_ARCH, "--reduced", "--batch", str(SERVE_B), "--prompt-len",
+                      str(PROMPT), "--gen-len", str(GEN), "--seed", "12"])
+    if cli.tokens.shape != (SERVE_B, GEN) or cli.tokens.device.type != "cuda":
+        raise AssertionError(f"bad generation {tuple(cli.tokens.shape)} {cli.tokens.device}")
+    print(f"{VLM_ARCH} serve --reduced on the card (CLI path): prefill "
+          f"{cli.prefill_seconds:.3f} s, {cli.tokens_per_second:.1f} tok/s per sequence")
+    return launches
+
+
+def whisper_path(counters):
+    """Whisper-tiny whole: B 8 x 1500 frames x 448 tokens, the kernel flag on,
+    f32 on the card against the same forward on the CPU, bf16 bit for bit
+    against the flag off (no kernel runs on this path, as in the reference)
+    and beside the f32 CPU logits; 0 launches of every kernel; median
+    forward and peak memory. Then the enc-dec decode over a cache projected
+    from the encoder's output against the teacher-forced decoder, and the
+    serve CLI at full width. Returns the launches a forward."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.testdata import family_batch
+
+    cfg = get_config("whisper-tiny")
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(VLM_SEED), WHISPER_FRAMES, device="cpu")
+    card = copy.deepcopy(host).to("cuda")
+    n = sum(p.numel() for p in host.parameters())
+    np_batch = family_batch(cfg, WHISPER_B, WHISPER_TOKENS, seed=3, frames=WHISPER_FRAMES)
+    batch = {k: torch.from_numpy(v) for k, v in np_batch.items() if k != "labels"}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    print(f"whisper-tiny whole: {cfg.num_encoder_layers} + {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {n / 1e6:.2f} M parameters; frames {tuple(batch['frames'].shape)}, "
+          f"tokens {tuple(batch['tokens'].shape)}")
+    expect = {name: 0 for name in counters}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want, _ = model.forward(host, batch, StackCtx(cfg))
+        cpu_s = time.perf_counter() - t0
+        scale = float(want.abs().max())
+        for dtype in (torch.float32, torch.bfloat16):
+            fast = StackCtx(cfg, use_kernel=True, compute_dtype=dtype)
+            got, seen, peak = _counted_forward(model, card, on_card, fast, counters)
+            if seen != expect:
+                raise AssertionError(f"whisper-tiny {dtype}: expected launches {expect}, saw "
+                                     f"{seen}")
+            if got.shape != (WHISPER_B, WHISPER_TOKENS, cfg.vocab_size) or got.dtype != dtype:
+                raise AssertionError(f"bad logits {tuple(got.shape)} {got.dtype}")
+            if dtype == torch.float32:
+                tol = 1e-4 * scale + 1e-5
+                err = close(got.cpu(), want, tol, 0.0, "whisper-tiny card vs cpu")
+                check = f"max |card - cpu| {err:.3e} (tolerance {tol:.3e})"
+            else:
+                plain, _ = model.forward(card, on_card, StackCtx(cfg, compute_dtype=dtype))
+                if not same_bits(got, plain):
+                    raise AssertionError("whisper-tiny bf16: the kernel flag changed the logits")
+                err = abs_err(got.float().cpu(), want)
+                if not err < 0.1 * scale:
+                    raise AssertionError(f"whisper-tiny bf16: {err:.3e} from the f32 logits")
+                check = (f"bit for bit the flag-off forward's; max |bf16 card - f32 cpu| "
+                         f"{err:.3e} ({err / scale:.2e} of the largest |logit|)")
+                del plain
+            del got
+            t_fwd = _timed_forward(model, card, on_card, fast)
+            tokens = WHISPER_B * (WHISPER_FRAMES + WHISPER_TOKENS)
+            print(f"whisper-tiny {str(dtype)[6:]} forward B {WHISPER_B}: 0 launches of every "
+                  f"kernel; logits {check}; median forward {t_fwd * 1e3:.1f} ms = "
+                  f"{tokens / t_fwd:.0f} frames+tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+                  f"the CPU's f32 forward {cpu_s:.1f} s")
+        ctx = StackCtx(cfg)
+        toks = on_card["tokens"][:4, :PROMPT]
+        enc_out = tf.encode(card, on_card["frames"][:4], cfg, ctx)
+        full = tf.decode_train_encdec(card, toks, enc_out, cfg, ctx)
+        caches = tf.init_encdec_cache(card, cfg, 4, PROMPT, enc_out=enc_out, dtype=torch.float32)
+        outs = []
+        for t in range(PROMPT):
+            logits, caches = tf.decode_step_encdec(card, {"token": toks[:, t:t + 1]}, caches, t,
+                                                   cfg, ctx)
+            outs.append(logits)
+    err = close(torch.cat(outs, 1), full, 2e-3, 2e-3, "whisper-tiny decode vs teacher forcing")
+    print(f"whisper-tiny decode over the encoder's output of {WHISPER_FRAMES} frames (cross K/V "
+          f"projected once) vs the teacher-forced decoder, {PROMPT} positions x 4: max abs err "
+          f"{err:.3e} (atol = rtol = 2e-3)")
+    del card, enc_out, full, caches, on_card
+    res = serve.main(["--arch", "whisper-tiny", "--batch", str(SERVE_B), "--prompt-len",
+                      str(PROMPT), "--gen-len", str(GEN), "--seed", "12"])
+    if res.tokens.shape != (SERVE_B, GEN) or res.tokens.device.type != "cuda":
+        raise AssertionError(f"bad generation {tuple(res.tokens.shape)} {res.tokens.device}")
+    print(f"whisper-tiny serve (CLI path, full width; zero cross K/V as the reference serves): "
+          f"prefill {res.prefill_seconds:.3f} s for {PROMPT} tokens x {SERVE_B}, decode "
+          f"{res.decode_seconds:.3f} s = {res.tokens_per_second:.1f} tok/s per sequence")
+    return dict(expect)
+
+
+def backward_bits(arch: str, seed: int = 23):
+    """Two backward passes of the same batch (8 x 128 tokens, the model at
+    TRAIN_CUTS' depth, weights drawn on the card) give the same gradient
+    bits in deterministic mode; also read outside it. The dispatch's
+    gathers backward are ``index_put_`` with accumulation: each token gets
+    its two choices onto a zero, so the sums do not depend on their order."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import StackCtx
+
+    layers = TRAIN_CUTS[arch]
+    cfg = (dataclasses.replace(get_config(arch), num_layers=layers) if layers
+           else get_reduced(arch))
+    model, params, n = draw_on_card(cfg, LM_SEQ, seed)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen).cuda()
+             for k in ("tokens", "labels")}
+    ctx = StackCtx(cfg)
+
+    def grads():
+        params.zero_grad(set_to_none=True)
+        loss, _ = model.loss(params, batch, ctx)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().clone()
+                                      for k, p in params.named_parameters()}
+
+    with deterministic_mode() as caught:
+        (l1, g1), (l2, g2) = grads(), grads()
+    same = [k for k in g1 if same_bits(g1[k], g2[k])]
+    del g2
+    _, g3 = grads()
+    loose = sum(same_bits(g1[k], g3[k]) for k in g1)
+    params.zero_grad(set_to_none=True)
+    print(f"{arch} ({n / 1e9:.3f} B parameters): two backward passes in deterministic mode, "
+          f"loss {l1:.6f} and {l2:.6f}: {len(same)} of {len(g1)} gradients bit for bit; "
+          f"outside deterministic mode {loose} of {len(g1)} equal the first; warnings "
+          f"{sorted({str(w.message)[:80] for w in caught})}")
+    if len(same) != len(g1) or l1 != l2:
+        raise AssertionError(f"{arch}: repeated backward passes differ in "
+                             f"{sorted(set(g1) - set(same))}")
+    del model, params, g1, g3
+    torch.cuda.empty_cache()
+
+
+def encdec_vlm_phase(counters, fa, ssd, ref):
+    """Phase 22: flash at the VLM's G = 8 shape; Qwen2-VL-72B (4 layers) and
+    Whisper-tiny served; Mixtral-8x7B, Phi-3.5-MoE (1 layer each) and Jamba
+    (reduced) trained through the train CLI, each with its repeated backward
+    held bit for bit. Returns (launches per forward by arch, the flash
+    entry's update, the training runs' launches by name)."""
+    flash = vlm_kernel_shape(fa, ref)
+    torch.cuda.empty_cache()
+    launches = {VLM_ARCH: vlm_path(counters, ssd), "whisper-tiny": whisper_path(counters)}
+    trained = {}
+    for arch, layers in TRAIN_CUTS.items():
+        trained[f"{arch} train CLI"] = lm_cli_main(counters, arch, TRAIN_TASKS, TRAIN_STEPS,
+                                                   layers=layers, reduced=not layers)["launches"]
+        torch.cuda.empty_cache()
+        backward_bits(arch)
+    return launches, flash, trained
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-21), and print no result lines")
+                    help="run phases 1, 2 and these only (3-22), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -4180,6 +4496,10 @@ def main(argv=None):
         phase("21 MoE and hybrid stacks at full width: Mixtral-8x7B, Phi-3.5-MoE, Jamba-v0.1")
         moe_launches, moe_flash, moe_scan = moe_phase(counters, fa, ssd, ref)
 
+    if run(22):
+        phase("22 Qwen2-VL-72B and Whisper-tiny served; Mixtral, Phi-3.5-MoE and Jamba trained")
+        vlm_launches, vlm_flash, moe_trained = encdec_vlm_phase(counters, fa, ssd, ref)
+
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
         lm_runs = lm_train_phase(counters, qz, ops, ref)
@@ -4207,8 +4527,10 @@ def main(argv=None):
     for e in int8_entries:
         if e["name"] == "dequantize_rows":
             e.update(folded)
-    # the launches of phase 15's runs, each counted from 0 over its own fit
+    # the launches of phase 15's runs, each counted from 0 over its own fit,
+    # and of phase 22's MoE and hybrid training runs
     lm_launches = {name: r["launches"] for name, r in lm_runs.items()}
+    lm_launches.update(moe_trained)
     for e in [entry] + int8_entries:
         e["launches_lm_train"] = {name: n[e["name"]] for name, n in lm_launches.items()
                                   if n[e["name"]]}
@@ -4226,6 +4548,8 @@ def main(argv=None):
     # every arch's, phase 21's at its cuts of depth; phase 21's times at
     # the MoE and hybrid stacks' shapes
     launches.update(moe_launches)
+    launches.update(vlm_launches)
+    flash_entry.update(vlm_flash)
     for target, name, arch, update in (
             (flash_entry, "flash_attention", "smollm-135m", moe_flash),
             (ssd_entry, "ssd_scan", "mamba2-370m", moe_scan)):  # scan: layers x 3 kernels

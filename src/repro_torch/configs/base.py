@@ -23,9 +23,9 @@ from typing import Any, Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description covering dense / MoE / SSM / hybrid / enc-dec /
-    VLM LMs. The port runs the dense, SSM, MoE and hybrid decoders; the
-    other families' fields are kept so configs read the same in both
-    packages."""
+    VLM LMs, every family of which the port runs; the frontends
+    (``frame_stub``, ``patch_stub``) are stubs in both packages, fed
+    precomputed frame or patch embeddings."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm

@@ -10,7 +10,7 @@ both packages from the same carry. Nothing here imports the JAX package.
                             head stays a [D, classes] matrix);
   * ``cnn_params_from_jax`` — load such a tree into a fresh ``CNN``;
   * ``lm_params_from_jax``  — the JAX ``init_decoder`` tree (dense, SSM,
-                            MoE or hybrid) into a fresh ``Decoder``, its
+                            MoE, hybrid or VLM) into a fresh ``Decoder``, its
                             stacked ``units.layer{i}.*`` leaves (``moe.*``
                             among them) split into
                             ``layers.{u * period + i}.*``
@@ -18,6 +18,12 @@ both packages from the same carry. Nothing here imports the JAX package.
                             gradient or moment tree of that shape);
                             ``load_named`` loads any module from
                             ``{name: array}``;
+  * ``encdec_params_from_jax`` — the JAX ``init_encdec`` tree into a fresh
+                            ``EncDec``, its stacked ``enc_layers.*`` and
+                            ``dec_layers.*`` leaves split into
+                            ``enc_layers.{i}.*`` / ``dec_layers.{i}.*``
+                            (``encdec_named_from_tree``, which also names a
+                            gradient tree of that shape);
   * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` /
     ``ef_from_jax``       — the flat or tiered buffer (every record leaf,
                             a tap strategy's too, and the policy's aux), the
@@ -36,7 +42,7 @@ from repro_torch.buffer.state import BufferState, tree_map
 from repro_torch.buffer.tiered import TieredState, resolve_cold_placement
 from repro_torch.device import resolve_device
 from repro_torch.models.resnet import init_cnn
-from repro_torch.models.transformer import init_decoder, unit_period
+from repro_torch.models.transformer import init_decoder, init_encdec, unit_period
 from repro_torch.optim.optimizers import OptState
 
 
@@ -104,6 +110,31 @@ def lm_params_from_jax(np_tree, cfg, device=None):
     layout, the experts' theirs (``[E, d, f]``, ``[E, f, d]``)."""
     model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
     return load_named(model, lm_named_from_tree(np_tree, cfg))
+
+
+def encdec_named_from_tree(tree) -> Dict[str, np.ndarray]:
+    """Flatten a JAX ``init_encdec``-shaped tree (parameters or gradients)
+    into the ``EncDec``'s parameter names: the stacked ``enc_layers.*`` and
+    ``dec_layers.*`` leaves split into ``enc_layers.{i}.*`` and
+    ``dec_layers.{i}.*``."""
+    named = {}
+    for name, a in _walk(tree):
+        stack, _, rest = name.partition(".")
+        if stack in ("enc_layers", "dec_layers"):
+            for i in range(a.shape[0]):
+                named[f"{stack}.{i}.{rest}"] = a[i]
+        else:
+            named[name] = a
+    return named
+
+
+def encdec_params_from_jax(np_tree, cfg, device=None):
+    """An ``EncDec`` holding the weights of the JAX ``init_encdec`` tree
+    ``np_tree`` (its positions as long as the tree's), on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    max_seq = np.shape(np_tree["enc_pos"]["pos"])[0]
+    model = init_encdec(torch.Generator().manual_seed(0), cfg, max_seq, device)
+    return load_named(model, encdec_named_from_tree(np_tree))
 
 
 def _tensor(a, device) -> torch.Tensor:

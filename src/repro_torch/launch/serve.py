@@ -8,6 +8,10 @@ caches, on one device.
 Weights are random, drawn from ``--seed``; so are the prompts (from a
 ``torch.Generator``: the port cannot reproduce ``jax.random``'s bits). The path
 decodes token by token and runs no hand-written kernel, as in the reference.
+Every registered arch serves token prompts: Qwen2-VL-72B decodes them at 1-D
+positions broadcast to its three M-RoPE components, and Whisper-tiny's
+decoder attends to zero cross-attention K/V (a stubbed frame window), as the
+reference serves both.
 
 ``--online`` switches to the continual-serving loop (``OnlineLearner``):
 requests come from the task-free ``drift_stream`` scenario, each round's

@@ -23,7 +23,11 @@ exchange (``full`` over every rank, ``pod_local`` within the ``data`` axis,
 ``local`` none); a one-worker mesh's full exchange keeps one representative
 a step, as the reference's does.
 
-The scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
+``--arch`` takes every decoder: the dense, SSM, MoE and hybrid stacks (the
+MoE loss adds 0.01 x the load-balance aux, on N workers the mean of the
+ranks' aux). The enc-dec and VLM archs train on frames or embeddings,
+which the token records do not hold, and raise ``ValueError``. The
+scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
 the model keeps its full vocabulary, as in the reference. Weights are
 random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full state
 every ``--ckpt-every`` steps and after every task (one directory a rank on

@@ -1,19 +1,25 @@
 """Loss shared by the port's models, and the language models' bundle.
 
 ``build_model(cfg)`` returns an ``LM`` of functions with the reference's
-surface (``models/model_zoo.py``), for the dense, SSM, mixture-of-experts
-(Mixtral, Phi-3.5-MoE) and hybrid (Jamba) decoders:
-  * ``init(gen, max_seq, device=None)``          -> params (a ``Decoder``)
+surface (``models/model_zoo.py``), for every family: the dense, SSM,
+mixture-of-experts (Mixtral, Phi-3.5-MoE), hybrid (Jamba) and VLM (Qwen2-VL)
+decoders, and the encoder-decoder (Whisper):
+  * ``init(gen, max_seq, device=None)``          -> params (a ``Decoder`` or ``EncDec``)
   * ``forward(params, batch, ctx)``              -> (logits, aux_loss)   (prefill)
   * ``loss(params, batch, ctx)``                 -> (scalar, metrics)
   * ``outputs(params, batch, ctx)``              -> {"logits", "embed", "aux"}
+                                                    (``None`` for the enc-dec)
   * ``init_cache(params, batch_size, seq_len)``  -> per-layer decode caches
   * ``decode(params, batch, caches, index, ctx)``-> (logits, new_caches)
+
+A decoder's batch holds ``tokens`` [B, S] or ``embeddings`` [B, S, d], and
+may hold ``positions`` ([B, S, 3] for M-RoPE); the enc-dec's holds ``frames``
+[B, T, d] and ``tokens`` [B, S]. ``labels`` [B, S] for the loss.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -50,14 +56,18 @@ class LM:
     loss: Callable
     init_cache: Callable
     decode: Callable
-    outputs: Callable
+    # the outputs tap, None for the enc-dec (as in the reference)
+    outputs: Optional[Callable] = None
 
 
 def build_model(cfg) -> LM:
-    """The bundle for a dense, SSM, MoE or hybrid decoder; the encoder-decoder
-    and VLM families raise ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
-    tf.check_ported(cfg)
+    """The bundle for ``cfg``'s family."""
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
+    return _build_decoder(cfg)
 
+
+def _build_decoder(cfg) -> LM:
     def init(gen: torch.Generator, max_seq: int, device=None):
         return tf.init_decoder(gen, cfg, max_seq, device)
 
@@ -84,3 +94,30 @@ def build_model(cfg) -> LM:
 
     return LM(cfg=cfg, init=init, forward=forward, loss=loss, init_cache=init_cache,
               decode=decode, outputs=outputs)
+
+
+def _build_encdec(cfg) -> LM:
+    def init(gen: torch.Generator, max_seq: int, device=None):
+        return tf.init_encdec(gen, cfg, max_seq, device)
+
+    def forward(params, batch, ctx):
+        enc_out = tf.encode(params, batch["frames"], cfg, ctx)
+        logits = tf.decode_train_encdec(params, batch["tokens"], enc_out, cfg, ctx)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def loss(params, batch, ctx, aux_weight: float = 0.0):
+        logits, aux = forward(params, batch, ctx)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": aux}
+
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16):
+        # The reference serves with zero cross-attention K/V: its init_cache
+        # builds a zero encoder output and passes None, and the zeros stand
+        # for a stubbed frame window of seq_len frames. Kept as it is.
+        return tf.init_encdec_cache(params, cfg, batch_size, seq_len, enc_out=None, dtype=dtype)
+
+    def decode(params, batch, caches, index: int, ctx):
+        return tf.decode_step_encdec(params, batch, caches, index, cfg, ctx)
+
+    return LM(cfg=cfg, init=init, forward=forward, loss=loss, init_cache=init_cache,
+              decode=decode)

@@ -1,14 +1,16 @@
-"""Decoder-stack assembly for the dense, SSM, mixture-of-experts and hybrid
-language models.
+"""Stack assembly for every LM family: the dense, SSM, mixture-of-experts,
+hybrid and VLM decoders, and the encoder-decoder (Whisper).
 
 The reference stacks each scan unit's weights on a leading axis and iterates
 them with ``lax.scan``; here the stack is an ``nn.ModuleList`` of per-layer
 modules walked by a Python loop, layer ``u * unit_period + i`` holding unit
 ``u``'s layer ``i`` (Jamba's unit: 8 layers, one attention and seven SSM
-mixers, an MoE feed-forward every second layer). Encoder-decoder and VLM
-stacks are not ported (ROADMAP Queue 1 item 11) and raise
-``NotImplementedError``; nor are the reference's sharding hook, remat
-policies and ``scan_layers``.
+mixers, an MoE feed-forward every second layer). The encoder-decoder's
+stacks are ``enc_layers.{i}`` and ``dec_layers.{i}`` in the same way. A VLM
+is a ``Decoder`` fed precomputed patch embeddings (``batch["embeddings"]``,
+the vision frontend is a stub in both packages) and 3-D M-RoPE positions
+(``batch["positions"]`` [B, S, 3]). The reference's sharding hook, remat
+policies and ``scan_layers`` are not ported.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.parallel import global_share
 from repro_torch.models.layers import (
     apply_learned_pos,
     apply_mlp,
@@ -34,9 +37,6 @@ from repro_torch.models.layers import (
     rope_angles,
 )
 
-PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
-
-
 @dataclass
 class StackCtx:
     """Forward context: the config, whether the mixers run the hand-written
@@ -45,15 +45,6 @@ class StackCtx:
     cfg: Any
     use_kernel: bool = False
     compute_dtype: Any = torch.float32
-
-
-def check_ported(cfg) -> None:
-    """Raise for the families and options the port does not have yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (frontend {cfg.frontend!r}) is not ported "
-            f"yet (ROADMAP Queue 1 item 11); the port runs the dense, SSM, MoE and hybrid "
-            f"decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +168,6 @@ class Decoder(nn.Module):
 
     def __init__(self, gen: torch.Generator, cfg, max_seq: int):
         super().__init__()
-        check_ported(cfg)
         num_units(cfg)
         self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
         self.layers = nn.ModuleList(init_layer(gen, cfg, i) for i in range(cfg.num_layers))
@@ -221,7 +211,12 @@ def logits_from(params: Decoder, x: torch.Tensor, cfg, ctx: StackCtx) -> torch.T
 
 def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
                    causal: bool = True):
-    """The stack minus the head: (hidden [B,S,D] after the final norm, aux_loss)."""
+    """The stack minus the head: (hidden [B,S,D] after the final norm, aux_loss).
+
+    Positions come from ``positions``, else ``batch["positions"]`` ([B, S] or,
+    for M-RoPE, [B, S, 3]), else the sequence index. Inside the mesh step
+    (``parallel.global_mean``) the aux is this rank's share of the mean over
+    the data-parallel ranks, each of which routes its own tokens."""
     x = embed_inputs(params, batch, cfg, ctx)
     b, s, _ = x.shape
     if positions is None:
@@ -235,7 +230,7 @@ def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
     for i, layer in enumerate(params.layers):
         x, a = apply_layer(layer, x, i, ctx, angles=angles, causal=causal)
         aux = aux + a
-    return apply_norm(params.final_norm, x), aux
+    return apply_norm(params.final_norm, x), global_share(aux)
 
 
 def forward_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
@@ -269,3 +264,130 @@ def decode_step(params: Decoder, batch, caches, index: int, cfg, ctx: StackCtx):
         new_caches.append(cache)
     x = apply_norm(params.final_norm, x)
     return logits_from(params, x, cfg, ctx), new_caches
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (Whisper)
+# ---------------------------------------------------------------------------
+
+
+class EncLayer(nn.Module):
+    """``norm1`` + non-causal self-attention ``attn``, ``norm2`` + ``mlp``."""
+
+    def __init__(self, gen: torch.Generator, cfg):
+        super().__init__()
+        self.norm1 = init_norm(cfg)
+        self.attn = attn.init_attention(gen, cfg)
+        self.norm2 = init_norm(cfg)
+        self.mlp = init_mlp(gen, cfg)
+
+
+class DecLayer(nn.Module):
+    """``norm1`` + causal self-attention ``attn``, ``norm_x`` +
+    cross-attention ``cross`` into the encoder's states, ``norm2`` + ``mlp``."""
+
+    def __init__(self, gen: torch.Generator, cfg):
+        super().__init__()
+        self.norm1 = init_norm(cfg)
+        self.attn = attn.init_attention(gen, cfg)
+        self.norm_x = init_norm(cfg)
+        self.cross = attn.init_attention(gen, cfg)
+        self.norm2 = init_norm(cfg)
+        self.mlp = init_mlp(gen, cfg)
+
+
+class EncDec(nn.Module):
+    """``embed`` [V, d], learned positions ``enc_pos`` and ``dec_pos`` (each
+    ``max_seq`` long), ``enc_layers.{i}``, ``dec_layers.{i}``, ``enc_norm``,
+    ``final_norm`` and an untied ``lm_head`` [V, d]: the reference's leaves."""
+
+    def __init__(self, gen: torch.Generator, cfg, max_seq: int):
+        super().__init__()
+        self.enc_layers = nn.ModuleList(EncLayer(gen, cfg)
+                                        for _ in range(cfg.num_encoder_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(gen, cfg) for _ in range(cfg.num_layers))
+        self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
+        self.enc_pos = init_learned_pos(gen, max_seq, cfg.d_model)
+        self.dec_pos = init_learned_pos(gen, max_seq, cfg.d_model)
+        self.enc_norm = init_norm(cfg)
+        self.final_norm = init_norm(cfg)
+        self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
+
+
+def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None) -> EncDec:
+    """Random weights drawn from ``gen``, moved to ``device`` (``None``: the
+    card)."""
+    return EncDec(gen, cfg, max_seq).to(resolve_device(device))
+
+
+def encode(params: EncDec, frames: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
+    """``frames`` [B, T, d]: precomputed frame embeddings (the conv frontend
+    is a stub, as in the reference). Non-causal self-attention through the
+    plain path: the reference's encoder runs no kernel."""
+    x = apply_learned_pos(params.enc_pos, frames.to(ctx.compute_dtype))
+    for lp in params.enc_layers:
+        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False)
+        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+    return apply_norm(params.enc_norm, x)
+
+
+def _encdec_logits(params: EncDec, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(params.final_norm, x)
+    return x @ params.lm_head.to(x.dtype).t()
+
+
+def decode_train_encdec(params: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
+                        ctx: StackCtx) -> torch.Tensor:
+    """Teacher-forced decoder over ``tokens`` [B, S] attending to ``enc_out``
+    [B, T, d]. Returns logits [B, S, V]. Causal self-attention through the
+    plain path, as in the reference (it passes no ``use_kernel``)."""
+    x = params.embed[tokens.long()].to(ctx.compute_dtype)
+    x = apply_learned_pos(params.dec_pos, x)
+    for lp in params.dec_layers:
+        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=True)
+        x = x + attn.attend_full(lp.cross, apply_norm(lp.norm_x, x), cfg, causal=False,
+                                 kv_input=enc_out)
+        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+    return _encdec_logits(params, x)
+
+
+def init_encdec_cache(params: EncDec, cfg, batch: int, seq_len: int, enc_out=None,
+                      dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+    """Per decoder layer: the self-attention K/V (``k``, ``v``) and the
+    cross-attention K/V of the encoder's states (``cross_k``, ``cross_v``),
+    projected from ``enc_out`` [B, T, d] when given, else zeros of [B,
+    seq_len, KV, hd]."""
+    device = params.embed.device
+    caches = []
+    for lp in params.dec_layers:
+        cache = attn.make_kv_cache(cfg, batch, seq_len, dtype, device)
+        if enc_out is not None:
+            _, ck, cv = attn.qkv(lp.cross, enc_out, cfg)
+            cache.update(cross_k=ck.to(dtype), cross_v=cv.to(dtype))
+        else:
+            shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+            cache.update(cross_k=torch.zeros(shape, dtype=dtype, device=device),
+                         cross_v=torch.zeros(shape, dtype=dtype, device=device))
+        caches.append(cache)
+    return caches
+
+
+def decode_step_encdec(params: EncDec, batch, caches, index: int, cfg, ctx: StackCtx):
+    """One-token decode: ``batch["token"]`` [B, 1] at global position
+    ``index``. The self-attention writes its slot of each cache in place;
+    the cross-attention attends to every slot of ``cross_k``/``cross_v``
+    (all valid). Returns (logits [B, 1, V], caches)."""
+    x = params.embed[batch["token"].long()].to(ctx.compute_dtype)
+    x = apply_learned_pos(params.dec_pos, x, offset=index)
+    scale = cfg.head_dim ** -0.5
+    for lp, cache in zip(params.dec_layers, caches):
+        h, _ = attn.attend_decode(lp.attn, apply_norm(lp.norm1, x), cache, index, cfg)
+        x = x + h
+        h = apply_norm(lp.norm_x, x)
+        q = (h @ lp.cross.wq.to(h.dtype)).reshape(h.shape[:2] + (cfg.num_heads, cfg.head_dim))
+        scores = attn._grouped_scores(q * scale, cache["cross_k"].to(q.dtype))
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        o = attn._grouped_out(probs, cache["cross_v"].to(x.dtype))
+        x = x + o.reshape(o.shape[:2] + (-1,)) @ lp.cross.wo.to(x.dtype)
+        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+    return _encdec_logits(params, x), caches

@@ -11,6 +11,8 @@ from repro_torch.parallel.sharding import (
     dp_size,
     global_count,
     global_mean,
+    global_share,
 )
 
-__all__ = ["batch_slice", "dp_axes", "dp_index", "dp_size", "global_count", "global_mean"]
+__all__ = ["batch_slice", "dp_axes", "dp_index", "dp_size", "global_count", "global_mean",
+           "global_share"]

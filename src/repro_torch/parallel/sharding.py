@@ -74,6 +74,18 @@ def global_mean(group):
         _STATE.group = prev
 
 
+def global_share(mean: torch.Tensor) -> torch.Tensor:
+    """``mean`` (a mean over this rank's rows alone) over the size of the
+    group of the enclosing ``global_mean``: the rank's share of the mean of
+    the ranks' means, which the step's sum over the group completes. Outside
+    (or on a group of one), ``mean`` itself."""
+    group = getattr(_STATE, "group", None)
+    if group is None:
+        return mean
+    n = dist.get_world_size(group)
+    return mean if n == 1 else mean / n
+
+
 def global_count(count: torch.Tensor) -> torch.Tensor:
     """``count`` (a loss's denominator: valid tokens, valid replay rows),
     summed over the group of the enclosing ``global_mean``. Counts are

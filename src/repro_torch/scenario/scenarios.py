@@ -182,14 +182,23 @@ class BlurryBoundary(_VisionScenario):
 # ---------------------------------------------------------------------------
 
 
+# The record fields a model family trains on beyond the token scenarios'
+# tokens and labels (the reference's ``model_zoo._train_specs``).
+FAMILY_FIELDS = {"encdec": ("frames",), "vlm": ("embeddings", "positions")}
+
+
 def build_token_lm(run, vocab_size: int):
     """The token scenarios' LM and its forward contexts from a ``RunConfig``:
     ``(model, ctx, eval_ctx)``. ``ctx`` computes in the run's compute dtype
     (``run.train.compute_dtype``) through the plain mixers, as the
     reference trains (it has no backward kernel); ``eval_ctx`` computes in
     f32. Without ``run.model`` the model is the reduced SmolLM-135M, 2
-    layers, over the stream's vocab. MoE and hybrid models are served but
-    not trained yet: they raise ``NotImplementedError``."""
+    layers, over the stream's vocab. Every decoder trains: dense, SSM, MoE
+    and hybrid (their loss adds the weighted MoE aux). The enc-dec and VLM
+    families train on records with ``frames`` or ``embeddings`` and
+    ``positions``, which the token streams do not have (nor do the
+    reference's, whose loss then fails on the missing key): they raise
+    ``ValueError`` naming those fields."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import StackCtx, build_model
 
@@ -197,10 +206,11 @@ def build_token_lm(run, vocab_size: int):
     if cfg is None:
         cfg = dataclasses.replace(get_reduced("smollm-135m"), vocab_size=vocab_size,
                                   num_layers=2)
-    if cfg.family in ("moe", "hybrid") or cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} stack is not ported yet (ROADMAP Queue 1 "
-            f"item 11: training of the MoE and hybrid stacks); it is served only")
+    if cfg.family in FAMILY_FIELDS:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family trains on records with "
+            f"{' and '.join(FAMILY_FIELDS[cfg.family])}; the token scenarios' records hold "
+            f"tokens, labels and the task only")
     dtype = torch.float32 if run.train.compute_dtype == "float32" else torch.bfloat16
     return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype),
             StackCtx(cfg=cfg, compute_dtype=torch.float32))

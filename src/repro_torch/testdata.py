@@ -10,10 +10,16 @@ another: top-k of a softmax is discontinuous, so two forwards that differ by
 rounding (kernels against the plain path, bf16 against f32, the card against
 the CPU) can send a token whose k-th and (k+1)-th probabilities nearly tie
 to another expert, which moves its output by O(1).
+
+``family_batch`` draws a model family's inputs from a seed: ``frames`` for
+the encoder-decoder, ``embeddings`` and ``positions`` for the VLM (an image
+block laid out as Qwen2-VL lays one out, ``mrope_positions``), ``tokens``
+otherwise; ``labels`` for every family.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 
@@ -79,3 +85,45 @@ def moved_pairs(calls, pinned) -> int:
     """How many (token, choice) pairs of ``calls`` chose another expert than
     ``pinned`` (lists from ``routing``)."""
     return sum(int((e.cpu() != p.cpu()).sum()) for (_, e), (_, p) in zip(calls, pinned))
+
+
+def mrope_positions(s: int, grid=None) -> np.ndarray:
+    """M-RoPE positions [s, 3] (t, h, w) of an image block followed by text,
+    as Qwen2-VL lays them out: the block's ``rows x cols`` patches are ``(0,
+    row, col)``, and the text after it continues from the block's largest
+    component + 1 in all three components. ``grid`` defaults to the most
+    nearly square block that fills half of the ``s`` positions."""
+    if grid is None:
+        rows = max(1, math.isqrt(s // 2))
+        grid = (rows, max(1, (s // 2) // rows))
+    rows, cols = grid
+    if rows * cols > s:
+        raise ValueError(f"a {rows} x {cols} image block does not fit in {s} positions")
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    block = np.stack([np.zeros_like(r), r, c], axis=-1)
+    start = max(rows, cols)  # the block's largest component + 1
+    text = np.arange(start, start + s - rows * cols)
+    return np.concatenate([block, np.repeat(text[:, None], 3, axis=1)]).astype(np.int32)
+
+
+def family_batch(cfg, b: int, s: int, seed: int = 0, frames: int = 0):
+    """Seeded numpy inputs of ``cfg``'s family for ``b`` sequences of ``s``
+    positions: ``frames`` f32 [b, frames or s, d] and ``tokens`` for the
+    encoder-decoder; ``embeddings`` f32 [b, s, d] and ``positions`` int32
+    [b, s, 3] (``mrope_positions``) for the VLM; ``tokens`` int32 [b, s]
+    otherwise; ``labels`` int32 [b, s] for all. The float inputs are
+    N(0, 0.1^2), as the reference's model tests draw them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.standard_normal((b, frames or s, cfg.d_model)) * 0.1).astype(
+            np.float32)
+        batch["tokens"] = ids
+    elif cfg.frontend == "patch_stub":
+        batch["embeddings"] = (rng.standard_normal((b, s, cfg.d_model)) * 0.1).astype(
+            np.float32)
+        batch["positions"] = np.broadcast_to(mrope_positions(s), (b, s, 3)).copy()
+    else:
+        batch["tokens"] = ids
+    return batch

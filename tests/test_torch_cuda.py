@@ -1357,3 +1357,83 @@ def test_train_cli_at_1x1_in_a_world_one_nccl_group(cuda, tmp_path, monkeypatch)
     assert np.isfinite(res.losses).all() and len(res.losses) == 4
     state = np.load(str(tmp_path / "ckpt" / "step_0000000004" / "state.npz"))
     assert state["reps/tokens"].shape == (1, 16) and state["valid"].tolist() == [True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_eight_query_heads_a_kv_head(cuda, dtype):
+    """Qwen2-VL-72B's grouping (H 64 over KV 8) at hd 128, cut to 16 query
+    heads over 2, causal: the kernel against its plain version at the flash
+    tolerances of ``chip_smoke.py`` (f32 (2e-5, 2e-5); bf16 atol 4e-3, rtol
+    2^-7)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(28)
+    q = torch.randn((2, 384, 16, 128), generator=gen).to(cuda, dtype)
+    k, v = (torch.randn((2, 384, 2, 128), generator=gen).to(cuda, dtype) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (4e-3, 2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_encdec_and_vlm_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced models on their families' inputs (``testdata.family_batch``:
+    frames, or patch-stub embeddings at an image block's M-RoPE positions),
+    the kernel flag on: one flash launch a VLM attention layer, none in the
+    enc-dec (the reference runs none there); logits within 1e-4 of the
+    largest on the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.testdata import family_batch
+
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0), 128, device="cpu")
+    card = model.init(torch.Generator().manual_seed(0), 128, device=cuda)
+    batch = {k: torch.from_numpy(v) for k, v in family_batch(cfg, 2, 128, seed=1).items()}
+    with torch.no_grad():
+        want, _ = model.forward(host, batch, StackCtx(cfg, use_kernel=True))
+        before = fa.flash_attention.launches
+        got, _ = model.forward(card, {k: v.to(cuda) for k, v in batch.items()},
+                               StackCtx(cfg, use_kernel=True))
+        torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == (0 if cfg.family == "encdec"
+                                                    else cfg.num_layers)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_hybrid_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced MoE and hybrid stacks' loss gradients (CE + 0.01 aux, the
+    plain mixers, as they train) on the card against the CPU, on the same
+    routing (``moved_pairs == 0``; a pinned routing would cut the gates'
+    gradient): each parameter's within 1e-4 of its largest entry."""
+    from repro_torch.models import StackCtx, build_model
+    from repro_torch.testdata import moved_pairs, routing
+
+    cfg = _reduced(arch)
+    model = build_model(cfg)
+    grads, routes = {}, {}
+    gen = torch.Generator().manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen)
+             for k in ("tokens", "labels")}
+    for where in ("cpu", cuda):
+        params = model.init(torch.Generator().manual_seed(0), 64, device=where)
+        with routing() as calls:
+            loss, _ = model.loss(params, {k: v.to(where) for k, v in batch.items()},
+                                 StackCtx(cfg))
+        loss.backward()
+        grads[str(where)] = {k: p.grad.cpu() for k, p in params.named_parameters()}
+        routes[str(where)] = [(g.detach(), e) for g, e in calls]
+    assert moved_pairs(routes["cuda"], routes["cpu"]) == 0
+    for name, want in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][name], want,
+                                   atol=1e-4 * float(want.abs().max()) + 1e-7, rtol=0)

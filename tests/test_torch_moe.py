@@ -356,7 +356,7 @@ def test_decode_engine_token_ids_match_jax(arch):
 
 
 # ---------------------------------------------------------------------------
-# the converter, serving, and the training entry's refusal
+# the converter, serving, and the token scenarios' families
 # ---------------------------------------------------------------------------
 
 
@@ -394,11 +394,22 @@ def test_serve_runs_reduced_on_the_cpu(arch, capsys):
     assert "generated token ids (first sequence)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_training_entry_refuses_moe_and_hybrid(arch):
+@pytest.mark.parametrize("arch,fields", [("whisper-tiny", "frames"),
+                                         ("qwen2-vl-72b", "embeddings and positions")])
+def test_token_scenarios_refuse_encdec_and_vlm_naming_the_fields(arch, fields):
+    """The token scenarios' records hold tokens, labels and the task; the
+    enc-dec and VLM families train on other fields, which the refusal
+    names, from the scenario's LM builder and from the train CLI."""
     run = RunConfig(model=configs.get_reduced(arch), train=TrainConfig(compute_dtype="float32"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match=fields):
         build_token_lm(run, 128)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match=fields):
         train.main(["--arch", arch, "--reduced", "--device", "cpu", "--tasks", "1",
                     "--steps-per-task", "1", "--seq-len", "16", "--global-batch", "2"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_token_scenarios_build_the_moe_and_hybrid_stacks(arch):
+    run = RunConfig(model=configs.get_reduced(arch), train=TrainConfig(compute_dtype="float32"))
+    model, ctx, eval_ctx = build_token_lm(run, 128)
+    assert model.cfg == run.model and ctx.compute_dtype == eval_ctx.compute_dtype
