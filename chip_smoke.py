@@ -89,7 +89,7 @@ Phases (any failure exits non-zero):
      included, the restored cold tier pinned; (c) stale steps (delay 0.5,
      staleness 2): update+sample launches = steps - stale steps; (d)
      ``scale_carry`` 1 -> 2 -> 1 of the restored flat and tiered carries,
-     every record kept; (e) ``OnlineLearner`` at SmolLM-135M full width, 4
+     every record kept; (e) ``OnlineLearner`` at SmolLM-135M full width, 2
      rounds, a transient failure (a restart, every round trained) and a
      persistent one (training off, serving on the last checkpoint's weights
      bit for bit); (f) the train CLI with ``--ckpt-dir --resilience``.
@@ -218,6 +218,28 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      widths and on Jamba-v0.1 reduced: finite losses, one update+sample
      launch a step and no other kernel, and two backward passes of one batch
      bit for bit in deterministic mode.
+ 23. the model axis on one card (after phase 22, TF32 off): flash attention
+     at one rank's share of Mixtral-8x7B's prefill at M = 2 (H 16, KV 4) and
+     the SSD scan at Mamba2-370M's 16 local heads, f32 and bf16, against
+     their plain versions, timed, SDPA (flash) and the bounds; the
+     references in this process (the unsharded plain forwards, the train
+     and serve CLIs at --mesh 1x1); then two processes through
+     ``runtime.multiproc`` in a gloo group, both on cuda:0, a 1 x 2 mesh:
+     (a) Mixtral-8x7B at the published widths cut to 2 of 32 layers,
+     prefill B 1 x S 8192 tensor-parallel with the kernels on each rank's
+     local heads (2 flash launches a forward per rank), f32 and bf16,
+     routing pinned to the unsharded forward's, each rank's vocab shard of
+     the logits within phase 11's bounds of the unsharded plain forward's;
+     (b) Mamba2-370M whole, B 4 x S 2048, 48 x 3 scan launches per rank on
+     16 local heads, the same checks; (c) ``launch.train.main --mesh 1x2``
+     on Mamba2-370M, 2 x 4 steps in f32: finite losses, one update+sample
+     launch a step per rank, the replicated parameters bit for bit on both
+     ranks, the first step's loss within 1e-5 of the 1x1 run's; (d)
+     ``serve.main --mesh 1x2`` on Mamba2-370M gives the 1x1 run's token
+     ids. Every collective is a gloo ``all_reduce`` of CUDA tensors; a rank
+     whose collective fails fails the phase. Times are those of one card
+     shared by 2 processes over gloo, not of tensor parallelism across
+     cards.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -1682,8 +1704,9 @@ def vision_scenario_path(counters, cfg, name: str, seed: int = 0):
     (``auto_defaults``) and a buffer of 2000 records: domain_incremental
     (4 domains over 1000 shared classes, class_balanced, 4 buckets x 500
     slots), blurry_boundary (4 tasks x 250 classes, blur 0.25, reservoir, one
-    bucket per class: 1000 x 2 slots). The streams hold ``EVAL_PER_CLASS``
-    eval images a class: the domain stream's eval set covers every class."""
+    bucket per class: 1000 x 2 slots). The blurry stream holds
+    ``EVAL_PER_CLASS`` eval images a class; the domain stream's eval set
+    covers every class at one image a class (1000 a domain)."""
     from repro_torch.configs.base import RehearsalConfig, RunConfig, ScenarioConfig
     from repro_torch.data import (BlurryBoundaryImages, BlurryStreamConfig,
                                   DomainIncrementalImages, DomainStreamConfig)
@@ -1696,7 +1719,7 @@ def vision_scenario_path(counters, cfg, name: str, seed: int = 0):
         slots = SLOTS
         scenario = DomainIncremental(sc, stream=DomainIncrementalImages(DomainStreamConfig(
             num_tasks=sc.num_tasks, num_classes=sc.num_classes, image_size=sc.image_size,
-            noise=sc.noise, domain_shift=sc.domain_shift, eval_per_class=EVAL_PER_CLASS,
+            noise=sc.noise, domain_shift=sc.domain_shift, eval_per_class=1,
             seed=1234 + seed)))
     else:
         slots = 2000 // (sc.num_tasks * sc.classes_per_task)
@@ -2089,10 +2112,10 @@ def ssd_phase(ssd, ref):
 
 class LMWeights:
     """Each LM arch's model and full-width weights, drawn once from one seed
-    on the host and held there for phases 10-12: drawing a 2.5-2.8 B model
-    takes the host tens of seconds. A phase moves one arch's weights to the
-    card (``on_card``) and back before the next, so a peak it reads holds
-    that arch's weights alone."""
+    on the card (``draw_on_card``: the host takes tens of seconds for a
+    2.5-2.8 B model) and held on the host for phases 10-12. A phase moves
+    one arch's weights to the card (``on_card``) and back before the next,
+    so a peak it reads holds that arch's weights alone."""
 
     def __init__(self, seed: int = 10):
         self.seed, self.held = seed, {}
@@ -2100,13 +2123,12 @@ class LMWeights:
     def on_host(self, arch: str):
         """(cfg, model, params) of ``arch`` on the host, drawn at first use."""
         from repro_torch.configs import get_config
-        from repro_torch.models import build_model
 
         if arch not in self.held:
             cfg = get_config(arch)
-            model = build_model(cfg)
-            self.held[arch] = cfg, model, model.init(
-                torch.Generator().manual_seed(self.seed), PREFILL_S, device="cpu")
+            model, params, _ = draw_on_card(cfg, PREFILL_S, self.seed)
+            self.held[arch] = cfg, model, params.to("cpu")
+            torch.cuda.empty_cache()
         return self.held[arch]
 
     @contextlib.contextmanager
@@ -2143,30 +2165,41 @@ def lm_model_phase(weights: LMWeights):
               f"max |card - cpu| {err:.3e} (tolerance {tol:.3e}, |logit| max {scale:.3f})")
 
 
-def _timed_forward(model, params, batch, ctx, reps: int = 4):
-    """Median host time of a synchronised forward of ``batch`` over reps - 1
-    runs after one."""
+def _timed_call(fn, reps: int = 4):
+    """Median host time of a synchronised ``fn()`` over reps - 1 runs after
+    one."""
     runs = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.forward(params, batch, ctx)
+        fn()
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
     return statistics.median(runs[1:])
 
 
-def _counted_forward(model, params, batch, ctx, counters):
-    """One forward of ``batch`` with every launch count set to 0 just before
-    it: (logits, launches by kernel, peak device memory)."""
+def _timed_forward(model, params, batch, ctx, reps: int = 4):
+    """Median host time of a synchronised forward of ``batch``."""
+    return _timed_call(lambda: model.forward(params, batch, ctx), reps)
+
+
+def _counted_call(fn, counters):
+    """``fn()`` with every launch count set to 0 just before it: (its
+    result, launches by kernel, peak device memory)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    out, _ = model.forward(params, batch, ctx)
+    for kernel in counters.values():
+        kernel.launches = 0
+    out = fn()
     torch.cuda.synchronize()
-    return out, {name: fn.launches for name, fn in counters.items()}, \
+    return out, {name: kernel.launches for name, kernel in counters.items()}, \
         torch.cuda.max_memory_allocated()
+
+
+def _counted_forward(model, params, batch, ctx, counters):
+    """One forward of ``batch``, counted (``_counted_call``): (logits,
+    launches by kernel, peak device memory)."""
+    return _counted_call(lambda: model.forward(params, batch, ctx)[0], counters)
 
 
 def prefill_phase(counters, ssd, weights: LMWeights):
@@ -2274,21 +2307,44 @@ def _prefill_arch(counters, ssd, arch, cfg, model, params, b=PREFILL_B, s=PREFIL
     return launched
 
 
+# the serve CLI draws its weights on the host (a CPU generator), tens of
+# seconds for these archs: it serves them at full width cut to this depth
+SERVE_CLI_LAYERS = {"stablelm-3b": 4, "gemma-2b": 4}
+
+
+@contextlib.contextmanager
+def serve_depth(serve, layers: int):
+    """The serve CLI's ``get_config`` with the model cut to ``layers`` layers
+    (0: whole), restored after."""
+    get_config = serve.get_config
+    if layers:
+        serve.get_config = lambda arch: dataclasses.replace(get_config(arch),
+                                                            num_layers=layers)
+    try:
+        yield
+    finally:
+        serve.get_config = get_config
+
+
 def serving_phase(weights: LMWeights, seed: int = 12):
     """Greedy serving at full width: the CLI's path (which draws its own
-    weights from ``seed``), and DecodeEngine's decode logits at every prompt
-    position against the teacher-forced forward on the held weights.
-    Returns the CLI path's decode tokens/s per sequence by arch."""
+    weights from ``seed``; ``SERVE_CLI_LAYERS`` cut its depth), and
+    DecodeEngine's decode logits at every prompt position against the
+    teacher-forced forward on the held weights, whole. Returns the CLI
+    path's decode tokens/s per sequence by arch."""
     from repro_torch.launch import serve
 
     decode = {}
     for arch in LM_ARCHS:
-        res = serve.main(["--arch", arch, "--batch", str(SERVE_B), "--prompt-len", str(PROMPT),
-                          "--gen-len", str(GEN), "--seed", str(seed)])
+        layers = SERVE_CLI_LAYERS.get(arch, 0)
+        with serve_depth(serve, layers):
+            res = serve.main(["--arch", arch, "--batch", str(SERVE_B), "--prompt-len",
+                              str(PROMPT), "--gen-len", str(GEN), "--seed", str(seed)])
         decode[arch] = res.tokens_per_second
         if res.tokens.shape != (SERVE_B, GEN) or res.tokens.device.type != "cuda":
             raise AssertionError(f"bad generation {tuple(res.tokens.shape)} {res.tokens.device}")
-        print(f"{arch} serve (CLI path): prefill {res.prefill_seconds:.3f} s for {PROMPT} "
+        depth = f" at {layers} layers" if layers else ""
+        print(f"{arch} serve (CLI path{depth}): prefill {res.prefill_seconds:.3f} s for {PROMPT} "
               f"tokens x {SERVE_B}, decode {res.decode_seconds:.3f} s = "
               f"{res.tokens_per_second:.1f} tok/s per sequence")
         del res
@@ -2884,7 +2940,7 @@ def online_phase(counters, decode_cli: dict):
 # at each task's start, and a failure injected before absolute step 5 (mid
 # task 1, off a checkpoint), so that the restart restores the checkpoint of
 # step 4 (task 1's start) and replays step 4.
-RES_EVERY, RES_FAIL_AT, RES_ONLINE_ROUNDS = 3, 5, 4
+RES_EVERY, RES_FAIL_AT, RES_ONLINE_ROUNDS = 3, 5, 2  # 2 online rounds keep the script in time
 RES_REPLAYED = RES_FAIL_AT - max(RES_FAIL_AT // RES_EVERY * RES_EVERY,
                                  RES_FAIL_AT // STEPS_PER_TASK * STEPS_PER_TASK)
 
@@ -4019,17 +4075,15 @@ def _window_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
-def moe_kernel_shapes(fa, ssd, ref):
-    """Flash attention at Mixtral's prefill (B 1, S 8192, H 32, KV 8, hd 128,
-    window 4096) and the SSD scan at Jamba's (B 4, S 2048, H 128, P 64, N
-    16, chunk 128), f32 and bf16: against their plain versions, timed beside
-    the plain version, SDPA with the window as its mask (flash) and the
-    bound. Returns the two kernels-line updates."""
+def flash_at(fa, ref, gen, shape, label: str, suffix: str) -> dict:
+    """Flash attention at ``shape`` = (B, S, H, KV, hd, window), f32 and
+    bf16: against its plain version, timed beside the plain version, SDPA
+    with the window as its mask and the bound. Returns the kernels-line
+    update, each key ending in ``suffix`` (``_bf16`` added for bf16)."""
     import torch.nn.functional as F
 
-    gen = torch.Generator().manual_seed(21)
-    flash, scan = {}, {}
-    b, s, h, kv, hd, win = 1, 8192, 32, 8, 128, 4096
+    b, s, h, kv, hd, win = shape
+    out = {}
     pairs = _window_pairs(s, win)
     flops = 4 * b * h * hd * pairs  # QK^T and PV over the visible pairs
     qpos = torch.arange(s, device="cuda")
@@ -4040,7 +4094,7 @@ def moe_kernel_shapes(fa, ssd, ref):
         got = fa.flash_attention(q, k, v, window=win)
         want = ref.flash_attention_ref(q, k, v, window=win)
         torch.cuda.synchronize()
-        err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash Mixtral {dtype}")
+        err = close(got.float(), want.float(), *FLASH_TOL[dtype], f"flash {label} {dtype}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def library():
@@ -4056,26 +4110,34 @@ def moe_kernel_shapes(fa, ssd, ref):
         ops_ms = (3 * flops / TF32_FLOPS if dtype == torch.float32 else flops / BF16_FLOPS) * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        suffix = "_hd128_swa" + ("" if dtype == torch.float32 else "_bf16")
-        print(f"flash_attention at Mixtral's prefill q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, "
+        key = suffix + ("" if dtype == torch.float32 else "_bf16")
+        print(f"flash_attention at {label} q [{b}, {s}, {h}, {hd}], k/v [{b}, {s}, "
               f"{kv}, {hd}], window {win}, {dtype}: max abs err {err:.3e} vs plain (atol, rtol "
               f"{FLASH_TOL[dtype]}), SDPA {lib_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, SDPA (the window as a boolean mask) {library_ms:.4f} ms; bound "
               f"{bound_ms:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP over {pairs} visible pairs a "
               f"head, {'3 x at TF32' if dtype == torch.float32 else 'at bf16'}; {nbytes} B = "
               f"{bytes_ms:.4f} ms); kernel at {bound_ms / ms:.3f} of its bound")
-        flash.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
-                      f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
-                      f"library_ms{suffix}": library_ms, f"max_abs_err{suffix}": err})
+        out.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms, f"bound_ms{key}": bound_ms,
+                    f"bound_by{key}": by, f"library_ms{key}": library_ms,
+                    f"max_abs_err{key}": err})
         del q, k, v, qt, kt, vt
-    b, s, h, p, n, chunk = 4, 2048, 128, 64, 16, 128
+    return out
+
+
+def scan_at(ssd, ref, gen, shape, label: str, suffix: str) -> dict:
+    """The SSD scan at ``shape`` = (B, S, H, P, N, chunk), f32 and bf16:
+    against its plain version (and stage by stage), timed beside it, and
+    the bound. Returns the kernels-line update (keys as ``flash_at``'s)."""
+    b, s, h, p, n, chunk = shape
+    out = {}
     nc = s // chunk
     flops = b * nc * (chunk * (chunk + 1) * n + h * (chunk * (chunk + 1) * p + 4 * chunk * n * p))
     for dtype, peak in ((torch.float32, F32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
         args = _ssd_inputs(gen, b, s, h, p, n, dtype)  # dt = softplus(.) >= 0, A = -exp(.) < 0
         tol = (5e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
         err = close(ssd.ssd_scan(*args, chunk=chunk).float(),
-                    ssd_plain(ref, *args, chunk).float(), *tol, f"ssd Jamba {dtype}")
+                    ssd_plain(ref, *args, chunk).float(), *tol, f"ssd {label} {dtype}")
         stage_err = ssd_stages(ssd, ref, *args, chunk)
         ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_plain(ref, *args, chunk), iters=10)
@@ -4084,16 +4146,28 @@ def moe_kernel_shapes(fa, ssd, ref):
         ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         by = "operations" if ops_ms >= bytes_ms else "bytes"
-        suffix = "_jamba" + ("" if dtype == torch.float32 else "_bf16")
-        print(f"ssd_scan at Jamba's prefill x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, {n}], chunk "
+        key = suffix + ("" if dtype == torch.float32 else "_bf16")
+        print(f"ssd_scan at {label} x [{b}, {s}, {h}, {p}], B/C [{b}, {s}, {n}], chunk "
               f"{chunk}, {dtype}: max abs err {err:.3e} vs plain (atol, rtol {tol}), stages "
               f"{stage_err:.3e}; {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
               f"by {by} ({flops / 1e9:.2f} GFLOP = {ops_ms:.4f} ms; {nbytes} B = "
               f"{bytes_ms:.4f} ms); kernels at {bound_ms / ms:.3f} of their bound")
-        scan.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
-                     f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": by,
-                     f"max_abs_err{suffix}": err})
+        out.update({f"ms{key}": ms, f"plain_ms{key}": plain_ms, f"bound_ms{key}": bound_ms,
+                    f"bound_by{key}": by, f"max_abs_err{key}": err})
         del args
+    return out
+
+
+def moe_kernel_shapes(fa, ssd, ref):
+    """Flash attention at Mixtral's prefill (B 1, S 8192, H 32, KV 8, hd 128,
+    window 4096) and the SSD scan at Jamba's (B 4, S 2048, H 128, P 64, N
+    16, chunk 128), f32 and bf16: against their plain versions, timed beside
+    the plain version, SDPA with the window as its mask (flash) and the
+    bound. Returns the two kernels-line updates."""
+    gen = torch.Generator().manual_seed(21)
+    flash = flash_at(fa, ref, gen, (1, 8192, 32, 8, 128, 4096), "Mixtral's prefill",
+                     "_hd128_swa")
+    scan = scan_at(ssd, ref, gen, (4, 2048, 128, 64, 16, 128), "Jamba's prefill", "_jamba")
     return flash, scan
 
 
@@ -4375,11 +4449,397 @@ def encdec_vlm_phase(counters, fa, ssd, ref):
         backward_bits(arch)
     return launches, flash, trained
 
+# ---------------------------------------------------------------------------
+# phase 23: the model axis on one card (two processes over gloo)
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B at its published widths cut to 2 of 32 layers (prefill B 1 x S
+# 8192: the 4096 window bites), Mamba2-370M whole (B 4 x S 2048); training
+# (at 12 of 48 layers: a step's gloo round trips scale with depth) and
+# serving (whole) through the CLIs on Mamba2-370M. M = 2 ranks share cuda:0:
+# NCCL refuses two ranks on one device, gloo takes CUDA tensors.
+MA_RANKS, MA_SEED = 2, 23
+MA_MIXTRAL = ("mixtral-8x7b", 2, 1, 8192)  # arch, layers, B, S
+MA_MAMBA = ("mamba2-370m", 0, 4, 2048)  # 0 layers: whole
+MA_TRAIN = ["--arch", "mamba2-370m", "--tasks", "2", "--steps-per-task", "4"]
+MA_TRAIN_LAYERS = 12
+MA_SERVE = ["--arch", "mamba2-370m", "--batch", str(SERVE_B), "--prompt-len", "8",
+            "--gen-len", "8"]
+GLOO = "one card, 2 processes over gloo"
+
+
+def _ma_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _ma_tokens(cfg, b: int, s: int):
+    return torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(MA_SEED + 1)).cuda()
+
+
+@contextlib.contextmanager
+def f32_run(train_cli):
+    """The train CLI's ``build_run`` in f32 (its dtype on one worker; bf16
+    on more), restored after: the model axis's losses are compared with the
+    1x1 run's, which a bf16 row-parallel sum would keep 1e-3 apart."""
+    build_run = train_cli.build_run
+
+    def f32(args):
+        run = build_run(args)
+        return dataclasses.replace(run, train=dataclasses.replace(run.train,
+                                                                  compute_dtype="float32"))
+
+    train_cli.build_run = f32
+    try:
+        yield
+    finally:
+        train_cli.build_run = build_run
+
+
+def ma_reference(arch: str, layers: int, b: int, s: int, tmp: str) -> dict:
+    """The unsharded plain forward on the card, weights drawn on it from
+    MA_SEED: f32 (its routing recorded) and bf16 on that routing. Writes
+    the f32 logits and the routing under ``tmp`` for the ranks; returns the
+    largest |logit| and the bf16 plain path's error against f32."""
+    from repro_torch.models import StackCtx
+    from repro_torch.testdata import routing
+
+    cfg = _ma_cfg(arch, layers)
+    model, params, n = draw_on_card(cfg, s, MA_SEED)
+    toks = {"tokens": _ma_tokens(cfg, b, s)}
+    with torch.no_grad():
+        with routing() as pins:
+            want, _ = model.forward(params, toks, StackCtx(cfg))
+        with routing(pins):
+            plain16, _ = model.forward(params, toks, StackCtx(cfg, compute_dtype=torch.bfloat16))
+        ref_err = abs_err(plain16.float(), want)
+    scale = float(want.abs().max())
+    torch.save({"logits": want.cpu(), "pins": [(g.cpu(), e.cpu()) for g, e in pins]},
+               os.path.join(tmp, f"{arch}.pt"))
+    print(f"{arch} ({cfg.num_layers} layers, {n / 1e9:.3f} B parameters drawn on the card) "
+          f"unsharded plain forward B {b} x S {s}: |logit| max {scale:.3f}, bf16 plain path "
+          f"{ref_err:.3e} from f32")
+    del model, params, want, plain16
+    torch.cuda.empty_cache()
+    return {"scale": scale, "ref_err16": ref_err}
+
+
+def ma_train_cli(counters, mesh: str, init: bool = False) -> dict:
+    """``launch.train.main(MA_TRAIN + ["--mesh", mesh])`` in f32 (``f32_run``)
+    at ``MA_TRAIN_LAYERS`` layers (``cut_depth``)
+    on the card, counters set to 0 just before and read just after. Returns
+    the losses, the launches, the trainer's final parameters (on the host;
+    with ``init``, its initial ones too), the names of the sharded ones, the
+    median step and the peak memory."""
+    from repro_torch.launch import train as train_cli
+
+    made = []
+
+    class Kept(train_cli.ContinualTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    cls, train_cli.ContinualTrainer = train_cli.ContinualTrainer, Kept
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with cut_depth(train_cli, MA_TRAIN_LAYERS), f32_run(train_cli):
+            res = train_cli.main(MA_TRAIN + ["--mesh", mesh])
+    finally:
+        train_cli.ContinualTrainer = cls
+    launches = _read(counters)
+    trainer, params = made[0], made[0].final_state[0]
+    out = {"losses": res.losses, "launches": launches,
+           "params": {k: p.detach().cpu() for k, p in params.named_parameters()},
+           "sharded": sorted(getattr(params, "tp_sharded", ())),
+           "step_ms": statistics.median(res.step_seconds) * 1e3,
+           "peak": torch.cuda.max_memory_allocated()}
+    if init:
+        out["init"] = {k: p.detach().cpu() for k, p in
+                       trainer.init_params_fn(trainer.seed).named_parameters()}
+    return out
+
+
+class _Collectives:
+    """Counts the ``torch.distributed`` collectives the port issues
+    (``all_reduce``, ``all_to_all_single``) while installed: the calls since
+    the last ``take``, and over the whole run every call and those whose
+    operands are CUDA tensors."""
+
+    NAMES = ("all_reduce", "all_to_all_single")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.calls = self.total = self.cuda = 0
+        for name in self.NAMES:
+            setattr(dist, name, self._counted(getattr(dist, name)))
+
+    def _counted(self, inner):
+        def counted(*a, **kw):
+            tensors = [t for t in a if isinstance(t, torch.Tensor)]
+            self.calls += 1
+            self.total += 1
+            self.cuda += int(bool(tensors) and all(t.is_cuda for t in tensors))
+            return inner(*a, **kw)
+
+        return counted
+
+    def take(self) -> int:
+        n, self.calls = self.calls, 0
+        return n
+
+
+def ma_rank_forward(counters, mesh, arch: str, layers: int, b: int, s: int, tmp: str,
+                    ref: dict, reduces) -> dict:
+    """One rank's tensor-parallel prefill through ``launch.steps.
+    build_prefill_step`` with the kernels, f32 and bf16, its weights drawn
+    on the card from MA_SEED and cut to its shards, routing pinned to the
+    unsharded forward's: its vocab shard of the logits against the slice of
+    the unsharded f32 plain forward's, within phase 11's bounds; launches,
+    gloo all_reduces, peak memory and median time of a step."""
+    from repro_torch.configs.base import RunConfig, ScenarioConfig, TrainConfig
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.testdata import routing
+
+    cfg = _ma_cfg(arch, layers)
+    saved = torch.load(os.path.join(tmp, f"{arch}.pt"), mmap=True)
+    toks = {"tokens": _ma_tokens(cfg, b, s)}
+    n_attn, n_ssm, _ = _mixers(cfg)
+    expect = dict({k: 0 for k in counters}, flash_attention=n_attn, ssd_scan=n_ssm * 3)
+    out, params = {}, None
+    for dtype in ("float32", "bfloat16"):
+        built = build_prefill_step(RunConfig(
+            model=cfg, train=TrainConfig(compute_dtype=dtype),
+            scenario=ScenarioConfig(modality="tokens", batch_size=b, seq_len=s)), mesh)
+        mp = built.ctx.mp
+        if params is None:
+            with torch.device("cuda"):
+                params = built.model.init(torch.Generator(device="cuda").manual_seed(MA_SEED),
+                                          s, "cuda", mp)
+            v = cfg.vocab_size // mp.size
+            want = saved["logits"][..., mp.index * v:(mp.index + 1) * v].cuda()
+            out["local_heads"] = ((params.layers[0].attn.wq.shape[1] // cfg.head_dim,
+                                   params.layers[0].attn.wk.shape[1] // cfg.head_dim)
+                                  if n_attn and cfg.layer_kind(0) == "attn" else
+                                  (params.layers[0].ssm.A_log.shape[0],))
+        with routing(saved["pins"]):
+            reduces.take()
+            got, seen, peak = _counted_call(lambda: built.fn(params, toks), counters)
+            n_reduce = reduces.take()
+        if seen != expect:
+            raise AssertionError(f"{arch} rank {mp.index} {dtype}: launches {seen}, want {expect}")
+        if got.shape != (b, s, v) or got.dtype != built.ctx.compute_dtype:
+            raise AssertionError(f"{arch} rank {mp.index}: logits {tuple(got.shape)} {got.dtype}")
+        tol = (1e-4 * ref["scale"] + 1e-5 if dtype == "float32"
+               else 2 * ref["ref_err16"] + 1e-3 * ref["scale"])
+        err = close(got.float(), want, tol, 0.0, f"{arch} rank {mp.index} {dtype} vs unsharded")
+        del got
+        with routing(saved["pins"] * 2):
+            ms = _timed_call(lambda: built.fn(params, toks), reps=2) * 1e3
+        key = "f32" if dtype == "float32" else "bf16"
+        out[key] = {"err": err, "tol": tol, "launches": seen, "all_reduces": n_reduce,
+                    "peak": peak, "ms": ms}
+    del params, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_rank(tmp: str):
+    """One rank of phase 23's two (``runtime.multiproc`` starts it with
+    ``python -c``): joins the gloo group on cuda:0, runs (a) to (d) and
+    writes its results to ``tmp/rank<i>.json``, its trained parameters to
+    ``tmp/rank<i>_params.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rehearsal_ops as ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.init_from_env("gloo")
+    counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
+                "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    reduces = _Collectives()
+    with open(os.path.join(tmp, "refs.json")) as f:
+        refs = json.load(f)
+    mesh = make_mesh((1, world), ("data", "model"), "cuda")
+    out = {"rank": rank, "backend": dist.get_backend()}
+    for arch, layers, b, s in (MA_MIXTRAL, MA_MAMBA):
+        out[arch] = ma_rank_forward(counters, mesh, arch, layers, b, s, tmp, refs[arch],
+                                    reduces)
+    reduces.take()
+    train = ma_train_cli(counters, f"1x{world}")
+    train["all_reduces"] = reduces.take()
+    torch.save(train.pop("params"), os.path.join(tmp, f"rank{rank}_params.pt"))
+    out["train"] = train
+    res = serve.main(MA_SERVE + ["--mesh", f"1x{world}"])
+    out["serve"] = {"tokens": res.tokens.cpu().tolist(), "all_reduces": reduces.take(),
+                    "decode_tok_s": res.tokens_per_second}
+    out["collectives"], out["cuda_collectives"] = reduces.total, reduces.cuda
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import gc
+
+    gc.collect()
+    dist.destroy_process_group()
+
+
+# the trained parameters at --mesh 1x2 against 1x1's, f32 with TF32 off: a
+# tensor's ||p_1x2 - p_1x1|| over its update ||p_1x1 - p_init||, on the
+# rank's slice; and each of the 8 losses, relative. H100 readings at 12
+# layers: at most 3.8e-4 (a dt_bias) and 2.7e-7; at 48 layers 6.1e-3 and
+# 1.9e-5, and 2.09 for the tensors when f's backward skips its all_reduce
+MA_PARAM_TOL, MA_LOSS_TOL = 1e-2, 1e-5
+
+
+def ma_trained_against_1x1(rank: int, got: dict, sharded, one: dict, cfg):
+    """The largest relative update error of rank ``rank``'s trained
+    parameters ``got`` (its shards; ``sharded`` names them) against the
+    slices of the 1x1 run's, and the tensor that has it."""
+    from repro_torch.parallel import ModelParallel, param_spec, shard_param
+
+    if set(got) != set(one["params"]):
+        raise AssertionError(f"rank {rank}: parameters {sorted(set(got) ^ set(one['params']))}")
+    mp, worst, split = ModelParallel(None, MA_RANKS, rank), (0.0, ""), set()
+    for k, full in one["params"].items():
+        spec = param_spec(k, tuple(full.shape), cfg, MA_RANKS)
+        if "model" in spec:
+            split.add(k)
+        want, start = shard_param(full, spec, mp), shard_param(one["init"][k], spec, mp)
+        if got[k].shape != want.shape:
+            raise AssertionError(f"rank {rank} {k}: {tuple(got[k].shape)} vs {tuple(want.shape)}")
+        moved = float((want - start).double().norm())
+        rel = float((got[k] - want).double().norm()) / max(moved, 1e-30)
+        worst = max(worst, (rel, k))
+    if split != set(sharded):
+        raise AssertionError(f"rank {rank}: sharded {sorted(split ^ set(sharded))} against the "
+                             f"rule table")
+    if worst[0] > MA_PARAM_TOL:
+        raise AssertionError(f"rank {rank}: trained {worst[1]} {worst[0]:.3e} of its update from "
+                             f"1x1's (tolerance {MA_PARAM_TOL})")
+    return worst
+
+
+def model_axis_phase(counters, fa, ssd, ref):
+    """Phase 23. Returns the kernels-line updates: flash's and the scan's
+    times at the local heads, and every kernel's launches on the ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime import multiproc
+
+    gen = torch.Generator().manual_seed(MA_SEED)
+    flash = flash_at(fa, ref, gen, (1, 8192, 16, 4, 128, 4096),
+                     "one rank's share of Mixtral's prefill at M = 2", "_tp2_h16_kv4_swa")
+    scan = scan_at(ssd, ref, gen, (4, 2048, 16, 64, 128, 128),
+                   "one rank's share of Mamba2-370M's prefill at M = 2", "_tp2_h16")
+    tmp = tempfile.mkdtemp(prefix="repro_phase23_")
+    try:
+        refs = {arch: ma_reference(arch, layers, b, s, tmp)
+                for arch, layers, b, s in (MA_MIXTRAL, MA_MAMBA)}
+        with open(os.path.join(tmp, "refs.json"), "w") as f:
+            json.dump(refs, f)
+        one = ma_train_cli(counters, "1x1", init=True)
+        print(f"mamba2-370m ({MA_TRAIN_LAYERS} layers) train CLI --mesh 1x1, f32: losses "
+              f"{[round(x, 5) for x in one['losses']]}, median step {one['step_ms']:.1f} ms")
+        served = serve.main(MA_SERVE + ["--mesh", "1x1"]).tokens.cpu().tolist()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = multiproc.launch_workers(
+            f"import chip_smoke; chip_smoke.model_axis_rank({tmp!r})", MA_RANKS,
+            pythonpath=ROOT + os.pathsep + os.path.join(ROOT, "src"), rendezvous_dir=tmp,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            print(p.stdout[-3000:], end="")
+        bad = [(i, p.returncode, p.stderr[-4000:]) for i, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise AssertionError(f"phase 23 ranks failed: {bad}")
+        ranks, trained = [], []
+        for i in range(MA_RANKS):
+            with open(os.path.join(tmp, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+            trained.append(torch.load(os.path.join(tmp, f"rank{i}_params.pt")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{MA_RANKS} ranks in {wall:.1f} s ({GLOO}, backend {ranks[0]['backend']})")
+    for r in ranks:
+        print(f"rank {r['rank']}: {r['cuda_collectives']} of its {r['collectives']} collectives "
+              f"(all_reduce, all_to_all_single) took CUDA tensors")
+        if r["cuda_collectives"] != r["collectives"] or not r["collectives"]:
+            raise AssertionError(f"rank {r['rank']}: {r['collectives'] - r['cuda_collectives']} "
+                                 f"collectives took host tensors")
+    launches = {}
+    for r in ranks:
+        i = r["rank"]
+        for arch, layers, b, s in (MA_MIXTRAL, MA_MAMBA):
+            got = r[arch]
+            for key in ("f32", "bf16"):
+                g = got[key]
+                print(f"rank {i} {arch} prefill step {key} B {b} x S {s} on local heads "
+                      f"{tuple(got['local_heads'])}: max |shard - unsharded plain| "
+                      f"{g['err']:.3e} (tolerance {g['tol']:.3e}); launches "
+                      f"{({k: v for k, v in g['launches'].items() if v})}; gloo all_reduces "
+                      f"a forward {g['all_reduces']}; median step {g['ms']:.1f} ms ({GLOO});"
+                      f" peak memory {g['peak'] / 2**30:.2f} GiB")
+            launches[f"{arch} rank {i}"] = got["f32"]["launches"]
+        t = r["train"]
+        steps = len(t["losses"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], one["losses"])]
+        worst, name = ma_trained_against_1x1(i, trained[i], t["sharded"], one,
+                                             _ma_cfg("mamba2-370m", MA_TRAIN_LAYERS))
+        print(f"rank {i} train CLI --mesh 1x{MA_RANKS} ({MA_TRAIN_LAYERS} layers), f32: losses "
+              f"{[round(x, 5) for x in t['losses']]}; launches "
+              f"{({k: v for k, v in t['launches'].items() if v})}; gloo all_reduces "
+              f"{t['all_reduces']} over the fit ({t['all_reduces'] / steps:.1f} a step, evals "
+              f"included); median step {t['step_ms']:.1f} ms ({GLOO}) beside 1x1's "
+              f"{one['step_ms']:.1f} ms; peak memory {t['peak'] / 2**30:.2f} GiB; "
+              f"{len(t['sharded'])} sharded tensors; losses at most {max(rel):.2e} from 1x1's, "
+              f"relative (tolerance {MA_LOSS_TOL}); trained parameters at most {worst:.3e} of "
+              f"their update from 1x1's ({name}; tolerance {MA_PARAM_TOL})")
+        if steps != 8 or not all(math.isfinite(x) for x in t["losses"]):
+            raise AssertionError(f"rank {i} train: losses {t['losses']}")
+        if t["launches"]["rehearsal_update_sample"] != steps or any(
+                v for k, v in t["launches"].items() if k != "rehearsal_update_sample"):
+            raise AssertionError(f"rank {i} train: launches {t['launches']}")
+        if len(rel) != len(one["losses"]) or max(rel) > MA_LOSS_TOL:
+            raise AssertionError(f"rank {i}: losses {t['losses']} vs 1x1 {one['losses']}")
+        launches[f"mamba2-370m train CLI 1x{MA_RANKS} rank {i}"] = t["launches"]
+        if r["serve"]["tokens"] != served:
+            raise AssertionError(f"rank {i} serve --mesh 1x{MA_RANKS}: {r['serve']['tokens']} "
+                                 f"vs 1x1 {served}")
+        print(f"rank {i} serve --mesh 1x{MA_RANKS}: token ids == 1x1's ({len(served)} x "
+              f"{len(served[0])}); gloo all_reduces {r['serve']['all_reduces']}; "
+              f"{r['serve']['decode_tok_s']:.1f} tok/s per sequence ({GLOO})")
+    sharded = set(ranks[0]["train"]["sharded"])
+    replicated = [k for k in trained[0] if k not in sharded]
+    differ = [k for k in replicated if not torch.equal(trained[0][k], trained[1][k])]
+    if differ or not replicated:
+        raise AssertionError(f"replicated parameters differ across the ranks: {differ}")
+    print(f"after training: {len(replicated)} replicated tensors bit for bit on both ranks, "
+          f"{len(sharded)} sharded")
+    flash["launches_model_axis"] = {k: v["flash_attention"] for k, v in launches.items()
+                                    if v["flash_attention"]}
+    scan["launches_model_axis"] = {k: v["ssd_scan"] for k, v in launches.items()
+                                   if v["ssd_scan"]}
+    return flash, scan, {k: v["rehearsal_update_sample"] for k, v in launches.items()
+                         if v["rehearsal_update_sample"]}
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-22), and print no result lines")
+                    help="run phases 1, 2 and these only (3-23), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -4500,6 +4960,10 @@ def main(argv=None):
         phase("22 Qwen2-VL-72B and Whisper-tiny served; Mixtral, Phi-3.5-MoE and Jamba trained")
         vlm_launches, vlm_flash, moe_trained = encdec_vlm_phase(counters, fa, ssd, ref)
 
+    if run(23):
+        phase("23 the model axis on one card: 2 gloo ranks, tensor-parallel prefill, train, serve")
+        ma_flash, ma_scan, ma_update = model_axis_phase(counters, fa, ssd, ref)
+
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
         lm_runs = lm_train_phase(counters, qz, ops, ref)
@@ -4544,12 +5008,16 @@ def main(argv=None):
         # beside it, the agreed restart), each counted from 0
         e["launches_obs"] = {name: n[e["name"]] for name, n in obs_launches.items()
                              if n.get(e["name"])}
+    # phase 23's train CLI on each rank of the model axis, counted from 0
+    entry["launches_model_axis"] = ma_update
     # phase 11's launches a forward: SmolLM-135M's and Mamba2-370M's, then
     # every arch's, phase 21's at its cuts of depth; phase 21's times at
     # the MoE and hybrid stacks' shapes
     launches.update(moe_launches)
     launches.update(vlm_launches)
     flash_entry.update(vlm_flash)
+    flash_entry.update(ma_flash)  # phase 23: the local heads of a rank, its launches
+    ssd_entry.update(ma_scan)
     for target, name, arch, update in (
             (flash_entry, "flash_attention", "smollm-135m", moe_flash),
             (ssd_entry, "ssd_scan", "mamba2-370m", moe_scan)):  # scan: layers x 3 kernels

@@ -24,6 +24,9 @@ both packages from the same carry. Nothing here imports the JAX package.
                             ``enc_layers.{i}.*`` / ``dec_layers.{i}.*``
                             (``encdec_named_from_tree``, which also names a
                             gradient tree of that shape);
+  * on a model axis (``mp``, a ``parallel.ModelParallel``) the LM
+    functions take the JAX package's FULL trees and keep this rank's shards
+    (``parallel.sharding.shard_param`` under the rule table);
   * ``buffer_from_jax`` / ``tiered_from_jax`` / ``opt_state_from_jax`` /
     ``ef_from_jax``       — the flat or tiered buffer (every record leaf,
                             a tap strategy's too, and the policy's aux), the
@@ -86,10 +89,21 @@ def load_named(module: torch.nn.Module, named: Dict[str, np.ndarray]) -> torch.n
     return module
 
 
-def lm_named_from_tree(tree, cfg) -> Dict[str, np.ndarray]:
+def lm_named_from_tree(tree, cfg, mp=None) -> Dict[str, np.ndarray]:
     """Flatten a JAX ``init_decoder``-shaped tree (parameters, gradients or
     optimizer moments) into the ``Decoder``'s parameter names: the stacked
-    ``units.layer{i}.*`` leaves split into ``layers.{u * period + i}.*``."""
+    ``units.layer{i}.*`` leaves split into ``layers.{u * period + i}.*``;
+    with ``mp``, each cut to this rank's shard."""
+    named = _lm_named(tree, cfg)
+    if mp is None:
+        return named
+    from repro_torch.parallel.sharding import param_spec, shard_param
+
+    return {k: np.ascontiguousarray(shard_param(a, param_spec(k, a.shape, cfg, mp.size), mp))
+            for k, a in named.items()}
+
+
+def _lm_named(tree, cfg) -> Dict[str, np.ndarray]:
     period = unit_period(cfg)
     named = {}
     for name, a in _walk(tree):
@@ -103,13 +117,14 @@ def lm_named_from_tree(tree, cfg) -> Dict[str, np.ndarray]:
     return named
 
 
-def lm_params_from_jax(np_tree, cfg, device=None):
+def lm_params_from_jax(np_tree, cfg, device=None, mp=None):
     """A ``Decoder`` holding the weights of the JAX ``init_decoder`` tree
     ``np_tree`` (dense, SSM, MoE or hybrid), on ``device`` (the card unless
-    the caller asks for the CPU). Dense weights keep their ``[d_in, d_out]``
-    layout, the experts' theirs (``[E, d, f]``, ``[E, f, d]``)."""
-    model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device)
-    return load_named(model, lm_named_from_tree(np_tree, cfg))
+    the caller asks for the CPU); with ``mp``, this rank's shards of them.
+    Dense weights keep their ``[d_in, d_out]`` layout, the experts' theirs
+    (``[E, d, f]``, ``[E, f, d]``)."""
+    model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device, mp)
+    return load_named(model, lm_named_from_tree(np_tree, cfg, mp))
 
 
 def encdec_named_from_tree(tree) -> Dict[str, np.ndarray]:
@@ -176,16 +191,18 @@ def tiered_from_jax(state, device=None) -> TieredState:
                        _tensor(state.stage_valid, device))
 
 
-def opt_state_from_jax(opt, device=None, lm_cfg=None) -> OptState:
+def opt_state_from_jax(opt, device=None, lm_cfg=None, mp=None) -> OptState:
     """A port ``OptState`` from a JAX ``OptState`` on ``device``, the card
     unless the caller asks for the CPU: the integer step, the first moment,
     and AdamW's second moment (SGD's ``nu``, a tree of scalar zeros, becomes
     the port's empty dict). The trees are named as a CNN's, or as a
-    ``Decoder``'s when ``lm_cfg`` gives the LM's config."""
+    ``Decoder``'s when ``lm_cfg`` gives the LM's config (``mp``: this rank's
+    shards of the moments)."""
     device = resolve_device(device)
 
     def tensors(tree):
-        named = named_from_tree(tree) if lm_cfg is None else lm_named_from_tree(tree, lm_cfg)
+        named = (named_from_tree(tree) if lm_cfg is None
+                 else lm_named_from_tree(tree, lm_cfg, mp))
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
                 for k, v in named.items()}
 

@@ -182,10 +182,14 @@ def update_and_sample(state, items, labels, key: int, rcfg, group=None,
 
 
 def exchange_group(mesh, dp_axes: Tuple[str, ...], exchange: str):
-    """``(group, peers)`` of ``exchange`` on ``mesh``: every dp worker for
-    ``full``, the innermost dp axis (within-pod ``data``) for
-    ``pod_local``, ``(None, None)`` for ``local``. ``group`` is None on a
-    mesh without a process group (one worker)."""
+    """``(group, peers)`` of ``exchange`` on ``mesh``: every dp worker of
+    this rank's model column for ``full`` (``parallel.dp_group``), the
+    innermost dp axis (within-pod ``data``) for ``pod_local``, ``(None,
+    None)`` for ``local``. ``group`` is None on a mesh without a process
+    group (one worker). The M ranks of a model row hold the same buffer and
+    draw alike, so each exchanges over its own column."""
+    from repro_torch.parallel import dp_group
+
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange mode {exchange!r}")
     if exchange == "local":
@@ -194,11 +198,9 @@ def exchange_group(mesh, dp_axes: Tuple[str, ...], exchange: str):
     peers = 1
     for a in axes:
         peers *= mesh.size(mesh.mesh_dim_names.index(a))
-    group = mesh.get_group(axes[0])  # None on a mesh without a process group
-    if len(axes) > 1 and group is not None:
-        # model == 1, so the dp axes together span the mesh: the default group
-        group = dist.group.WORLD
-    return group, peers
+    if exchange == "full":
+        return dp_group(mesh), peers
+    return mesh.get_group(axes[0]), peers  # None on a mesh without a process group
 
 
 def make_sharded_update(mesh, dp_axes: Tuple[str, ...], rcfg, exchange: str = "full",

@@ -7,12 +7,17 @@ sharding, so the data-parallel workers span pods, and the rehearsal
 exchange chooses whether to cross pods (``exchange='full'``) or stay inside
 one (``'pod_local'``: over the innermost ``data`` sub-group).
 
-The ``model`` axis must be 1: tensor parallelism over it is ROADMAP Queue 1
-item 21. A mesh of one worker needs no process group: without one,
-``make_mesh`` returns a ``SingleDeviceMesh`` (the exchange over it is the
-identity). Otherwise every rank of the default group calls ``make_mesh``
-with the same arguments, and the mesh covers the group, rank ``i`` at
-row-major position ``i`` (``pod`` major).
+The ``model`` axis carries tensor parallelism (``parallel.tensor``): the M
+ranks of a row hold the shards of one model and the same rehearsal buffer.
+``parallel.model_parallel(mesh)`` is their handle, ``parallel.dp_group``
+the data-parallel ranks of a rank's model column (the group its gradients,
+loss and exchange are summed over), which ``make_mesh`` makes.
+
+A mesh of one worker needs no process group: without one, ``make_mesh``
+returns a ``SingleDeviceMesh`` (the exchange over it is the identity).
+Otherwise every rank of the default group calls ``make_mesh`` with the same
+arguments, and the mesh covers the group, rank ``i`` at row-major position
+``i`` (``pod`` major, ``model`` minor).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 21"
+from repro_torch.parallel.sharding import make_column_groups, model_axis_size
 
 
 class SingleDeviceMesh:
@@ -57,17 +62,13 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = None
     """A mesh of ``shape`` over ``axes`` (``('data', 'model')`` or
     ``('pod', 'data', 'model')``). ``device_type``: the default group's
     (``cuda`` under NCCL, ``cpu`` under gloo), else ``cuda`` when a card is
-    visible. A ``model`` axis over 1 raises."""
+    visible."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match axes {axes}")
     unknown = set(axes) - {"pod", "data", "model"}
     if unknown or len(set(axes)) != len(axes):
         raise ValueError(f"mesh axes must be distinct names of pod, data, model: {axes}")
-    if dict(zip(axes, shape)).get("model", 1) != 1:
-        raise NotImplementedError(
-            f"a model axis of {dict(zip(axes, shape))['model']} (tensor parallelism) is "
-            f"not ported yet ({MODEL_AXIS_ITEM}); the port's meshes have model=1")
     device_type = device_type or _device_type()
     n = 1
     for s in shape:
@@ -82,7 +83,19 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = None
                          f"{dist.get_world_size()}")
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    if model_axis_size(mesh) > 1:
+        make_column_groups(mesh)
+    return mesh
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str = None):
+    """The reference's production layouts: ``(16, 16)`` over ``('data',
+    'model')``, or ``(2, 16, 16)`` over ``('pod', 'data', 'model')``. A
+    process group of 256 (512) ranks is needed, as for any mesh."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
+    return make_mesh((16, 16), ("data", "model"), device_type)
 
 
 def memory_kinds(mesh) -> set:

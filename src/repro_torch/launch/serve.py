@@ -1,9 +1,17 @@
 """Serving entry: prefill a prompt batch, then batched greedy decode with KV
-caches, on one device.
+caches, through ``launch.steps.build_decode_step`` on a ``--mesh DATAxMODEL``.
 
     python -m repro_torch.launch.serve --arch smollm-135m            # on the card
     python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2   # 2 x TP 2
     python -m repro_torch.launch.serve --online                       # serve and learn
+
+On a mesh of more than one rank each rank is one process (torchrun, or
+``runtime.multiproc``, as for ``launch.train``): the D data replicas each
+decode their slice of the batch, tensor-parallel over the M ranks of their
+model row, and the rank of global index 0 prints every slice's tokens,
+gathered over its data-parallel group. The encoder-decoder on a model axis
+over 1 is ROADMAP Queue 1 item 21's.
 
 Weights are random, drawn from ``--seed``; so are the prompts (from a
 ``torch.Generator``: the port cannot reproduce ``jax.random``'s bits). The path
@@ -18,7 +26,9 @@ requests come from the task-free ``drift_stream`` scenario, each round's
 traffic is admitted into the rehearsal buffer, and train steps between the
 rounds keep the served weights current. As in the reference, it serves the
 reduced 2-layer LM over a vocab of 128 (``--arch`` and ``--reduced`` do not
-apply) on one device: a ``--mesh`` other than 1x1 is logged and ignored.
+apply) on one device: a ``--mesh`` other than 1x1 is logged and ignored, as
+the reference does (the online learner on a mesh is ROADMAP Queue 1 item
+21's).
 ``--ckpt-dir`` gives the learner its checkpoint directory, where a resilient
 run (``RunConfig.resilience``) keeps its restart checkpoints.
 
@@ -34,11 +44,10 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.device import resolve_device
-from repro_torch.models import StackCtx, build_model
 from repro_torch.serving import DecodeEngine
 from repro_torch.utils.logging import get_logger
 
@@ -52,7 +61,9 @@ def parse_args(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--mesh", default="1x1", help="only 1x1 is ported")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL: data replicas x tensor-parallel ranks, one process a "
+                         "rank")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
@@ -79,19 +90,10 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-# Flags the port does not have yet, by ROADMAP Queue 1 item: the mesh (21:
-# the prefill and decode steps shard over the model axis; ignored under
-# --online as in the reference).
-UNPORTED_ITEMS = {"--mesh": 21}
-
-
 def main(argv=None):
     """Serve once (returns the ``GenResult``) or, with ``--online``, run the
     serve/train interleave (returns the ``OnlineResult``)."""
     args = parse_args(argv)
-    if args.mesh != "1x1" and not args.online:
-        raise NotImplementedError(f"not ported yet: --mesh (ROADMAP Queue 1 item "
-                                  f"{UNPORTED_ITEMS['--mesh']})")
     registry = server = None
     if args.obs:
         obs.configure(args.obs)
@@ -112,21 +114,45 @@ def main(argv=None):
 
 
 def _serve_once(args, registry=None):
-    """One prefill + greedy generation pass. Returns the ``GenResult``;
-    its rates go to ``registry`` when given."""
+    """One prefill + greedy generation pass. Returns the ``GenResult`` (on a
+    mesh, its tokens those of the whole batch); its rates go to
+    ``registry`` when given."""
+    from repro_torch.configs.base import RunConfig, ScenarioConfig, TrainConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.launch.train import join_group
+    from repro_torch.parallel import MODEL_AXIS_ITEM, batch_slice, dp_group
+
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    device = resolve_device(args.device)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    if cfg.family == "encdec" and m > 1:
+        raise NotImplementedError(f"not ported yet: --mesh with MODEL > 1 for the "
+                                  f"encoder-decoder {cfg.name} ({MODEL_AXIS_ITEM})")
     dtype = DTYPES[args.dtype]
     max_len = args.prompt_len + args.gen_len
-    model = build_model(cfg)
-    ctx = StackCtx(cfg=cfg, compute_dtype=dtype)
-    gen = torch.Generator().manual_seed(args.seed)
-    params = model.init(gen, max_seq=max_len, device=device)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen).to(device)
-    res = DecodeEngine(model, ctx, cache_dtype=dtype).generate(params, prompts, args.gen_len)
-    log.info("arch=%s device=%s batch=%d prefill(%d tok)=%.3fs decode(%d tok)=%.3fs "
-             "(%.1f tok/s/seq)", cfg.name, device, args.batch, args.prompt_len,
+    device, joined = join_group(args.device)
+    try:
+        mesh = make_mesh((d, m), ("data", "model"), device.type)
+        built = build_decode_step(RunConfig(
+            model=cfg, train=TrainConfig(compute_dtype=args.dtype),
+            scenario=ScenarioConfig(modality="tokens", batch_size=args.batch,
+                                    seq_len=max_len)), mesh)
+        gen = torch.Generator().manual_seed(args.seed)
+        params = built.model.init(gen, max_seq=max_len, device=device, mp=built.ctx.mp)
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                generator=gen)[batch_slice(args.batch, mesh)].to(device)
+        res = DecodeEngine(built.model, built.ctx, cache_dtype=dtype, step=built.fn).generate(
+            params, prompts, args.gen_len)
+        res = res._replace(tokens=_gather_rows(res.tokens, args.batch, mesh, dp_group(mesh)))
+        first = dist.get_rank() == 0 if dist.is_initialized() else True
+    finally:
+        if joined:
+            import gc
+
+            gc.collect()
+            dist.destroy_process_group()
+    log.info("arch=%s device=%s mesh=%s batch=%d prefill(%d tok)=%.3fs decode(%d tok)=%.3fs "
+             "(%.1f tok/s/seq)", cfg.name, device, args.mesh, args.batch, args.prompt_len,
              res.prefill_seconds, res.tokens.shape[1], res.decode_seconds,
              res.tokens_per_second)
     if registry is not None:
@@ -135,8 +161,22 @@ def _serve_once(args, registry=None):
         registry.set("repro_serve_decode_tokens_per_second", res.tokens_per_second,
                      help="greedy-decode throughput per sequence")
         registry.set("repro_serve_batch_size", args.batch)
-    print("generated token ids (first sequence):", res.tokens[0].tolist())
+    if first:
+        print("generated token ids (first sequence):", res.tokens[0].tolist())
     return res
+
+
+def _gather_rows(tokens: torch.Tensor, batch: int, mesh, group) -> torch.Tensor:
+    """Every data replica's rows of the batch, from this rank's slice (an
+    ``all_reduce`` of zero-padded slices over the data-parallel group)."""
+    if group is None:
+        return tokens
+    from repro_torch.parallel import batch_slice
+
+    full = tokens.new_zeros((batch,) + tuple(tokens.shape[1:]))
+    full[batch_slice(batch, mesh)] = tokens
+    dist.all_reduce(full, group=group)
+    return full
 
 
 def build_online_run(args):
@@ -165,7 +205,7 @@ def _serve_online(args, registry=None):
 
     if args.mesh != "1x1":
         log.info("--online trains on the single-device carry backend; --mesh %s ignored "
-                 "(a serving mesh is ROADMAP Queue 1 item 21)", args.mesh)
+                 "(the online learner on a mesh is ROADMAP Queue 1 item 21)", args.mesh)
     learner = OnlineLearner(build_online_run(args), ckpt_dir=args.ckpt_dir,
                             serve_dtype=DTYPES[args.dtype], registry=registry,
                             device=args.device)

@@ -1,5 +1,5 @@
-"""The mesh backend's train step: the reference's pjit route, one process a
-device, on a mesh whose ``model`` axis is 1.
+"""The mesh backend's steps: the reference's pjit route, one process a
+device, on a ``(data, model)`` or ``(pod, data, model)`` mesh.
 
 The step is the paper's Fig. 4 pipeline (``rehearsal.mode='async'`` or
 ``rehearsal.pipelined=True`` selects it, ``mode='sync'`` the blocking
@@ -15,13 +15,18 @@ baseline), run by every data-parallel rank on its own shard:
   pipelined tap (der, der_pp, grasp_embed): the forward on batch + reps, the
       update of the new rows with this forward's outputs, then the backward.
 
-Each rank holds the parameters and optimizer state whole (``model`` = 1), its
-own buffer (the reference's worker axis), its pending slot and its slice of
-the global batch (``shard_host_batch``). The loss is the reference's global
-token mean: every count a loss divides by is summed over the data-parallel
-group (``parallel.global_mean``), each rank differentiates its share, and
-the gradients and the loss are summed over the group before the optimizer
-step (the clip sees the global gradient). ``buffer_fill`` and
+Each rank holds its shard of the parameters and optimizer state (the whole
+of them on a model axis of 1; on M > 1 the rule table's shards, tensor-
+parallel over its model row, ``parallel.tensor``), its own buffer (the
+reference's worker axis, the same on the M ranks of a row), its pending
+slot and its slice of the global batch (``shard_host_batch``). The loss is
+the reference's global token mean: every count a loss divides by is summed
+over the data-parallel ranks of the rank's model column
+(``parallel.global_mean``), each rank differentiates its share, and the
+gradients and the loss are summed over that column before the optimizer
+step (the clip sees the global gradient, summed over the model row for the
+sharded tensors). Nothing is summed over the model row but what the
+forward's collectives sum. ``buffer_fill`` and
 ``rep_checksum`` are summed too: the reference reads them off global arrays.
 Every rank thus ends a step with the same parameters and metrics. With
 ``run.obs`` on, the ``obs/*`` gauges are the global store's too: their
@@ -33,6 +38,10 @@ LMs of the token scenarios, as in the reference, and the CNN of the vision
 scenarios. The gradient reduction is exact; ``TrainConfig.grad_compress``
 is the carry backend's, as in the reference. Nothing is donated: the steps
 write the carry's tensors in place (ROADMAP Queue 3).
+
+``build_prefill_step`` and ``build_decode_step`` are the serving steps of
+the reference (``launch/steps.py:477-545``): each rank runs its slice of the
+batch on its shard of the model, the logits its shard of the vocabulary.
 """
 from __future__ import annotations
 
@@ -51,7 +60,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.parallel import dp_axes, dp_size, global_mean
+from repro_torch.parallel import MODEL_AXIS_ITEM, dp_axes, dp_size, global_mean, model_parallel
 from repro_torch.strategy import outputs_row_spec, rep_checksum, resolve_strategy
 
 MAX_SLOTS = 1024
@@ -153,12 +162,7 @@ def build_train_step(
     rcfg = dataclasses.replace(rcfg, mode=mode)
     pipelined = rcfg.is_pipelined
     device = resolve_device(device)
-    names = tuple(mesh.mesh_dim_names)
-    if "model" in names and mesh.size(names.index("model")) != 1:
-        from repro_torch.launch.mesh import MODEL_AXIS_ITEM
-
-        raise NotImplementedError(f"a model axis of {mesh.size(names.index('model'))} "
-                                  f"(tensor parallelism) is not ported yet ({MODEL_AXIS_ITEM})")
+    mp = model_parallel(mesh)
     dp = dp_axes(mesh)
     n_dp = dp_size(mesh)
     # the global batch and its positions, from the scenario (1 a vision record)
@@ -181,9 +185,13 @@ def build_train_step(
             f"mode='async'")
     if use_rehearsal:
         buffer_api.check_supported(rcfg)
+    if mp is not None and use_rehearsal and strat.needs_outputs:
+        raise NotImplementedError(
+            f"strategy {strat.name!r} stores the model's outputs, which a model axis of "
+            f"{mp.size} shards over the vocabulary: not ported yet ({MODEL_AXIS_ITEM})")
     label_field = label_field or rcfg.label_field
     task_field = task_field or rcfg.task_field
-    problem = problem if problem is not None else scenario.build_problem(run, device)
+    problem = problem if problem is not None else scenario.build_problem(run, device, mp)
     item_spec = dict(scenario.item_spec)
     r = rcfg.num_representatives
     tap = use_rehearsal and strat.needs_outputs
@@ -216,7 +224,7 @@ def build_train_step(
         slots = 0
     grad_group, _ = rdist.exchange_group(mesh, dp, "full")
     loss_fn = problem.loss_fn
-    opt_update = make_optimizer(tcfg, n_workers=n_dp)[1]
+    opt_update = make_optimizer(tcfg, n_workers=n_dp, mp=mp)[1]
     ocfg = run.obs
     obs_on = obs_metrics.gauges_on(ocfg)
     aux_bytes = obs_metrics.aux_row_bytes(aux_spec) if tap else None
@@ -232,7 +240,8 @@ def build_train_step(
         named = dict(params.named_parameters())
         grads = _sum_over({k: p.grad if p.grad is not None else torch.zeros_like(p)
                            for k, p in named.items()}, grad_group)
-        _, opt, opt_metrics = opt_update(grads, opt, named)
+        _, opt, opt_metrics = opt_update(grads, opt, named,
+                                         getattr(params, "tp_sharded", ()))
         params.zero_grad(set_to_none=True)
         summed = dict(fingerprints, loss=loss.detach(),
                       **{k: v.detach() for k, v in aux_metrics.items()
@@ -244,7 +253,7 @@ def build_train_step(
         if obs_on:
             metrics.update(obs_metrics.step_metrics(
                 **(gauges or {}), grad_norm=obs_metrics.grad_norm_of(opt_metrics, grads),
-                params=params, cfg=ocfg, group=grad_group))
+                params=params, cfg=ocfg, group=grad_group, mp=mp))
         return opt, metrics
 
     if not use_rehearsal:
@@ -326,3 +335,60 @@ def build_train_step(
     peers = rdist.exchange_group(mesh, dp, exchange)[1]
     return BuiltStep(fn=step, meta=meta, problem=problem, item_spec=item_spec, rcfg=rcfg,
                      pending_rows=r if peers is None else min(peers, r), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ServeStep:
+    """One rank's serving step. ``fn``: prefill ``fn(params, batch) ->
+    logits`` (the rank's vocab shard on a model axis), or decode
+    ``fn(params, caches, batch, index) -> (logits, caches)``, the step
+    ``serving.DecodeEngine(model, ctx, step=fn)`` drives; ``batch`` is this
+    rank's slice (``shard_host_batch``). ``model.init(gen, max_seq, device,
+    ctx.mp)`` draws this rank's shards of the weights,
+    ``model.init_cache(params, ..., mp=ctx.mp)`` its caches."""
+
+    fn: Any
+    model: Any
+    ctx: Any
+
+
+def _serve_parts(run: RunConfig, mesh, use_kernel: bool):
+    from repro_torch.models import StackCtx, build_model
+
+    dtype = torch.bfloat16 if run.train.compute_dtype == "bfloat16" else torch.float32
+    ctx = StackCtx(cfg=run.model, use_kernel=use_kernel, compute_dtype=dtype,
+                   mp=model_parallel(mesh))
+    return build_model(run.model), ctx
+
+
+def build_prefill_step(run: RunConfig, mesh) -> ServeStep:
+    """The reference's ``build_prefill_step``: the forward of ``run.model``
+    in ``run.train.compute_dtype`` on this rank's batch slice and model
+    shard, the mixers' hand-written kernels on the rank's local heads (on
+    CPU tensors, their plain versions)."""
+    model, ctx = _serve_parts(run, mesh, True)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        logits, _ = model.forward(params, batch, ctx)
+        return logits
+
+    return ServeStep(fn=prefill, model=model, ctx=ctx)
+
+
+def build_decode_step(run: RunConfig, mesh) -> ServeStep:
+    """The reference's ``build_decode_step``: one token against the caches
+    (the rank's KV and SSM heads) on this rank's batch slice and model
+    shard, in ``run.train.compute_dtype``."""
+    model, ctx = _serve_parts(run, mesh, False)
+
+    @torch.no_grad()
+    def decode(params, caches, batch, index: int):
+        return model.decode(params, batch, caches, index, ctx)
+
+    return ServeStep(fn=decode, model=model, ctx=ctx)

@@ -4,13 +4,14 @@ The CLI builds a ``RunConfig`` (with its ``ScenarioConfig``) and a token
 class-incremental scenario, and ``ContinualTrainer``'s mesh backend
 (``launch.steps.build_train_step``, the reference's pjit route) trains it
 task after task, evaluating every task seen so far after each (per-task
-eval loss, lower is better). Every ``--mesh DATAx1`` goes through the mesh
-backend, 1x1 included, as in the reference; it computes in f32 on one
-worker and in bf16 on more. A model axis over 1 is ROADMAP Queue 1 item
-21.
+eval loss, lower is better). Every ``--mesh DATAxMODEL`` goes through the
+mesh backend, 1x1 included, as in the reference; it computes in f32 on one
+worker and in bf16 on more. A model axis over 1 is tensor parallelism: the
+M ranks of a row hold the shards of one model (``parallel.tensor``).
 
     python -m repro_torch.launch.train --arch smollm-135m                 # one card
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1    # four cards
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2    # 2 x TP 2
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --tasks 2 --steps-per-task 4 --seq-len 32 --global-batch 4 --device cpu
 
@@ -31,7 +32,8 @@ scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
 the model keeps its full vocabulary, as in the reference. Weights are
 random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full state
 every ``--ckpt-every`` steps and after every task (one directory a rank on
-more than one worker); with ``--resilience`` each task's steps run in the
+more than one worker); with ``--resilience`` (a model axis of 1 only, for
+now) each task's steps run in the
 ``ResilientLoop`` (restart checkpoints every ``--resilience-checkpoint-every``
 steps under ``resilient`` in the rank's directory, bounded retry with
 backoff; on more than one worker the ranks agree on every restart):
@@ -60,8 +62,8 @@ from repro_torch.utils.logging import get_logger
 log = get_logger("repro_torch.train")
 
 # Options of the reference's CLI that the port has not yet, and their items:
-# a model axis over 1 (tensor parallelism).
-UNPORTED_ITEMS = {"--mesh DATAxMODEL with MODEL > 1": 21}
+# the agreed restarts of --resilience span the data-parallel ranks only.
+UNPORTED_ITEMS = {"--resilience with MODEL > 1": 21}
 
 
 def parse_args(argv=None):
@@ -70,7 +72,7 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true", help="reduced config (CPU)")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAxMODEL, one process a data worker; MODEL must be 1")
+                    help="DATAxMODEL, one process a rank (MODEL: tensor parallelism)")
     ap.add_argument("--tasks", type=int, default=2)
     ap.add_argument("--steps-per-task", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -128,7 +130,7 @@ def mesh_shape(args):
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every option the port has not yet
     that was given, naming each with its ROADMAP Queue 1 item."""
-    given = {"--mesh DATAxMODEL with MODEL > 1": mesh_shape(args)[1] != 1}
+    given = {"--resilience with MODEL > 1": args.resilience and mesh_shape(args)[1] != 1}
     unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
                 for flag, on in given.items() if on]
     if unported:

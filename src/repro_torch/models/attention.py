@@ -9,6 +9,14 @@ Three entry points:
 
 Shapes: x [B, S, d]; q [B, S, H, hd]; k/v [B, T, KV, hd]; GQA groups G = H // KV
 are kept factored (no repeated KV heads): scores are grouped einsums.
+
+On a model axis (``mp``) each rank runs its whole local query heads
+(``parallel.attention_plan``): ``wq`` column-parallel after *f*, ``wo``
+row-parallel before *g*. ``wk``/``wv`` are sharded with the query heads when
+KV % M == 0; otherwise they are replicated, and each rank keeps only the one
+KV head its query heads read (a weight read through *f*), so the local
+heads still group evenly for the kernel. The KV cache holds the local KV
+heads.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import torch.nn as nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.parallel.sharding import attention_plan
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 class Attention(nn.Module):
@@ -40,13 +50,32 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def qkv(params: Attention, x: torch.Tensor, cfg, kv_input=None):
-    """Project to q [B,S,H,hd], k/v [B,T,KV,hd]. ``kv_input`` overrides for cross-attn."""
+def head_plan(cfg, mp):
+    """This rank's ``HeadPlan``, or None when attention runs whole (no model
+    axis, or heads that do not split over it)."""
+    return None if mp is None else attention_plan(cfg, mp.size, mp.index)
+
+
+def qkv(params: Attention, x: torch.Tensor, cfg, kv_input=None, plan=None, mp=None):
+    """Project to q [B,S,H,hd], k/v [B,T,KV,hd]. ``kv_input`` overrides for
+    cross-attn. Under a ``plan`` the heads are the rank's: replicated
+    ``wk``/``wv`` are read through *f* and cut to the plan's KV head."""
     kv_src = x if kv_input is None else kv_input
-    q = _split_heads(x @ params.wq.to(x.dtype), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(kv_src @ params.wk.to(x.dtype), cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(kv_src @ params.wv.to(x.dtype), cfg.num_kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    wk, wv = params.wk, params.wv
+    if plan is not None and not plan.kv_sharded:
+        cols = slice(plan.kv_first * hd, (plan.kv_first + plan.kv) * hd)
+        wk, wv = copy_to_model(wk, mp)[:, cols], copy_to_model(wv, mp)[:, cols]
+    q = _split_heads(x @ params.wq.to(x.dtype), params.wq.shape[1] // hd, hd)
+    k = _split_heads(kv_src @ wk.to(x.dtype), wk.shape[1] // hd, hd)
+    v = _split_heads(kv_src @ wv.to(x.dtype), wv.shape[1] // hd, hd)
     return q, k, v
+
+
+def _out(params: Attention, out: torch.Tensor, dtype, plan, mp) -> torch.Tensor:
+    """[B, S, H, hd] through ``wo`` (row-parallel, then *g*, under a plan)."""
+    y = out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(dtype)
+    return y if plan is None else reduce_from_model(y, mp)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -120,9 +149,13 @@ def attend_blocked(q, k, v, cfg, causal: bool = True, block_k: int = 1024):
 
 
 def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bool = True,
-                kv_input=None, kv_angles=None, use_kernel: bool = False) -> torch.Tensor:
+                kv_input=None, kv_angles=None, use_kernel: bool = False,
+                mp=None) -> torch.Tensor:
     """Full-sequence attention (prefill / encoder). Returns [B, S, d]."""
-    q, k, v = qkv(params, x, cfg, kv_input=kv_input)
+    plan = head_plan(cfg, mp)
+    if plan is not None:
+        x = copy_to_model(x, mp)
+    q, k, v = qkv(params, x, cfg, kv_input=kv_input, plan=plan, mp=mp)
     if angles is not None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles if kv_angles is None else kv_angles)
@@ -139,7 +172,7 @@ def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bo
             scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = _grouped_out(probs, v)
-    return out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(x.dtype)
+    return _out(params, out, x.dtype, plan, mp)
 
 
 # ---------------------------------------------------------------------------
@@ -147,21 +180,28 @@ def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bo
 # ---------------------------------------------------------------------------
 
 
-def make_kv_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device=None):
+def make_kv_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device=None,
+                  mp=None):
     """Preallocated cache. A sliding-window arch gets a ring buffer bounded by
-    the window (a context of any length costs ``window`` slots)."""
+    the window (a context of any length costs ``window`` slots). On a model
+    axis it holds the rank's KV heads."""
     size = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
-    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    plan = head_plan(cfg, mp)
+    shape = (batch, size, cfg.num_kv_heads if plan is None else plan.kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attend_decode(params: Attention, x: torch.Tensor, cache, index: int, cfg, angles=None):
+def attend_decode(params: Attention, x: torch.Tensor, cache, index: int, cfg, angles=None,
+                  mp=None):
     """One-step decode. ``x`` [B, 1, d]; ``index`` the global position of the
     new token; the cache holds all previous tokens. Returns (out [B,1,d],
     cache). The cache's slot is written in place (the reference returns a
     new cache), so the returned dict is the one passed in."""
-    q, k_new, v_new = qkv(params, x, cfg)
+    plan = head_plan(cfg, mp)
+    if plan is not None:
+        x = copy_to_model(x, mp)
+    q, k_new, v_new = qkv(params, x, cfg, plan=plan, mp=mp)
     if angles is not None:
         q = apply_rope(q, angles)
         k_new = apply_rope(k_new, angles)
@@ -181,7 +221,7 @@ def attend_decode(params: Attention, x: torch.Tensor, cache, index: int, cfg, an
     scores = torch.where(pos >= 0, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _grouped_out(probs, v.to(x.dtype))
-    return out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(x.dtype), cache
+    return _out(params, out, x.dtype, plan, mp), cache
 
 
 def cache_logical_len(cfg, index: int) -> int:

@@ -6,7 +6,10 @@ reference's params dict (``scale``, ``wi``/``wg``/``wo``, ``pos``), so
 ``repro_torch.convert`` loads a JAX tree by name; ``apply_*`` functions take
 the module and the inputs. Dense weights are ``[d_in, d_out]`` and applied as
 ``x @ W``. Initialisers draw from a ``torch.Generator`` (a CPU generator, so
-the same seed gives the same weights on every device).
+the same seed gives the same weights on every device). On a model axis
+(``mp``, a ``parallel.ModelParallel``) a sharded MLP is column-parallel into
+its hidden width and row-parallel out of it, and ``embed_lookup`` reads a
+vocab-sharded table.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, vocab_embed
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +91,12 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: int = 0) -> MLP:
     return MLP(gen, cfg, d_ff)
 
 
-def apply_mlp(params: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
+def apply_mlp(params: MLP, x: torch.Tensor, activation: str, mp=None) -> torch.Tensor:
+    """``mp``: the model row of an MLP sharded over its hidden width (None:
+    whole). ``wi``/``wg`` then run after *f* and ``wo``'s partial sum
+    before *g*."""
+    if mp is not None:
+        x = copy_to_model(x, mp)
     h = x @ params.wi.to(x.dtype)
     if activation == "swiglu":
         h = F.silu(x @ params.wg.to(x.dtype)) * h
@@ -94,7 +104,16 @@ def apply_mlp(params: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.gelu(x @ params.wg.to(x.dtype), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params.wo.to(x.dtype)
+    out = h @ params.wo.to(x.dtype)
+    return out if mp is None else reduce_from_model(out, mp)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, mp=None) -> torch.Tensor:
+    """Rows ``ids`` of ``table``: on a model axis (``mp``) the rank's vocab
+    shard, the rows of the others' added by *g*."""
+    if mp is None:
+        return table[ids.long()]
+    return vocab_embed(table, ids, mp)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@
 surface (``models/model_zoo.py``), for every family: the dense, SSM,
 mixture-of-experts (Mixtral, Phi-3.5-MoE), hybrid (Jamba) and VLM (Qwen2-VL)
 decoders, and the encoder-decoder (Whisper):
-  * ``init(gen, max_seq, device=None)``          -> params (a ``Decoder`` or ``EncDec``)
+  * ``init(gen, max_seq, device=None, mp=None)`` -> params (a ``Decoder`` or ``EncDec``;
+                                                    ``mp``: this rank's shards)
   * ``forward(params, batch, ctx)``              -> (logits, aux_loss)   (prefill)
   * ``loss(params, batch, ctx)``                 -> (scalar, metrics)
   * ``outputs(params, batch, ctx)``              -> {"logits", "embed", "aux"}
@@ -14,7 +15,9 @@ decoders, and the encoder-decoder (Whisper):
 
 A decoder's batch holds ``tokens`` [B, S] or ``embeddings`` [B, S, d], and
 may hold ``positions`` ([B, S, 3] for M-RoPE); the enc-dec's holds ``frames``
-[B, T, d] and ``tokens`` [B, S]. ``labels`` [B, S] for the loss.
+[B, T, d] and ``tokens`` [B, S]. ``labels`` [B, S] for the loss. On a model
+axis (``ctx.mp``) a decoder's logits are the rank's vocab shard and the
+loss is the vocab-parallel cross-entropy.
 """
 from __future__ import annotations
 
@@ -25,25 +28,30 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import global_count
+from repro_torch.parallel.tensor import vocab_nll
 
 # MoE load-balance aux-loss weight, as in the reference (the aux is 0 without
 # MoE layers).
 DEFAULT_AUX_WEIGHT = 0.01
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mp=None) -> torch.Tensor:
     """Mean token-level CE in f32; labels < 0 are ignored.
 
     Divides by ``max(#valid, 1)``, so a batch whose rows are all masked gives
     0, where ``F.cross_entropy(ignore_index=-1)`` gives NaN. Inside
     ``parallel.global_mean(group)`` the count is the group's (the mesh
-    step's global token mean)."""
+    step's global token mean: the data-parallel ranks', never the model
+    row's). ``mp``: ``logits`` are the rank's vocab shard of that row."""
     logits = logits.float()
     valid = labels >= 0
     labels_safe = labels.clamp(min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels_safe[..., None])[..., 0]
-    nll = logz - gold
+    if mp is not None:
+        nll = vocab_nll(logits, labels_safe, mp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels_safe[..., None])[..., 0]
+        nll = logz - gold
     denom = global_count(valid.sum()).clamp(min=1)
     return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
 
@@ -68,15 +76,15 @@ def build_model(cfg) -> LM:
 
 
 def _build_decoder(cfg) -> LM:
-    def init(gen: torch.Generator, max_seq: int, device=None):
-        return tf.init_decoder(gen, cfg, max_seq, device)
+    def init(gen: torch.Generator, max_seq: int, device=None, mp=None):
+        return tf.init_decoder(gen, cfg, max_seq, device, mp)
 
     def forward(params, batch, ctx):
         return tf.forward_decoder(params, batch, cfg, ctx)
 
     def loss(params, batch, ctx, aux_weight: float = DEFAULT_AUX_WEIGHT):
         logits, aux = forward(params, batch, ctx)
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"], tf.vocab_mp(cfg, ctx))
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     def outputs(params, batch, ctx):
@@ -86,8 +94,8 @@ def _build_decoder(cfg) -> LM:
         # hidden state (the activations the head consumes)
         return {"logits": logits, "embed": hidden.float().mean(dim=1), "aux": aux}
 
-    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16):
-        return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device)
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
+        return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device, mp)
 
     def decode(params, batch, caches, index: int, ctx):
         return tf.decode_step(params, batch, caches, index, cfg, ctx)
@@ -97,8 +105,8 @@ def _build_decoder(cfg) -> LM:
 
 
 def _build_encdec(cfg) -> LM:
-    def init(gen: torch.Generator, max_seq: int, device=None):
-        return tf.init_encdec(gen, cfg, max_seq, device)
+    def init(gen: torch.Generator, max_seq: int, device=None, mp=None):
+        return tf.init_encdec(gen, cfg, max_seq, device, mp)
 
     def forward(params, batch, ctx):
         enc_out = tf.encode(params, batch["frames"], cfg, ctx)
@@ -110,7 +118,8 @@ def _build_encdec(cfg) -> LM:
         ce = cross_entropy(logits, batch["labels"])
         return ce, {"ce": ce, "aux": aux}
 
-    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16):
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
+        tf.refuse_model_axis(cfg, mp)
         # The reference serves with zero cross-attention K/V: its init_cache
         # builds a zero encoder output and passes None, and the zeros stand
         # for a stubbed frame window of seq_len frames. Kept as it is.

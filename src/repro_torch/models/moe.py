@@ -9,9 +9,14 @@ FFNs run as batched matrix products, and the combine adds each kept pair's
 gate-weighted output back to its token. Every shape is static: no step
 synchronises with the host.
 
-The reference's ``moe_ffn_local`` (one shard of the model axis, expert- or
-hidden-sharded) belongs to the model axis (ROADMAP Queue 1 item 21) and is
-not ported.
+On a model axis, ``moe_apply`` is the reference's ``make_moe_apply`` body
+(``parallel/sharding.py:144-199``) on one rank: ``moe_ffn_local`` routes
+with the replicated router (global expert ids) and runs the rank's experts,
+expert-parallel (its ``E/M`` experts at ``e_offset``) or hidden-sharded
+(every expert's ``f/M`` slice); the partial output is summed by *g*. The
+router's output enters the region through *f* on the gates, so the router
+and the aux loss stay replicated: the aux is the same on every model rank
+and is not summed over the row.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import moe_layout
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 class MoE(nn.Module):
@@ -61,12 +68,14 @@ def route(params: MoE, x: torch.Tensor, cfg):
     return gates, experts, aux
 
 
-def dispatch(experts: torch.Tensor, num_experts: int, capacity: int):
+def dispatch(experts: torch.Tensor, num_experts: int, capacity: int, foreign: bool = False):
     """The sort-based plan for ``experts`` [T, k]: pairs ordered by expert (a
     stable sort keeps token priority within an expert), and for each sorted
     pair its buffer row ``dest`` (``expert * capacity + position``, or the
     overflow row ``E * capacity`` when the expert is full), whether it is
-    kept, and its token. Returns (order, dest, keep, token_of), each [T * k]."""
+    kept, and its token. With ``foreign``, the id ``num_experts`` marks a
+    pair routed to another model rank's experts, never kept. Returns
+    (order, dest, keep, token_of), each [T * k]."""
     t, k = experts.shape
     flat_e = experts.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
@@ -74,37 +83,55 @@ def dispatch(experts: torch.Tensor, num_experts: int, capacity: int):
     pos = torch.arange(t * k, device=experts.device) - torch.searchsorted(
         sorted_e, sorted_e, side="left")
     keep = pos < capacity
+    if foreign:
+        keep = keep & (sorted_e < num_experts)
     dest = torch.where(keep, sorted_e * capacity + pos,
                        torch.full_like(pos, num_experts * capacity))
     return order, dest, keep, order // k
 
 
-def moe_ffn(params: MoE, x: torch.Tensor, cfg, capacity: int = 0):
-    """The MoE FFN on ``x`` [T, d]. Returns (y [T, d], aux_loss).
+def _experts(params: MoE, xb: torch.Tensor, cfg) -> torch.Tensor:
+    """The experts' gated FFNs on their capacity buffers [E, cap, d]."""
+    h = torch.bmm(xb, params.wi.to(xb.dtype))  # [E, cap, f]
+    if params.wg is not None:
+        g = torch.bmm(xb, params.wg.to(xb.dtype))
+        act = F.silu(g) if cfg.activation == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, params.wo.to(xb.dtype))
 
-    Each expert processes the first ``capacity`` (default
+
+def moe_ffn_local(params: MoE, x: torch.Tensor, cfg, e_offset: int = 0, mp=None,
+                  capacity: int = 0):
+    """The MoE FFN on ``x`` [T, d] with the experts ``params`` holds (the
+    reference's ``moe_ffn_local``). Returns (y [T, d], aux_loss).
+
+    Off a model axis (``mp`` None) these are all ``E`` experts and ``y`` is
+    the whole output. On one rank of the row ``mp`` they are its ``E_l``
+    from ``e_offset`` (expert-parallel) or all ``E`` at a slice of the
+    hidden width (``e_offset`` 0): pairs routed to other ranks' experts go
+    to the overflow row, and ``y`` is the PARTIAL output the caller's *g*
+    sums. Each expert processes the first ``capacity`` (default
     ``expert_capacity(T)``) of its pairs; pairs beyond it are dropped, so
     their tokens get less than their full gate weight (capacity-factor
     semantics)."""
     t, d = x.shape
-    e = cfg.num_experts
+    e = params.wi.shape[0]
     cap = capacity or expert_capacity(t, cfg)
-    gates, experts, aux = route(params, x, cfg)
-    order, dest, keep, token_of = dispatch(experts, e, cap)
+    gates, experts, aux = route(params, x, cfg)  # the replicated router: global ids
+    if mp is not None:
+        gates, x = copy_to_model(gates, mp), copy_to_model(x, mp)
+        local = experts - e_offset
+        experts = torch.where((local >= 0) & (local < e), local, torch.full_like(local, e))
+    order, dest, keep, token_of = dispatch(experts, e, cap, foreign=mp is not None)
 
     # gather the tokens into the capacity buffer (+1 overflow row, dropped);
     # only the overflow row is written more than once
     xb = x.new_zeros((e * cap + 1, d)).index_copy_(0, dest, x[token_of])
     xb = xb[:e * cap].reshape(e, cap, d)
 
-    h = torch.bmm(xb, params.wi.to(x.dtype))  # [E, cap, f]
-    if params.wg is not None:
-        g = torch.bmm(xb, params.wg.to(x.dtype))
-        act = F.silu(g) if cfg.activation == "swiglu" else F.gelu(g, approximate="tanh")
-        h = act * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    yb = torch.bmm(h, params.wo.to(x.dtype)).reshape(e * cap, d)
+    yb = _experts(params, xb, cfg).reshape(e * cap, d)
 
     # combine: each pair's expert output times its gate (0 when dropped),
     # added to its token. With top-2 a token gets exactly two terms onto a
@@ -115,3 +142,22 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg, capacity: int = 0):
     contrib = yb[dest.clamp(max=e * cap - 1)] * (pair_gate * keep)[:, None]
     y = x.new_zeros((t, d)).index_add_(0, token_of, contrib)
     return y, aux
+
+
+def moe_apply(params: MoE, x: torch.Tensor, cfg, mp=None):
+    """The MoE FFN on ``x`` [T, d] on this rank of the model row ``mp``:
+    ``moe_ffn_local`` then *g* when the experts shard over it, the whole
+    ``moe_ffn`` otherwise (no model axis, or experts that split neither
+    way). Returns (y [T, d], aux)."""
+    layout = None if mp is None else moe_layout(cfg, mp.size)
+    if layout is None:
+        return moe_ffn(params, x, cfg)
+    e_offset = mp.index * params.wi.shape[0] if layout == "ep" else 0
+    y, aux = moe_ffn_local(params, x, cfg, e_offset, mp)
+    return reduce_from_model(y, mp), aux
+
+
+def moe_ffn(params: MoE, x: torch.Tensor, cfg, capacity: int = 0):
+    """The whole MoE FFN on ``x`` [T, d], every expert here:
+    ``moe_ffn_local`` off a model axis. Returns (y [T, d], aux_loss)."""
+    return moe_ffn_local(params, x, cfg, capacity=capacity)

@@ -10,6 +10,14 @@ Decode is the O(1) recurrence: h' = exp(dt·A)·h + dt·(B ⊗ x); y = C·h' + D
 
 Projections are separate matrices (``w_z``/``w_x``/``w_B``/``w_C``/``w_dt``), as
 in the reference; a single B/C group (G=1).
+
+On a model axis whose size divides the heads (``mp``), each rank runs its
+heads: the head-indexed projections and parameters are its shards, the
+input enters through *f*, ``out_proj`` is row-parallel before *g*. B and C
+are shared by every head, so their weights are replicated and read through
+*f* (each rank's heads use them in part). The gated norm's RMS runs over
+the whole ``d_in``: its sum of squares is summed over the model row before
+the rsqrt, forward and backward (``sum_over_model``).
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import ssm_sharded
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, sum_over_model
 
 
 def ssm_dims(cfg):
@@ -155,46 +165,75 @@ def ssd_decode_step(x, dt, a_head, bvec, cvec, state):
 # ---------------------------------------------------------------------------
 
 
-def _project(params: SSM, u: torch.Tensor):
+def _region(cfg, mp):
+    """``mp`` when the SSM's heads split over the model row, else None (the
+    mixer runs whole)."""
+    return mp if mp is not None and ssm_sharded(cfg, mp.size) else None
+
+
+def _shared(params: SSM, mp):
+    """The head-shared B/C weights: ``w_B``, ``w_C``, ``conv_B``,
+    ``conv_bias_B``, ``conv_C``, ``conv_bias_C``; read through *f* on a
+    model row."""
+    names = ("w_B", "w_C", "conv_B", "conv_bias_B", "conv_C", "conv_bias_C")
+    ws = [getattr(params, n) for n in names]
+    return ws if mp is None else [copy_to_model(w, mp) for w in ws]
+
+
+def _project(params: SSM, u: torch.Tensor, w_b, w_c):
     z = u @ params.w_z.to(u.dtype)
     x = u @ params.w_x.to(u.dtype)
-    bmat = u @ params.w_B.to(u.dtype)
-    cmat = u @ params.w_C.to(u.dtype)
+    bmat = u @ w_b.to(u.dtype)
+    cmat = u @ w_c.to(u.dtype)
     dt = u @ params.w_dt.to(u.dtype)
     return z, x, bmat, cmat, dt
 
 
-def _gated_norm(params: SSM, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-6):
+def _gated_norm(params: SSM, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-6,
+                mp=None, d_in: int = 0):
     g = y * F.silu(z)
     g32 = g.float()
-    out = g32 * torch.rsqrt(g32.square().mean(dim=-1, keepdim=True) + eps)
+    if mp is None:
+        ms = g32.square().mean(dim=-1, keepdim=True)
+    else:  # the local channels' sum of squares, over the whole d_in
+        ms = sum_over_model(g32.square().sum(dim=-1, keepdim=True), mp) / d_in
+    out = g32 * torch.rsqrt(ms + eps)
     return (out * params.norm_scale.float()).to(y.dtype)
 
 
-def apply_ssm(params: SSM, u: torch.Tensor, cfg, use_kernel: bool = False) -> torch.Tensor:
+def apply_ssm(params: SSM, u: torch.Tensor, cfg, use_kernel: bool = False,
+              mp=None) -> torch.Tensor:
     """Full-sequence Mamba-2 mixer. u [B,S,d] -> [B,S,d]."""
     b, s, _ = u.shape
-    d_in, nheads, _ = ssm_dims(cfg)
-    z, x, bmat, cmat, dt = _project(params, u)
+    d_in = ssm_dims(cfg)[0]
+    mp = _region(cfg, mp)
+    if mp is not None:
+        u = copy_to_model(u, mp)
+    w_b, w_c, conv_b, bias_b, conv_c, bias_c = _shared(params, mp)
+    z, x, bmat, cmat, dt = _project(params, u, w_b, w_c)
     x = F.silu(causal_conv(x, params.conv_x, params.conv_bias_x))
-    bmat = F.silu(causal_conv(bmat, params.conv_B, params.conv_bias_B))
-    cmat = F.silu(causal_conv(cmat, params.conv_C, params.conv_bias_C))
+    bmat = F.silu(causal_conv(bmat, conv_b, bias_b))
+    cmat = F.silu(causal_conv(cmat, conv_c, bias_c))
     dt = F.softplus(dt.float() + params.dt_bias.float())
     a_head = -torch.exp(params.A_log.float())
-    xh = x.reshape(b, s, nheads, cfg.ssm_head_dim)
+    xh = x.reshape(b, s, -1, cfg.ssm_head_dim)
     if use_kernel:
         y = ssd_scan(xh, dt, a_head, bmat, cmat, chunk=cfg.ssm_chunk)
     else:
         y, _ = ssd_chunked(xh, dt, a_head, bmat, cmat, cfg.ssm_chunk)
     y = y + params.D.to(y.dtype)[None, None, :, None] * xh
-    y = _gated_norm(params, y.reshape(b, s, d_in), z)
-    return y @ params.out_proj.to(u.dtype)
+    y = _gated_norm(params, y.reshape(b, s, -1), z, mp=mp, d_in=d_in)
+    out = y @ params.out_proj.to(u.dtype)
+    return out if mp is None else reduce_from_model(out, mp)
 
 
-def make_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
+def make_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None, mp=None):
     """Decode cache. The conv history starts in ``dtype``; the SSM state stays
-    f32: the recurrence h' = λh + δBx accumulates over the whole context."""
+    f32: the recurrence h' = λh + δBx accumulates over the whole context. On
+    a model row that splits the heads, the rank's channels and heads."""
     d_in, nheads, _ = ssm_dims(cfg)
+    if _region(cfg, mp) is not None:
+        d_in, nheads = d_in // mp.size, nheads // mp.size
     w = cfg.ssm_conv_dim
     return {
         "conv_x": torch.zeros((batch, w - 1, d_in), dtype=dtype, device=device),
@@ -205,22 +244,28 @@ def make_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
     }
 
 
-def apply_ssm_decode(params: SSM, u: torch.Tensor, cache, cfg):
+def apply_ssm_decode(params: SSM, u: torch.Tensor, cache, cfg, mp=None):
     """One-token mixer step. u [B,1,d]; returns (y [B,1,d], new_cache)."""
     b = u.shape[0]
-    d_in, nheads, _ = ssm_dims(cfg)
-    z, x, bmat, cmat, dt = _project(params, u[:, 0, :])
+    d_in = ssm_dims(cfg)[0]
+    mp = _region(cfg, mp)
+    if mp is not None:
+        u = copy_to_model(u, mp)
+    w_b, w_c, conv_b, bias_b, conv_c, bias_c = _shared(params, mp)
+    z, x, bmat, cmat, dt = _project(params, u[:, 0, :], w_b, w_c)
     dtype = u.dtype
     x, conv_x = causal_conv_step(x, cache["conv_x"], params.conv_x, params.conv_bias_x)
-    bmat, conv_b = causal_conv_step(bmat, cache["conv_B"], params.conv_B, params.conv_bias_B)
-    cmat, conv_c = causal_conv_step(cmat, cache["conv_C"], params.conv_C, params.conv_bias_C)
+    bmat, conv_b = causal_conv_step(bmat, cache["conv_B"], conv_b, bias_b)
+    cmat, conv_c = causal_conv_step(cmat, cache["conv_C"], conv_c, bias_c)
     x, bmat, cmat = F.silu(x).to(dtype), F.silu(bmat).to(dtype), F.silu(cmat).to(dtype)
     dt = F.softplus(dt.float() + params.dt_bias.float())
     a_head = -torch.exp(params.A_log.float())
-    xh = x.reshape(b, nheads, cfg.ssm_head_dim)
+    xh = x.reshape(b, -1, cfg.ssm_head_dim)
     y, state = ssd_decode_step(xh, dt, a_head, bmat, cmat, cache["state"].float())
     y = y + params.D.to(y.dtype)[None, :, None] * xh
-    y = _gated_norm(params, y.reshape(b, d_in), z)
+    y = _gated_norm(params, y.reshape(b, -1), z, mp=mp, d_in=d_in)
     out = (y @ params.out_proj.to(u.dtype))[:, None, :]
+    if mp is not None:
+        out = reduce_from_model(out, mp)
     return out, {"conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c,
                  "state": state.to(cache["state"].dtype)}

@@ -9,8 +9,18 @@ mixers, an MoE feed-forward every second layer). The encoder-decoder's
 stacks are ``enc_layers.{i}`` and ``dec_layers.{i}`` in the same way. A VLM
 is a ``Decoder`` fed precomputed patch embeddings (``batch["embeddings"]``,
 the vision frontend is a stub in both packages) and 3-D M-RoPE positions
-(``batch["positions"]`` [B, S, 3]). The reference's sharding hook, remat
-policies and ``scan_layers`` are not ported.
+(``batch["positions"]`` [B, S, 3]). The reference's remat policies and
+``scan_layers`` are not ported.
+
+On a model axis (``StackCtx.mp``, a ``parallel.ModelParallel``) every
+decoder is tensor-parallel under the rule table of ``parallel.sharding``:
+the init draws each full tensor from the generator in the unsharded order
+and keeps the rank's slice (so the sharded model is exactly the unsharded
+model's slices, and the peak is one full layer), the embedding and the head
+are vocab-sharded (``logits_from`` returns the rank's shard of the
+vocabulary), and each mixer and feed-forward runs its shard between *f* and
+*g*. ``Decoder.tp_sharded`` names the sharded parameters. The
+encoder-decoder at M > 1 is ROADMAP Queue 1 item 21's.
 """
 from __future__ import annotations
 
@@ -26,11 +36,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.parallel import global_share
+from repro_torch.parallel.sharding import MODEL_AXIS_ITEM, param_spec, shard_param, vocab_sharded
+from repro_torch.parallel.tensor import copy_to_model
 from repro_torch.models.layers import (
     apply_learned_pos,
     apply_mlp,
     apply_norm,
     embed_init,
+    embed_lookup,
     init_learned_pos,
     init_mlp,
     init_norm,
@@ -40,11 +53,39 @@ from repro_torch.models.layers import (
 @dataclass
 class StackCtx:
     """Forward context: the config, whether the mixers run the hand-written
-    kernels, and the activations' dtype."""
+    kernels, the activations' dtype, and the model-parallel handle of the
+    rank's model row (None at M = 1: the unsharded path)."""
 
     cfg: Any
     use_kernel: bool = False
     compute_dtype: Any = torch.float32
+    mp: Any = None
+
+
+def shard_module_(module: nn.Module, prefix: str, cfg, mp, names=None) -> List[str]:
+    """Replace each parameter of ``module`` (named ``prefix`` + its name in
+    the model; only ``names`` when given) that the rule table shards by this
+    rank's slice of it, the full tensor freed. Returns the model names of
+    the sharded ones."""
+    out = []
+    if mp is None:
+        return out
+    for name, p in list(module.named_parameters()):
+        full_name = prefix + name
+        spec = param_spec(full_name, tuple(p.shape), cfg, mp.size)
+        if "model" not in spec or (names is not None and name not in names):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        setattr(sub, leaf, nn.Parameter(shard_param(p.data, spec, mp).clone()))
+        out.append(full_name)
+    return out
+
+
+def refuse_model_axis(cfg, mp) -> None:
+    if mp is not None:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder on a model axis of "
+                                  f"{mp.size} is not ported yet ({MODEL_AXIS_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -97,26 +138,30 @@ def init_layer(gen: torch.Generator, cfg, i: int) -> Layer:
     return Layer(gen, cfg, i)
 
 
-def _apply_moe(moe_params, h: torch.Tensor, cfg):
+def _apply_moe(moe_params, h: torch.Tensor, cfg, mp=None):
     """The MoE FFN over the ``B * S`` tokens of ``h`` [B, S, d]: the
-    reference's path for one token shard (``dp_shards == 1``, no
-    ``moe_apply``). Its vmap over data shards is what a rank of the port's
-    mesh does by construction, routing only its own tokens; the explicit
-    ``moe_apply`` over the model axis is ROADMAP Queue 1 item 21's."""
+    reference's path for one token shard, and on a model axis its
+    ``moe_apply`` (``moe.moe_apply``). Its vmap over data shards is what a
+    rank of the port's mesh does by construction, routing only its own
+    tokens."""
     b, s, d = h.shape
-    y, aux = moe_lib.moe_ffn(moe_params, h.reshape(b * s, d), cfg)
+    y, aux = moe_lib.moe_apply(moe_params, h.reshape(b * s, d), cfg, mp)
     return y.reshape(b, s, d), aux
 
 
-def _ffn(params: Layer, x: torch.Tensor, cfg):
+def _mlp_mp(cfg, mp):
+    return mp if mp is not None and cfg.d_ff % mp.size == 0 else None
+
+
+def _ffn(params: Layer, x: torch.Tensor, cfg, mp=None):
     """The feed-forward half of a layer: (x, its MoE aux loss, 0 without)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hasattr(params, "norm2"):
         h = apply_norm(params.norm2, x)
         if hasattr(params, "moe"):
-            h, aux = _apply_moe(params.moe, h, cfg)
+            h, aux = _apply_moe(params.moe, h, cfg, mp)
         else:
-            h = apply_mlp(params.mlp, h, cfg.activation)
+            h = apply_mlp(params.mlp, h, cfg.activation, _mlp_mp(cfg, mp))
         x = x + h
     return x, aux
 
@@ -128,10 +173,10 @@ def apply_layer(params: Layer, x: torch.Tensor, i: int, ctx: StackCtx, angles=No
     h = apply_norm(params.norm1, x)
     if hasattr(params, "attn"):
         h = attn.attend_full(params.attn, h, cfg, angles=angles, causal=causal,
-                             use_kernel=ctx.use_kernel)
+                             use_kernel=ctx.use_kernel, mp=ctx.mp)
     else:
-        h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel)
-    return _ffn(params, x + h, cfg)
+        h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel, mp=ctx.mp)
+    return _ffn(params, x + h, cfg, ctx.mp)
 
 
 def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int,
@@ -141,20 +186,22 @@ def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int
     cfg = ctx.cfg
     h = apply_norm(params.norm1, x)
     if hasattr(params, "attn"):
-        h, new_cache = attn.attend_decode(params.attn, h, cache, index, cfg, angles=angles)
+        h, new_cache = attn.attend_decode(params.attn, h, cache, index, cfg, angles=angles,
+                                          mp=ctx.mp)
     else:
-        h, new_cache = ssm_lib.apply_ssm_decode(params.ssm, h, cache, cfg)
-    x, aux = _ffn(params, x + h, cfg)
+        h, new_cache = ssm_lib.apply_ssm_decode(params.ssm, h, cache, cfg, mp=ctx.mp)
+    x, aux = _ffn(params, x + h, cfg, ctx.mp)
     return x, new_cache, aux
 
 
 def init_layer_cache(cfg, i: int, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device=None):
+                     device=None, mp=None):
     """``dtype`` is the attention K/V storage; the SSM conv history starts in
-    bf16 and the SSM state is f32, as in the reference."""
+    bf16 and the SSM state is f32, as in the reference. On a model axis, the
+    rank's heads."""
     if cfg.layer_kind(i) == "attn":
-        return attn.make_kv_cache(cfg, batch, seq_len, dtype, device)
-    return ssm_lib.make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device=device)
+        return attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp)
+    return ssm_lib.make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device=device, mp=mp)
 
 
 # ---------------------------------------------------------------------------
@@ -164,25 +211,33 @@ def init_layer_cache(cfg, i: int, batch: int, seq_len: int, dtype=torch.bfloat16
 
 class Decoder(nn.Module):
     """``embed`` [V, d], ``layers.{i}``, ``final_norm``; ``lm_head`` [V, d]
-    unless the embeddings are tied; ``pos`` for learned positions."""
+    unless the embeddings are tied; ``pos`` for learned positions. With
+    ``mp``, each tensor is drawn whole and cut to the rank's shard at once
+    (``tp_sharded`` names the sharded ones)."""
 
-    def __init__(self, gen: torch.Generator, cfg, max_seq: int):
+    def __init__(self, gen: torch.Generator, cfg, max_seq: int, mp=None):
         super().__init__()
         num_units(cfg)
         self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
-        self.layers = nn.ModuleList(init_layer(gen, cfg, i) for i in range(cfg.num_layers))
+        sharded = shard_module_(self, "", cfg, mp, names=("embed",))
+        self.layers = nn.ModuleList()
+        for i in range(cfg.num_layers):
+            self.layers.append(init_layer(gen, cfg, i))
+            sharded += shard_module_(self.layers[i], f"layers.{i}.", cfg, mp)
         self.final_norm = init_norm(cfg)
         if not cfg.tie_embeddings:
             self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
+            sharded += shard_module_(self, "", cfg, mp, names=("lm_head",))
         if not cfg.use_rope and cfg.family not in ("ssm", "hybrid"):
             self.pos = init_learned_pos(gen, max_seq, cfg.d_model)
+        self.tp_sharded = frozenset(sharded)
 
 
-def init_decoder(gen: torch.Generator, cfg, max_seq: int, device=None) -> Decoder:
+def init_decoder(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> Decoder:
     """Random weights drawn from ``gen`` (a CPU generator, so the same seed
     gives the same model on every device), moved to ``device`` (``None``: the
-    card)."""
-    return Decoder(gen, cfg, max_seq).to(resolve_device(device))
+    card); on a model axis (``mp``), this rank's shards of them."""
+    return Decoder(gen, cfg, max_seq, mp).to(resolve_device(device))
 
 
 def _angles_for(cfg, positions: torch.Tensor):
@@ -198,14 +253,26 @@ def embed_inputs(params: Decoder, batch: Dict[str, torch.Tensor], cfg,
     if "embeddings" in batch:
         x = batch["embeddings"].to(ctx.compute_dtype)
     else:
-        x = params.embed[batch["tokens"].long()].to(ctx.compute_dtype)
+        x = embed_lookup(params.embed, batch["tokens"], vocab_mp(cfg, ctx)).to(
+            ctx.compute_dtype)
     if hasattr(params, "pos"):
         x = apply_learned_pos(params.pos, x)
     return x
 
 
+def vocab_mp(cfg, ctx: StackCtx):
+    """The model row when the vocabulary is sharded over it, else None."""
+    mp = ctx.mp
+    return mp if mp is not None and vocab_sharded(cfg, mp.size) else None
+
+
 def logits_from(params: Decoder, x: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
+    """[..., V] logits, or on a vocab-sharded model row the rank's shard
+    [..., V / M] (``x`` enters through *f*)."""
     table = params.lm_head if hasattr(params, "lm_head") else params.embed
+    mp = vocab_mp(cfg, ctx)
+    if mp is not None:
+        x = copy_to_model(x, mp)
     return x @ table.to(x.dtype).t()
 
 
@@ -241,10 +308,11 @@ def forward_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
 
 
 def init_decoder_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-                       device=None) -> List[Dict[str, torch.Tensor]]:
-    """One cache per layer (the reference stacks them per unit)."""
+                       device=None, mp=None) -> List[Dict[str, torch.Tensor]]:
+    """One cache per layer (the reference stacks them per unit); on a model
+    axis, the rank's heads."""
     device = resolve_device(device)
-    return [init_layer_cache(cfg, i, batch, seq_len, dtype, device)
+    return [init_layer_cache(cfg, i, batch, seq_len, dtype, device, mp)
             for i in range(cfg.num_layers)]
 
 
@@ -314,9 +382,10 @@ class EncDec(nn.Module):
         self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
 
 
-def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None) -> EncDec:
+def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> EncDec:
     """Random weights drawn from ``gen``, moved to ``device`` (``None``: the
-    card)."""
+    card). A model axis over 1 (``mp``) raises: ROADMAP Queue 1 item 21."""
+    refuse_model_axis(cfg, mp)
     return EncDec(gen, cfg, max_seq).to(resolve_device(device))
 
 
@@ -324,6 +393,7 @@ def encode(params: EncDec, frames: torch.Tensor, cfg, ctx: StackCtx) -> torch.Te
     """``frames`` [B, T, d]: precomputed frame embeddings (the conv frontend
     is a stub, as in the reference). Non-causal self-attention through the
     plain path: the reference's encoder runs no kernel."""
+    refuse_model_axis(cfg, ctx.mp)
     x = apply_learned_pos(params.enc_pos, frames.to(ctx.compute_dtype))
     for lp in params.enc_layers:
         x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False)
@@ -377,6 +447,7 @@ def decode_step_encdec(params: EncDec, batch, caches, index: int, cfg, ctx: Stac
     ``index``. The self-attention writes its slot of each cache in place;
     the cross-attention attends to every slot of ``cross_k``/``cross_v``
     (all valid). Returns (logits [B, 1, V], caches)."""
+    refuse_model_axis(cfg, ctx.mp)
     x = params.embed[batch["token"].long()].to(ctx.compute_dtype)
     x = apply_learned_pos(params.dec_pos, x, offset=index)
     scale = cfg.head_dim ** -0.5

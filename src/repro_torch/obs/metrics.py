@@ -59,6 +59,14 @@ def tree_l2(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(floats)))
 
 
+@torch.no_grad()
+def _model_l2(module, mp) -> torch.Tensor:
+    from repro_torch.parallel.tensor import model_sq_norm
+
+    named = {k: p for k, p in module.named_parameters() if p.is_floating_point()}
+    return torch.sqrt(model_sq_norm(named, getattr(module, "tp_sharded", ()), mp))
+
+
 def replay_metrics(valid, new_rows: int) -> Dict[str, torch.Tensor]:
     """The replay's share of one augmented batch: ``valid`` masks the
     consumed representatives, ``new_rows`` counts the incoming rows.
@@ -92,6 +100,7 @@ def step_metrics(
     aux_bytes: Optional[int] = None,
     cfg=None,
     group=None,
+    mp=None,
 ) -> Dict[str, Any]:
     """The gauges of one step, from what the step has in hand. Every
     argument is optional: the keys of what is passed appear. ``grad_norm``
@@ -99,6 +108,8 @@ def step_metrics(
     update; ``cfg`` (an ``ObsConfig``) gates those two gauges. ``group`` (a
     mesh's data group of more than one rank) makes the buffer and replay
     gauges global sums, ``new_rows`` then being the global batch's rows.
+    ``mp`` (a model row) makes ``param_norm`` the whole model's, the squares
+    of ``params.tp_sharded`` summed over the row.
     Call only with the gauges on: the factories guard, so that a step with
     them off launches what it launched before."""
     from repro_torch.buffer import api as buffer_api
@@ -123,7 +134,7 @@ def step_metrics(
         if grad_norm is not None:
             out[PREFIX + "grad_norm"] = grad_norm
         if params is not None:
-            out[PREFIX + "param_norm"] = tree_l2(params)
+            out[PREFIX + "param_norm"] = tree_l2(params) if mp is None else _model_l2(params, mp)
     return out
 
 

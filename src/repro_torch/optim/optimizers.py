@@ -5,7 +5,10 @@ scaling rule (LR x N workers) with the max-LR cap, and global-norm gradient
 clipping. AdamW (the language models' recipe) has b1 0.9, b2 0.95 and eps
 1e-8 fixed, and decoupled weight decay on the f32 parameter, as the
 reference. Parameters are a dict of named tensors
-(``dict(model.named_parameters())``) and are updated in place.
+(``dict(model.named_parameters())``) and are updated in place. On a model
+axis (``mp``) the clip's global norm is the whole model's: the squares of
+the sharded tensors summed over the model row, the replicated ones counted
+once, so every rank of the row scales alike.
 """
 from __future__ import annotations
 
@@ -48,8 +51,19 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
-    norm = global_norm(grads.values())
+def model_global_norm(tensors: Dict[str, torch.Tensor], sharded, mp) -> torch.Tensor:
+    """The global L2 norm of named tensors of which ``sharded`` are this
+    rank's shards on the model row ``mp`` (None: ``global_norm``)."""
+    if mp is None:
+        return global_norm(tensors.values())
+    from repro_torch.parallel.tensor import model_sq_norm
+
+    return torch.sqrt(model_sq_norm(tensors, sharded, mp))
+
+
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float, sharded=(),
+                        mp=None):
+    norm = model_global_norm(grads, sharded, mp)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale for k, g in grads.items()}, norm
 
@@ -61,10 +75,11 @@ def bias_corrections(step: int):
             float(np.float32(1) - np.float32(ADAM_B2) ** t))
 
 
-def make_optimizer(cfg, n_workers: int = 1):
-    """Returns ``(init_fn(params) -> state, update_fn(grads, state, params) ->
-    (params, new_state, metrics))``; ``update_fn`` writes params in place.
-    ``cfg.optimizer`` is ``'sgd'`` or ``'adamw'``."""
+def make_optimizer(cfg, n_workers: int = 1, mp=None):
+    """Returns ``(init_fn(params) -> state, update_fn(grads, state, params,
+    sharded=()) -> (params, new_state, metrics))``; ``update_fn`` writes
+    params in place. ``cfg.optimizer`` is ``'sgd'`` or ``'adamw'``. ``mp``:
+    the model row, whose ``sharded`` parameter names the norm sums over it."""
     if cfg.optimizer not in ("sgd", "adamw"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}; expected sgd|adamw")
     adamw = cfg.optimizer == "adamw"
@@ -77,12 +92,12 @@ def make_optimizer(cfg, n_workers: int = 1):
         return OptState(0, zeros(), zeros() if adamw else {})
 
     @torch.no_grad()
-    def update(grads, state: OptState, params):
+    def update(grads, state: OptState, params, sharded=()):
         grads = {k: g.float() for k, g in grads.items()}
         if cfg.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sharded, mp)
         else:
-            gnorm = global_norm(grads.values())
+            gnorm = model_global_norm(grads, sharded, mp)
         lr = sched(state.step)
         mu, nu = {}, {}
         if adamw:

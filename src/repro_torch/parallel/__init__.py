@@ -1,18 +1,37 @@
-"""Data parallelism over a mesh's ``pod`` and ``data`` axes: the axes, each
-rank's slice of the global batch, and the global token mean of the loss.
+"""Parallelism over a mesh: the data-parallel axes, each rank's slice of the
+global batch and the global token mean of the loss; the Megatron rule table
+over the ``model`` axis (``sharding.param_spec``) and its collectives
+(``tensor``).
 
-The reference's Megatron rules over the ``model`` axis
-(``parallel/sharding.py:35-120``) and its GPipe schedule
-(``parallel/pipeline.py``) are ROADMAP Queue 1 item 21."""
+The reference's GPipe schedule (``parallel/pipeline.py``) is ROADMAP Queue
+1 item 21's."""
 from repro_torch.parallel.sharding import (
+    MODEL_AXIS_ITEM,
+    attention_plan,
     batch_slice,
     dp_axes,
+    dp_group,
     dp_index,
     dp_size,
     global_count,
     global_mean,
     global_share,
+    make_column_groups,
+    model_axis_size,
+    model_group,
+    model_index,
+    model_parallel,
+    model_size,
+    moe_layout,
+    param_spec,
+    shard_param,
+    ssm_sharded,
+    vocab_sharded,
 )
+from repro_torch.parallel.tensor import ModelParallel
 
-__all__ = ["batch_slice", "dp_axes", "dp_index", "dp_size", "global_count", "global_mean",
-           "global_share"]
+__all__ = ["MODEL_AXIS_ITEM", "ModelParallel", "attention_plan", "batch_slice", "dp_axes",
+           "dp_group", "dp_index", "dp_size", "global_count", "global_mean", "global_share",
+           "make_column_groups", "model_axis_size", "model_group", "model_index",
+           "model_parallel", "model_size", "moe_layout", "param_spec", "shard_param",
+           "ssm_sharded", "vocab_sharded"]

@@ -1,11 +1,12 @@
-"""The data-parallel half of the reference's sharding rules.
+"""The reference's sharding rules (``parallel/sharding.py``): data
+parallelism over the mesh's ``pod`` and ``data`` axes, and the Megatron rule
+table over its ``model`` axis.
 
-With the ``model`` axis at 1, every parameter is replicated and every
-batch-like array is split over the data-parallel axes (``pod`` then
-``data``): the reference's ``P(dp)`` layout. Here that is one process per
-device, each holding its contiguous slice ``[w*b, (w+1)*b)`` of the global
-batch, where ``w`` is the rank's linear index over the dp axes (pod major)
-and ``b`` the global batch over the dp size.
+Data parallelism: every batch-like array is split over the data-parallel
+axes (``pod`` then ``data``), the reference's ``P(dp)`` layout. Here that is
+one process per device, each holding its contiguous slice ``[w*b,
+(w+1)*b)`` of the global batch, where ``w`` is the rank's linear index over
+the dp axes (pod major) and ``b`` the global batch over the dp size.
 
 The reference's loss is one mean over the global batch: the sum of every
 valid token's NLL over the count of valid positions, across all workers
@@ -13,16 +14,47 @@ valid token's NLL over the count of valid positions, across all workers
 ``global_mean(group)`` every count a loss divides by (``global_count``) is
 all-reduced over the group first. Each rank's loss is then its share of the
 global mean, the shares sum to it, and so do the gradients: the step
-all-reduces the gradients and the loss by summation.
+all-reduces the gradients and the loss by summation. On a model axis over
+1 the group is the data-parallel ranks of this rank's model column: the M
+ranks of a row compute one loss together, never M.
+
+The model axis (``param_spec``, the reference's table):
+
+  * ``embed`` / ``lm_head`` [V, d]: vocab-sharded, ``('model', None)``;
+  * attention ``wq`` [d, H*hd] and ``wk``/``wv`` [d, KV*hd]: head-sharded
+    ``(None, 'model')``, ``wo`` [H*hd, d] row-parallel ``('model', None)``;
+  * the MLP's ``wi``/``wg`` column-parallel, its ``wo`` row-parallel;
+  * MoE experts [E, d, f]: expert-parallel ``('model', None, None)`` when
+    E % M == 0, else sharded over the hidden width (TP-MoE); the router
+    replicated;
+  * the SSM's head-indexed leaves (``w_z``, ``w_x``, ``w_dt``, ``conv_x``,
+    ``conv_bias_x``, ``A_log``, ``D``, ``dt_bias``, ``norm_scale``) over
+    heads, ``out_proj`` row-parallel, ``w_B``/``w_C`` and their convs
+    replicated;
+  * norms, biases, learned positions: replicated.
+
+One deliberate difference: the port's shards are whole heads. Where the
+reference's spec would split a head across ranks (``wq`` when H % M != 0
+but H*hd % M == 0, ``wk``/``wv`` when KV % M != 0 but KV*hd % M == 0, the
+SSM's leaves when its heads do not divide M), the port replicates that
+block's projections; attention is replicated whole unless each rank's
+query heads read whole KV heads of their own. The numbers are the same,
+only the layout differs. The port has no scan-stacked leaves, so the
+reference's ``stacked_param_spec`` has no counterpart.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Tuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.parallel.tensor import ModelParallel
+
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 21"  # what the model axis still lacks
 
 _STATE = threading.local()
 
@@ -97,3 +129,172 @@ def global_count(count: torch.Tensor) -> torch.Tensor:
     count = count.detach().clone()
     dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
     return count
+
+
+# ---------------------------------------------------------------------------
+# The model axis
+# ---------------------------------------------------------------------------
+
+# this rank's data-parallel group of its model column, by id of a mesh whose
+# model axis is over 1 (the entry goes with the mesh)
+_COLUMNS: Dict[int, object] = {}
+
+
+def model_axis_size(mesh) -> int:
+    names = tuple(mesh.mesh_dim_names)
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def make_column_groups(mesh) -> None:
+    """Make the data-parallel group (pod x data) of every model column of
+    ``mesh``, a ``DeviceMesh`` whose model axis is over 1, on every rank in
+    the same order, and keep this rank's for ``dp_group``."""
+    names, m = tuple(mesh.mesh_dim_names), model_axis_size(mesh)
+    columns = mesh.mesh.movedim(names.index("model"), -1).reshape(-1, m)
+    me = dist.get_rank()
+    for col in columns.t().tolist():
+        group = dist.new_group(col)
+        if me in col:
+            _COLUMNS[id(mesh)] = group if len(col) > 1 else None
+    weakref.finalize(mesh, _COLUMNS.pop, id(mesh), None)
+
+
+def model_group(mesh):
+    """This rank's row of the model axis (None on a model axis of 1)."""
+    if model_axis_size(mesh) == 1:
+        return None
+    return mesh.get_group("model")
+
+
+def dp_group(mesh):
+    """The data-parallel ranks (pod x data) of this rank's model column: the
+    group its gradients, loss and rehearsal exchange run over. None without
+    a process group, or when the column is this rank alone on a model axis
+    over 1 (its reductions are then the identity). On a model axis of 1,
+    the default group when both ``pod`` and ``data`` are present."""
+    if model_axis_size(mesh) > 1:
+        return _COLUMNS[id(mesh)]
+    axes = dp_axes(mesh)
+    group = mesh.get_group(axes[0])
+    if len(axes) > 1 and group is not None:
+        group = dist.group.WORLD
+    return group
+
+
+def model_parallel(mesh) -> Optional[ModelParallel]:
+    """The ``ModelParallel`` handle of this rank's model row, or None on a
+    model axis of 1 (the unsharded path, unchanged)."""
+    m = model_axis_size(mesh)
+    if m == 1:
+        return None
+    return ModelParallel(model_group(mesh), m,
+                         mesh.get_coordinate()[mesh.mesh_dim_names.index("model")])
+
+
+
+def model_size(mp) -> int:
+    """M of a ``ModelParallel`` handle (1 for None)."""
+    return 1 if mp is None else mp.size
+
+
+def model_index(mp) -> int:
+    """This rank's index on the model axis (0 for None)."""
+    return 0 if mp is None else mp.index
+
+
+class HeadPlan(NamedTuple):
+    """The attention heads of one model rank: ``heads`` local query heads
+    (global ``[index*heads, (index+1)*heads)``), ``kv`` local KV heads from
+    global KV head ``kv_first``; ``kv_sharded`` when ``wk``/``wv`` are
+    sharded (else replicated and sliced at use)."""
+
+    heads: int
+    kv: int
+    kv_first: int
+    kv_sharded: bool
+
+
+def attention_plan(cfg, m: int, index: int = 0) -> Optional[HeadPlan]:
+    """The head-granular split of attention over ``m`` ranks, or None when
+    attention is replicated (M = 1, H % M != 0, or local query heads that
+    would read parts of several KV heads). Query head ``h`` reads KV head
+    ``h // (H / KV)``."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if m == 1 or h == 0 or h % m:
+        return None
+    hl, g = h // m, h // kv
+    if kv % m == 0:
+        return HeadPlan(hl, kv // m, index * (kv // m), True)
+    if g % hl == 0:
+        return HeadPlan(hl, 1, index * hl // g, False)
+    return None
+
+
+def ssm_sharded(cfg, m: int) -> bool:
+    """Whether the SSM's heads split over ``m`` ranks."""
+    if m == 1 or not cfg.ssm_state:
+        return False
+    return (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) % m == 0
+
+
+def moe_layout(cfg, m: int) -> Optional[str]:
+    """``'ep'`` (experts over the axis), ``'tp'`` (their hidden width) or
+    None (replicated) for ``m`` ranks."""
+    if m == 1 or not cfg.is_moe:
+        return None
+    if cfg.num_experts % m == 0:
+        return "ep"
+    return "tp" if cfg.d_ff % m == 0 else None
+
+
+def vocab_sharded(cfg, m: int) -> bool:
+    return m > 1 and cfg.vocab_size % m == 0
+
+
+_SSM_HEAD = {"w_z": (None, "model"), "w_x": (None, "model"), "w_dt": (None, "model"),
+             "conv_x": (None, "model"), "conv_bias_x": ("model",), "norm_scale": ("model",),
+             "A_log": ("model",), "D": ("model",), "dt_bias": ("model",),
+             "out_proj": ("model", None)}
+
+
+def param_spec(name: str, shape: Tuple[int, ...], cfg, model_size: int) -> tuple:
+    """The spec of the port's parameter ``name`` (``layers.3.attn.wq``) of
+    full ``shape`` on a model axis of ``model_size``: one entry a dim,
+    ``'model'`` where the dim is sharded, None where it is whole."""
+    rep = (None,) * len(shape)
+    m = model_size
+    if m == 1:
+        return rep
+    parts = name.split(".")
+    leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    if leaf in ("embed", "lm_head") and parent == "":
+        return ("model", None) if vocab_sharded(cfg, m) else rep
+    if parent in ("attn", "cross"):
+        plan = attention_plan(cfg, m)
+        if plan is None or (leaf in ("wk", "wv") and not plan.kv_sharded):
+            return rep
+        return ("model", None) if leaf == "wo" else (None, "model")
+    if parent == "mlp":
+        if shape[-1 if leaf != "wo" else 0] % m:
+            return rep
+        return ("model", None) if leaf == "wo" else (None, "model")
+    if parent == "moe" and leaf != "router":
+        layout = moe_layout(cfg, m)
+        if layout == "ep":
+            return ("model", None, None)
+        if layout == "tp":
+            return (None, "model", None) if leaf == "wo" else (None, None, "model")
+        return rep
+    if parent == "ssm" and leaf in _SSM_HEAD and ssm_sharded(cfg, m):
+        return _SSM_HEAD[leaf]
+    return rep
+
+
+def shard_param(full, spec: tuple, mp):
+    """This rank's slice of ``full`` (a tensor or a numpy array) under
+    ``spec``: a view, or ``full`` itself when nothing is sharded."""
+    for dim, axis in enumerate(spec):
+        if axis == "model":
+            n = full.shape[dim] // mp.size
+            return full[(slice(None),) * dim + (slice(mp.index * n, (mp.index + 1) * n),)]
+    return full

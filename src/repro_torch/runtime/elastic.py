@@ -37,6 +37,7 @@ from repro_torch.buffer.state import BufferState, first_leaf, tree_map
 from repro_torch.buffer.tiered import TieredState, record_spec_of
 from repro_torch.checkpoint.manager import (bucket_pools, deal_index, dealt_counts,
                                             gather_dealt, reshard_buffer)
+from repro_torch.parallel import MODEL_AXIS_ITEM
 from repro_torch.strategy.step import PipelinedRehearsalCarry, TrainCarry
 
 
@@ -173,8 +174,13 @@ def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None) -> Lis
     by tier semantics. The replicated state (model, optimizer, error
     feedback) is rank 0's, the same objects in every new carry; new worker
     w's pending slot is a copy of old rank ``w % N``'s (the ranks share the
-    step's key)."""
+    step's key). Carries of a model axis over 1 (sharded parameters,
+    ``Decoder.tp_sharded``) raise: resharding across M is ROADMAP Queue 1
+    item 21's."""
     c0 = carries[0]
+    if getattr(c0.params, "tp_sharded", None):
+        raise NotImplementedError(f"elastic reshard of tensor-parallel (model-axis) carries "
+                                  f"is not ported yet ({MODEL_AXIS_ITEM})")
     if c0.buffer is None:
         return [c0] * n_new
     if isinstance(c0.buffer, TieredState):

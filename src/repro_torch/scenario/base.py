@@ -4,7 +4,7 @@ A scenario is the single source of truth for the task stream (deterministic
 cursor-resumable ``batch``, per-task ``eval_set``), the record schema
 (``item_spec`` + the ``label_field``/``task_field`` names the buffer buckets
 and masks by), recommended rehearsal defaults, and the model coupling
-(``build_problem(run, device)``). ``ContinualTrainer`` is its consumer.
+(``build_problem(run, device, mp=None)``). ``ContinualTrainer`` is its consumer.
 """
 from __future__ import annotations
 
@@ -78,8 +78,10 @@ class Scenario(abc.ABC):
         return dataclasses.replace(rcfg, **updates) if updates else rcfg
 
     @abc.abstractmethod
-    def build_problem(self, run, device) -> Problem:
-        """Build (init_params, loss, eval) from ``RunConfig`` on ``device``."""
+    def build_problem(self, run, device, mp=None) -> Problem:
+        """Build (init_params, loss, eval) from ``RunConfig`` on ``device``;
+        ``mp`` is this rank's model row (``parallel.ModelParallel``, None at
+        M = 1)."""
 
     @property
     def buffer_task_field(self) -> str:

@@ -71,7 +71,10 @@ class _VisionScenario(Scenario):
     def eval_set(self, task):
         return self.stream.eval_set(task)
 
-    def build_problem(self, run, device) -> Problem:
+    def build_problem(self, run, device, mp=None) -> Problem:
+        """The CNN's problem. On a model axis (``mp``) its weights are
+        replicated, as the reference's rule table leaves convolutions and
+        the head whole: every rank of the row computes the same step."""
         from repro_torch.core.cl_loop import topk_accuracy
         from repro_torch.models.model_zoo import cross_entropy
         from repro_torch.models.resnet import apply_cnn, cnn_outputs, init_cnn
@@ -187,9 +190,10 @@ class BlurryBoundary(_VisionScenario):
 FAMILY_FIELDS = {"encdec": ("frames",), "vlm": ("embeddings", "positions")}
 
 
-def build_token_lm(run, vocab_size: int):
+def build_token_lm(run, vocab_size: int, mp=None):
     """The token scenarios' LM and its forward contexts from a ``RunConfig``:
-    ``(model, ctx, eval_ctx)``. ``ctx`` computes in the run's compute dtype
+    ``(model, ctx, eval_ctx)``, both on the model row ``mp`` (None: the
+    unsharded model). ``ctx`` computes in the run's compute dtype
     (``run.train.compute_dtype``) through the plain mixers, as the
     reference trains (it has no backward kernel); ``eval_ctx`` computes in
     f32. Without ``run.model`` the model is the reduced SmolLM-135M, 2
@@ -212,8 +216,8 @@ def build_token_lm(run, vocab_size: int):
             f"{' and '.join(FAMILY_FIELDS[cfg.family])}; the token scenarios' records hold "
             f"tokens, labels and the task only")
     dtype = torch.float32 if run.train.compute_dtype == "float32" else torch.bfloat16
-    return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype),
-            StackCtx(cfg=cfg, compute_dtype=torch.float32))
+    return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype, mp=mp),
+            StackCtx(cfg=cfg, compute_dtype=torch.float32, mp=mp))
 
 
 class _TokenScenario(Scenario):
@@ -244,11 +248,11 @@ class _TokenScenario(Scenario):
     def _eval_metric(self, lm, model, ev, eval_ctx) -> float:
         """The accuracy-matrix entry of one eval set ``ev`` (on the device)."""
 
-    def build_problem(self, run, device) -> Problem:
-        lm, ctx, eval_ctx = build_token_lm(run, self.stream.cfg.vocab_size)
+    def build_problem(self, run, device, mp=None) -> Problem:
+        lm, ctx, eval_ctx = build_token_lm(run, self.stream.cfg.vocab_size, mp)
 
         def init_params_fn(seed: int):
-            return lm.init(torch.Generator().manual_seed(seed), self.seq_len, device)
+            return lm.init(torch.Generator().manual_seed(seed), self.seq_len, device, mp)
 
         def loss_fn(model, batch):
             loss, _ = lm.loss(model, batch, ctx)

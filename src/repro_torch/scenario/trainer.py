@@ -22,10 +22,11 @@ plain mixers with autograd. The buffer buckets by the scenario's
 while the loss reads ``"labels"``).
 
 With ``mesh`` (``launch.mesh.make_mesh``), the trainer is one rank of a
-data-parallel run: the mesh backend (``launch.steps.build_train_step``, the
-reference's pjit route) steps this rank's buffer, pending slot and slice of
-the global batch, with the exchange over the mesh's group and the gradients
-summed over every rank. Every rank runs the same ``fit``.
+data- and tensor-parallel run: the mesh backend
+(``launch.steps.build_train_step``, the reference's pjit route) steps this
+rank's shard of the model, its buffer, pending slot and slice of the global
+batch, with the exchange over its model column's data-parallel ranks and
+the gradients summed over them. Every rank runs the same ``fit``.
 
 ``run.obs`` (``ObsConfig``) turns the telemetry on: the steps' ``obs/*``
 gauges in the history and in ``CLRunResult.obs``, and with ``run.obs.dir``
@@ -75,7 +76,8 @@ class ContinualTrainer:
       exchange: the rehearsal exchange (full | pod_local | local).
       ckpt_every: the mesh backend also saves every ``ckpt_every`` steps
         (0: after every task only), as ``step_<global step>``; each rank of
-        an N-rank run saves under ``ckpt_dir/rank_<dp index>``.
+        an N-rank run saves under ``ckpt_dir/rank_<dp index>``, or on a
+        model axis over 1 ``ckpt_dir/rank_<dp index>_<model index>``.
       resilience: a ``ResilienceConfig`` (or None; ``run.resilience`` is the
         config-file spelling) runs each task's steps in a
         ``runtime.ResilientLoop``: periodic full-carry checkpoints under
@@ -85,7 +87,8 @@ class ContinualTrainer:
         step only). Needs ``ckpt_dir`` and ``step_form='fused'``. On a mesh
         of more than one worker each rank's loop keeps its checkpoints under
         ``ckpt_dir/rank_<dp index>/resilient``, and the ranks agree on every
-        restart over the data group (``ResilientLoop(group=...)``).
+        restart over the data group (``ResilientLoop(group=...)``). On a
+        model axis over 1 it raises (ROADMAP Queue 1 item 21).
       overrides: ``{"failure_hook": fn}``, the chaos injection point: called
         with the absolute step id before each resilient step.
     Without a mesh the trainer is one process, so the rehearsal exchange
@@ -115,9 +118,19 @@ class ContinualTrainer:
             raise ValueError("resilience= needs step_form='fused': the split form's two "
                              "halves have no single step the ResilientLoop can retry "
                              "atomically")
+        mp = None
+        if mesh is not None:
+            from repro_torch.parallel import MODEL_AXIS_ITEM, model_axis_size, model_parallel
+
+            if self.resilience is not None and model_axis_size(mesh) > 1:
+                raise NotImplementedError(
+                    f"resilience= on a model axis of {model_axis_size(mesh)}: the agreed "
+                    f"restarts span the data-parallel ranks only; not ported yet "
+                    f"({MODEL_AXIS_ITEM})")
+            mp = model_parallel(mesh)
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
-        self.mesh, self.exchange = mesh, exchange
+        self.mesh, self.exchange, self.mp = mesh, exchange, mp
         self.device = resolve_device(device)
         self.run = run
 
@@ -148,7 +161,7 @@ class ContinualTrainer:
         self.rcfg = rcfg
         self.label_field = resolve_field(self.scenario.label_field, rcfg,
                                          "label_field", "label")
-        problem = self.scenario.build_problem(run, self.device)
+        problem = self.scenario.build_problem(run, self.device, mp)
         self.init_params_fn = problem.init_params_fn
         self.loss_fn = problem.loss_fn
         self.eval_fn = problem.eval_fn
@@ -279,11 +292,15 @@ class ContinualTrainer:
 
     def _rank_dir(self) -> str:
         """This rank's checkpoint directory: ``ckpt_dir``, or
-        ``ckpt_dir/rank_<dp index>`` on a mesh of more than one worker."""
-        if self.built is None or self.built.meta["n_dp"] == 1:
-            return self.ckpt_dir
+        ``ckpt_dir/rank_<dp index>`` on a mesh of more than one worker, or
+        ``ckpt_dir/rank_<dp index>_<model index>`` on a model axis over 1
+        (each rank of a model row holds its own shards)."""
         from repro_torch.parallel import dp_index
 
+        if self.mp is not None:
+            return os.path.join(self.ckpt_dir, f"rank_{dp_index(self.mesh)}_{self.mp.index}")
+        if self.built is None or self.built.meta["n_dp"] == 1:
+            return self.ckpt_dir
         return os.path.join(self.ckpt_dir, f"rank_{dp_index(self.mesh)}")
 
     def _resilient_loop(self, step_fn, stale_step_fn=None):

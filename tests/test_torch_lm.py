@@ -278,7 +278,9 @@ def test_serve_is_reproducible_from_its_seed():
     assert torch.equal(serve.main(argv).tokens, serve.main(argv).tokens)
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "2x2"], "item 21")])
+@pytest.mark.parametrize("flags,item", [(["--arch", "whisper-tiny", "--mesh", "2x2"], "item 21")])
 def test_serve_rejects_what_is_not_ported(flags, item):
+    """``--mesh DxM`` serves the decoders now; the encoder-decoder on a
+    model axis over 1 is not ported yet."""
     with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
         serve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu"] + flags)

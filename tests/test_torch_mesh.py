@@ -98,9 +98,10 @@ def test_one_worker_mesh_needs_no_group():
     lambda: tmesh.make_mesh((16, 16), ("data", "model")),
     lambda: tmesh.make_mesh((2, 16, 16), ("pod", "data", "model"))])
 def test_a_model_axis_raises_naming_item_21(make):
-    """A model axis over 1, the reference's production layouts included,
-    raises before it asks for a process group."""
-    with pytest.raises(NotImplementedError, match="item 21"):
+    """A model axis over 1 runs now (item 21's tensor parallelism): like any
+    mesh of more than one rank, the reference's production layouts
+    included, it needs a process group, and without one it says so."""
+    with pytest.raises(RuntimeError, match="process group"):
         make()
 
 
