@@ -51,11 +51,9 @@ Phases (any failure exits non-zero):
  13. the split pipelined step (run after phase 7, with TF32 still on):
      ``ContinualTrainer(step_form='split')`` on phase 5's flat and phase 7's
      unfused tiered configuration, the issue half on its own CUDA stream;
-     fingerprints and launches equal to the fused runs', then the flat
-     step's two forms profiled (``repro_torch.profile_main_path``, one
-     process each, so that no profiler session runs in this one): median
-     step, idle share, the stream each kernel ran on, and the issue half's
-     time during the train half's kernels.
+     fingerprints and launches equal to the fused runs', and both forms'
+     median steps (their profiles, ``repro_torch.profile_main_path``, run
+     apart from the script, for time).
  14. strategies and policies on the main path (after phase 13, TF32 on):
      ``ContinualTrainer`` on phase 5's configuration with der_pp (dense
      logits, flat), der with top_k 8 on phase 7's tiered store (unfused,
@@ -80,7 +78,8 @@ Phases (any failure exits non-zero):
  18. the resilient main path (after phase 17, TF32 on), in deterministic
      mode (cuDNN and PyTorch deterministic, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``;
      ops without a deterministic implementation are reported), checkpoints
-     in temporary directories deleted after each run: (a) phase 5's flat
+     in temporary directories deleted after each run, the buffers cut to 4
+     x 100 flat and 4 x 200 cold slots for time: (a) phase 5's flat
      configuration with ``ResilienceConfig(checkpoint_every=3,
      max_restarts=2)``, a clean run and one with a failure injected before
      step 5: restarts 0 and 1, histories, losses, accuracy matrices and final
@@ -214,10 +213,11 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      of every kernel, decode over the encoder's output against the
      teacher-forced decoder, ``serve.main`` at full width; then
      ``launch.train.main(["--arch", ...])`` at the CLI's defaults, 2 x 4
-     steps, on Mixtral-8x7B and Phi-3.5-MoE cut to 1 layer at the published
-     widths and on Jamba-v0.1 reduced: finite losses, one update+sample
-     launch a step and no other kernel, and two backward passes of one batch
-     bit for bit in deterministic mode.
+     steps, on Mixtral-8x7B cut to 1 layer at the published widths and on
+     Jamba-v0.1 reduced (Phi-3.5-MoE, whose MoE path is Mixtral's, is
+     served in phase 21 and not trained here, for time): finite losses, one
+     update+sample launch a step and no other kernel, and two backward
+     passes of one batch bit for bit in deterministic mode.
  23. the model axis on one card (after phase 22, TF32 off): flash attention
      at one rank's share of Mixtral-8x7B's prefill at M = 2 (H 16, KV 4) and
      the SSD scan at Mamba2-370M's 16 local heads, f32 and bf16, against
@@ -240,6 +240,27 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      whose collective fails fails the phase. Times are those of one card
      shared by 2 processes over gloo, not of tensor parallelism across
      cards.
+ 24. the train step's memory knobs (after phase 23, TF32 off): (a) one
+     train step of SmolLM-135M whole, B 4 x S 2048, f32, in deterministic
+     mode under each of ``TrainConfig.remat`` none, dots and full: the loss
+     and every gradient bit for bit across them, each one's median step and
+     peak memory (full must hold less above the weights than dots, and dots
+     less than none); then
+     two processes over gloo on cuda:0: (c) on a 1 x 2 mesh,
+     ``build_prefill_step`` with ``sequence_parallel`` off and on for
+     phase 23's Mixtral-8x7B (2 layers, B 1 x S 8192) and Mamba2-370M (B 4
+     x S 2048), f32 and bf16, routing pinned to the run without: the logits
+     within phase 11's bounds of the run without, the same flash and scan
+     launches (2, and 48 x 3, a rank), each one's peak; (b) on a 2 x 1 mesh,
+     ``ContinualTrainer`` on the train CLI's run of Mamba2-370M whole, 4
+     steps f32 in deterministic mode, without and with ``zero1``, the
+     gradient clip off and then on: each rank's moment bytes (their numel
+     x 4) halved but for the 1-D leaves the rule leaves whole, its peak,
+     one update+sample launch a step per rank, every parameter bit for bit
+     on both ranks; clip off, the run without's bit for bit; clip on (its
+     norm sums the slices in another order), each step's ``obs/grad_norm``
+     within 1e-6 of the run without's, and the leaf farthest from it named
+     with AdamW's second moment there.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -285,6 +306,10 @@ BATCH, REPS, CANDS, SLOTS = 16, 2, 4, 500  # b, r, c per worker; slots per bucke
 # The tiered store's cuts: 4 hot slots per bucket only so that 8 steps
 # overflow the hot tier and demote; a stage of 2c rows (the default).
 BUCKETS, HOT, COLD, STAGE = 4, 4, 1000, 2 * CANDS
+# Phase 18's buffers, for time: 4 x 100 flat slots and 4 x 200 cold slots
+# (its checkpoints about 0.5 GB flat, 0.3 GB tiered, where phase 5's sizes
+# gave 1.41 and 0.82 GB).
+RES_SLOTS, RES_COLD = 100, 200
 # The LM path: prefill of B sequences of S tokens at full width; serving at
 # the reference CLI's defaults. Widths and depths are the published ones.
 LM_ARCHS = ("smollm-135m", "mamba2-370m", "stablelm-3b", "gemma-2b")
@@ -1424,34 +1449,14 @@ def tiered_main_path(counters, cfg, fused: bool, seed: int = 0, step_form: str =
 # ---------------------------------------------------------------------------
 
 
-def profile_subprocess(tiered: bool, split: bool) -> dict:
-    """``repro_torch.profile_main_path`` in a process of its own (its
-    profiler session cannot touch the later phases' host times); prints its
-    report and returns its JSON."""
-    import tempfile
-    flags = (["--tiered"] if tiered else []) + (["--split"] if split else [])
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "profile.json")
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.profile_main_path", "--steps", "6",
-             "--warmup", "3", "--out", path, *flags], capture_output=True, text=True,
-            timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-        print(proc.stdout, end="")
-        if proc.returncode != 0:
-            raise AssertionError(f"profile_main_path {flags} exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        with open(path) as f:
-            return json.load(f)
-
-
 def split_phase(counters, cfg, fused_runs: dict):
     """``ContinualTrainer(step_form='split')`` on the configurations of phases
     5 and 7 (flat, and tiered unfused): the histories of ``rep_checksum``
     and ``buffer_fill`` must equal the fused runs' (``fused_runs``, from
     phases 5 and 7 when they ran, else run here), with the same launch
-    counts. Then the profiled step (``repro_torch.profile_main_path``) of
-    both forms: median step, idle share, and on which stream the issue
-    half's kernels ran and how much of them ran during the train half's."""
+    counts, and the two forms' median steps. The profiles of both forms
+    (``repro_torch.profile_main_path --split``) run apart from the script,
+    for time; the ``cuda`` tests hold the split halves' streams."""
     def run(tiered: bool, step_form: str):
         if tiered:
             return tiered_main_path(counters, cfg, False, step_form=step_form)
@@ -1469,28 +1474,7 @@ def split_phase(counters, cfg, fused_runs: dict):
         steps_ms[name] = (fused[2], split[2])
         print(f"{name}: split == fused fingerprints over {len(split[1])} steps, launches "
               f"{split[0]}; median step fused {fused[2]:.1f} ms, split {split[2]:.1f} ms")
-    # the flat step's profiles only: the tiered pair's took about 60 s a
-    # process of the script's 1200 (PERF.md section 5 keeps their last
-    # reading)
-    profiles = {}
-    for name, tiered in (("flat", False),):
-        for form in ("fused", "split"):
-            out = profile_subprocess(tiered, form == "split")
-            st = out["streams"]
-            on_train = st["buffer_kernel_streams"] == [st["train_stream"]]
-            if not st["buffer_kernel_streams"] or on_train != (form == "fused"):
-                raise AssertionError(f"{name} {form}: update+sample ran on streams "
-                                     f"{st['buffer_kernel_streams']}, the train stream is "
-                                     f"{st['train_stream']}")
-            profiles[(name, form)] = out
-            torch.cuda.empty_cache()
-    for name in ("flat",):
-        f, sp = profiles[(name, "fused")], profiles[(name, "split")]
-        print(f"{name}: trainer median step fused {steps_ms[name][0]:.1f} ms, split "
-              f"{steps_ms[name][1]:.1f} ms; profiled step wall fused "
-              f"{f['wall_ms_per_step']:.2f} ms, split {sp['wall_ms_per_step']:.2f} ms; idle "
-              f"share fused {f['device_idle_share']:.4f}, split {sp['device_idle_share']:.4f}")
-    return steps_ms, profiles
+    return steps_ms
 
 
 # ---------------------------------------------------------------------------
@@ -3289,16 +3273,19 @@ def resilient_phase(counters, cfg, fused_runs: dict):
 
     print(f"card: {gpu_name_and_power()}; free disk under {tempfile.gettempdir()}: "
           f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f} GB (a flat checkpoint "
-          f"is about 1.3 GB, and a run keeps up to 3 + {TASKS_RUN})")
+          f"is about 0.5 GB, and a run keeps up to 3 + {TASKS_RUN}); buffers cut to "
+          f"{BUCKETS} x {RES_SLOTS} flat and {BUCKETS} x {RES_COLD} cold slots")
     print(f"retried: {[e.__name__ for e in TRANSIENT_EXCEPTIONS]}")
     base = fused_runs.get("flat")
     base_ms = f"{base[2]:.1f} ms" if base else "not run"
     launches = {}
+    res_flat = dict(FLAT, slots_per_bucket=RES_SLOTS)
     with deterministic_mode() as caught:
         flat, flat_ms, launches["flat_clean"], launches["flat_failed"] = resilient_case(
-            counters, cfg, "(a) flat", FLAT, (), base_ms)
+            counters, cfg, "(a) flat", res_flat, (), base_ms)
         tiered, _, launches["tiered_fused_clean"], launches["tiered_fused_failed"] = \
-            resilient_case(counters, cfg, "(b) tiered, fused kernels", tiered_rehearsal(True),
+            resilient_case(counters, cfg, "(b) tiered, fused kernels",
+                           dict(tiered_rehearsal(True), cold_slots=RES_COLD),
                            ("gather_dequant_rows", "encode_scatter_rows"), base_ms)
         if not all(t.is_pinned() for leaf in tiered.buffer.cold.data.values()
                    for t in leaf.values()):
@@ -3306,7 +3293,7 @@ def resilient_phase(counters, cfg, fused_runs: dict):
         print("(b): the restored cold tier is in pinned memory")
         stale = ResilienceConfig(checkpoint_every=RES_EVERY, max_restarts=2,
                                  straggler_delay_prob=0.5, max_staleness=2)
-        result, launches["stale"], _, wall, _, _ = resilient_fit(counters, cfg, FLAT, stale,
+        result, launches["stale"], _, wall, _, _ = resilient_fit(counters, cfg, res_flat, stale,
                                                                  tasks=1)
         n_stale, fresh = (int(result.resilience_stats["stale_steps"]),
                           launches["stale"]["rehearsal_update_sample"])
@@ -4197,13 +4184,12 @@ def moe_phase(counters, fa, ssd, ref):
 # Qwen2-VL-72B at its published width cut to 4 of 80 layers (6.0 B parameters,
 # 24 GB f32: the whole model is 288 GB); Whisper-tiny whole, at its published
 # context of 1500 encoder frames and 448 decoder tokens; training cuts
-# Mixtral-8x7B and Phi-3.5-MoE to 1 layer each at their published widths
-# (1.71 and 1.57 B parameters, about 28 B a parameter at AdamW's peak) and
-# runs Jamba-v0.1 reduced (one full-width unit is 13.3 B parameters, 370 GB
+# Mixtral-8x7B to 1 layer at its published widths (1.71 B parameters,
+# about 28 B a parameter at AdamW's peak) and runs Jamba-v0.1 reduced (one full-width unit is 13.3 B parameters, 370 GB
 # under AdamW).
 VLM_ARCH, VLM_LAYERS, VLM_SEED = "qwen2-vl-72b", 4, 22
 WHISPER_B, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
-TRAIN_CUTS = {"mixtral-8x7b": 1, "phi3.5-moe-42b-a6.6b": 1, "jamba-v0.1-52b": 0}  # 0: reduced
+TRAIN_CUTS = {"mixtral-8x7b": 1, "jamba-v0.1-52b": 0}  # 0: reduced
 TRAIN_TASKS, TRAIN_STEPS = 2, 4
 
 
@@ -4434,8 +4420,7 @@ def backward_bits(arch: str, seed: int = 23):
 
 def encdec_vlm_phase(counters, fa, ssd, ref):
     """Phase 22: flash at the VLM's G = 8 shape; Qwen2-VL-72B (4 layers) and
-    Whisper-tiny served; Mixtral-8x7B, Phi-3.5-MoE (1 layer each) and Jamba
-    (reduced) trained through the train CLI, each with its repeated backward
+    Whisper-tiny served; Mixtral-8x7B (1 layer) and Jamba (reduced) trained through the train CLI, each with its repeated backward
     held bit for bit. Returns (launches per forward by arch, the flash
     entry's update, the training runs' launches by name)."""
     flash = vlm_kernel_shape(fa, ref)
@@ -4836,10 +4821,351 @@ def model_axis_phase(counters, fa, ssd, ref):
                          if v["rehearsal_update_sample"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the train step's memory knobs (remat, ZeRO-1, sequence parallelism)
+# ---------------------------------------------------------------------------
+
+MK_REMAT = ("smollm-135m", 4, 2048)  # arch, B, S
+MK_POLICIES = ("none", "dots", "full")
+MK_ZERO1 = ("mamba2-370m", 4)  # arch, steps (the train CLI's run, 1 task)
+MK_SEED = 29
+
+
+def remat_policies(counters):
+    """(a) One train step (forward and backward of the LM loss) of
+    SmolLM-135M whole at B 4 x S 2048, f32, under each checkpoint policy in
+    deterministic mode: the loss and every gradient bit for bit across the
+    policies, each policy's median step and the peak device memory above
+    the weights. Training runs the plain mixers: no kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import StackCtx
+
+    arch, b, s = MK_REMAT
+    cfg = get_config(arch)
+    model, params, n = draw_on_card(cfg, s, MK_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(MK_SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), device="cuda", generator=gen)
+             for k in ("tokens", "labels")}
+    out, want = {}, None
+    with deterministic_mode() as caught:
+        for policy in MK_POLICIES:
+            ctx = StackCtx(cfg=cfg, remat=policy)
+
+            def step():
+                params.zero_grad(set_to_none=True)
+                loss, _ = model.loss(params, batch, ctx)
+                loss.backward()
+                return loss
+
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            loss, launches, peak = _counted_call(step, counters)
+            grads = {k: p.grad for k, p in params.named_parameters()}
+            if want is None:
+                want = (loss.detach().clone(), {k: g.clone() for k, g in grads.items()})
+            differ = [k for k, g in grads.items() if not same_bits(g, want[1][k])]
+            if not same_bits(loss.detach(), want[0]) or differ or not math.isfinite(float(loss)):
+                raise AssertionError(f"{arch} remat {policy}: loss {float(loss)} against "
+                                     f"{float(want[0])}; gradients differ: {differ[:5]}")
+            if any(launches.values()):
+                raise AssertionError(f"{arch} remat {policy}: launches {launches}")
+            ms = _timed_call(step, reps=4) * 1e3
+            out[policy] = {"ms": ms, "peak": peak, "above_weights": peak - base}
+            print(f"{arch} ({n / 1e6:.1f} M parameters) train step B {b} x S {s} f32, remat "
+                  f"{policy}: loss {float(loss):.6f}, bit for bit the first policy's with "
+                  f"every gradient; median step {ms:.1f} ms; peak device memory "
+                  f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the weights "
+                  f"and gradients held before the step)")
+    params.zero_grad(set_to_none=True)
+    del model, params, want, grads
+    torch.cuda.empty_cache()
+    if caught:
+        print(f"deterministic-mode warnings: {sorted({str(w.message)[:80] for w in caught})}")
+    return out
+
+
+def mk_prefill(counters, mesh, arch: str, layers: int, b: int, s: int) -> dict:
+    """(c) One rank's prefill through ``build_prefill_step`` with
+    ``sequence_parallel`` off then on, f32 then bf16, its weights drawn on
+    the card from MA_SEED and cut to its shards, routing pinned to the f32
+    run without: the logits against the run without within phase 11's
+    bounds (f32: 1e-4 of the largest |logit| + 1e-5; bf16: against the f32
+    run without, twice the bf16 run without's error + 1e-3 of the largest
+    |logit|), the same launches, and each call's peak above the memory held
+    before it."""
+    from repro_torch.configs.base import RunConfig, ScenarioConfig, TrainConfig
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.testdata import routing
+
+    cfg = _ma_cfg(arch, layers)
+    toks = {"tokens": _ma_tokens(cfg, b, s)}
+    n_attn, n_ssm, _ = _mixers(cfg)
+    expect = dict({k: 0 for k in counters}, flash_attention=n_attn, ssd_scan=n_ssm * 3)
+    out, params, f32_off, pins = {}, None, None, None
+    for dtype in ("float32", "bfloat16"):
+        got, ms = {}, {}
+        for sp in (False, True):
+            built = build_prefill_step(RunConfig(
+                model=cfg, train=TrainConfig(compute_dtype=dtype, sequence_parallel=sp),
+                scenario=ScenarioConfig(modality="tokens", batch_size=b, seq_len=s)), mesh)
+            mp = built.ctx.mp
+            if params is None:
+                with torch.device("cuda"):
+                    params = built.model.init(
+                        torch.Generator(device="cuda").manual_seed(MA_SEED), s, "cuda", mp)
+            torch.cuda.synchronize()
+            held, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+            with routing(pins) as seen:
+                logits, launches, peak = _counted_call(lambda: built.fn(params, toks), counters)
+            ms[sp] = (time.perf_counter() - t0) * 1e3
+            pins, peak = (pins if pins is not None else seen), peak - held
+            if launches != expect:
+                raise AssertionError(f"{arch} rank {mp.index} {dtype} sp={sp}: launches "
+                                     f"{launches}, want {expect}")
+            got[sp] = (logits, launches, peak)
+        if f32_off is None:
+            f32_off = got[False][0].float()
+        scale = float(f32_off.abs().max())
+        if dtype == "float32":
+            tol = 1e-4 * scale + 1e-5
+            want = got[False][0]
+        else:
+            tol = 2 * abs_err(got[False][0].float(), f32_off) + 1e-3 * scale
+            want = f32_off
+        err = close(got[True][0].float(), want.float(), tol, 0.0,
+                    f"{arch} rank {mp.index} {dtype} sequence-parallel vs not")
+        key = "f32" if dtype == "float32" else "bf16"
+        out[key] = {"err": err, "tol": tol, "bits": same_bits(got[True][0], got[False][0]),
+                    "launches": got[True][1], "peak_off": got[False][2], "peak_on": got[True][2],
+                    "ms_off": ms[False], "ms_on": ms[True]}
+        del got
+    del params, f32_off
+    torch.cuda.empty_cache()
+    return out
+
+
+def mk_zero1(counters, mesh) -> dict:
+    """(b) ``ContinualTrainer(mesh=2x1)`` on the train CLI's run of
+    Mamba2-370M whole (1 task of MK_ZERO1 steps, f32), without then with
+    ``zero1``, in deterministic mode, first with the gradient clip off and
+    then on (the run's own clip, the obs gauges on for each step's
+    ``obs/grad_norm``): each run's moment bytes on this rank, its peak, its
+    update+sample launches, and the parameters' digests (the parent
+    compares the ranks and the runs) and largest gap from the run without.
+    Clip off, the runs are the same bit for bit: on 2 ranks a
+    reduce-scatter is the all-reduce's sum. Clip on, the norm sums each cut
+    parameter's slices first, another order: the step's norms agree within
+    rounding, and the leaf whose parameters end farthest from the run
+    without is reported with what AdamW's second moment says of its
+    gradient there."""
+    import hashlib
+
+    from repro_torch.configs.base import ObsConfig
+    from repro_torch.optim.optimizers import lr_schedule, zero1_dims
+    from repro_torch.parallel import Zero1
+    from repro_torch.scenario import ContinualTrainer
+
+    arch, steps = MK_ZERO1
+    out, base = {}, {}
+    with deterministic_mode():
+        for clip in (False, True):
+            for zero1 in (False, True):
+                run = lm_cli_run(arch, steps=steps, tasks=1)
+                train = dataclasses.replace(run.train, zero1=zero1,
+                                            grad_clip=run.train.grad_clip if clip else 0.0)
+                run = dataclasses.replace(run, train=train, obs=ObsConfig(enabled=clip))
+                trainer = ContinualTrainer(run, device="cuda", mesh=mesh, exchange="full")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                _zero(counters)
+                result = trainer.fit()
+                launches = _read(counters)
+                peak = torch.cuda.max_memory_allocated()
+                params, opt = trainer.final_state[0], trainer.final_state[1]
+                named = {k: p.detach() for k, p in params.named_parameters()}
+                moments = [t for m in (opt.mu, opt.nu) for t in m.values()]
+                cut = zero1_dims(named, Zero1(None, mesh.size(0), 0), params.layout_specs)
+                digest = hashlib.sha256()
+                for k in sorted(named):
+                    digest.update(named[k].cpu().numpy().tobytes())
+                entry = {"losses": result.losses, "launches": launches, "peak": peak,
+                         "clip": train.grad_clip,
+                         "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+                         "param_bytes": sum(p.numel() * 4 for p in named.values()),
+                         # both moments, f32: a cut parameter's slice, the rest whole
+                         "moment_bytes_rule": 8 * sum(
+                             p.numel() // (mesh.size(0) if zero1 and k in cut else 1)
+                             for k, p in named.items()),
+                         "digest": digest.hexdigest(), "meta": trainer.built.meta["zero1"],
+                         "step_ms": statistics.median(result.step_seconds) * 1e3,
+                         "grad_norms": [h["obs/grad_norm"] for h in result.history] if clip
+                         else []}
+                if not zero1:
+                    base = {"params": {k: p.cpu() for k, p in named.items()},
+                            "nu": {k: t.cpu() for k, t in opt.nu.items()}}
+                else:
+                    gaps = {k: float((p.cpu() - base["params"][k]).abs().max())
+                            / max(float(base["params"][k].abs().max()), 1e-30)
+                            for k, p in named.items()}
+                    leaf = max(gaps, key=gaps.get)
+                    delta = (named[leaf].cpu() - base["params"][leaf]).abs()
+                    at = int(delta.reshape(-1).argmax())
+                    rms = base["nu"][leaf].sqrt().reshape(-1)  # |gradient|, AdamW's view
+                    entry.update(rel_gap=gaps[leaf], leaf=leaf, leaf_shape=list(delta.shape),
+                                 gap_abs=float(delta.reshape(-1)[at]),
+                                 moved=int((delta > 1e-6 * float(
+                                     base["params"][leaf].abs().max())).sum()),
+                                 rms_at=float(rms[at]), rms_median=float(rms.median()),
+                                 rms_max=float(rms.max()),
+                                 lr_sum=sum(lr_schedule(train, mesh.size(0))(t)
+                                            for t in range(steps)))
+                out[("zero1" if zero1 else "base") + ("_clip" if clip else "")] = entry
+                del trainer, result, params, opt, named, moments
+                torch.cuda.empty_cache()
+    return out
+
+
+def memory_knob_rank(tmp: str):
+    """One rank of phase 24's two (``runtime.multiproc`` starts it): joins
+    the gloo group on cuda:0, runs (c) on a 1 x 2 mesh and (b) on a 2 x 1
+    mesh, and writes its results to ``tmp/rank<i>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rehearsal_ops as ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.init_from_env("gloo")
+    counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
+                "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    out = {"rank": rank}
+    row = make_mesh((1, world), ("data", "model"), "cuda")
+    for arch, layers, b, s in (MA_MIXTRAL, MA_MAMBA):
+        out[arch] = mk_prefill(counters, row, arch, layers, b, s)
+    out["zero1"] = mk_zero1(counters, make_mesh((world, 1), ("data", "model"), "cuda"))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import gc
+
+    gc.collect()
+    dist.destroy_process_group()
+
+
+def memory_knobs_phase(counters) -> tuple:
+    """Phase 24. Returns the kernels-line updates: the flash and scan
+    launches of the sequence-parallel prefill on each rank, and the
+    update+sample launches of the ZeRO-1 runs."""
+    import shutil
+    import tempfile
+
+    from repro_torch.runtime import multiproc
+
+    remat = remat_policies(counters)
+    kept = [remat[p]["above_weights"] for p in ("full", "dots", "none")]
+    if not kept[0] < kept[1] < kept[2]:
+        raise AssertionError(f"remat: full, dots and none keep {kept} bytes above the "
+                             f"weights, not in that order")
+    tmp = tempfile.mkdtemp(prefix="repro_phase24_")
+    try:
+        t0 = time.perf_counter()
+        procs = multiproc.launch_workers(
+            f"import chip_smoke; chip_smoke.memory_knob_rank({tmp!r})", MA_RANKS,
+            pythonpath=ROOT + os.pathsep + os.path.join(ROOT, "src"), rendezvous_dir=tmp,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            print(p.stdout[-3000:], end="")
+        bad = [(i, p.returncode, p.stderr[-4000:]) for i, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise AssertionError(f"phase 24 ranks failed: {bad}")
+        ranks = []
+        for i in range(MA_RANKS):
+            with open(os.path.join(tmp, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{MA_RANKS} ranks in {wall:.1f} s ({GLOO})")
+    launches = {}
+    for r in ranks:
+        i = r["rank"]
+        for arch, layers, b, s in (MA_MIXTRAL, MA_MAMBA):
+            for key in ("f32", "bf16"):
+                g = r[arch][key]
+                times = (f"; one forward {g['ms_on']:.1f} ms on, {g['ms_off']:.1f} ms off "
+                         f"(host clock, synchronised)")
+                print(f"rank {i} {arch} prefill B {b} x S {s} {key}, sequence_parallel on the "
+                      f"1 x {MA_RANKS} row: max |on - {'off' if key == 'f32' else 'f32 off'}| "
+                      f"{g['err']:.3e} (tolerance {g['tol']:.3e}; on == off bit for bit: "
+                      f"{g['bits']}); launches {({k: v for k, v in g['launches'].items() if v})}"
+                      f" as without; the call's peak above the memory held before it "
+                      f"{g['peak_on'] / 2**30:.3f} GiB on, {g['peak_off'] / 2**30:.3f} GiB off"
+                      f"{times} ({GLOO})")
+            launches[f"{arch} sequence-parallel prefill rank {i}"] = r[arch]["f32"]["launches"]
+        z = r["zero1"]
+        steps = MK_ZERO1[1]
+        for name in ("base", "zero1", "base_clip", "zero1_clip"):
+            e = z[name]
+            print(f"rank {i} {MK_ZERO1[0]} ContinualTrainer mesh {MA_RANKS}x1, {steps} steps "
+                  f"f32, grad_clip {e['clip']}, zero1 {e['meta']}: moments "
+                  f"{e['moment_bytes']} bytes (parameters {e['param_bytes']}); peak memory "
+                  f"{e['peak'] / 2**30:.2f} GiB; median step {e['step_ms']:.1f} ms; losses "
+                  f"{[round(x, 5) for x in e['losses']]}; launches "
+                  f"{({k: v for k, v in e['launches'].items() if v})} ({GLOO})")
+            if e["launches"]["rehearsal_update_sample"] != steps or any(
+                    v for k, v in e["launches"].items() if k != "rehearsal_update_sample"):
+                raise AssertionError(f"rank {i} {name}: launches {e['launches']}")
+            if len(e["losses"]) != steps or not all(math.isfinite(x) for x in e["losses"]):
+                raise AssertionError(f"rank {i} {name}: losses {e['losses']}")
+        if not (z["zero1"]["meta"] and z["zero1_clip"]["meta"] and not z["base"]["meta"]
+                and not z["base_clip"]["meta"]):
+            raise AssertionError(f"rank {i}: meta zero1 {z['base']['meta']}, "
+                                 f"{z['zero1']['meta']}")
+        if any(z[k]["moment_bytes"] != z[k]["moment_bytes_rule"] for k in z) or \
+                z["base"]["moment_bytes"] != 2 * z["base"]["param_bytes"] or \
+                not z["zero1"]["moment_bytes"] < 0.51 * z["base"]["moment_bytes"]:
+            raise AssertionError(f"rank {i}: moment bytes {z['zero1']['moment_bytes']} with "
+                                 f"zero1, {z['base']['moment_bytes']} without")
+        if z["zero1"]["rel_gap"] > 1e-6 or z["zero1"]["digest"] != z["base"]["digest"]:
+            raise AssertionError(f"rank {i}: zero1's parameters {z['zero1']['rel_gap']:.3e} of "
+                                 f"a tensor's largest entry from the run without")
+        whole = (z["zero1"]["moment_bytes"] - z["base"]["moment_bytes"] // 2) // 4
+        print(f"rank {i}: zero1 halves the moments ({z['zero1']['moment_bytes']} of "
+              f"{z['base']['moment_bytes']} bytes, the rule's count exactly; the moments of "
+              f"{whole} parameter elements stay whole: the 1-D leaves whose one dim the "
+              f"reference's spec puts on the model axis); its parameters the run without's "
+              f"bit for bit (largest gap {z['zero1']['rel_gap']:.3e})")
+        c, w = z["zero1_clip"], z["base_clip"]
+        norm_gap = max(abs(a - b) / b for a, b in zip(c["grad_norms"], w["grad_norms"]))
+        if len(c["grad_norms"]) != steps or norm_gap > 1e-6:
+            raise AssertionError(f"rank {i}: the clip's norms with zero1 {c['grad_norms']}, "
+                                 f"without {w['grad_norms']}")
+        print(f"rank {i}: grad_clip {c['clip']}: each step's obs/grad_norm with zero1 within "
+              f"{norm_gap:.3e} of the run without ({w['grad_norms']}); the parameters' "
+              f"largest gap {c['rel_gap']:.3e} of a tensor's largest entry, in {c['leaf']} "
+              f"{c['leaf_shape']} ({c['moved']} elements moved by over 1e-6 of it): "
+              f"{c['gap_abs']:.3e} where sqrt(nu) is {c['rms_at']:.3e} (the leaf's median "
+              f"{c['rms_median']:.3e}, max {c['rms_max']:.3e}); the learning rates of the "
+              f"{steps} steps sum to {c['lr_sum']:.3e}")
+        launches[f"{MK_ZERO1[0]} zero1 mesh {MA_RANKS}x1 rank {i}"] = \
+            z["zero1"]["launches"]
+    for name in ("base", "zero1", "base_clip", "zero1_clip"):
+        if len({r["zero1"][name]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+    print(f"after training: every parameter bit for bit on both ranks, with and without zero1")
+    return ({k: v["flash_attention"] for k, v in launches.items() if v["flash_attention"]},
+            {k: v["ssd_scan"] for k, v in launches.items() if v["ssd_scan"]},
+            {k: v["rehearsal_update_sample"] for k, v in launches.items()
+             if v["rehearsal_update_sample"]}, remat)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-23), and print no result lines")
+                    help="run phases 1, 2 and these only (3-24), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -4957,12 +5283,16 @@ def main(argv=None):
         moe_launches, moe_flash, moe_scan = moe_phase(counters, fa, ssd, ref)
 
     if run(22):
-        phase("22 Qwen2-VL-72B and Whisper-tiny served; Mixtral, Phi-3.5-MoE and Jamba trained")
+        phase("22 Qwen2-VL-72B and Whisper-tiny served; Mixtral and Jamba trained")
         vlm_launches, vlm_flash, moe_trained = encdec_vlm_phase(counters, fa, ssd, ref)
 
     if run(23):
         phase("23 the model axis on one card: 2 gloo ranks, tensor-parallel prefill, train, serve")
         ma_flash, ma_scan, ma_update = model_axis_phase(counters, fa, ssd, ref)
+
+    if run(24):
+        phase("24 the train step's memory knobs: remat, ZeRO-1 and sequence parallelism")
+        mk_flash, mk_scan, mk_update, _ = memory_knobs_phase(counters)
 
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
@@ -5010,6 +5340,11 @@ def main(argv=None):
                              if n.get(e["name"])}
     # phase 23's train CLI on each rank of the model axis, counted from 0
     entry["launches_model_axis"] = ma_update
+    # phase 24: the ZeRO-1 trainer's and the sequence-parallel prefill's, each
+    # rank's counted from 0
+    entry["launches_zero1"] = mk_update
+    flash_entry["launches_sequence_parallel"] = mk_flash
+    ssd_entry["launches_sequence_parallel"] = mk_scan
     # phase 11's launches a forward: SmolLM-135M's and Mamba2-370M's, then
     # every arch's, phase 21's at its cuts of depth; phase 21's times at
     # the MoE and hybrid stacks' shapes

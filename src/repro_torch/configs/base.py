@@ -285,7 +285,10 @@ class TrainConfig:
     linear_scaling: bool = True  # multiply LR by the number of DP workers
     grad_clip: float = 1.0
     compute_dtype: str = "bfloat16"  # the LM's activations: bfloat16 | float32
+    remat: str = "dots"  # none | dots | dots_no_batch | full — activation checkpointing policy
     grad_compress: str = "none"  # none | int8 (error-feedback quantized all-reduce)
+    zero1: bool = False  # shard optimizer state over the data axis
+    sequence_parallel: bool = False  # Megatron-SP: seq-shard the residual stream
 
 
 @dataclass(frozen=True)

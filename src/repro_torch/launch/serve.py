@@ -27,8 +27,7 @@ traffic is admitted into the rehearsal buffer, and train steps between the
 rounds keep the served weights current. As in the reference, it serves the
 reduced 2-layer LM over a vocab of 128 (``--arch`` and ``--reduced`` do not
 apply) on one device: a ``--mesh`` other than 1x1 is logged and ignored, as
-the reference does (the online learner on a mesh is ROADMAP Queue 1 item
-21's).
+the reference does (``repro/launch/serve.py:128-130``).
 ``--ckpt-dir`` gives the learner its checkpoint directory, where a resilient
 run (``RunConfig.resilience``) keeps its restart checkpoints.
 
@@ -204,8 +203,8 @@ def _serve_online(args, registry=None):
     from repro_torch.serving import OnlineLearner
 
     if args.mesh != "1x1":
-        log.info("--online trains on the single-device carry backend; --mesh %s ignored "
-                 "(the online learner on a mesh is ROADMAP Queue 1 item 21)", args.mesh)
+        log.info("--online trains on the single-device carry backend; --mesh %s ignored, "
+                 "as the reference does", args.mesh)
     learner = OnlineLearner(build_online_run(args), ckpt_dir=args.ckpt_dir,
                             serve_dtype=DTYPES[args.dtype], registry=registry,
                             device=args.device)

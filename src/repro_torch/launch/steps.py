@@ -26,12 +26,23 @@ over the data-parallel ranks of the rank's model column
 gradients and the loss are summed over that column before the optimizer
 step (the clip sees the global gradient, summed over the model row for the
 sharded tensors). Nothing is summed over the model row but what the
-forward's collectives sum. ``buffer_fill`` and
+forward's collectives sum, and under sequence parallelism the gradients of
+the parameters that act on a rank's slice of the sequence (the norms and
+learned positions, ``parallel.seq_partial``). ``buffer_fill`` and
 ``rep_checksum`` are summed too: the reference reads them off global arrays.
 Every rank thus ends a step with the same parameters and metrics. With
 ``run.obs`` on, the ``obs/*`` gauges are the global store's too: their
 additive parts travel in one more ``all_reduce`` a step
 (``obs.metrics.step_metrics``).
+
+The train step reads the reference's memory knobs of ``TrainConfig``:
+``remat`` (the train context's activation checkpointing, which the
+scenario's ``build_token_lm`` carries on both backends), ``zero1`` (each
+rank keeps its slice of the optimizer's moments, ``optim.make_optimizer``:
+the gradients of the parameters it cuts are reduce-scattered over the
+column in place of their all-reduce, and the optimizer all-gathers the
+updated slices) and ``sequence_parallel`` (the residual stream's sequence
+split over the model row, ``models.transformer``). ``meta`` names the three.
 
 The model side comes from the scenario (``Scenario.build_problem``): the
 LMs of the token scenarios, as in the reference, and the CNN of the vision
@@ -42,6 +53,9 @@ write the carry's tensors in place (ROADMAP Queue 3).
 ``build_prefill_step`` and ``build_decode_step`` are the serving steps of
 the reference (``launch/steps.py:477-545``): each rank runs its slice of the
 batch on its shard of the model, the logits its shard of the vocabulary.
+The prefill reads ``TrainConfig.sequence_parallel`` as the reference's
+does; neither checkpoints activations, and decode never runs
+sequence-parallel.
 """
 from __future__ import annotations
 
@@ -60,7 +74,8 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.parallel import MODEL_AXIS_ITEM, dp_axes, dp_size, global_mean, model_parallel
+from repro_torch.parallel import (MODEL_AXIS_ITEM, dp_axes, dp_size, global_mean,
+                                  model_parallel, seq_parallel, seq_partial, zero1_group)
 from repro_torch.strategy import outputs_row_spec, rep_checksum, resolve_strategy
 
 MAX_SLOTS = 1024
@@ -91,7 +106,9 @@ class BuiltStep:
     config the step runs (its slots resolved), ``pending_rows`` the rows of
     this rank's pending slot (``min(peers, r)`` when exchanging, else ``r``)
     and ``device`` the rank's device. Each rank's tensors live where it puts
-    them (``meta["cold_placement"]`` names the cold tier's memory)."""
+    them (``meta["cold_placement"]`` names the cold tier's memory).
+    ``init_opt(named_params, specs)`` is the step's optimizer's init (its
+    ZeRO-1 slices of the moments under ``zero1``)."""
 
     fn: Any
     meta: Dict[str, Any]
@@ -100,6 +117,7 @@ class BuiltStep:
     rcfg: Any
     pending_rows: int
     device: torch.device
+    init_opt: Any = None
 
 
 def shard_host_batch(batch, mesh):
@@ -151,6 +169,7 @@ def build_train_step(
     derives the slots the paper's S_max way. ``label_field`` and
     ``task_field`` default to the rehearsal config's."""
     from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import zero1_dims, zero1_reduce_scatter
     from repro_torch.runtime.sanitizer import resolve_sanitizer, wrap_built_step
     from repro_torch.scenario.base import get_scenario
 
@@ -224,7 +243,9 @@ def build_train_step(
         slots = 0
     grad_group, _ = rdist.exchange_group(mesh, dp, "full")
     loss_fn = problem.loss_fn
-    opt_update = make_optimizer(tcfg, n_workers=n_dp, mp=mp)[1]
+    seq = tcfg.sequence_parallel and mp is not None
+    zero1 = zero1_group(mesh) if tcfg.zero1 else None
+    init_opt, opt_update = make_optimizer(tcfg, n_workers=n_dp, mp=mp, zero1=zero1)
     ocfg = run.obs
     obs_on = obs_metrics.gauges_on(ocfg)
     aux_bytes = obs_metrics.aux_row_bytes(aux_spec) if tap else None
@@ -238,10 +259,17 @@ def build_train_step(
         arguments) and the norms."""
         loss.backward()
         named = dict(params.named_parameters())
-        grads = _sum_over({k: p.grad if p.grad is not None else torch.zeros_like(p)
-                           for k, p in named.items()}, grad_group)
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in named.items()}
+        if seq:  # the parts of the ranks' sequence slices
+            grads.update(_sum_over({k: g for k, g in grads.items() if seq_partial(k)},
+                                   mp.group))
+        specs = getattr(params, "layout_specs", None)
+        dims = zero1_dims(named, zero1, specs)
+        whole = _sum_over({k: g for k, g in grads.items() if k not in dims}, grad_group)
+        grads = dict(whole, **zero1_reduce_scatter(grads, dims, zero1)) if dims else whole
         _, opt, opt_metrics = opt_update(grads, opt, named,
-                                         getattr(params, "tp_sharded", ()))
+                                         getattr(params, "tp_sharded", ()), specs)
         params.zero_grad(set_to_none=True)
         summed = dict(fingerprints, loss=loss.detach(),
                       **{k: v.detach() for k, v in aux_metrics.items()
@@ -327,6 +355,9 @@ def build_train_step(
         "tokens_per_step": (bg + rep_rows) * seq_len,
         "obs": obs_on,
         "sanitize": san is not None,
+        "remat": tcfg.remat,
+        "zero1": zero1 is not None,
+        "sequence_parallel": seq,
     }
     if obs_on:
         meta["obs_metrics"] = obs_metrics.obs_keys(
@@ -334,7 +365,8 @@ def build_train_step(
             has_aux=bool(aux_spec), policy=rcfg.policy if use_rehearsal else None)
     peers = rdist.exchange_group(mesh, dp, exchange)[1]
     return BuiltStep(fn=step, meta=meta, problem=problem, item_spec=item_spec, rcfg=rcfg,
-                     pending_rows=r if peers is None else min(peers, r), device=device)
+                     pending_rows=r if peers is None else min(peers, r), device=device,
+                     init_opt=init_opt)
 
 
 # ---------------------------------------------------------------------------
@@ -357,12 +389,12 @@ class ServeStep:
     ctx: Any
 
 
-def _serve_parts(run: RunConfig, mesh, use_kernel: bool):
+def _serve_parts(run: RunConfig, mesh, use_kernel: bool, sequence_parallel: bool = False):
     from repro_torch.models import StackCtx, build_model
 
     dtype = torch.bfloat16 if run.train.compute_dtype == "bfloat16" else torch.float32
     ctx = StackCtx(cfg=run.model, use_kernel=use_kernel, compute_dtype=dtype,
-                   mp=model_parallel(mesh))
+                   mp=seq_parallel(model_parallel(mesh), sequence_parallel), remat="none")
     return build_model(run.model), ctx
 
 
@@ -370,8 +402,10 @@ def build_prefill_step(run: RunConfig, mesh) -> ServeStep:
     """The reference's ``build_prefill_step``: the forward of ``run.model``
     in ``run.train.compute_dtype`` on this rank's batch slice and model
     shard, the mixers' hand-written kernels on the rank's local heads (on
-    CPU tensors, their plain versions)."""
-    model, ctx = _serve_parts(run, mesh, True)
+    CPU tensors, their plain versions). Under ``run.train.
+    sequence_parallel`` the residual stream between blocks is the rank's
+    slice of the sequence; the logits are whole over it."""
+    model, ctx = _serve_parts(run, mesh, True, run.train.sequence_parallel)
 
     @torch.no_grad()
     def prefill(params, batch):

@@ -26,8 +26,10 @@ import torch.nn as nn
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.remat import DOTS, stretch
 from repro_torch.parallel.sharding import attention_plan
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+from repro_torch.parallel.tensor import (copy_to_model, region_in, region_out, whole_in,
+                                         whole_out)
 
 
 class Attention(nn.Module):
@@ -73,9 +75,10 @@ def qkv(params: Attention, x: torch.Tensor, cfg, kv_input=None, plan=None, mp=No
 
 
 def _out(params: Attention, out: torch.Tensor, dtype, plan, mp) -> torch.Tensor:
-    """[B, S, H, hd] through ``wo`` (row-parallel, then *g*, under a plan)."""
+    """[B, S, H, hd] through ``wo`` (row-parallel, then *g*, under a plan;
+    the sequence split back over the row under sequence parallelism)."""
     y = out.reshape(out.shape[:2] + (-1,)) @ params.wo.to(dtype)
-    return y if plan is None else reduce_from_model(y, mp)
+    return whole_out(y, mp) if plan is None else region_out(y, mp)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -148,13 +151,29 @@ def attend_blocked(q, k, v, cfg, causal: bool = True, block_k: int = 1024):
     return out.to(q.dtype)
 
 
+def _softmax_out(scores, v, mask, dtype):
+    """Masked softmax of the f32 ``scores`` [B,KV,G,S,T], weighting ``v``."""
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    return _grouped_out(torch.softmax(scores, dim=-1).to(dtype), v)
+
+
+def _attend_naive(q, k, v, mask, scale, dtype, remat):
+    scores = _grouped_scores(q * scale, k).float()
+    return stretch(remat, _softmax_out, scores, v, mask, dtype, on=("dots",))
+
+
 def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bool = True,
                 kv_input=None, kv_angles=None, use_kernel: bool = False,
-                mp=None) -> torch.Tensor:
-    """Full-sequence attention (prefill / encoder). Returns [B, S, d]."""
+                mp=None, remat: str = "none") -> torch.Tensor:
+    """Full-sequence attention (prefill / encoder). Returns [B, S, d]; under
+    sequence parallelism ``x`` and the result are the rank's slice of the
+    sequence, and the heads see it gathered. Under ``remat`` the mask,
+    softmax and weighted sum are one stretch (``dots``: the scores kept),
+    or the whole naive attention is (``dots_no_batch``); the blocked path
+    is one stretch under either."""
     plan = head_plan(cfg, mp)
-    if plan is not None:
-        x = copy_to_model(x, mp)
+    x = whole_in(x, mp) if plan is None else region_in(x, mp)
     q, k, v = qkv(params, x, cfg, kv_input=kv_input, plan=plan, mp=mp)
     if angles is not None:
         q = apply_rope(q, angles)
@@ -164,14 +183,12 @@ def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bo
     if use_kernel and causal and kv_input is None:
         out = flash_attention(q, k, v, window=cfg.sliding_window)
     elif blocked:
-        out = attend_blocked(q, k, v, cfg, causal=causal, block_k=ATTN_IMPL["block_k"])
+        out = stretch(remat, attend_blocked, q, k, v, cfg, causal, ATTN_IMPL["block_k"], on=DOTS)
     else:
-        scores = _grouped_scores(q * cfg.head_dim ** -0.5, k).float()
-        if causal:
-            m = causal_mask(q.shape[1], k.shape[1], cfg.sliding_window, device=x.device)
-            scores = torch.where(m, scores, torch.full_like(scores, NEG_INF))
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = _grouped_out(probs, v)
+        mask = (causal_mask(q.shape[1], k.shape[1], cfg.sliding_window, device=x.device)
+                if causal else None)
+        out = stretch(remat, _attend_naive, q, k, v, mask, cfg.head_dim ** -0.5, x.dtype,
+                      remat, on=("dots_no_batch",))
     return _out(params, out, x.dtype, plan, mp)
 
 

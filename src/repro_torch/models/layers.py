@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, vocab_embed
+from repro_torch.parallel.tensor import region_in, region_out, vocab_embed
 
 
 # ---------------------------------------------------------------------------
@@ -91,26 +91,31 @@ def init_mlp(gen: torch.Generator, cfg, d_ff: int = 0) -> MLP:
     return MLP(gen, cfg, d_ff)
 
 
+def gate(h: torch.Tensor, g, activation: str) -> torch.Tensor:
+    """The MLP's activation on the products: ``act(g) * h`` for a gated MLP
+    (``g`` the gate's product; SiLU for swiglu, else tanh GeLU), ``gelu(h)``
+    without a gate (``g`` None)."""
+    if g is None:
+        return F.gelu(h, approximate="tanh")
+    act = F.silu(g) if activation == "swiglu" else F.gelu(g, approximate="tanh")
+    return act * h
+
+
 def apply_mlp(params: MLP, x: torch.Tensor, activation: str, mp=None) -> torch.Tensor:
     """``mp``: the model row of an MLP sharded over its hidden width (None:
     whole). ``wi``/``wg`` then run after *f* and ``wo``'s partial sum
-    before *g*."""
-    if mp is not None:
-        x = copy_to_model(x, mp)
+    before *g* (under sequence parallelism, after ``gather_seq`` and before
+    ``scatter_seq``)."""
+    x = region_in(x, mp)
     h = x @ params.wi.to(x.dtype)
-    if activation == "swiglu":
-        h = F.silu(x @ params.wg.to(x.dtype)) * h
-    elif activation == "geglu":
-        h = F.gelu(x @ params.wg.to(x.dtype), approximate="tanh") * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    out = h @ params.wo.to(x.dtype)
-    return out if mp is None else reduce_from_model(out, mp)
+    g = x @ params.wg.to(x.dtype) if activation in ("swiglu", "geglu") else None
+    return region_out(gate(h, g, activation) @ params.wo.to(x.dtype), mp)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, mp=None) -> torch.Tensor:
     """Rows ``ids`` of ``table``: on a model axis (``mp``) the rank's vocab
-    shard, the rows of the others' added by *g*."""
+    shard, the rows of the others' added by *g* (reduce-scattered over the
+    sequence under sequence parallelism)."""
     if mp is None:
         return table[ids.long()]
     return vocab_embed(table, ids, mp)

@@ -26,9 +26,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, gate
+from repro_torch.models.remat import stretch
 from repro_torch.parallel.sharding import moe_layout
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+from repro_torch.parallel.tensor import (copy_to_model, gather_seq, keep_own_grad, region_out,
+                                         whole_in, whole_out)
 
 
 class MoE(nn.Module):
@@ -90,20 +92,16 @@ def dispatch(experts: torch.Tensor, num_experts: int, capacity: int, foreign: bo
     return order, dest, keep, order // k
 
 
-def _experts(params: MoE, xb: torch.Tensor, cfg) -> torch.Tensor:
-    """The experts' gated FFNs on their capacity buffers [E, cap, d]."""
-    h = torch.bmm(xb, params.wi.to(xb.dtype))  # [E, cap, f]
-    if params.wg is not None:
-        g = torch.bmm(xb, params.wg.to(xb.dtype))
-        act = F.silu(g) if cfg.activation == "swiglu" else F.gelu(g, approximate="tanh")
-        h = act * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, params.wo.to(xb.dtype))
+def _experts(xb: torch.Tensor, wi, wg, wo, activation: str) -> torch.Tensor:
+    """The experts' gated FFNs (``wg`` None: ungated) on their capacity
+    buffers ``xb`` [E, cap, d]."""
+    h = torch.bmm(xb, wi.to(xb.dtype))  # [E, cap, f]
+    g = None if wg is None else torch.bmm(xb, wg.to(xb.dtype))
+    return torch.bmm(gate(h, g, activation), wo.to(xb.dtype))
 
 
 def moe_ffn_local(params: MoE, x: torch.Tensor, cfg, e_offset: int = 0, mp=None,
-                  capacity: int = 0):
+                  capacity: int = 0, routed=None, remat: str = "none"):
     """The MoE FFN on ``x`` [T, d] with the experts ``params`` holds (the
     reference's ``moe_ffn_local``). Returns (y [T, d], aux_loss).
 
@@ -112,16 +110,20 @@ def moe_ffn_local(params: MoE, x: torch.Tensor, cfg, e_offset: int = 0, mp=None,
     from ``e_offset`` (expert-parallel) or all ``E`` at a slice of the
     hidden width (``e_offset`` 0): pairs routed to other ranks' experts go
     to the overflow row, and ``y`` is the PARTIAL output the caller's *g*
-    sums. Each expert processes the first ``capacity`` (default
+    sums; ``x`` has then entered the region (through *f* or ``gather_seq``)
+    and ``routed`` is the same tokens as the whole router reads them. Each
+    expert processes the first ``capacity`` (default
     ``expert_capacity(T)``) of its pairs; pairs beyond it are dropped, so
     their tokens get less than their full gate weight (capacity-factor
-    semantics)."""
+    semantics). Under ``remat="dots_no_batch"`` the experts' batched
+    products are recomputed with their activation (one stretch)."""
     t, d = x.shape
     e = params.wi.shape[0]
     cap = capacity or expert_capacity(t, cfg)
-    gates, experts, aux = route(params, x, cfg)  # the replicated router: global ids
+    # the replicated router: global ids
+    gates, experts, aux = route(params, x if routed is None else routed, cfg)
     if mp is not None:
-        gates, x = copy_to_model(gates, mp), copy_to_model(x, mp)
+        gates = copy_to_model(gates, mp)
         local = experts - e_offset
         experts = torch.where((local >= 0) & (local < e), local, torch.full_like(local, e))
     order, dest, keep, token_of = dispatch(experts, e, cap, foreign=mp is not None)
@@ -131,7 +133,8 @@ def moe_ffn_local(params: MoE, x: torch.Tensor, cfg, e_offset: int = 0, mp=None,
     xb = x.new_zeros((e * cap + 1, d)).index_copy_(0, dest, x[token_of])
     xb = xb[:e * cap].reshape(e, cap, d)
 
-    yb = _experts(params, xb, cfg).reshape(e * cap, d)
+    yb = stretch(remat, _experts, xb, params.wi, params.wg, params.wo, cfg.activation,
+                 on=("dots_no_batch",)).reshape(e * cap, d)
 
     # combine: each pair's expert output times its gate (0 when dropped),
     # added to its token. With top-2 a token gets exactly two terms onto a
@@ -144,20 +147,35 @@ def moe_ffn_local(params: MoE, x: torch.Tensor, cfg, e_offset: int = 0, mp=None,
     return y, aux
 
 
-def moe_apply(params: MoE, x: torch.Tensor, cfg, mp=None):
-    """The MoE FFN on ``x`` [T, d] on this rank of the model row ``mp``:
-    ``moe_ffn_local`` then *g* when the experts shard over it, the whole
-    ``moe_ffn`` otherwise (no model axis, or experts that split neither
-    way). Returns (y [T, d], aux)."""
+def moe_apply(params: MoE, h: torch.Tensor, cfg, mp=None, remat: str = "none"):
+    """The MoE FFN on the ``B * S`` tokens of ``h`` [B, S, d] on this rank
+    of the model row ``mp``: ``moe_ffn_local`` between *f* and *g* when the
+    experts shard over it, the whole ``moe_ffn`` otherwise (no model axis,
+    or experts that split neither way). Under sequence parallelism ``h`` is
+    the rank's slice of the sequence: the tokens are gathered (``gather_seq``
+    for the experts, the router reading them whole through
+    ``keep_own_grad``), so routing, capacity and the aux see every token,
+    and the output is reduce-scattered back to the slice. Returns (y [B, S,
+    d], aux). The reference's vmap over data shards is what a rank of the
+    port's mesh does by construction, routing only its own tokens."""
     layout = None if mp is None else moe_layout(cfg, mp.size)
     if layout is None:
-        return moe_ffn(params, x, cfg)
+        h = whole_in(h, mp)
+        y, aux = moe_ffn(params, h.reshape(-1, h.shape[-1]), cfg, remat=remat)
+        return whole_out(y.reshape(h.shape), mp), aux
+    if mp.sequence_parallel:
+        x = gather_seq(h, mp)
+        routed = keep_own_grad(x, mp)
+    else:
+        routed, x = h, copy_to_model(h, mp)
+    d = x.shape[-1]
     e_offset = mp.index * params.wi.shape[0] if layout == "ep" else 0
-    y, aux = moe_ffn_local(params, x, cfg, e_offset, mp)
-    return reduce_from_model(y, mp), aux
+    y, aux = moe_ffn_local(params, x.reshape(-1, d), cfg, e_offset, mp,
+                           routed=routed.reshape(-1, d), remat=remat)
+    return region_out(y.reshape(x.shape), mp), aux
 
 
-def moe_ffn(params: MoE, x: torch.Tensor, cfg, capacity: int = 0):
+def moe_ffn(params: MoE, x: torch.Tensor, cfg, capacity: int = 0, remat: str = "none"):
     """The whole MoE FFN on ``x`` [T, d], every expert here:
     ``moe_ffn_local`` off a model axis. Returns (y [T, d], aux_loss)."""
-    return moe_ffn_local(params, x, cfg, capacity=capacity)
+    return moe_ffn_local(params, x, cfg, capacity=capacity, remat=remat)

@@ -29,8 +29,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import dense_init
+from repro_torch.models.remat import stretch
 from repro_torch.parallel.sharding import ssm_sharded
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model, sum_over_model
+from repro_torch.parallel.tensor import (copy_to_model, reduce_from_model, region_in,
+                                         region_out, sum_over_model, whole_in, whole_out)
 
 
 def ssm_dims(cfg):
@@ -201,14 +203,19 @@ def _gated_norm(params: SSM, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-6
     return (out * params.norm_scale.float()).to(y.dtype)
 
 
+def _scan(xh, dt, a_head, bmat, cmat, chunk):
+    return ssd_chunked(xh, dt, a_head, bmat, cmat, chunk)[0]
+
+
 def apply_ssm(params: SSM, u: torch.Tensor, cfg, use_kernel: bool = False,
-              mp=None) -> torch.Tensor:
-    """Full-sequence Mamba-2 mixer. u [B,S,d] -> [B,S,d]."""
-    b, s, _ = u.shape
+              mp=None, remat: str = "none") -> torch.Tensor:
+    """Full-sequence Mamba-2 mixer. u [B,S,d] -> [B,S,d]; under sequence
+    parallelism the rank's slice of the sequence in and out, the scan over
+    the gathered sequence. Under ``remat`` the plain scan is a stretch."""
     d_in = ssm_dims(cfg)[0]
-    mp = _region(cfg, mp)
-    if mp is not None:
-        u = copy_to_model(u, mp)
+    row, mp = mp, _region(cfg, mp)
+    u = whole_in(u, row) if mp is None else region_in(u, mp)
+    b, s, _ = u.shape
     w_b, w_c, conv_b, bias_b, conv_c, bias_c = _shared(params, mp)
     z, x, bmat, cmat, dt = _project(params, u, w_b, w_c)
     x = F.silu(causal_conv(x, params.conv_x, params.conv_bias_x))
@@ -220,11 +227,11 @@ def apply_ssm(params: SSM, u: torch.Tensor, cfg, use_kernel: bool = False,
     if use_kernel:
         y = ssd_scan(xh, dt, a_head, bmat, cmat, chunk=cfg.ssm_chunk)
     else:
-        y, _ = ssd_chunked(xh, dt, a_head, bmat, cmat, cfg.ssm_chunk)
+        y = stretch(remat, _scan, xh, dt, a_head, bmat, cmat, cfg.ssm_chunk)
     y = y + params.D.to(y.dtype)[None, None, :, None] * xh
     y = _gated_norm(params, y.reshape(b, s, -1), z, mp=mp, d_in=d_in)
     out = y @ params.out_proj.to(u.dtype)
-    return out if mp is None else reduce_from_model(out, mp)
+    return whole_out(out, row) if mp is None else region_out(out, mp)
 
 
 def make_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None, mp=None):

@@ -9,8 +9,15 @@ mixers, an MoE feed-forward every second layer). The encoder-decoder's
 stacks are ``enc_layers.{i}`` and ``dec_layers.{i}`` in the same way. A VLM
 is a ``Decoder`` fed precomputed patch embeddings (``batch["embeddings"]``,
 the vision frontend is a stub in both packages) and 3-D M-RoPE positions
-(``batch["positions"]`` [B, S, 3]). The reference's remat policies and
-``scan_layers`` are not ported.
+(``batch["positions"]`` [B, S, 3]). The reference's ``scan_layers`` has
+no counterpart: eager PyTorch has one form of the stack.
+
+Activation checkpointing (``StackCtx.remat``, the reference's
+``_remat_wrap``; ``models.remat``): under ``full`` each unit of a decoder
+(``unit_period`` layers) and each encoder layer is checkpointed whole when
+gradients are recorded; under ``dots`` and ``dots_no_batch`` the mixers and
+the experts recompute their stretches between products; ``none`` keeps
+everything. The values and gradients are ``none``'s bit for bit.
 
 On a model axis (``StackCtx.mp``, a ``parallel.ModelParallel``) every
 decoder is tensor-parallel under the rule table of ``parallel.sharding``:
@@ -21,9 +28,23 @@ are vocab-sharded (``logits_from`` returns the rank's shard of the
 vocabulary), and each mixer and feed-forward runs its shard between *f* and
 *g*. ``Decoder.tp_sharded`` names the sharded parameters. The
 encoder-decoder at M > 1 is ROADMAP Queue 1 item 21's.
+
+Sequence parallelism (``ModelParallel.sequence_parallel`` on the row
+``StackCtx.mp``, read as ``StackCtx.sequence_parallel``; the
+reference's ``make_shard_fn(mesh, sequence_parallel=True)``): the residual
+stream between blocks is each rank's slice ``[B, S / M, d]`` of the
+sequence (``parallel.tensor``); the embedding's sum is reduce-scattered,
+each block gathers the sequence in and reduce-scatters (or, when the port
+runs it whole, slices) it out, the norms and residual adds run on the
+slice, and the head gathers it back. The norms' and learned positions'
+gradients are then each rank's part (``parallel.sharding.seq_partial``),
+which the train step sums over the row. S % M != 0 raises where the
+reference lets GSPMD pad. Decode never runs sequence-parallel, as in the
+reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List
@@ -34,10 +55,12 @@ import torch.nn as nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.remat import check_remat, remat_call
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.parallel import global_share
-from repro_torch.parallel.sharding import MODEL_AXIS_ITEM, param_spec, shard_param, vocab_sharded
-from repro_torch.parallel.tensor import copy_to_model
+from repro_torch.parallel.sharding import (MODEL_AXIS_ITEM, layout_specs, param_spec,
+                                          shard_param, vocab_sharded)
+from repro_torch.parallel.tensor import region_in, seq_parallel, split_seq, whole_in, whole_out
 from repro_torch.models.layers import (
     apply_learned_pos,
     apply_mlp,
@@ -53,21 +76,33 @@ from repro_torch.models.layers import (
 @dataclass
 class StackCtx:
     """Forward context: the config, whether the mixers run the hand-written
-    kernels, the activations' dtype, and the model-parallel handle of the
-    rank's model row (None at M = 1: the unsharded path)."""
+    kernels, the activations' dtype, the model-parallel handle of the
+    rank's model row (None at M = 1: the unsharded path; its
+    ``sequence_parallel`` flag makes the residual stream sequence-parallel)
+    and the activation checkpointing policy (``remat.REMAT_POLICIES``,
+    ``dots`` by default as in the reference and ``TrainConfig.remat``; it
+    acts only while gradients are recorded)."""
 
     cfg: Any
     use_kernel: bool = False
     compute_dtype: Any = torch.float32
     mp: Any = None
+    remat: str = "dots"
+
+    def __post_init__(self):
+        check_remat(self.remat)
+
+    @property
+    def sequence_parallel(self) -> bool:
+        return self.mp is not None and self.mp.sequence_parallel
 
 
-def shard_module_(module: nn.Module, prefix: str, cfg, mp, names=None) -> List[str]:
+def shard_module_(module: nn.Module, prefix: str, cfg, mp, names=None) -> Dict[str, tuple]:
     """Replace each parameter of ``module`` (named ``prefix`` + its name in
     the model; only ``names`` when given) that the rule table shards by this
     rank's slice of it, the full tensor freed. Returns the model names of
-    the sharded ones."""
-    out = []
+    the sharded ones with their specs."""
+    out = {}
     if mp is None:
         return out
     for name, p in list(module.named_parameters()):
@@ -78,7 +113,7 @@ def shard_module_(module: nn.Module, prefix: str, cfg, mp, names=None) -> List[s
         owner, _, leaf = name.rpartition(".")
         sub = module.get_submodule(owner) if owner else module
         setattr(sub, leaf, nn.Parameter(shard_param(p.data, spec, mp).clone()))
-        out.append(full_name)
+        out[full_name] = spec
     return out
 
 
@@ -138,30 +173,21 @@ def init_layer(gen: torch.Generator, cfg, i: int) -> Layer:
     return Layer(gen, cfg, i)
 
 
-def _apply_moe(moe_params, h: torch.Tensor, cfg, mp=None):
-    """The MoE FFN over the ``B * S`` tokens of ``h`` [B, S, d]: the
-    reference's path for one token shard, and on a model axis its
-    ``moe_apply`` (``moe.moe_apply``). Its vmap over data shards is what a
-    rank of the port's mesh does by construction, routing only its own
-    tokens."""
-    b, s, d = h.shape
-    y, aux = moe_lib.moe_apply(moe_params, h.reshape(b * s, d), cfg, mp)
-    return y.reshape(b, s, d), aux
-
-
 def _mlp_mp(cfg, mp):
     return mp if mp is not None and cfg.d_ff % mp.size == 0 else None
 
 
-def _ffn(params: Layer, x: torch.Tensor, cfg, mp=None):
+def _ffn(params: Layer, x: torch.Tensor, cfg, mp=None, remat: str = "none"):
     """The feed-forward half of a layer: (x, its MoE aux loss, 0 without)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hasattr(params, "norm2"):
         h = apply_norm(params.norm2, x)
         if hasattr(params, "moe"):
-            h, aux = _apply_moe(params.moe, h, cfg, mp)
+            h, aux = moe_lib.moe_apply(params.moe, h, cfg, mp, remat)
+        elif _mlp_mp(cfg, mp) is None:  # whole on every rank of a row
+            h = whole_out(apply_mlp(params.mlp, whole_in(h, mp), cfg.activation), mp)
         else:
-            h = apply_mlp(params.mlp, h, cfg.activation, _mlp_mp(cfg, mp))
+            h = apply_mlp(params.mlp, h, cfg.activation, mp)
         x = x + h
     return x, aux
 
@@ -169,14 +195,15 @@ def _ffn(params: Layer, x: torch.Tensor, cfg, mp=None):
 def apply_layer(params: Layer, x: torch.Tensor, i: int, ctx: StackCtx, angles=None,
                 causal: bool = True):
     """Full-sequence layer application. Returns (x, aux_loss)."""
-    cfg = ctx.cfg
+    cfg, remat = ctx.cfg, ctx.remat
     h = apply_norm(params.norm1, x)
     if hasattr(params, "attn"):
         h = attn.attend_full(params.attn, h, cfg, angles=angles, causal=causal,
-                             use_kernel=ctx.use_kernel, mp=ctx.mp)
+                             use_kernel=ctx.use_kernel, mp=ctx.mp, remat=remat)
     else:
-        h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel, mp=ctx.mp)
-    return _ffn(params, x + h, cfg, ctx.mp)
+        h = ssm_lib.apply_ssm(params.ssm, h, cfg, use_kernel=ctx.use_kernel, mp=ctx.mp,
+                              remat=remat)
+    return _ffn(params, x + h, cfg, ctx.mp, remat)
 
 
 def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int,
@@ -213,24 +240,27 @@ class Decoder(nn.Module):
     """``embed`` [V, d], ``layers.{i}``, ``final_norm``; ``lm_head`` [V, d]
     unless the embeddings are tied; ``pos`` for learned positions. With
     ``mp``, each tensor is drawn whole and cut to the rank's shard at once
-    (``tp_sharded`` names the sharded ones)."""
+    (``tp_sharded`` names the sharded ones). ``layout_specs`` gives every
+    parameter's spec as the ZeRO-1 rule reads it
+    (``parallel.sharding.layout_specs``)."""
 
     def __init__(self, gen: torch.Generator, cfg, max_seq: int, mp=None):
         super().__init__()
         num_units(cfg)
         self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
-        sharded = shard_module_(self, "", cfg, mp, names=("embed",))
+        specs = shard_module_(self, "", cfg, mp, names=("embed",))
         self.layers = nn.ModuleList()
         for i in range(cfg.num_layers):
             self.layers.append(init_layer(gen, cfg, i))
-            sharded += shard_module_(self.layers[i], f"layers.{i}.", cfg, mp)
+            specs.update(shard_module_(self.layers[i], f"layers.{i}.", cfg, mp))
         self.final_norm = init_norm(cfg)
         if not cfg.tie_embeddings:
             self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
-            sharded += shard_module_(self, "", cfg, mp, names=("lm_head",))
+            specs.update(shard_module_(self, "", cfg, mp, names=("lm_head",)))
         if not cfg.use_rope and cfg.family not in ("ssm", "hybrid"):
             self.pos = init_learned_pos(gen, max_seq, cfg.d_model)
-        self.tp_sharded = frozenset(sharded)
+        self.tp_sharded = frozenset(specs)
+        self.layout_specs = layout_specs(dict(self.named_parameters()), cfg, mp, specs)
 
 
 def init_decoder(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> Decoder:
@@ -249,14 +279,19 @@ def _angles_for(cfg, positions: torch.Tensor):
 
 def embed_inputs(params: Decoder, batch: Dict[str, torch.Tensor], cfg,
                  ctx: StackCtx) -> torch.Tensor:
-    """Token ids or precomputed embeddings -> [B,S,d]."""
+    """Token ids or precomputed embeddings -> [B,S,d]; under sequence
+    parallelism the rank's slice [B, S / M, d]."""
+    sp = ctx.mp if ctx.sequence_parallel else None
+    vmp = vocab_mp(cfg, ctx)
     if "embeddings" in batch:
         x = batch["embeddings"].to(ctx.compute_dtype)
     else:
-        x = embed_lookup(params.embed, batch["tokens"], vocab_mp(cfg, ctx)).to(
-            ctx.compute_dtype)
+        x = embed_lookup(params.embed, batch["tokens"], vmp).to(ctx.compute_dtype)
+    if sp is not None and ("embeddings" in batch or vmp is None):
+        x = split_seq(x, sp)  # a vocab-sharded lookup reduce-scattered already
     if hasattr(params, "pos"):
-        x = apply_learned_pos(params.pos, x)
+        x = apply_learned_pos(params.pos, x,
+                              offset=0 if sp is None else sp.index * x.shape[1])
     return x
 
 
@@ -268,12 +303,19 @@ def vocab_mp(cfg, ctx: StackCtx):
 
 def logits_from(params: Decoder, x: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
     """[..., V] logits, or on a vocab-sharded model row the rank's shard
-    [..., V / M] (``x`` enters through *f*)."""
+    [..., V / M] (``x`` enters through *f*). Under sequence parallelism
+    ``x`` is the rank's slice of the sequence, gathered before the head."""
     table = params.lm_head if hasattr(params, "lm_head") else params.embed
     mp = vocab_mp(cfg, ctx)
-    if mp is not None:
-        x = copy_to_model(x, mp)
+    x = whole_in(x, ctx.mp) if mp is None else region_in(x, mp)
     return x @ table.to(x.dtype).t()
+
+
+def _check_seq(cfg, ctx: StackCtx, s: int) -> None:
+    mp = ctx.mp
+    if ctx.sequence_parallel and s % mp.size:
+        raise ValueError(f"{cfg.name}: sequence parallelism needs the sequence length S = "
+                         f"{s} to be a multiple of the model axis M = {mp.size}")
 
 
 def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
@@ -283,9 +325,16 @@ def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
     Positions come from ``positions``, else ``batch["positions"]`` ([B, S] or,
     for M-RoPE, [B, S, 3]), else the sequence index. Inside the mesh step
     (``parallel.global_mean``) the aux is this rank's share of the mean over
-    the data-parallel ranks, each of which routes its own tokens."""
+    the data-parallel ranks, each of which routes its own tokens.
+
+    Each unit of ``unit_period`` layers runs under ``ctx.remat``
+    (``remat.remat_call``, its stretches ``remat.stretch``). Under
+    ``ctx.sequence_parallel`` the hidden state returned is the rank's slice
+    of the sequence."""
+    src = batch["embeddings"] if "embeddings" in batch else batch["tokens"]
+    b, s = src.shape[0], src.shape[1]
+    _check_seq(cfg, ctx, s)
     x = embed_inputs(params, batch, cfg, ctx)
-    b, s, _ = x.shape
     if positions is None:
         positions = batch.get("positions")
     if positions is None:
@@ -293,10 +342,17 @@ def hidden_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
         if cfg.m_rope:  # text only: (t, h, w) all follow the sequence index
             positions = positions[..., None].expand(b, s, 3)
     angles = _angles_for(cfg, positions)
+    p = unit_period(cfg)
+
+    def unit(x, aux, u):
+        for i in range(u * p, (u + 1) * p):
+            x, a = apply_layer(params.layers[i], x, i, ctx, angles=angles, causal=causal)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, layer in enumerate(params.layers):
-        x, a = apply_layer(layer, x, i, ctx, angles=angles, causal=causal)
-        aux = aux + a
+    for u in range(num_units(cfg)):
+        x, aux = remat_call(unit, ctx.remat, x, aux, u)
     return apply_norm(params.final_norm, x), global_share(aux)
 
 
@@ -318,7 +374,9 @@ def init_decoder_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 def decode_step(params: Decoder, batch, caches, index: int, cfg, ctx: StackCtx):
     """One-token decode. ``batch`` has 'token' [B,1] (or 'embedding' [B,1,d]);
-    ``index`` is the global position. Returns (logits [B,1,V], new caches)."""
+    ``index`` is the global position. Returns (logits [B,1,V], new caches).
+    Never sequence-parallel, as the reference's decode step."""
+    ctx = dataclasses.replace(ctx, mp=seq_parallel(ctx.mp, False))
     bb = {"tokens": batch["token"]} if "token" in batch else {"embeddings": batch["embedding"]}
     x = embed_inputs(params, bb, cfg, ctx)
     b = x.shape[0]
@@ -380,6 +438,7 @@ class EncDec(nn.Module):
         self.enc_norm = init_norm(cfg)
         self.final_norm = init_norm(cfg)
         self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
+        self.layout_specs = layout_specs(dict(self.named_parameters()), cfg, None, {})
 
 
 def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> EncDec:
@@ -395,9 +454,16 @@ def encode(params: EncDec, frames: torch.Tensor, cfg, ctx: StackCtx) -> torch.Te
     plain path: the reference's encoder runs no kernel."""
     refuse_model_axis(cfg, ctx.mp)
     x = apply_learned_pos(params.enc_pos, frames.to(ctx.compute_dtype))
-    for lp in params.enc_layers:
-        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False)
-        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+
+    remat = ctx.remat
+
+    def layer(x, lp):
+        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False,
+                                 remat=remat)
+        return x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+
+    for lp in params.enc_layers:  # each layer a checkpoint unit, as in the reference
+        x = remat_call(layer, ctx.remat, x, lp)
     return apply_norm(params.enc_norm, x)
 
 

@@ -109,7 +109,10 @@ def step_metrics(
     mesh's data group of more than one rank) makes the buffer and replay
     gauges global sums, ``new_rows`` then being the global batch's rows.
     ``mp`` (a model row) makes ``param_norm`` the whole model's, the squares
-    of ``params.tp_sharded`` summed over the row.
+    of ``params.tp_sharded`` summed over the row. Under ZeRO-1 the
+    optimizer's norm already sums its slices over the data ranks, each
+    rank holds the parameters whole after the step's all-gather, and no
+    gauge reads the moments, which a rank holds only its slices of.
     Call only with the gauges on: the factories guard, so that a step with
     them off launches what it launched before."""
     from repro_torch.buffer import api as buffer_api

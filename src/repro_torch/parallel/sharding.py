@@ -47,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import weakref
+from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -216,11 +217,12 @@ class HeadPlan(NamedTuple):
 
 def attention_plan(cfg, m: int, index: int = 0) -> Optional[HeadPlan]:
     """The head-granular split of attention over ``m`` ranks, or None when
-    attention is replicated (M = 1, H % M != 0, or local query heads that
-    would read parts of several KV heads). Query head ``h`` reads KV head
-    ``h // (H / KV)``."""
+    attention is replicated (H % M != 0, or local query heads that would
+    read parts of several KV heads). At M = 1 the one rank's plan is every
+    head (the models run no plan without a model axis). Query head ``h``
+    reads KV head ``h // (H / KV)``."""
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    if m == 1 or h == 0 or h % m:
+    if h == 0 or h % m:
         return None
     hl, g = h // m, h // kv
     if kv % m == 0:
@@ -232,7 +234,7 @@ def attention_plan(cfg, m: int, index: int = 0) -> Optional[HeadPlan]:
 
 def ssm_sharded(cfg, m: int) -> bool:
     """Whether the SSM's heads split over ``m`` ranks."""
-    if m == 1 or not cfg.ssm_state:
+    if not cfg.ssm_state:
         return False
     return (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) % m == 0
 
@@ -240,7 +242,7 @@ def ssm_sharded(cfg, m: int) -> bool:
 def moe_layout(cfg, m: int) -> Optional[str]:
     """``'ep'`` (experts over the axis), ``'tp'`` (their hidden width) or
     None (replicated) for ``m`` ranks."""
-    if m == 1 or not cfg.is_moe:
+    if not cfg.is_moe:
         return None
     if cfg.num_experts % m == 0:
         return "ep"
@@ -248,7 +250,7 @@ def moe_layout(cfg, m: int) -> Optional[str]:
 
 
 def vocab_sharded(cfg, m: int) -> bool:
-    return m > 1 and cfg.vocab_size % m == 0
+    return cfg.vocab_size % m == 0
 
 
 _SSM_HEAD = {"w_z": (None, "model"), "w_x": (None, "model"), "w_dt": (None, "model"),
@@ -257,13 +259,17 @@ _SSM_HEAD = {"w_z": (None, "model"), "w_x": (None, "model"), "w_dt": (None, "mod
              "out_proj": ("model", None)}
 
 
-def param_spec(name: str, shape: Tuple[int, ...], cfg, model_size: int) -> tuple:
+def param_spec(name: str, shape: Tuple[int, ...], cfg, model_size: int,
+               axis_of_one: bool = False) -> tuple:
     """The spec of the port's parameter ``name`` (``layers.3.attn.wq``) of
     full ``shape`` on a model axis of ``model_size``: one entry a dim,
-    ``'model'`` where the dim is sharded, None where it is whole."""
+    ``'model'`` where the dim is sharded, None where it is whole. At
+    ``model_size`` 1 nothing is sharded; with ``axis_of_one`` the spec then
+    names ``'model'`` where the table would shard, as the reference's does
+    on a model axis of one (its ZeRO-1 rule leaves those dims uncut)."""
     rep = (None,) * len(shape)
     m = model_size
-    if m == 1:
+    if m == 1 and not axis_of_one:
         return rep
     parts = name.split(".")
     leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
@@ -288,6 +294,77 @@ def param_spec(name: str, shape: Tuple[int, ...], cfg, model_size: int) -> tuple
     if parent == "ssm" and leaf in _SSM_HEAD and ssm_sharded(cfg, m):
         return _SSM_HEAD[leaf]
     return rep
+
+
+def seq_partial(name: str) -> bool:
+    """Whether parameter ``name`` acts on the residual stream's sequence
+    slice under sequence parallelism (the layers' ``norm1``/``norm2``, the
+    ``final_norm``, the learned positions ``pos``): its gradient on a rank
+    is then the part of its slice, which the train step sums over the row."""
+    parts = name.split(".")
+    return len(parts) > 1 and (parts[-2] in ("norm1", "norm2", "final_norm")
+                               or name == "pos.pos")
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the optimizer's moments over the data-parallel ranks
+# ---------------------------------------------------------------------------
+
+
+def zero1_spec(spec: tuple, shape: Tuple[int, ...], data_size: int) -> tuple:
+    """The reference's ZeRO-1 rule (``launch/steps.py:427-438``): ``spec``
+    (one entry a dim of ``shape``) with ``'data'`` on the largest dim not
+    yet sharded whose size ``data_size`` divides (the first of equal ones),
+    or ``spec`` as it is when no dim qualifies."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    best = -1
+    for i, (axis, dim) in enumerate(zip(parts, shape)):
+        if axis is None and dim % data_size == 0 and (best < 0 or dim > shape[best]):
+            best = i
+    if best >= 0:
+        parts[best] = "data"
+    return tuple(parts)
+
+
+def layout_specs(named: Dict[str, torch.Tensor], cfg, mp, sharded: Dict[str, tuple]):
+    """Every parameter's spec as the reference's ZeRO-1 rule reads it: on a
+    model axis the rank's ``sharded`` specs (the rest replicated), without
+    one the table's on an axis of one (``param_spec(axis_of_one=True)``)."""
+    if mp is not None:
+        return {k: sharded.get(k, (None,) * p.dim()) for k, p in named.items()}
+    return {k: param_spec(k, tuple(p.shape), cfg, 1, axis_of_one=True) for k, p in named.items()}
+
+
+@dataclass(frozen=True)
+class Zero1:
+    """The data-parallel ranks a ZeRO-1 optimizer shards its moments over:
+    ``group`` (the model column's data group, ``dp_group``), ``size`` (D)
+    and ``index`` (this rank's position, ``dp_index``)."""
+
+    group: object
+    size: int
+    index: int
+
+    def dim(self, shape: Tuple[int, ...], spec: Optional[tuple] = None) -> Optional[int]:
+        """The dim a tensor of local ``shape`` (sharded over the model row
+        as ``spec`` says; None: replicated) is cut on, or None (whole)."""
+        spec = spec if spec is not None else (None,) * len(shape)
+        parts = zero1_spec(spec, shape, self.size)
+        return parts.index("data") if "data" in parts else None
+
+    def shard(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``t`` along ``dim``: a view."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+
+def zero1_group(mesh) -> Optional[Zero1]:
+    """The ``Zero1`` handle of this rank's model column, or None when the
+    column is one rank (nothing to shard)."""
+    n = dp_size(mesh)
+    if n == 1:
+        return None
+    return Zero1(dp_group(mesh), n, dp_index(mesh))
 
 
 def shard_param(full, spec: tuple, mp):

@@ -3,9 +3,10 @@ GSPMD inserts in the reference, written out as Megatron does.
 
 A ``ModelParallel`` handle (``parallel.model_parallel(mesh)``; None on a
 model axis of 1) names this rank's model row: its group, its size and its
-index in it. Every collective here is an ``all_reduce`` over that group, so
-a gloo group whose ranks share one card serves as well as NCCL across
-cards.
+index in it. Every collective here runs over that group (``all_reduce``,
+and under sequence parallelism ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``), so a gloo group whose ranks share one card
+serves as well as NCCL across cards.
 
   * ``copy_to_model`` (Megatron's *f*): identity forward, ``all_reduce`` of
     the gradient backward. It opens a tensor-parallel region: each rank's
@@ -29,9 +30,37 @@ cards.
 A replicated weight inside a region whose ranks each consume its output
 partially is read through *f* too (``copy_to_model(weight)``): its gradient
 is then the ranks' sum, identical on every rank, as GSPMD's is.
+
+Sequence parallelism (``ModelParallel.sequence_parallel``, the reference's
+``act_btd`` constraint ``P(dp, 'model', None)``): between blocks each rank
+of the row holds its slice ``[index * S / M, (index + 1) * S / M)`` of the
+residual stream's sequence, and the norms and residual adds run on it.
+
+  * ``gather_seq`` (Megatron's *g-bar*): all-gather over dim 1 forward,
+    reduce-scatter of the gradient backward. It replaces *f* at a region's
+    entry: the ranks consume the gathered sequence partially.
+  * ``scatter_seq``: reduce-scatter over dim 1 forward, all-gather of the
+    gradient backward. It replaces *g* at a region's exit.
+  * ``gather_seq(x, mp, whole=True)`` and ``split_seq``: into and out of a
+    block every rank computes whole (heads that do not split, an MLP whose
+    width M does not divide): all-gather forward and the rank's slice of
+    the gradient backward, then the rank's slice forward and the gradient
+    all-gathered backward. The block's gradients are then whole on every
+    rank, as without sequence parallelism.
+  * ``keep_own_grad``: identity forward; backward, the gradient outside the
+    rank's slice set to 0, for a whole computation (the MoE's router) on a
+    sequence gathered for partial consumers, whose reduce-scatter then
+    counts it once.
+
+``region_in``/``region_out`` pick *f*/*g* or the sequence pair by the
+handle, ``whole_in``/``whole_out`` the pair of a replicated block (the
+identity without sequence parallelism). The collectives are
+``reduce_scatter_tensor`` and ``all_gather_into_tensor`` on every backend:
+gloo takes CUDA tensors for both as NCCL does.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable
 
@@ -42,11 +71,21 @@ import torch.distributed as dist
 @dataclass(frozen=True)
 class ModelParallel:
     """This rank's row of the ``model`` axis: ``group`` (the process group
-    of the row), ``size`` (M) and ``index`` (this rank's position)."""
+    of the row), ``size`` (M), ``index`` (this rank's position) and whether
+    the residual stream between blocks is sequence-parallel over it."""
 
     group: Any
     size: int
     index: int
+    sequence_parallel: bool = False
+
+
+def seq_parallel(mp, on: bool = True):
+    """``mp`` with its ``sequence_parallel`` flag set to ``on`` (None stays
+    None)."""
+    if mp is None or mp.sequence_parallel == on:
+        return mp
+    return dataclasses.replace(mp, sequence_parallel=on)
 
 
 def _all_reduce(x: torch.Tensor, mp: ModelParallel, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -87,6 +126,127 @@ class _SumBoth(torch.autograd.Function):
         return _all_reduce(g.clone(), ctx.mp), None
 
 
+def _gather(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """[B, S_l, ...] -> [B, M * S_l, ...]: the row's slices in rank order."""
+    x = x.movedim(1, 0).contiguous()
+    out = x.new_empty((mp.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mp.group)
+    return out.movedim(0, 1)
+
+
+def _scatter(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """[B, S, ...] summed over the row, this rank's slice [B, S / M, ...]."""
+    x = x.movedim(1, 0).contiguous()
+    out = x.new_empty((x.shape[0] // mp.size,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=mp.group)
+    return out.movedim(0, 1)
+
+
+def _own(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    n = x.shape[1] // mp.size
+    return x.narrow(1, mp.index * n, n)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, whole):
+        ctx.mp, ctx.whole = mp, whole
+        return _gather(x, mp)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.whole:
+            return _own(g, ctx.mp).contiguous(), None, None
+        return _scatter(g, ctx.mp), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return _scatter(x, mp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mp), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return _own(x, mp).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mp), None
+
+
+class _KeepOwnGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.zeros_like(g)
+        _own(out, ctx.mp).copy_(_own(g, ctx.mp))
+        return out, None
+
+
+def gather_seq(x: torch.Tensor, mp: ModelParallel, whole: bool = False) -> torch.Tensor:
+    """The row's sequence slices of ``x`` [B, S / M, ...] gathered into [B,
+    S, ...]; backward the gradient reduce-scattered (the ranks' parts
+    summed), or with ``whole`` (each rank's gradient is already the whole
+    one) this rank's slice of it."""
+    return _GatherSeq.apply(x, mp, whole)
+
+
+def scatter_seq(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """``x`` [B, S, ...] summed over the row, this rank's sequence slice
+    kept; backward the gradient all-gathered."""
+    return _ScatterSeq.apply(x, mp)
+
+
+def split_seq(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """This rank's sequence slice of ``x`` [B, S, ...], which every rank
+    holds whole; backward the gradient all-gathered."""
+    return _SplitSeq.apply(x, mp)
+
+
+def keep_own_grad(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """``x`` [B, S, ...]; backward only this rank's slice of the gradient."""
+    return _KeepOwnGrad.apply(x, mp)
+
+
+def region_in(x: torch.Tensor, mp) -> torch.Tensor:
+    """Into a block split over the row: *f*, or ``gather_seq`` under
+    sequence parallelism (identity without a row)."""
+    if mp is None:
+        return x
+    return gather_seq(x, mp) if mp.sequence_parallel else copy_to_model(x, mp)
+
+
+def region_out(y: torch.Tensor, mp) -> torch.Tensor:
+    """Out of a block split over the row: *g*, or ``scatter_seq``."""
+    if mp is None:
+        return y
+    return scatter_seq(y, mp) if mp.sequence_parallel else reduce_from_model(y, mp)
+
+
+def whole_in(x: torch.Tensor, mp) -> torch.Tensor:
+    """Into a block every rank computes whole: the gathered sequence under
+    sequence parallelism, else ``x``."""
+    return gather_seq(x, mp, whole=True) if mp is not None and mp.sequence_parallel else x
+
+
+def whole_out(y: torch.Tensor, mp) -> torch.Tensor:
+    """Out of a block every rank computes whole: its sequence slice under
+    sequence parallelism, else ``y``."""
+    return split_seq(y, mp) if mp is not None and mp.sequence_parallel else y
+
+
 def copy_to_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     """Megatron's *f*: ``x`` forward, the gradient summed over the group."""
     return _Copy.apply(x, mp)
@@ -106,12 +266,14 @@ def sum_over_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
 def vocab_embed(table: torch.Tensor, ids: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     """Rows ``ids`` of a table whose rank holds rows ``[index * V_l, (index
     + 1) * V_l)``: the local lookup, zero where the id lies in another
-    shard, summed over the group (exactly one rank adds each row)."""
+    shard, summed over the group (exactly one rank adds each row); under
+    sequence parallelism the sum is reduce-scattered, each rank keeping its
+    slice of the sequence."""
     v_local = table.shape[0]
     local = ids.long() - mp.index * v_local
     outside = (local < 0) | (local >= v_local)
     rows = table[local.masked_fill(outside, 0)]
-    return reduce_from_model(rows.masked_fill(outside[..., None], 0), mp)
+    return region_out(rows.masked_fill(outside[..., None], 0), mp)
 
 
 class _VocabCE(torch.autograd.Function):

@@ -2,7 +2,7 @@
 """Where the time of the port's main-path train step goes, on one GPU.
 
     PYTHONPATH=src python3 -m repro_torch.profile_main_path [--steps 3] [--out FILE]
-        [--tiered [--fused]] [--split] [--lm ARCH [--dtype bfloat16]]
+        [--tiered [--fused]] [--split] [--lm ARCH [--dtype bfloat16] [--remat POLICY]]
 
 Builds the step ``chip_smoke.py`` drives (ResNet-50 at full width, 224x224x3,
 1000 classes, async rehearsal, b=16 r=2 c=4, 4 x 500 buffer slots; with
@@ -15,7 +15,8 @@ CUDA stream) in place of the fused ``make_cl_step``. ``--lm ARCH`` profiles
 the LM train step of ``chip_smoke.py``'s phase 15 in place of the ResNet's
 (``TokenClassIncremental`` at full width with the train CLI's one-device
 settings: seq 128, b 8, r 7, c 14, AdamW, 2 x 16 buffer slots, TF32 off;
-``--dtype bfloat16`` computes in bf16). Prints the median wall
+``--dtype bfloat16`` computes in bf16, ``--remat`` sets
+``TrainConfig.remat``, ``dots`` by default). Prints the median wall
 time of a step (timed without the profiler; beside it the host's time to
 dispatch the step, each half's in the split form, and to wait for the
 loss), the device-busy time (the
@@ -169,10 +170,11 @@ def _resnet_run(tiered: bool, fused: bool):
     return run, ClassIncremental(sc)
 
 
-def _lm_run(arch: str, dtype: str, tiered: bool, fused: bool):
+def _lm_run(arch: str, dtype: str, tiered: bool, fused: bool, remat: str = "dots"):
     """Phase 15's LM run and scenario at full width, TF32 off: the train
     CLI's one-device run for ``arch`` (``launch.train.build_run``), with the
-    compute dtype and the tiered store's kernels set on it."""
+    compute dtype, the checkpoint policy and the tiered store's kernels set
+    on it."""
     import dataclasses
 
     from repro_torch.launch import train as train_cli
@@ -182,13 +184,14 @@ def _lm_run(arch: str, dtype: str, tiered: bool, fused: bool):
     run = train_cli.build_run(train_cli.parse_args(
         ["--arch", arch] + (["--tiering", "host"] if tiered else [])))
     run = dataclasses.replace(
-        run, train=dataclasses.replace(run.train, compute_dtype=dtype),
+        run, train=dataclasses.replace(run.train, compute_dtype=dtype, remat=remat),
         rehearsal=dataclasses.replace(run.rehearsal, fused_kernels=fused))
     return run, TokenClassIncremental(run.scenario)
 
 
 def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool = False,
-            split: bool = False, lm: str = "", dtype: str = "float32") -> dict:
+            split: bool = False, lm: str = "", dtype: str = "float32",
+            remat: str = "dots") -> dict:
     """Build, warm up, time and profile the main-path step (see the module
     note; ``lm`` names an LM arch to profile phase 15's step). Returns the
     report as a dict."""
@@ -198,7 +201,8 @@ def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool =
     from repro_torch.rng import fold_in
     from repro_torch.strategy import TrainCarry, init_carry, make_cl_step, make_pipelined_halves
 
-    run, scenario = _lm_run(lm, dtype, tiered, fused) if lm else _resnet_run(tiered, fused)
+    run, scenario = (_lm_run(lm, dtype, tiered, fused, remat) if lm
+                     else _resnet_run(tiered, fused))
     sc, label = run.scenario, scenario.label_field
     problem = scenario.build_problem(run, "cuda")
     init, update = make_optimizer(run.train)
@@ -267,7 +271,8 @@ def profile(steps: int = 3, warmup: int = 3, tiered: bool = False, fused: bool =
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     buffer = ("tiered, fused" if fused else "tiered") if tiered else "flat"
-    return {"card": card, "model": f"{lm} {dtype}" if lm else "resnet50_cl", "buffer": buffer, "step_form": "split" if split else "fused",
+    return {"card": card, "model": f"{lm} {dtype} remat {remat}" if lm else "resnet50_cl",
+            "buffer": buffer, "step_form": "split" if split else "fused",
             "steps": steps, "wall_ms_per_step": wall_ms, "wall_ms_steps": walls,
             "host_ms_per_step": host_ms,
             "device_ms_per_step": device_ms, "device_busy_ms_per_step": busy_ms,
@@ -322,11 +327,13 @@ def main():
                     help="profile phase 15's LM train step of this arch")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the LM's compute dtype")
+    ap.add_argument("--remat", default="dots", choices=("none", "dots", "dots_no_batch", "full"),
+                    help="the LM's activation checkpointing policy")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repro_torch.profile_main_path: needs a CUDA device")
     out = profile(args.steps, args.warmup, args.tiered, args.fused, args.split, args.lm,
-                  args.dtype)
+                  args.dtype, args.remat)
     print_report(out)
     if args.out:
         with open(args.out, "w") as f:

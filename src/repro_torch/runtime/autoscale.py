@@ -120,9 +120,11 @@ class Autoscaler:
         return target
 
 
-def scale_carry(carries, n_new: int, policy=None):
+def scale_carry(carries, n_new: int, policy=None, zero1: bool = False):
     """Apply a scale decision to the N ranks' live ``TrainCarry``s: pool and
-    re-deal the buffers (flat or tiered) across ``n_new`` workers. Returns
+    re-deal the buffers (flat or tiered) across ``n_new`` workers, and under
+    ``zero1`` (the run's ``TrainConfig.zero1``) re-cut the optimizer's
+    moment slices for them (``reshard_carry``). Returns
     ``(new_carries, seconds)``, the reshard's wall time, the card's work
     included."""
     import torch
@@ -131,7 +133,7 @@ def scale_carry(carries, n_new: int, policy=None):
 
     t0 = time.perf_counter()
     with get_tracer().span("reshard", cat="elastic", n_new=n_new):
-        new = reshard_carry(carries, n_new, policy=policy)
+        new = reshard_carry(carries, n_new, policy=policy, zero1=zero1)
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
     seconds = time.perf_counter() - t0

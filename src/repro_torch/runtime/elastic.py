@@ -2,8 +2,11 @@
 
 Everything in a carry is either *replicated* (the model, the optimizer, the
 error feedback: every rank holds the same) or *per-worker* (the rehearsal
-buffer and the pending representatives, redistributed here). The streams
-re-shard trivially: they are pure functions of the cursor.
+buffer and the pending representatives, redistributed here). Under ZeRO-1
+(``TrainConfig.zero1``) the optimizer's moments are per-worker too: each
+rank holds its slice, which are joined in rank order into the whole moments
+and cut again for the new worker count. The streams re-shard trivially:
+they are pure functions of the cursor.
 
 The port's buffers are per process, with leaves [K, slots, ...] and no
 worker axis, so these functions take the list of the N ranks' states and
@@ -37,7 +40,8 @@ from repro_torch.buffer.state import BufferState, first_leaf, tree_map
 from repro_torch.buffer.tiered import TieredState, record_spec_of
 from repro_torch.checkpoint.manager import (bucket_pools, deal_index, dealt_counts,
                                             gather_dealt, reshard_buffer)
-from repro_torch.parallel import MODEL_AXIS_ITEM
+from repro_torch.optim.optimizers import OptState
+from repro_torch.parallel import MODEL_AXIS_ITEM, Zero1
 from repro_torch.strategy.step import PipelinedRehearsalCarry, TrainCarry
 
 
@@ -164,7 +168,40 @@ def reshard_tiered(states: Sequence[TieredState], n_new: int,
         stage[w], labels[w], valid[w]) for w in range(n_new)]
 
 
-def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None) -> List[TrainCarry]:
+def _whole_moment(parts: Sequence[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """The ranks' ZeRO-1 slices ``parts`` of a moment of parameter ``like``
+    joined in rank order (the one whole moment when it was not cut)."""
+    if parts[0].shape == like.shape:
+        return parts[0]
+    dim = next(i for i, (a, b) in enumerate(zip(parts[0].shape, like.shape)) if a != b)
+    return torch.cat(list(parts), dim=dim)
+
+
+def reshard_moments(opts: Sequence[OptState], params, n_new: int,
+                    specs=None) -> List[OptState]:
+    """The N ranks' ZeRO-1 optimizer states ``opts`` (moments sliced as
+    ``Zero1.dim`` cut them for N, of the parameters ``params``, a dict of
+    tensors whose specs ``specs`` gives, the model's ``layout_specs``) for
+    ``n_new`` workers: each moment joined whole, then cut by ``zero1_spec``
+    at the new size (a dim may divide N and not ``n_new``; whole at one
+    worker)."""
+    whole = [{k: _whole_moment([o.mu[k] for o in opts], params[k]) for k in opts[0].mu},
+             {k: _whole_moment([o.nu[k] for o in opts], params[k]) for k in opts[0].nu}]
+    out = []
+    for w in range(n_new):
+        cut = Zero1(None, n_new, w)
+
+        def piece(k, t):
+            dim = cut.dim(tuple(t.shape), (specs or {}).get(k)) if n_new > 1 else None
+            return t.clone() if dim is None else cut.shard(t, dim).clone()
+
+        out.append(OptState(opts[0].step, *({k: piece(k, t) for k, t in m.items()}
+                                            for m in whole)))
+    return out
+
+
+def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None,
+                  zero1: bool = False) -> List[TrainCarry]:
     """Adapt the N ranks' ``TrainCarry``s to ``n_new`` workers.
 
     ``policy`` (name or Policy) must name the buffer policy when it carries
@@ -172,7 +209,10 @@ def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None) -> Lis
     cursor, GRASP distances) is rebuilt per worker by ``Policy.reshard_aux``.
     Flat and tiered buffers both reshard; see ``reshard_tiered`` for the tier
     by tier semantics. The replicated state (model, optimizer, error
-    feedback) is rank 0's, the same objects in every new carry; new worker
+    feedback) is rank 0's, the same objects in every new carry. With
+    ``zero1`` (the run's ``TrainConfig.zero1``) the optimizer's moments are
+    the ranks' slices instead (whole at one worker), re-cut for the new
+    count (``reshard_moments``); new worker
     w's pending slot is a copy of old rank ``w % N``'s (the ranks share the
     step's key). Carries of a model axis over 1 (sharded parameters,
     ``Decoder.tp_sharded``) raise: resharding across M is ROADMAP Queue 1
@@ -181,8 +221,13 @@ def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None) -> Lis
     if getattr(c0.params, "tp_sharded", None):
         raise NotImplementedError(f"elastic reshard of tensor-parallel (model-axis) carries "
                                   f"is not ported yet ({MODEL_AXIS_ITEM})")
+    params = (dict(c0.params.named_parameters()) if isinstance(c0.params, torch.nn.Module)
+              else c0.params)
+    opts = (reshard_moments([c.opt for c in carries], params, n_new,
+                            getattr(c0.params, "layout_specs", None)) if zero1
+            else [c0.opt] * n_new)
     if c0.buffer is None:
-        return [c0] * n_new
+        return [c0._replace(opt=o) for o in opts] if zero1 else [c0] * n_new
     if isinstance(c0.buffer, TieredState):
         buffers: List[Any] = reshard_tiered([c.buffer for c in carries], n_new, policy)
     else:
@@ -193,5 +238,5 @@ def reshard_carry(carries: Sequence[TrainCarry], n_new: int, policy=None) -> Lis
         if pipe is not None:
             pipe = PipelinedRehearsalCarry(tree_map(torch.clone, pipe.reps),
                                            pipe.valid.clone(), pipe.key)
-        out.append(TrainCarry(c0.params, c0.opt, buffers[w], pipe, c0.ef))
+        out.append(TrainCarry(c0.params, opts[w], buffers[w], pipe, c0.ef))
     return out

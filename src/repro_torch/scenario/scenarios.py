@@ -26,6 +26,7 @@ from repro_torch.data import (
     TaskTokenStream,
     TokenStreamConfig,
 )
+from repro_torch.parallel.tensor import seq_parallel
 from repro_torch.scenario.base import Problem, Scenario, register_scenario
 
 # Eval forwards run in chunks of this many images: at 224x224 with the
@@ -195,8 +196,9 @@ def build_token_lm(run, vocab_size: int, mp=None):
     ``(model, ctx, eval_ctx)``, both on the model row ``mp`` (None: the
     unsharded model). ``ctx`` computes in the run's compute dtype
     (``run.train.compute_dtype``) through the plain mixers, as the
-    reference trains (it has no backward kernel); ``eval_ctx`` computes in
-    f32. Without ``run.model`` the model is the reduced SmolLM-135M, 2
+    reference trains (it has no backward kernel), under the run's
+    activation checkpointing (``run.train.remat``) and, on a model row, its
+    ``sequence_parallel``; ``eval_ctx`` computes in f32 without either. Without ``run.model`` the model is the reduced SmolLM-135M, 2
     layers, over the stream's vocab. Every decoder trains: dense, SSM, MoE
     and hybrid (their loss adds the weighted MoE aux). The enc-dec and VLM
     families train on records with ``frames`` or ``embeddings`` and
@@ -216,8 +218,11 @@ def build_token_lm(run, vocab_size: int, mp=None):
             f"{' and '.join(FAMILY_FIELDS[cfg.family])}; the token scenarios' records hold "
             f"tokens, labels and the task only")
     dtype = torch.float32 if run.train.compute_dtype == "float32" else torch.bfloat16
-    return (build_model(cfg), StackCtx(cfg=cfg, compute_dtype=dtype, mp=mp),
-            StackCtx(cfg=cfg, compute_dtype=torch.float32, mp=mp))
+    tcfg = run.train
+    return (build_model(cfg),
+            StackCtx(cfg=cfg, compute_dtype=dtype, mp=seq_parallel(mp, tcfg.sequence_parallel),
+                     remat=tcfg.remat),
+            StackCtx(cfg=cfg, compute_dtype=torch.float32, mp=mp, remat="none"))
 
 
 class _TokenScenario(Scenario):

@@ -608,18 +608,17 @@ class _Records:
 def materialize_state(built, run, mesh, key: int):
     """This rank's initial ``(params, opt, buffer, reps, valid)`` for a
     built mesh step (``(params, opt, None, None, None)`` without rehearsal):
-    the model from ``key``, its optimizer state, the empty buffer the config
+    the model from ``key``, its optimizer state (this rank's slices of the
+    moments under ``TrainConfig.zero1``), the empty buffer the config
     describes (flat or tiered, its policy's aux initialised, the cold tier
     in pinned host memory on CUDA) and a pending slot of
     ``built.pending_rows`` invalid records (their labels masked to -1: the
     first step trains un-augmented)."""
     from repro_torch.buffer import api as buffer_api
     from repro_torch.buffer.state import mask_invalid
-    from repro_torch.optim import make_optimizer
 
     params = built.problem.init_params_fn(key)
-    opt = make_optimizer(run.train, n_workers=built.meta["n_dp"])[0](
-        dict(params.named_parameters()))
+    opt = built.init_opt(dict(params.named_parameters()), getattr(params, "layout_specs", None))
     if built.meta["mode"] == "off":
         return params, opt, None, None, None
     device, rcfg, rows = built.device, built.rcfg, built.pending_rows

@@ -114,8 +114,8 @@ class OnlineLearner:
                 f"[seq_len] token/label layout (store_decode=False lifts this)")
         # the serving forward: the model the train side builds, in its own dtype
         model, _, _ = build_token_lm(run, self.scenario.stream.cfg.vocab_size)
-        self.engine = DecodeEngine(model, StackCtx(cfg=model.cfg, compute_dtype=serve_dtype),
-                                   cache_dtype=serve_dtype)
+        ctx = StackCtx(cfg=model.cfg, compute_dtype=serve_dtype, remat="none")
+        self.engine = DecodeEngine(model, ctx, cache_dtype=serve_dtype)
 
     def _admit_records(self, req: Dict[str, np.ndarray],
                        gen: GenResult) -> Dict[str, torch.Tensor]:

@@ -56,21 +56,33 @@ def routing(pinned=None):
     of each call's own ``(gates, experts)``, in call order. Given ``pinned``
     (such a list from an earlier block), each call returns the next pinned
     pair instead (moved to its device), keeping its own aux loss; the block
-    must make exactly as many calls as ``pinned`` holds."""
+    must make exactly as many calls as ``pinned`` holds. A call made while
+    a backward runs is a checkpointed unit's recomputation, not a call: it
+    gets the routing its MoE layer's forward got last."""
+    import torch
+
     from repro_torch.models import moe
 
     route, calls = moe.route, []
     queue = None if pinned is None else list(pinned)
+    served = {}  # each MoE layer's last pins, for its recomputation
 
     def wrapped(params, x, cfg):
         gates, experts, aux = route(params, x, cfg)
+        if torch._C._current_graph_task_id() != -1:  # inside a backward
+            if queue is None:
+                return gates, experts, aux
+            g, e = served[id(params)]
+            return g, e, aux
         calls.append((gates, experts))
         if queue is None:
             return gates, experts, aux
         if not queue:
             raise AssertionError("more MoE calls than pinned routings")
         g, e = queue.pop(0)
-        return g.to(gates.device), e.to(experts.device), aux
+        g, e = g.to(gates.device), e.to(experts.device)
+        served[id(params)] = (g, e)
+        return g, e, aux
 
     moe.route = wrapped
     try:

@@ -210,7 +210,11 @@ def test_builder_meta_matches_the_reference_at_1x1(case, budget):
     mesh = tmesh.make_mesh((1, 1), ("data", "model"))
     got = build_train_step(run, mesh, buffer_budget_bytes=budget, device="cpu")
     want_meta = want.meta
-    assert set(got.meta) == set(want_meta)
+    # the memory knobs the reference's builder reads from TrainConfig and
+    # does not report: the port names them in meta too
+    knobs = {"remat": run.train.remat, "zero1": False, "sequence_parallel": False}
+    assert set(got.meta) == set(want_meta) | set(knobs)
+    assert {k: got.meta[k] for k in knobs} == knobs
     for k in want_meta:
         if k == "cold_placement" and case == "tiered":
             # the reference's rule on each runtime: this jax's CPU exposes a

@@ -371,12 +371,12 @@ def test_a_failure_mid_optimizer_leaves_serving_on_the_last_handoff(monkeypatch)
 
 def test_serve_online_runs_on_the_cpu(capsys, caplog):
     """``--mesh`` is logged and ignored under ``--online``, as in the
-    reference; the log names the serving mesh's ROADMAP item."""
+    reference (not a gap of the port: the log says so)."""
     with caplog.at_level("INFO", logger=serve.log.name):
         res = serve.main(["--online", "--device", "cpu", "--rounds", "2", "--batch", "2",
                           "--prompt-len", "8", "--gen-len", "4", "--phases", "2",
                           "--mesh", "2x2"])
-    assert "--mesh 2x2 ignored" in caplog.text and "item 21" in caplog.text
+    assert "--mesh 2x2 ignored, as the reference does" in caplog.text
     assert len(res.history) == 2 and res.admission_rate == 1.0
     assert [h["freshness"] for h in res.history] == [1.0, 1.0]
     assert tuple(res.last_tokens.shape) == (2, 4)
