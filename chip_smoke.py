@@ -91,9 +91,10 @@ Phases (any failure exits non-zero):
      every record kept; (e) ``OnlineLearner`` at SmolLM-135M full width, 2
      rounds, a transient failure (a restart, every round trained) and a
      persistent one (training off, serving on the last checkpoint's weights
-     bit for bit); (f) the train CLI with ``--ckpt-dir --resilience``.
-     Checkpoint bytes, save (snapshot, write) and restore ms, the median
-     step beside phase 5's.
+     bit for bit); (f) the train CLI with ``--ckpt-dir --resilience``, 1
+     task of 2 steps, a restart checkpoint every step. Checkpoint bytes,
+     save (snapshot, write) and restore ms, the median step beside phase
+     5's.
 Phases 8-12 are the language-model inference path, with TF32 off:
   8. flash attention against its plain version at SmolLM-135M's (hd 64)
      and Gemma-2B's (hd 256, MQA) prefill shapes (f32 on the 3xTF32 wgmma
@@ -140,15 +141,16 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      on the card against the CPU through the ``rows`` seam.
  16. online serving (after phase 15, TF32 off): ``OnlineLearner(run).run()``
      on the serve CLI's ``--online`` run at its defaults (batch 4, prompt 32,
-     gen 16, 8 rounds of 1 train step, a drift over 3 anchors, AdamW f32,
-     async reservoir) with SmolLM-135M, then Mamba2-370M, at full width over
-     a drift stream of min(V, 2048) ids. Each run: every round trained at
-     freshness 1, admission 1.0, finite losses, 8 update+sample launches and
-     no other kernel, the serving copy equal to the train weights bit for
-     bit; decode tokens/s per sequence beside phase 12's, train ms a round,
-     the handoff copy's ms, peak memory. Then SmolLM-135M with a failure
-     injected before round 5's step: every round still served and serving
-     ends on round 4's handed-off weights bit for bit. Then
+     gen 16, rounds of 1 train step, a drift over 3 anchors, AdamW f32,
+     async reservoir), cut to 4 of its 8 rounds for time, with
+     SmolLM-135M, then Mamba2-370M, at full width over a drift stream of
+     min(V, 2048) ids. Each run: every round trained at freshness 1,
+     admission 1.0, finite losses, 4 update+sample launches and no other
+     kernel, the serving copy equal to the train weights bit for bit; decode
+     tokens/s per sequence beside phase 12's, train ms a round, the handoff
+     copy's ms, peak memory. Then SmolLM-135M with a failure injected before
+     round 3's step: every round still served and serving ends on round 2's
+     handed-off weights bit for bit. Then
      ``serve.main(["--online"])`` on the card at the CLI's defaults.
  19. the mesh backend (after phase 16): (a) phase 5's flat configuration
      through ``ContinualTrainer(mesh=make_mesh((1, 1), ...),
@@ -252,7 +254,8 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      x S 2048), f32 and bf16, routing pinned to the run without: the logits
      within phase 11's bounds of the run without, the same flash and scan
      launches (2, and 48 x 3, a rank), each one's peak; (b) on a 2 x 1 mesh,
-     ``ContinualTrainer`` on the train CLI's run of Mamba2-370M whole, 4
+     ``ContinualTrainer`` on the train CLI's run of Mamba2-370M (cut to 12
+     of 48 layers, for time), 4
      steps f32 in deterministic mode, without and with ``zero1``, the
      gradient clip off and then on: each rank's moment bytes (their numel
      x 4) halved but for the 1-D leaves the rule leaves whole, its peak,
@@ -261,6 +264,25 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      norm sums the slices in another order), each step's ``obs/grad_norm``
      within 1e-6 of the run without's, and the leaf farthest from it named
      with AdamW's second moment there.
+ 25. the ghost block and the model axis's restarts, tap strategies and
+     encoder-decoder (after phase 24, TF32 off for its ranks): (a)
+     ``resnet50_cl.ghostnet()`` at full width (224x224x3, 1000 classes), its
+     forward on the card against the CPU as phase 4's, then
+     ``ContinualTrainer`` on phase 5's flat configuration with it (running
+     phase 5 itself when it did not run): one update+sample launch a step,
+     finite losses, its median step beside phase 5's (both with TF32 on, as
+     phase 5 runs); then two processes
+     over gloo on cuda:0, a 1 x 2 mesh: (b) ``ContinualTrainer`` on the
+     train CLI's Mamba2-370M run (1 task of 4 steps, f32, cut to 12 of 48
+     layers as phase 23's training) with ``resilience`` in deterministic
+     mode, clean and with model rank 1 failing before step 3: every rank
+     restarts once and ends with the clean run's parameters, buffer and
+     losses bit for bit, one update+sample launch a step a rank (the
+     replayed step's included); (c) der_pp storing the whole vocabulary's
+     top-16 pairs from the vocab-sharded logits on the same run: one launch
+     a step a rank, finite losses, the two ranks' buffers the same bits;
+     (d) ``serve.main --arch whisper-tiny --mesh 1x2`` gives the 1x1 run's
+     token ids.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -1148,7 +1170,7 @@ def folded_phase(qz, ops, ref, link: tuple) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def model_phase(cfg):
+def model_phase(cfg, label: str = "ResNet-50"):
     from repro_torch.models.resnet import apply_cnn, init_cnn
 
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
@@ -1167,7 +1189,7 @@ def model_phase(cfg):
     scale = float(want.abs().max())
     # f32 both sides, different convolution algorithms and reduction orders
     tol = 1e-4 * scale + 1e-5
-    print(f"ResNet-50 full width, 2 images 32x32, TF32 off: logits {tuple(got.shape)}, "
+    print(f"{label} full width, 2 images 32x32, TF32 off: logits {tuple(got.shape)}, "
           f"max |card - cpu| {err:.3e} (tolerance {tol:.3e}, |logit| max {scale:.3f})")
     if got.shape != (2, cfg.num_classes) or not math.isfinite(err) or err > tol:
         raise AssertionError("the model on the card disagrees with the CPU")
@@ -1214,14 +1236,17 @@ def class_incremental_stream(cfg, seed: int = 0):
         seed=1234 + seed)))
 
 
-def class_incremental_trainer(cfg, rehearsal, seed: int = 0, obs=None, **kw):
-    """``ContinualTrainer`` on ``cfg`` over ``class_incremental_stream`` with
-    the rehearsal fields ``rehearsal`` (r, c and async mode fixed) and the
-    ``ObsConfig`` ``obs`` (default: off); ``kw`` goes to the trainer."""
+def class_incremental_trainer(cfg, rehearsal, seed: int = 0, obs=None, stream_cfg=None,
+                              **kw):
+    """``ContinualTrainer`` on ``cfg`` over ``class_incremental_stream`` (of
+    ``stream_cfg``, default ``cfg``: a model of the same image size shares
+    the stream) with the rehearsal fields ``rehearsal`` (r, c and async mode
+    fixed) and the ``ObsConfig`` ``obs`` (default: off); ``kw`` goes to the
+    trainer."""
     from repro_torch.configs.base import ObsConfig, RehearsalConfig, RunConfig
     from repro_torch.scenario import ClassIncremental, ContinualTrainer
 
-    sc, stream = class_incremental_stream(cfg, seed)
+    sc, stream = class_incremental_stream(stream_cfg or cfg, seed)
     run = RunConfig(model=cfg, scenario=sc, obs=obs or ObsConfig(), rehearsal=RehearsalConfig(
         num_representatives=REPS, num_candidates=CANDS, mode="async", **rehearsal))
     return ContinualTrainer(run, ClassIncremental(sc, stream=stream), device="cuda", **kw)
@@ -2736,28 +2761,31 @@ def lm_train_phase(counters, qz, ops, ref):
 # train step; a drift over 3 anchors; AdamW at 3e-3, f32; the drift stream's
 # rehearsal defaults: async reservoir, one bucket an anchor, 16 slots, r 7,
 # c 14) with the model at full width and the stream over min(V, 2048) ids.
-ONLINE_ROUNDS, ONLINE_PHASES, ONLINE_FAIL_AT = 8, 3, 5
+# The learner runs ONLINE_ROUNDS of the CLI's ONLINE_CLI_ROUNDS rounds, for
+# time (the CLI's own case keeps its 8, on the reduced LM).
+ONLINE_CLI_ROUNDS, ONLINE_ROUNDS, ONLINE_PHASES, ONLINE_FAIL_AT = 8, 4, 3, 3
 ONLINE_ARCHS = ("smollm-135m", "mamba2-370m")
 
 
 def online_run(arch: str):
     """The ``RunConfig`` of the serve CLI's ``--online`` at its defaults, with
-    ``arch`` at full width in place of the reduced LM and the drift stream
-    over min(V, 2048) ids."""
+    ``arch`` at full width in place of the reduced LM, the drift stream over
+    min(V, 2048) ids and ``ONLINE_ROUNDS`` rounds."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     args = serve.parse_args(["--online"])
     got = (args.batch, args.prompt_len, args.gen_len, args.rounds, args.train_every,
            args.phases, args.dtype)
-    want = (SERVE_B, PROMPT, GEN, ONLINE_ROUNDS, 1, ONLINE_PHASES, "float32")
+    want = (SERVE_B, PROMPT, GEN, ONLINE_CLI_ROUNDS, 1, ONLINE_PHASES, "float32")
     if got != want:
         raise AssertionError(f"the serve CLI's --online defaults moved: {got}, phase 16 "
                              f"reads {want}")
     run = serve.build_online_run(args)
     cfg = get_config(arch)
-    return dataclasses.replace(run, model=cfg, scenario=dataclasses.replace(
-        run.scenario, vocab_size=min(cfg.vocab_size, 2048)))
+    return dataclasses.replace(
+        run, model=cfg, online=dataclasses.replace(run.online, rounds=ONLINE_ROUNDS),
+        scenario=dataclasses.replace(run.scenario, vocab_size=min(cfg.vocab_size, 2048)))
 
 
 class OnlineTimes:
@@ -2886,8 +2914,8 @@ def online_arch(counters, arch: str, decode_cli: dict, fail: bool = False):
 
 def online_cli(counters):
     """``serve.main(["--online"])``: the reduced 2-layer LM on the card at the
-    CLI's defaults. Checks 8 rounds trained at freshness 1, one update+sample
-    launch a round and no other kernel."""
+    CLI's defaults. Checks its 8 rounds trained at freshness 1, one
+    update+sample launch a round and no other kernel."""
     from repro_torch.launch import serve
 
     for fn in counters.values():
@@ -2899,10 +2927,10 @@ def online_cli(counters):
           f"{[round(h['loss'], 4) for h in res.history]}, decode "
           f"{res.decode_tokens_per_second:.1f} tok/s per sequence, admission "
           f"{res.admission_rate}, launches {({k: v for k, v in launches.items() if v})}")
-    if launches != dict({k: 0 for k in counters}, rehearsal_update_sample=ONLINE_ROUNDS):
+    if launches != dict({k: 0 for k in counters}, rehearsal_update_sample=ONLINE_CLI_ROUNDS):
         raise AssertionError(f"serve --online: launches {launches}")
     if (res.last_tokens.device.type != "cuda" or res.train_disabled
-            or [h["freshness"] for h in res.history] != [1.0] * ONLINE_ROUNDS):
+            or [h["freshness"] for h in res.history] != [1.0] * ONLINE_CLI_ROUNDS):
         raise AssertionError(f"serve --online: {res.history}")
 
 
@@ -2924,7 +2952,8 @@ def online_phase(counters, decode_cli: dict):
 # at each task's start, and a failure injected before absolute step 5 (mid
 # task 1, off a checkpoint), so that the restart restores the checkpoint of
 # step 4 (task 1's start) and replays step 4.
-RES_EVERY, RES_FAIL_AT, RES_ONLINE_ROUNDS = 3, 5, 2  # 2 online rounds keep the script in time
+# Cases (e) and (f) are cut for time to 2 online rounds and 2 CLI steps.
+RES_EVERY, RES_FAIL_AT, RES_ONLINE_ROUNDS, RES_CLI_STEPS = 3, 5, 2, 2
 RES_REPLAYED = RES_FAIL_AT - max(RES_FAIL_AT // RES_EVERY * RES_EVERY,
                                  RES_FAIL_AT // STEPS_PER_TASK * STEPS_PER_TASK)
 
@@ -3204,7 +3233,7 @@ def online_resilient(counters, persistent: bool):
         launches = {k: fn.launches for k, fn in counters.items()}
         trained = [int(h["trained"]) for h in res.history]
         name = "persistent" if persistent else "transient"
-        print(f"online, {name} failure: restarts {res.restarts}, trained {trained}, "
+        print(f"(e) online, {name} failure: restarts {res.restarts}, trained {trained}, "
               f"freshness {[int(h['freshness']) for h in res.history]}, train disabled "
               f"{res.train_disabled}, launches {({k: v for k, v in launches.items() if v})}, "
               f"{seconds:.1f} s")
@@ -3230,8 +3259,9 @@ def online_resilient(counters, persistent: bool):
 
 
 def train_cli_resilient(counters):
-    """Case (f): ``launch.train.main`` at SmolLM-135M full width, 1 task x 4
-    steps, with ``--ckpt-dir --resilience --resilience-checkpoint-every 2``."""
+    """Case (f): ``launch.train.main`` at SmolLM-135M full width, 1 task x
+    ``RES_CLI_STEPS`` steps, with ``--ckpt-dir --resilience
+    --resilience-checkpoint-every 1``."""
     import shutil
     import tempfile
 
@@ -3242,18 +3272,20 @@ def train_cli_resilient(counters):
     try:
         for fn in counters.values():
             fn.launches = 0
-        res = train.main(["--arch", "smollm-135m", "--tasks", "1", "--steps-per-task", "4",
-                          "--ckpt-dir", tmp, "--resilience",
-                          "--resilience-checkpoint-every", "2"])
+        res = train.main(["--arch", "smollm-135m", "--tasks", "1", "--steps-per-task",
+                          str(RES_CLI_STEPS), "--ckpt-dir", tmp, "--resilience",
+                          "--resilience-checkpoint-every", "1"])
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         steps = CheckpointManager(os.path.join(tmp, "resilient")).list_steps()
-        print(f"train CLI --resilience: losses {[round(x, 4) for x in res.losses]}, restarts "
-              f"{res.restarts}, stats {res.resilience_stats}, restart checkpoints {steps}, "
-              f"launches {({k: v for k, v in launches.items() if v})}")
-        if (res.restarts or len(res.losses) != 4
-                or not all(math.isfinite(x) for x in res.losses) or steps != [0, 2, 4]
-                or launches != dict({k: 0 for k in counters}, rehearsal_update_sample=4)):
+        print(f"(f) train CLI --resilience: losses {[round(x, 4) for x in res.losses]}, "
+              f"restarts {res.restarts}, stats {res.resilience_stats}, restart checkpoints "
+              f"{steps}, launches {({k: v for k, v in launches.items() if v})}")
+        if (res.restarts or len(res.losses) != RES_CLI_STEPS
+                or not all(math.isfinite(x) for x in res.losses)
+                or steps != list(range(RES_CLI_STEPS + 1))
+                or launches != dict({k: 0 for k in counters},
+                                    rehearsal_update_sample=RES_CLI_STEPS)):
             raise AssertionError(f"train CLI --resilience: {res.losses}, {steps}, {launches}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4827,7 +4859,9 @@ def model_axis_phase(counters, fa, ssd, ref):
 
 MK_REMAT = ("smollm-135m", 4, 2048)  # arch, B, S
 MK_POLICIES = ("none", "dots", "full")
-MK_ZERO1 = ("mamba2-370m", 4)  # arch, steps (the train CLI's run, 1 task)
+# arch, steps (the train CLI's run, 1 task), layers (cut for time, as phase
+# 23's training)
+MK_ZERO1 = ("mamba2-370m", 4, 12)
 MK_SEED = 29
 
 
@@ -4946,7 +4980,7 @@ def mk_prefill(counters, mesh, arch: str, layers: int, b: int, s: int) -> dict:
 
 def mk_zero1(counters, mesh) -> dict:
     """(b) ``ContinualTrainer(mesh=2x1)`` on the train CLI's run of
-    Mamba2-370M whole (1 task of MK_ZERO1 steps, f32), without then with
+    Mamba2-370M at 12 of 48 layers (1 task of MK_ZERO1 steps, f32), without then with
     ``zero1``, in deterministic mode, first with the gradient clip off and
     then on (the run's own clip, the obs gauges on for each step's
     ``obs/grad_norm``): each run's moment bytes on this rank, its peak, its
@@ -4965,12 +4999,14 @@ def mk_zero1(counters, mesh) -> dict:
     from repro_torch.parallel import Zero1
     from repro_torch.scenario import ContinualTrainer
 
-    arch, steps = MK_ZERO1
+    arch, steps, layers = MK_ZERO1
     out, base = {}, {}
     with deterministic_mode():
         for clip in (False, True):
             for zero1 in (False, True):
                 run = lm_cli_run(arch, steps=steps, tasks=1)
+                run = dataclasses.replace(run, model=dataclasses.replace(run.model,
+                                                                         num_layers=layers))
                 train = dataclasses.replace(run.train, zero1=zero1,
                                             grad_clip=run.train.grad_clip if clip else 0.0)
                 run = dataclasses.replace(run, train=train, obs=ObsConfig(enabled=clip))
@@ -5162,10 +5198,200 @@ def memory_knobs_phase(counters) -> tuple:
              if v["rehearsal_update_sample"]}, remat)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the ghost block; restarts, tap strategies and Whisper on a model axis
+# ---------------------------------------------------------------------------
+
+# (b) and (c): the train CLI's Mamba2-370M run (phase 24 (b)'s, 1 task of
+# GR_STEPS steps, f32) on a 1 x 2 mesh, cut to MA_TRAIN_LAYERS layers as
+# phase 23's training is (a step's gloo round trips scale with depth).
+# Restart checkpoints every GR_EVERY steps; model rank 1 fails before step
+# GR_FAIL_AT, so that every rank restores step GR_FAIL_AT - 1 and replays
+# it. (d): Whisper-tiny whole through the serve CLI.
+GR_STEPS, GR_EVERY, GR_FAIL_AT, GR_TOPK = 4, 2, 3, 16
+GR_SERVE = ["--arch", "whisper-tiny", "--batch", str(SERVE_B), "--prompt-len", "8",
+            "--gen-len", "8"]
+
+
+def ghost_path(counters, base_ms):
+    """(a) ``resnet50_cl.ghostnet()`` at full width: its forward on the card
+    against the CPU as phase 4 holds ResNet-50's (TF32 off), then
+    ``ContinualTrainer`` on phase 5's flat configuration with it, TF32 on as
+    phase 5 runs (``fit_flat``: one update+sample launch a step, finite
+    losses), its median step beside phase 5's."""
+    from repro_torch.configs import resnet50_cl
+
+    cfg = resnet50_cl.ghostnet()
+    model_phase(cfg, "GhostNet-50 (ghost blocks, stages (2, 2, 4, 2))")
+    trainer = class_incremental_trainer(cfg, FLAT, stream_cfg=resnet50_cl.full())
+    launches, _, step_ms = fit_flat(counters, trainer, "ghostnet, flat, step_form='fused'")
+    print(f"ghostnet median step {step_ms:.1f} ms beside phase 5's ResNet-50 {base_ms:.1f} ms "
+          f"({gpu_name_and_power()})")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _digest(named) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(named):
+        h.update(named[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gr_fit(counters, mesh, tmp: str, name: str, strategy: str = "", top_k: int = 0,
+           fail_rank: int = -1, resilient: bool = True) -> dict:
+    """One ``ContinualTrainer`` run of (b) or (c) on this rank, in
+    deterministic mode: with ``resilient``, restart checkpoints every
+    GR_EVERY steps under ``tmp/name``, and ``fail_rank`` failing once before
+    step GR_FAIL_AT. Every counter is set to 0 just before ``fit`` and read
+    just after. Returns the losses, restarts, launches, the stored record
+    fields and digests of the parameters and of the buffer."""
+    from repro_torch.configs.base import ResilienceConfig
+    from repro_torch.scenario import ContinualTrainer, TokenClassIncremental
+
+    import torch.distributed as dist
+
+    run = lm_cli_run("mamba2-370m", steps=GR_STEPS, tasks=1, strategy=strategy, top_k=top_k)
+    run = dataclasses.replace(run, model=dataclasses.replace(run.model,
+                                                             num_layers=MA_TRAIN_LAYERS))
+    hook = _fail_once(GR_FAIL_AT) if dist.get_rank() == fail_rank else None
+    kw = dict(ckpt_dir=os.path.join(tmp, name),
+              resilience=ResilienceConfig(checkpoint_every=GR_EVERY)) if resilient else {}
+    trainer = ContinualTrainer(run, TokenClassIncremental(run.scenario), device="cuda",
+                               mesh=mesh, overrides={"failure_hook": hook} if hook else None,
+                               **kw)
+    _zero(counters)
+    result = trainer.fit()
+    launches = _read(counters)
+    params, _, buffer = trainer.final_state[:3]
+    out = {"losses": result.losses, "restarts": result.restarts, "launches": launches,
+           "aux_fields": sorted(trainer.aux_spec),
+           "params": _digest(dict(params.named_parameters())),
+           "buffer": _digest(buffer.data), "step_ms": statistics.median(result.step_seconds) * 1e3}
+    del trainer, result, params, buffer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ghost_rank(tmp: str):
+    """One rank of phase 25's two (``runtime.multiproc`` starts it): joins
+    the gloo group on cuda:0, runs (b), (c) and (d) on a 1 x 2 mesh and
+    writes its results to ``tmp/rank<i>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rehearsal_ops as ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.init_from_env("gloo")
+    counters = {"rehearsal_update_sample": ops.rehearsal_update_sample,
+                "flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    mesh = make_mesh((1, world), ("data", "model"), "cuda")
+    out = {"rank": rank}
+    with deterministic_mode():
+        out["clean"] = gr_fit(counters, mesh, tmp, "clean")
+        out["failed"] = gr_fit(counters, mesh, tmp, "failed", fail_rank=1)
+        out["der_pp"] = gr_fit(counters, mesh, tmp, "der_pp", strategy="der_pp", top_k=GR_TOPK,
+                               resilient=False)
+    res = serve.main(GR_SERVE + ["--mesh", f"1x{world}"])
+    out["serve"] = {"tokens": res.tokens.cpu().tolist(), "decode_tok_s": res.tokens_per_second}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import gc
+
+    gc.collect()
+    dist.destroy_process_group()
+
+
+def ghost_and_model_axis_phase(counters, fused_runs: dict, cfg) -> dict:
+    """Phase 25. Returns the update+sample launches of each run, by name."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime import multiproc
+
+    with tf32_as_phase_5():
+        if "flat" not in fused_runs:
+            fused_runs["flat"] = main_path(counters, cfg)
+        launches = {"ghostnet flat": ghost_path(counters, fused_runs["flat"][2])}
+    served = serve.main(GR_SERVE + ["--mesh", "1x1"]).tokens.cpu().tolist()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="repro_phase25_")
+    try:
+        t0 = time.perf_counter()
+        procs = multiproc.launch_workers(
+            f"import chip_smoke; chip_smoke.ghost_rank({tmp!r})", MA_RANKS,
+            pythonpath=ROOT + os.pathsep + os.path.join(ROOT, "src"), rendezvous_dir=tmp,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            print(p.stdout[-3000:], end="")
+        bad = [(i, p.returncode, p.stderr[-4000:]) for i, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise AssertionError(f"phase 25 ranks failed: {bad}")
+        ranks = []
+        for i in range(MA_RANKS):
+            with open(os.path.join(tmp, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{MA_RANKS} ranks in {wall:.1f} s ({GLOO})")
+    replayed = GR_FAIL_AT - GR_FAIL_AT // GR_EVERY * GR_EVERY
+    for r in ranks:
+        i = r["rank"]
+        for name in ("clean", "failed", "der_pp"):
+            g = r[name]
+            want = GR_STEPS + (replayed if name == "failed" else 0)
+            print(f"rank {i} mamba2-370m ({MA_TRAIN_LAYERS} layers) 1 x {MA_RANKS} {name}: "
+                  f"losses {[round(x, 5) for x in g['losses']]}, restarts {g['restarts']}, "
+                  f"record fields beyond the tokens' {g['aux_fields']}, launches "
+                  f"{({k: v for k, v in g['launches'].items() if v})} (want {want} "
+                  f"update+sample), median step {g['step_ms']:.1f} ms ({GLOO})")
+            if (g["launches"]["rehearsal_update_sample"] != want
+                    or any(v for k, v in g["launches"].items()
+                           if k != "rehearsal_update_sample")):
+                raise AssertionError(f"rank {i} {name}: launches {g['launches']}")
+            if len(g["losses"]) != GR_STEPS or not all(math.isfinite(x) for x in g["losses"]):
+                raise AssertionError(f"rank {i} {name}: losses {g['losses']}")
+            launches[f"mamba2-370m 1x{MA_RANKS} {name} rank {i}"] = \
+                g["launches"]["rehearsal_update_sample"]
+        c, f = r["clean"], r["failed"]
+        if f["restarts"] != 1 or c["restarts"] or f["params"] != c["params"] or \
+                f["losses"] != c["losses"] or f["buffer"] != c["buffer"]:
+            raise AssertionError(f"rank {i}: the failed run (restarts {f['restarts']}) differs "
+                                 f"from the clean one")
+        print(f"rank {i}: model rank 1 failed before step {GR_FAIL_AT}; this rank restarted "
+              f"once, replayed {replayed} step, and ended with the clean run's parameters, "
+              f"buffer and losses bit for bit")
+        if r["der_pp"]["aux_fields"] != ["logit_idx", "logit_vals"]:
+            raise AssertionError(f"rank {i} der_pp: record fields {r['der_pp']['aux_fields']}")
+        if r["serve"]["tokens"] != served:
+            raise AssertionError(f"rank {i} serve whisper-tiny --mesh 1x{MA_RANKS}: "
+                                 f"{r['serve']['tokens']} vs 1x1 {served}")
+        print(f"rank {i} serve --arch whisper-tiny --mesh 1x{MA_RANKS}: token ids == 1x1's "
+              f"({len(served)} x {len(served[0])}); {r['serve']['decode_tok_s']:.1f} tok/s "
+              f"per sequence ({GLOO})")
+    for name in ("clean", "failed", "der_pp"):
+        if len({r[name]["buffer"] for r in ranks}) != 1:
+            raise AssertionError(f"{name}: the two model ranks' buffers differ")
+    print("the two model ranks hold the same buffer in every run (der_pp's top-"
+          f"{GR_TOPK} records included)")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-24), and print no result lines")
+                    help="run phases 1, 2 and these only (3-25), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -5294,6 +5520,10 @@ def main(argv=None):
         phase("24 the train step's memory knobs: remat, ZeRO-1 and sequence parallelism")
         mk_flash, mk_scan, mk_update, _ = memory_knobs_phase(counters)
 
+    if run(25):
+        phase("25 the ghost block; restarts, der_pp and Whisper on a model axis of 2")
+        gr_launches = ghost_and_model_axis_phase(counters, fused_runs, cfg)
+
     if run(15):
         phase("15 LM training: ContinualTrainer on the token scenarios at full width")
         lm_runs = lm_train_phase(counters, qz, ops, ref)
@@ -5343,6 +5573,9 @@ def main(argv=None):
     # phase 24: the ZeRO-1 trainer's and the sequence-parallel prefill's, each
     # rank's counted from 0
     entry["launches_zero1"] = mk_update
+    # phase 25: the ghost ResNet's flat fit, and on each rank of the 1 x 2 row
+    # the resilient runs (the failed one's replay included) and der_pp's
+    entry["launches_phase25"] = gr_launches
     flash_entry["launches_sequence_parallel"] = mk_flash
     ssd_entry["launches_sequence_parallel"] = mk_scan
     # phase 11's launches a forward: SmolLM-135M's and Mamba2-370M's, then

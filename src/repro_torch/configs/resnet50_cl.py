@@ -1,7 +1,8 @@
 """The paper's own model: a ResNet-50 class-incremental image classifier.
 
 ``full()`` is the published width (bottleneck blocks, stages (3, 4, 6, 3),
-width 64, 224x224x3 images, 1000 classes); ``reduced()`` is the tiny ResNet
+width 64, 224x224x3 images, 1000 classes); ``resnet18()`` and ``ghostnet()``
+are the other variants at that width; ``reduced()`` is the tiny ResNet
 the CPU experiments train on 32x32 synthetic images.
 """
 from dataclasses import dataclass
@@ -13,7 +14,7 @@ ARCH_ID = "resnet50-cl"
 @dataclass(frozen=True)
 class CNNConfig:
     name: str
-    variant: str  # resnet18 (basic blocks) | resnet50 (bottleneck blocks)
+    variant: str  # resnet18 (basic) | resnet50 (bottleneck) | ghostnet (ghost blocks)
     num_classes: int = 1000
     width: int = 64
     stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
@@ -25,6 +26,16 @@ class CNNConfig:
 def full() -> CNNConfig:
     return CNNConfig(name="resnet50-cl", variant="resnet50", stage_blocks=(3, 4, 6, 3),
                      bottleneck=True)
+
+
+def resnet18() -> CNNConfig:
+    return CNNConfig(name="resnet18-cl", variant="resnet18", stage_blocks=(2, 2, 2, 2),
+                     bottleneck=False)
+
+
+def ghostnet() -> CNNConfig:
+    return CNNConfig(name="ghostnet50-cl", variant="ghostnet", stage_blocks=(2, 2, 4, 2),
+                     bottleneck=False)
 
 
 def reduced(num_classes: int = 40) -> CNNConfig:

@@ -94,7 +94,12 @@ def lm_named_from_tree(tree, cfg, mp=None) -> Dict[str, np.ndarray]:
     optimizer moments) into the ``Decoder``'s parameter names: the stacked
     ``units.layer{i}.*`` leaves split into ``layers.{u * period + i}.*``;
     with ``mp``, each cut to this rank's shard."""
-    named = _lm_named(tree, cfg)
+    return _shard_named(_lm_named(tree, cfg), cfg, mp)
+
+
+def _shard_named(named: Dict[str, np.ndarray], cfg, mp) -> Dict[str, np.ndarray]:
+    """``named`` (whole arrays), each cut to the rank's shard of ``mp``
+    (None: as they are)."""
     if mp is None:
         return named
     from repro_torch.parallel.sharding import param_spec, shard_param
@@ -122,7 +127,10 @@ def lm_params_from_jax(np_tree, cfg, device=None, mp=None):
     ``np_tree`` (dense, SSM, MoE or hybrid), on ``device`` (the card unless
     the caller asks for the CPU); with ``mp``, this rank's shards of them.
     Dense weights keep their ``[d_in, d_out]`` layout, the experts' theirs
-    (``[E, d, f]``, ``[E, f, d]``)."""
+    (``[E, d, f]``, ``[E, f, d]``). An enc-dec tree gives an ``EncDec``
+    (``encdec_params_from_jax``)."""
+    if cfg.family == "encdec":
+        return encdec_params_from_jax(np_tree, cfg, device, mp)
     model = init_decoder(torch.Generator().manual_seed(0), cfg, 1, device, mp)
     return load_named(model, lm_named_from_tree(np_tree, cfg, mp))
 
@@ -143,13 +151,14 @@ def encdec_named_from_tree(tree) -> Dict[str, np.ndarray]:
     return named
 
 
-def encdec_params_from_jax(np_tree, cfg, device=None):
+def encdec_params_from_jax(np_tree, cfg, device=None, mp=None):
     """An ``EncDec`` holding the weights of the JAX ``init_encdec`` tree
     ``np_tree`` (its positions as long as the tree's), on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU); with ``mp``, this rank's
+    shards of them."""
     max_seq = np.shape(np_tree["enc_pos"]["pos"])[0]
-    model = init_encdec(torch.Generator().manual_seed(0), cfg, max_seq, device)
-    return load_named(model, encdec_named_from_tree(np_tree))
+    model = init_encdec(torch.Generator().manual_seed(0), cfg, max_seq, device, mp)
+    return load_named(model, _shard_named(encdec_named_from_tree(np_tree), cfg, mp))
 
 
 def _tensor(a, device) -> torch.Tensor:

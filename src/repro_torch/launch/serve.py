@@ -10,8 +10,8 @@ On a mesh of more than one rank each rank is one process (torchrun, or
 ``runtime.multiproc``, as for ``launch.train``): the D data replicas each
 decode their slice of the batch, tensor-parallel over the M ranks of their
 model row, and the rank of global index 0 prints every slice's tokens,
-gathered over its data-parallel group. The encoder-decoder on a model axis
-over 1 is ROADMAP Queue 1 item 21's.
+gathered over its data-parallel group. Every family serves on a model
+axis, the encoder-decoder included.
 
 Weights are random, drawn from ``--seed``; so are the prompts (from a
 ``torch.Generator``: the port cannot reproduce ``jax.random``'s bits). The path
@@ -120,13 +120,10 @@ def _serve_once(args, registry=None):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import build_decode_step
     from repro_torch.launch.train import join_group
-    from repro_torch.parallel import MODEL_AXIS_ITEM, batch_slice, dp_group
+    from repro_torch.parallel import batch_slice, dp_group
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     d, m = (int(x) for x in args.mesh.split("x"))
-    if cfg.family == "encdec" and m > 1:
-        raise NotImplementedError(f"not ported yet: --mesh with MODEL > 1 for the "
-                                  f"encoder-decoder {cfg.name} ({MODEL_AXIS_ITEM})")
     dtype = DTYPES[args.dtype]
     max_len = args.prompt_len + args.gen_len
     device, joined = join_group(args.device)

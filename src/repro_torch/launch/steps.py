@@ -14,6 +14,9 @@ baseline), run by every data-parallel rank on its own shard:
       grads  <- loss(params, batch + reps')               # exchange on the critical path
   pipelined tap (der, der_pp, grasp_embed): the forward on batch + reps, the
       update of the new rows with this forward's outputs, then the backward.
+      On a model axis whose head is vocab-sharded (``Problem.vocab_mp``) the
+      records hold the whole vocabulary's logits (dense, or the top-k merged
+      from the shards') and the loss runs on the shards (``strategy.der``).
 
 Each rank holds its shard of the parameters and optimizer state (the whole
 of them on a model axis of 1; on M > 1 the rule table's shards, tensor-
@@ -74,8 +77,8 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import distributed as rdist
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.parallel import (MODEL_AXIS_ITEM, dp_axes, dp_size, global_mean,
-                                  model_parallel, seq_parallel, seq_partial, zero1_group)
+from repro_torch.parallel import (dp_axes, dp_size, global_mean, model_parallel, seq_parallel,
+                                  seq_partial, zero1_group)
 from repro_torch.strategy import outputs_row_spec, rep_checksum, resolve_strategy
 
 MAX_SLOTS = 1024
@@ -204,10 +207,6 @@ def build_train_step(
             f"mode='async'")
     if use_rehearsal:
         buffer_api.check_supported(rcfg)
-    if mp is not None and use_rehearsal and strat.needs_outputs:
-        raise NotImplementedError(
-            f"strategy {strat.name!r} stores the model's outputs, which a model axis of "
-            f"{mp.size} shards over the vocabulary: not ported yet ({MODEL_AXIS_ITEM})")
     label_field = label_field or rcfg.label_field
     task_field = task_field or rcfg.task_field
     problem = problem if problem is not None else scenario.build_problem(run, device, mp)
@@ -226,11 +225,11 @@ def build_train_step(
         if aux_spec is None:
             row_spec = outputs_row_spec(problem.forward_outputs,
                                         problem.init_params_fn(run.scenario.seed), item_spec,
-                                        device)
+                                        device, problem.vocab_mp)
             aux_spec = dict(strat.record_fields(item_spec, row_spec, scfg))
         item_spec = dict(item_spec, **aux_spec)
         tap_loss = strat.build_loss(problem.loss_fn, problem.forward_outputs, scfg,
-                                    label_field=label_field)
+                                    label_field=label_field, mp=problem.vocab_mp)
     aux_spec = aux_spec if tap else {}
     tiered = use_rehearsal and rcfg.tiered
     if tiered:
@@ -317,7 +316,7 @@ def build_train_step(
                 outs_b = rdist.global_batch_rows(
                     {k: v.detach() for k, v in outs.items() if v.dim()}, b, 1,
                     valid.shape[0])
-                store = strat.on_store(batch, outs_b, scfg)
+                store = strat.on_store(batch, outs_b, scfg, problem.vocab_mp)
                 buffer, next_reps, next_valid = update(buffer, store, batch[task_field], key,
                                                        rows)
                 consumed = (reps, valid)

@@ -32,11 +32,11 @@ scenario draws its tokens from the first ``min(vocab, 2048)`` ids while
 the model keeps its full vocabulary, as in the reference. Weights are
 random, drawn from ``--seed``. ``--ckpt-dir`` checkpoints the full state
 every ``--ckpt-every`` steps and after every task (one directory a rank on
-more than one worker); with ``--resilience`` (a model axis of 1 only, for
-now) each task's steps run in the
+more than one worker); with ``--resilience`` each task's steps run in the
 ``ResilientLoop`` (restart checkpoints every ``--resilience-checkpoint-every``
 steps under ``resilient`` in the rank's directory, bounded retry with
-backoff; on more than one worker the ranks agree on every restart):
+backoff; on more than one worker every rank of the mesh, the model ranks
+included, agrees on every restart):
 
     python -m repro_torch.launch.train --arch smollm-135m --reduced --device cpu \
         --tasks 1 --steps-per-task 4 --ckpt-dir /tmp/ck --resilience
@@ -60,11 +60,6 @@ from repro_torch.scenario import ContinualTrainer, TokenClassIncremental
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro_torch.train")
-
-# Options of the reference's CLI that the port has not yet, and their items:
-# the agreed restarts of --resilience span the data-parallel ranks only.
-UNPORTED_ITEMS = {"--resilience with MODEL > 1": 21}
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
@@ -127,16 +122,6 @@ def mesh_shape(args):
     return d, m
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for every option the port has not yet
-    that was given, naming each with its ROADMAP Queue 1 item."""
-    given = {"--resilience with MODEL > 1": args.resilience and mesh_shape(args)[1] != 1}
-    unported = [f"{flag} (ROADMAP Queue 1 item {UNPORTED_ITEMS[flag]})"
-                for flag, on in given.items() if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-
-
 def build_run(args) -> RunConfig:
     """The reference CLI's ``RunConfig``: f32 compute on a mesh of one
     worker, bf16 on more."""
@@ -190,7 +175,6 @@ def join_group(device):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_ported(args)
     run = build_run(args)
     device, joined = join_group(args.device)
     try:

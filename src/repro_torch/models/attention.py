@@ -174,6 +174,8 @@ def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bo
     is one stretch under either."""
     plan = head_plan(cfg, mp)
     x = whole_in(x, mp) if plan is None else region_in(x, mp)
+    if kv_input is not None and plan is not None:  # the encoder's states, read in part
+        kv_input = copy_to_model(kv_input, mp)
     q, k, v = qkv(params, x, cfg, kv_input=kv_input, plan=plan, mp=mp)
     if angles is not None:
         q = apply_rope(q, angles)

@@ -16,8 +16,8 @@ decoders, and the encoder-decoder (Whisper):
 A decoder's batch holds ``tokens`` [B, S] or ``embeddings`` [B, S, d], and
 may hold ``positions`` ([B, S, 3] for M-RoPE); the enc-dec's holds ``frames``
 [B, T, d] and ``tokens`` [B, S]. ``labels`` [B, S] for the loss. On a model
-axis (``ctx.mp``) a decoder's logits are the rank's vocab shard and the
-loss is the vocab-parallel cross-entropy.
+axis (``ctx.mp``) the logits of a vocab-sharded head are the rank's
+shard and the loss is the vocab-parallel cross-entropy.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.parallel import global_count
-from repro_torch.parallel.tensor import vocab_nll
+from repro_torch.parallel.tensor import vocab_nll, whole_in
 
 # MoE load-balance aux-loss weight, as in the reference (the aux is 0 without
 # MoE layers).
@@ -91,8 +91,10 @@ def _build_decoder(cfg) -> LM:
         hidden, aux = tf.hidden_decoder(params, batch, cfg, ctx)
         logits = tf.logits_from(params, hidden, cfg, ctx)
         # per-record embedding: the mean over positions of the post-final-norm
-        # hidden state (the activations the head consumes)
-        return {"logits": logits, "embed": hidden.float().mean(dim=1), "aux": aux}
+        # hidden state (the activations the head consumes), whole on every
+        # rank of a model row (under sequence parallelism gathered first)
+        embed = whole_in(hidden, ctx.mp).float().mean(dim=1)
+        return {"logits": logits, "embed": embed, "aux": aux}
 
     def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
         return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device, mp)
@@ -115,15 +117,15 @@ def _build_encdec(cfg) -> LM:
 
     def loss(params, batch, ctx, aux_weight: float = 0.0):
         logits, aux = forward(params, batch, ctx)
-        ce = cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"], tf.vocab_mp(cfg, ctx))
         return ce, {"ce": ce, "aux": aux}
 
     def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
-        tf.refuse_model_axis(cfg, mp)
         # The reference serves with zero cross-attention K/V: its init_cache
         # builds a zero encoder output and passes None, and the zeros stand
         # for a stubbed frame window of seq_len frames. Kept as it is.
-        return tf.init_encdec_cache(params, cfg, batch_size, seq_len, enc_out=None, dtype=dtype)
+        return tf.init_encdec_cache(params, cfg, batch_size, seq_len, enc_out=None, dtype=dtype,
+                                    mp=mp)
 
     def decode(params, batch, caches, index: int, ctx):
         return tf.decode_step_encdec(params, batch, caches, index, cfg, ctx)

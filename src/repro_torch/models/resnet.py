@@ -1,4 +1,4 @@
-"""ResNet-18/50 CNN classifiers: the paper's own evaluation models.
+"""ResNet-18/50 and GhostNet-style CNN classifiers: the paper's own evaluation models.
 
 GroupNorm stands in for BatchNorm, as in the reference. The public functions
 take images in the reference's NHWC layout ``[B, H, W, C]``; inside, the
@@ -113,7 +113,39 @@ class Bottleneck(nn.Module):
         return F.relu(h + sc)
 
 
-_BLOCKS = {"resnet18": (BasicBlock, 1), "resnet50": (Bottleneck, 4)}
+class GhostBlock(nn.Module):
+    """Ghost module: half the features from a dense 3x3 conv (``primary``),
+    half from a cheap depthwise 3x3 conv on those (``cheap``, ``[half, 1, 3,
+    3]``, cast to the activation dtype as in the reference)."""
+
+    def __init__(self, gen, cin: int, cout: int, stride: int):
+        super().__init__()
+        half = cout // 2
+        self.stride = stride
+        self.primary = _conv_weight(gen, 3, 3, cin, half)
+        self.gn1 = GroupNorm(half)
+        self.cheap = nn.Parameter(torch.randn((half, 1, 3, 3), generator=gen) * 0.2)
+        self.gn2 = GroupNorm(half)
+        self.has_proj = stride != 1 or cin != cout
+        if self.has_proj:
+            self.proj = _conv_weight(gen, 1, 1, cin, cout)
+            self.gnp = GroupNorm(cout)
+
+    def forward(self, x):
+        prim = F.relu(self.gn1(conv(x, self.primary, self.stride)))
+        # torch's multi-threaded CPU backward of a depthwise conv on a
+        # channels-last input corrupts the heap (seen with torch 2.13+cpu);
+        # the CPU takes it on a contiguous copy
+        src = prim.contiguous() if prim.device.type == "cpu" else prim
+        cheap = F.conv2d(src, self.cheap.to(prim.dtype), padding=1, groups=prim.shape[1])
+        cheap = F.relu(self.gn2(cheap))
+        h = torch.cat([prim, cheap], dim=1)
+        sc = self.gnp(conv(x, self.proj, self.stride)) if self.has_proj else x
+        return F.relu(h + sc)
+
+
+_BLOCKS = {"resnet18": (BasicBlock, 1), "resnet50": (Bottleneck, 4),
+           "ghostnet": (GhostBlock, 1)}
 
 
 class CNN(nn.Module):
@@ -122,10 +154,6 @@ class CNN(nn.Module):
 
     def __init__(self, cfg, gen: torch.Generator):
         super().__init__()
-        if cfg.variant not in _BLOCKS:
-            raise NotImplementedError(
-                f"CNN variant {cfg.variant!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 4); the port has {sorted(_BLOCKS)}")
         block, expand = _BLOCKS[cfg.variant]
         self.stem = _conv_weight(gen, 3, 3, cfg.channels, cfg.width)
         self.gn_stem = GroupNorm(cfg.width)

@@ -27,7 +27,10 @@ model's slices, and the peak is one full layer), the embedding and the head
 are vocab-sharded (``logits_from`` returns the rank's shard of the
 vocabulary), and each mixer and feed-forward runs its shard between *f* and
 *g*. ``Decoder.tp_sharded`` names the sharded parameters. The
-encoder-decoder at M > 1 is ROADMAP Queue 1 item 21's.
+encoder-decoder shards the same way (its encoder's and decoder's
+self-attention, the decoder's cross-attention and the MLPs; the embedding
+and head by vocabulary where M divides it) and runs its whole sequence on
+every rank: it is never sequence-parallel.
 
 Sequence parallelism (``ModelParallel.sequence_parallel`` on the row
 ``StackCtx.mp``, read as ``StackCtx.sequence_parallel``; the
@@ -58,9 +61,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.remat import check_remat, remat_call
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.parallel import global_share
-from repro_torch.parallel.sharding import (MODEL_AXIS_ITEM, layout_specs, param_spec,
-                                          shard_param, vocab_sharded)
-from repro_torch.parallel.tensor import region_in, seq_parallel, split_seq, whole_in, whole_out
+from repro_torch.parallel.sharding import layout_specs, param_spec, shard_param, vocab_sharded
+from repro_torch.parallel.tensor import (copy_to_model, region_in, seq_parallel, split_seq,
+                                         whole_in, whole_out)
 from repro_torch.models.layers import (
     apply_learned_pos,
     apply_mlp,
@@ -115,12 +118,6 @@ def shard_module_(module: nn.Module, prefix: str, cfg, mp, names=None) -> Dict[s
         setattr(sub, leaf, nn.Parameter(shard_param(p.data, spec, mp).clone()))
         out[full_name] = spec
     return out
-
-
-def refuse_model_axis(cfg, mp) -> None:
-    if mp is not None:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder on a model axis of "
-                                  f"{mp.size} is not ported yet ({MODEL_AXIS_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +239,13 @@ class Decoder(nn.Module):
     ``mp``, each tensor is drawn whole and cut to the rank's shard at once
     (``tp_sharded`` names the sharded ones). ``layout_specs`` gives every
     parameter's spec as the ZeRO-1 rule reads it
-    (``parallel.sharding.layout_specs``)."""
+    (``parallel.sharding.layout_specs``); ``cfg`` is the config, which an
+    elastic reshard across M cuts the shards by."""
 
     def __init__(self, gen: torch.Generator, cfg, max_seq: int, mp=None):
         super().__init__()
         num_units(cfg)
+        self.cfg = cfg
         self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
         specs = shard_module_(self, "", cfg, mp, names=("embed",))
         self.layers = nn.ModuleList()
@@ -425,83 +424,117 @@ class DecLayer(nn.Module):
 class EncDec(nn.Module):
     """``embed`` [V, d], learned positions ``enc_pos`` and ``dec_pos`` (each
     ``max_seq`` long), ``enc_layers.{i}``, ``dec_layers.{i}``, ``enc_norm``,
-    ``final_norm`` and an untied ``lm_head`` [V, d]: the reference's leaves."""
+    ``final_norm`` and an untied ``lm_head`` [V, d]: the reference's leaves.
+    With ``mp``, each tensor is drawn whole and cut to the rank's shard by
+    the decoders' rule table (the self- and cross-attention by heads, the
+    MLPs by width, the embedding and head by vocabulary where M divides
+    it), as ``Decoder`` does."""
 
-    def __init__(self, gen: torch.Generator, cfg, max_seq: int):
+    def __init__(self, gen: torch.Generator, cfg, max_seq: int, mp=None):
         super().__init__()
-        self.enc_layers = nn.ModuleList(EncLayer(gen, cfg)
-                                        for _ in range(cfg.num_encoder_layers))
-        self.dec_layers = nn.ModuleList(DecLayer(gen, cfg) for _ in range(cfg.num_layers))
+        self.cfg = cfg
+        specs: Dict[str, tuple] = {}
+        self.enc_layers = nn.ModuleList()
+        for i in range(cfg.num_encoder_layers):
+            self.enc_layers.append(EncLayer(gen, cfg))
+            specs.update(shard_module_(self.enc_layers[i], f"enc_layers.{i}.", cfg, mp))
+        self.dec_layers = nn.ModuleList()
+        for i in range(cfg.num_layers):
+            self.dec_layers.append(DecLayer(gen, cfg))
+            specs.update(shard_module_(self.dec_layers[i], f"dec_layers.{i}.", cfg, mp))
         self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model)
+        specs.update(shard_module_(self, "", cfg, mp, names=("embed",)))
         self.enc_pos = init_learned_pos(gen, max_seq, cfg.d_model)
         self.dec_pos = init_learned_pos(gen, max_seq, cfg.d_model)
         self.enc_norm = init_norm(cfg)
         self.final_norm = init_norm(cfg)
         self.lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model)
-        self.layout_specs = layout_specs(dict(self.named_parameters()), cfg, None, {})
+        specs.update(shard_module_(self, "", cfg, mp, names=("lm_head",)))
+        self.tp_sharded = frozenset(specs)
+        self.layout_specs = layout_specs(dict(self.named_parameters()), cfg, mp, specs)
 
 
 def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> EncDec:
     """Random weights drawn from ``gen``, moved to ``device`` (``None``: the
-    card). A model axis over 1 (``mp``) raises: ROADMAP Queue 1 item 21."""
-    refuse_model_axis(cfg, mp)
-    return EncDec(gen, cfg, max_seq).to(resolve_device(device))
+    card); on a model axis (``mp``), this rank's shards of them."""
+    return EncDec(gen, cfg, max_seq, mp).to(resolve_device(device))
+
+
+def _encdec_ctx(ctx: StackCtx) -> StackCtx:
+    """The enc-dec's context: never sequence-parallel (a prefill step asked
+    for it computes the same values on the whole sequence)."""
+    return dataclasses.replace(ctx, mp=seq_parallel(ctx.mp, False))
+
+
+def _encdec_mlp(lp, x: torch.Tensor, cfg, mp) -> torch.Tensor:
+    return apply_mlp(lp.mlp, x, cfg.activation, _mlp_mp(cfg, mp))
 
 
 def encode(params: EncDec, frames: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
     """``frames`` [B, T, d]: precomputed frame embeddings (the conv frontend
     is a stub, as in the reference). Non-causal self-attention through the
-    plain path: the reference's encoder runs no kernel."""
-    refuse_model_axis(cfg, ctx.mp)
+    plain path: the reference's encoder runs no kernel. On a model axis the
+    heads and the MLP width are the rank's; the states come out whole."""
+    ctx = _encdec_ctx(ctx)
+    mp, remat = ctx.mp, ctx.remat
     x = apply_learned_pos(params.enc_pos, frames.to(ctx.compute_dtype))
 
-    remat = ctx.remat
-
     def layer(x, lp):
-        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False,
+        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=False, mp=mp,
                                  remat=remat)
-        return x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
+        return x + _encdec_mlp(lp, apply_norm(lp.norm2, x), cfg, mp)
 
     for lp in params.enc_layers:  # each layer a checkpoint unit, as in the reference
         x = remat_call(layer, ctx.remat, x, lp)
     return apply_norm(params.enc_norm, x)
 
 
-def _encdec_logits(params: EncDec, x: torch.Tensor) -> torch.Tensor:
+def _encdec_logits(params: EncDec, x: torch.Tensor, cfg, ctx: StackCtx) -> torch.Tensor:
+    """[..., V] logits, or the rank's vocab shard where the head is
+    vocab-sharded."""
     x = apply_norm(params.final_norm, x)
+    vmp = vocab_mp(cfg, ctx)
+    if vmp is not None:
+        x = region_in(x, vmp)
     return x @ params.lm_head.to(x.dtype).t()
 
 
 def decode_train_encdec(params: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg,
                         ctx: StackCtx) -> torch.Tensor:
     """Teacher-forced decoder over ``tokens`` [B, S] attending to ``enc_out``
-    [B, T, d]. Returns logits [B, S, V]. Causal self-attention through the
-    plain path, as in the reference (it passes no ``use_kernel``)."""
-    x = params.embed[tokens.long()].to(ctx.compute_dtype)
+    [B, T, d]. Returns logits [B, S, V] (the rank's vocab shard where the
+    head is vocab-sharded). Causal self-attention through the plain path,
+    as in the reference (it passes no ``use_kernel``)."""
+    ctx = _encdec_ctx(ctx)
+    mp = ctx.mp
+    x = embed_lookup(params.embed, tokens, vocab_mp(cfg, ctx)).to(ctx.compute_dtype)
     x = apply_learned_pos(params.dec_pos, x)
     for lp in params.dec_layers:
-        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=True)
+        x = x + attn.attend_full(lp.attn, apply_norm(lp.norm1, x), cfg, causal=True, mp=mp)
         x = x + attn.attend_full(lp.cross, apply_norm(lp.norm_x, x), cfg, causal=False,
-                                 kv_input=enc_out)
-        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
-    return _encdec_logits(params, x)
+                                 kv_input=enc_out, mp=mp)
+        x = x + _encdec_mlp(lp, apply_norm(lp.norm2, x), cfg, mp)
+    return _encdec_logits(params, x, cfg, ctx)
 
 
 def init_encdec_cache(params: EncDec, cfg, batch: int, seq_len: int, enc_out=None,
-                      dtype=torch.bfloat16) -> List[Dict[str, torch.Tensor]]:
+                      dtype=torch.bfloat16, mp=None) -> List[Dict[str, torch.Tensor]]:
     """Per decoder layer: the self-attention K/V (``k``, ``v``) and the
     cross-attention K/V of the encoder's states (``cross_k``, ``cross_v``),
     projected from ``enc_out`` [B, T, d] when given, else zeros of [B,
-    seq_len, KV, hd]."""
+    seq_len, KV, hd]. On a model axis (``mp``) both hold the rank's KV
+    heads."""
     device = params.embed.device
+    plan = attn.head_plan(cfg, mp)
+    kv_heads = cfg.num_kv_heads if plan is None else plan.kv
     caches = []
     for lp in params.dec_layers:
-        cache = attn.make_kv_cache(cfg, batch, seq_len, dtype, device)
+        cache = attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp)
         if enc_out is not None:
-            _, ck, cv = attn.qkv(lp.cross, enc_out, cfg)
+            _, ck, cv = attn.qkv(lp.cross, enc_out, cfg, plan=plan, mp=mp)
             cache.update(cross_k=ck.to(dtype), cross_v=cv.to(dtype))
         else:
-            shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+            shape = (batch, seq_len, kv_heads, cfg.head_dim)
             cache.update(cross_k=torch.zeros(shape, dtype=dtype, device=device),
                          cross_v=torch.zeros(shape, dtype=dtype, device=device))
         caches.append(cache)
@@ -512,19 +545,25 @@ def decode_step_encdec(params: EncDec, batch, caches, index: int, cfg, ctx: Stac
     """One-token decode: ``batch["token"]`` [B, 1] at global position
     ``index``. The self-attention writes its slot of each cache in place;
     the cross-attention attends to every slot of ``cross_k``/``cross_v``
-    (all valid). Returns (logits [B, 1, V], caches)."""
-    refuse_model_axis(cfg, ctx.mp)
-    x = params.embed[batch["token"].long()].to(ctx.compute_dtype)
+    (all valid). On a model axis each rank runs its heads, the row-parallel
+    ``wo`` summed by *g*. Returns (logits [B, 1, V] or the rank's vocab
+    shard, caches)."""
+    ctx = _encdec_ctx(ctx)
+    mp = ctx.mp
+    plan = attn.head_plan(cfg, mp)
+    x = embed_lookup(params.embed, batch["token"], vocab_mp(cfg, ctx)).to(ctx.compute_dtype)
     x = apply_learned_pos(params.dec_pos, x, offset=index)
     scale = cfg.head_dim ** -0.5
     for lp, cache in zip(params.dec_layers, caches):
-        h, _ = attn.attend_decode(lp.attn, apply_norm(lp.norm1, x), cache, index, cfg)
+        h, _ = attn.attend_decode(lp.attn, apply_norm(lp.norm1, x), cache, index, cfg, mp=mp)
         x = x + h
         h = apply_norm(lp.norm_x, x)
-        q = (h @ lp.cross.wq.to(h.dtype)).reshape(h.shape[:2] + (cfg.num_heads, cfg.head_dim))
+        if plan is not None:
+            h = copy_to_model(h, mp)
+        q = (h @ lp.cross.wq.to(h.dtype)).reshape(h.shape[:2] + (-1, cfg.head_dim))
         scores = attn._grouped_scores(q * scale, cache["cross_k"].to(q.dtype))
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
         o = attn._grouped_out(probs, cache["cross_v"].to(x.dtype))
-        x = x + o.reshape(o.shape[:2] + (-1,)) @ lp.cross.wo.to(x.dtype)
-        x = x + apply_mlp(lp.mlp, apply_norm(lp.norm2, x), cfg.activation)
-    return _encdec_logits(params, x), caches
+        x = x + attn._out(lp.cross, o, x.dtype, plan, mp)
+        x = x + _encdec_mlp(lp, apply_norm(lp.norm2, x), cfg, mp)
+    return _encdec_logits(params, x, cfg, ctx), caches

@@ -55,8 +55,6 @@ import torch.distributed as dist
 
 from repro_torch.parallel.tensor import ModelParallel
 
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 21"  # what the model axis still lacks
-
 _STATE = threading.local()
 
 
@@ -180,6 +178,16 @@ def dp_group(mesh):
     if len(axes) > 1 and group is not None:
         group = dist.group.WORLD
     return group
+
+
+def mesh_group(mesh):
+    """The group of every rank of ``mesh`` (pod, data and model axes): the
+    default group, which ``launch.mesh.make_mesh`` covers; None on a mesh of
+    one rank."""
+    n = 1
+    for i in range(len(mesh.mesh_dim_names)):
+        n *= mesh.size(i)
+    return None if n == 1 else dist.group.WORLD
 
 
 def model_parallel(mesh) -> Optional[ModelParallel]:

@@ -23,6 +23,10 @@ serves as well as NCCL across cards.
   * ``vocab_nll`` and ``vocab_argmax``: the token loss and greedy
     pick over vocab-sharded logits, with the global maximum, sum of
     exponentials and label logit each taken with an ``all_reduce``.
+  * ``gather_vocab``, ``vocab_topk`` and ``vocab_pick``: what a tap
+    strategy stores from vocab-sharded logits (the whole row, or the
+    whole vocabulary's top-k merged from the shards' own), and the stored
+    indices' values read back on each shard for the distillation loss.
   * ``model_sq_norm``: the squared global norm of a named set of tensors,
     the sharded ones' squares summed over the group, the replicated ones
     counted once.
@@ -62,7 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -321,14 +325,56 @@ def vocab_argmax(logits: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     return _all_reduce(torch.where(hit.any(dim=-1), first, big), mp, dist.ReduceOp.MIN)
 
 
+def _gather_last(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """[..., n] on each rank -> [..., M * n], the ranks' blocks in rank order
+    (one ``all_gather_into_tensor``; the values exactly)."""
+    out = x.new_empty((mp.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mp.group)
+    out = out.view((mp.size,) + tuple(x.shape))
+    return out.movedim(0, -2).reshape(x.shape[:-1] + (mp.size * x.shape[-1],))
+
+
 def gather_vocab(logits: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
-    """The whole vocabulary's logits from every rank's shard (an
-    ``all_reduce`` of zero-padded shards): for checks and tests, not the
-    main path."""
+    """The whole vocabulary's logits [..., V] from every rank's shard
+    [..., V / M], bit for bit: what a tap strategy stores as dense logits
+    (never the loss's input)."""
+    return _gather_last(logits, mp)
+
+
+@torch.no_grad()
+def vocab_topk(logits: torch.Tensor, k: int, mp: Optional[ModelParallel]):
+    """The top-``k`` (values, global indices) over the whole vocabulary from
+    this rank's shard ``logits`` [..., V_l], in value order: each rank's
+    top-``min(k, V_l)`` (the global top-k holds no more of a shard), ordered
+    by index and gathered, so the candidates run in global index order;
+    then the first ``k`` of a stable descending sort of them. Equal values
+    thus go to the lowest global index, the reference's ``lax.top_k`` rule,
+    wherever the shard's own ``torch.topk`` keeps the lowest indices of a
+    tie that crosses its k-th place (torch leaves which it keeps
+    undefined). ``mp`` None is one shard, the whole vocabulary: the same
+    rule at every M. Two small ``all_gather``s; no [..., V] tensor is
+    gathered."""
     v_local = logits.shape[-1]
-    full = logits.new_zeros(logits.shape[:-1] + (v_local * mp.size,))
-    full[..., mp.index * v_local:(mp.index + 1) * v_local] = logits
-    return _all_reduce(full, mp)
+    vals, idx = torch.topk(logits, min(k, v_local), dim=-1)
+    idx, order = torch.sort(idx, dim=-1)
+    vals = vals.gather(-1, order)
+    if mp is not None:
+        vals, idx = _gather_last(vals, mp), _gather_last(idx + mp.index * v_local, mp)
+    pick = torch.sort(vals, dim=-1, descending=True, stable=True).indices[..., :k]
+    return vals.gather(-1, pick), idx.gather(-1, pick)
+
+
+def vocab_pick(logits: torch.Tensor, idx: torch.Tensor, mp: Optional[ModelParallel]):
+    """``(logits.gather(-1, idx - offset), inside)`` for global vocabulary
+    indices ``idx`` [..., k] over this rank's shard ``logits`` [..., V_l]
+    (``mp`` None: the whole vocabulary, offset 0): the picked values where
+    the index lies in the shard (0 elsewhere), and that mask.
+    Differentiable in ``logits``."""
+    v_local = logits.shape[-1]
+    local = idx.long() - (0 if mp is None else mp.index * v_local)
+    inside = (local >= 0) & (local < v_local)
+    got = logits.gather(-1, local.clamp(0, v_local - 1))
+    return torch.where(inside, got, torch.zeros_like(got)), inside
 
 
 @torch.no_grad()

@@ -120,20 +120,24 @@ class Autoscaler:
         return target
 
 
-def scale_carry(carries, n_new: int, policy=None, zero1: bool = False):
+def scale_carry(carries, n_new: int, policy=None, zero1: bool = False,
+                model_size: int = 1, new_model_size=None):
     """Apply a scale decision to the N ranks' live ``TrainCarry``s: pool and
     re-deal the buffers (flat or tiered) across ``n_new`` workers, and under
     ``zero1`` (the run's ``TrainConfig.zero1``) re-cut the optimizer's
-    moment slices for them (``reshard_carry``). Returns
-    ``(new_carries, seconds)``, the reshard's wall time, the card's work
-    included."""
+    moment slices for them (``reshard_carry``). On a model axis
+    (``model_size`` M, ``new_model_size`` M') the carries are the D x M
+    ranks' and the result the ``n_new`` x M' ranks', the tensor-parallel
+    shards rebuilt and cut again. Returns ``(new_carries, seconds)``, the
+    reshard's wall time, the card's work included."""
     import torch
 
     from repro_torch.runtime.elastic import reshard_carry
 
     t0 = time.perf_counter()
     with get_tracer().span("reshard", cat="elastic", n_new=n_new):
-        new = reshard_carry(carries, n_new, policy=policy, zero1=zero1)
+        new = reshard_carry(carries, n_new, policy=policy, zero1=zero1,
+                            model_size=model_size, new_model_size=new_model_size)
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
     seconds = time.perf_counter() - t0

@@ -26,12 +26,15 @@ class Problem(NamedTuple):
     ``forward_outputs(model, batch) -> {"logits": [B, ...], "embed": [B, D]}``,
     the model-outputs tap the der/der_pp (stored logits) and grasp_embed
     (embeddings) strategies build their loss and stored fields from, one
-    forward a step. ``None`` restricts the run to strategies without it."""
+    forward a step. ``None`` restricts the run to strategies without it.
+    ``vocab_mp``: the model row the tap's logits are vocab-sharded over (an
+    LM on a model axis whose vocabulary M divides), else None."""
 
     init_params_fn: Callable[[int], Any]
     loss_fn: Callable[[Any, Dict], Any]
     eval_fn: Callable[[Any, int], float]
     forward_outputs: Optional[Callable] = None
+    vocab_mp: Any = None
 
 
 class Scenario(abc.ABC):

@@ -271,7 +271,10 @@ class _TokenScenario(Scenario):
             ev = {k: torch.as_tensor(v, device=device) for k, v in self.eval_set(task).items()}
             return self._eval_metric(lm, model, ev, eval_ctx)
 
-        return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs)
+        from repro_torch.models.transformer import vocab_mp
+
+        return Problem(init_params_fn, loss_fn, eval_fn, forward_outputs,
+                       vocab_mp(lm.cfg, ctx))
 
 
 class TokenClassIncremental(_TokenScenario):

@@ -86,9 +86,11 @@ class ContinualTrainer:
         the bounded-staleness straggler path (the plain pipelined rehearsal
         step only). Needs ``ckpt_dir`` and ``step_form='fused'``. On a mesh
         of more than one worker each rank's loop keeps its checkpoints under
-        ``ckpt_dir/rank_<dp index>/resilient``, and the ranks agree on every
-        restart over the data group (``ResilientLoop(group=...)``). On a
-        model axis over 1 it raises (ROADMAP Queue 1 item 21).
+        ``ckpt_dir/rank_<dp index>/resilient`` (on a model axis over 1
+        ``ckpt_dir/rank_<dp index>_<model index>/resilient``, each rank
+        restoring its own shards), and the ranks agree on every restart
+        over every rank of the mesh (``ResilientLoop(group=...)``): a
+        failure on any rank restarts them all from the same step.
       overrides: ``{"failure_hook": fn}``, the chaos injection point: called
         with the absolute step id before each resilient step.
     Without a mesh the trainer is one process, so the rehearsal exchange
@@ -120,13 +122,8 @@ class ContinualTrainer:
                              "atomically")
         mp = None
         if mesh is not None:
-            from repro_torch.parallel import MODEL_AXIS_ITEM, model_axis_size, model_parallel
+            from repro_torch.parallel import model_parallel
 
-            if self.resilience is not None and model_axis_size(mesh) > 1:
-                raise NotImplementedError(
-                    f"resilience= on a model axis of {model_axis_size(mesh)}: the agreed "
-                    f"restarts span the data-parallel ranks only; not ported yet "
-                    f"({MODEL_AXIS_ITEM})")
             mp = model_parallel(mesh)
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -166,6 +163,7 @@ class ContinualTrainer:
         self.loss_fn = problem.loss_fn
         self.eval_fn = problem.eval_fn
         self.forward_outputs = problem.forward_outputs
+        self.vocab_mp = problem.vocab_mp
         self.item_spec = self.scenario.item_spec
         # tap strategies extend the record with fields derived from the
         # model's outputs; the buffer, exchange and tiers see the joined spec
@@ -235,7 +233,7 @@ class ContinualTrainer:
             raise TypeError(f"strategy {self.strategy!r} needs the model-outputs tap; the "
                             f"scenario's Problem provides no forward_outputs")
         row_spec = outputs_row_spec(self.forward_outputs, self.init_params_fn(self.seed),
-                                    self.item_spec, self.device)
+                                    self.item_spec, self.device, self.vocab_mp)
         return dict(self.strat.record_fields(self.item_spec, row_spec, self.scfg))
 
     def _source(self, task: int) -> Callable[[int], Dict[str, np.ndarray]]:
@@ -309,7 +307,9 @@ class ContinualTrainer:
         per-task saves use task ids, so the two must not share a directory),
         and the straggler policy is seeded anew, so that every fit draws the
         same delays. On a mesh with a process group, the loop's decisions
-        are collective over the data-parallel ranks."""
+        are collective over every rank of the mesh: the data-parallel ranks
+        and, on a model axis over 1, the model ranks of each row, whose
+        steps pair their collectives as well."""
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.runtime.fault_tolerance import (InjectedFailure, ResilientLoop,
                                                          StragglerPolicy)
@@ -321,10 +321,9 @@ class ContinualTrainer:
                                         seed=self.seed)
         group = None
         if self.mesh is not None:
-            from repro_torch.core.distributed import exchange_group
-            from repro_torch.parallel import dp_axes
+            from repro_torch.parallel import mesh_group
 
-            group = exchange_group(self.mesh, dp_axes(self.mesh), "full")[0]
+            group = mesh_group(self.mesh)
         return ResilientLoop(
             step_fn=step_fn,
             ckpt=CheckpointManager(os.path.join(self._rank_dir(), "resilient")),

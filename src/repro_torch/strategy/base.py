@@ -8,11 +8,17 @@ buffer's records with fields computed from the model's outputs. A
   * ``record_fields(item_spec, outputs_spec, scfg)``: the extra record field
     specs joined into the buffer's ``item_spec`` (``{}`` for the trio, whose
     step is unchanged);
-  * ``on_store(batch, outputs, scfg)``: the extra fields' values for the
-    incoming mini-batch, from the outputs of the same step's forward;
-  * ``build_loss(base_loss, forward_outputs, scfg, label_field)``: the loss
-    the step trains on. Tap strategies return ``(model, batch) -> (loss,
-    (metrics, outputs))`` so that one forward feeds the loss and ``on_store``.
+  * ``on_store(batch, outputs, scfg, mp=None)``: the extra fields' values
+    for the incoming mini-batch, from the outputs of the same step's
+    forward;
+  * ``build_loss(base_loss, forward_outputs, scfg, label_field, mp=None)``:
+    the loss the step trains on. Tap strategies return ``(model, batch) ->
+    (loss, (metrics, outputs))`` so that one forward feeds the loss and
+    ``on_store``.
+
+``mp`` is the model row a vocab-sharded head's logits are split over (the
+problem's ``vocab_mp``; None without one): the records and the loss are
+then those of the whole vocabulary, computed from the rank's shard.
 
 Class attributes describe the trainer-facing shape of a strategy:
 ``uses_buffer`` (does the rehearsal machinery run), ``needs_outputs`` (does
@@ -47,12 +53,13 @@ class Strategy:
         of the model-outputs tap (no batch dim)."""
         return {}
 
-    def on_store(self, batch, outputs, scfg):
+    def on_store(self, batch, outputs, scfg, mp=None):
         """The [b, ...] record batch with the extra fields' values attached;
         ``outputs`` holds the tap's values for exactly these b rows."""
         return batch
 
-    def build_loss(self, base_loss, forward_outputs, scfg, label_field: str = "labels"):
+    def build_loss(self, base_loss, forward_outputs, scfg, label_field: str = "labels",
+                   mp=None):
         """The loss the step differentiates (``base_loss`` for the trio)."""
         return base_loss
 
@@ -81,41 +88,49 @@ def mask_rows(labels, row_mask):
     return torch.where(m > 0, labels, torch.full_like(labels, -1))
 
 
-def ce_from_outputs(outputs, batch, label_field: str):
-    """Label cross-entropy from the outputs tap, plus the MoE aux term
-    (weighted as the LM loss weights it) when the model emits one.
-    Returns ``(total, ce)``."""
+def ce_from_outputs(outputs, batch, label_field: str, mp=None):
+    """Label cross-entropy from the outputs tap (vocab-parallel over ``mp``),
+    plus the MoE aux term (weighted as the LM loss weights it) when the
+    model emits one. Returns ``(total, ce)``."""
     from repro_torch.models.model_zoo import DEFAULT_AUX_WEIGHT, cross_entropy
 
-    ce = cross_entropy(outputs["logits"], batch[label_field])
+    ce = cross_entropy(outputs["logits"], batch[label_field], mp)
     total = ce
     if "aux" in outputs:
         total = total + DEFAULT_AUX_WEIGHT * outputs["aux"]
     return total, ce
 
 
-def make_tap_ce_loss(forward_outputs: Callable, label_field: str):
+def make_tap_ce_loss(forward_outputs: Callable, label_field: str, mp=None):
     """The plain CE loss routed through the outputs tap: the rehearsal loss,
     exposing ``(metrics, outputs)`` for ``on_store``."""
 
     def loss_fn(model, batch):
         outputs = forward_outputs(model, batch)
-        total, ce = ce_from_outputs(outputs, batch, label_field)
+        total, ce = ce_from_outputs(outputs, batch, label_field, mp)
         return total, ({"ce": ce}, outputs)
 
     return loss_fn
 
 
-def outputs_row_spec(forward_outputs: Callable, model, item_spec, device=None):
+def outputs_row_spec(forward_outputs: Callable, model, item_spec, device=None,
+                     vocab_mp=None):
     """Per-record ``ItemSpec``s of the outputs tap: one forward of a zero
     one-record batch (without gradients) on ``device``, the batch dim
-    stripped from every batched leaf (a scalar, the MoE aux, keeps ``()``)."""
+    stripped from every batched leaf (a scalar, the MoE aux, keeps ``()``).
+    With ``vocab_mp`` (the logits a rank's vocab shard) the ``logits`` row
+    is the whole vocabulary's, as the records store it."""
     batch = {k: torch.zeros((1,) + tuple(s.shape), dtype=s.dtype, device=device)
              for k, s in item_spec.items()}
     with torch.no_grad():
         outs = forward_outputs(model, batch)
-    return {k: ItemSpec(tuple(v.shape[1:]) if v.dim() else (), v.dtype)
+    spec = {k: ItemSpec(tuple(v.shape[1:]) if v.dim() else (), v.dtype)
             for k, v in outs.items()}
+    if vocab_mp is not None and "logits" in spec:
+        shape = spec["logits"].shape
+        spec["logits"] = ItemSpec(shape[:-1] + (shape[-1] * vocab_mp.size,),
+                                  spec["logits"].dtype)
+    return spec
 
 
 # ---------------------------------------------------------------------------

@@ -53,11 +53,12 @@ class GraspEmbedStrategy(Strategy):
                              f"model exposes {sorted(outputs_spec)}")
         return {"embed": ItemSpec(tuple(outputs_spec["embed"].shape), torch.float32)}
 
-    def on_store(self, batch, outputs, scfg):
+    def on_store(self, batch, outputs, scfg, mp=None):
         return dict(batch, embed=outputs["embed"].float())
 
-    def build_loss(self, base_loss, forward_outputs, scfg, label_field: str = "labels"):
-        return make_tap_ce_loss(forward_outputs, label_field)
+    def build_loss(self, base_loss, forward_outputs, scfg, label_field: str = "labels",
+                   mp=None):
+        return make_tap_ce_loss(forward_outputs, label_field, mp)
 
 
 register_strategy(IncrementalStrategy())

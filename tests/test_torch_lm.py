@@ -278,9 +278,34 @@ def test_serve_is_reproducible_from_its_seed():
     assert torch.equal(serve.main(argv).tokens, serve.main(argv).tokens)
 
 
-@pytest.mark.parametrize("flags,item", [(["--arch", "whisper-tiny", "--mesh", "2x2"], "item 21")])
-def test_serve_rejects_what_is_not_ported(flags, item):
-    """``--mesh DxM`` serves the decoders now; the encoder-decoder on a
-    model axis over 1 is not ported yet."""
-    with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
-        serve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,refusal", [(["--arch", "whisper-tiny", "--mesh", "2x2"],
+                                            "item 21")])
+def test_serve_rejects_what_is_not_ported(flags, refusal, tmp_path):
+    """Item 21's encoder-decoder on a 2 x 2 mesh: ``serve --arch
+    whisper-tiny --reduced`` on four gloo ranks (two data replicas, each
+    tensor-parallel over a row of two) prints the 1 x 1 run's token ids for
+    the whole batch. Named for the refusal it asserted before this path ran; ``refusal`` is
+    that refusal's message, which no rank logs now."""
+    import os
+
+    from repro_torch.runtime import multiproc
+
+    argv = ["--reduced", "--device", "cpu", "--batch", "4", "--prompt-len", "5",
+            "--gen-len", "4"]
+    src = r"""
+import sys, torch
+torch.set_num_threads(1)
+from repro_torch.launch import serve
+res = serve.main(%r)
+print("TOKENS", res.tokens.tolist())
+""" % (argv + flags,)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    outs = multiproc.launch_workers(src, 4, timeout=300, pythonpath=path,
+                                    extra_env={"OMP_NUM_THREADS": "1"},
+                                    rendezvous_dir=str(tmp_path))
+    want = serve.main(argv + flags[:2]).tokens.tolist()
+    for o in outs:
+        assert o.returncode == 0, o.stderr[-4000:]
+        assert refusal not in o.stderr
+        got = [line for line in o.stdout.splitlines() if line.startswith("TOKENS")][-1]
+        assert got == f"TOKENS {want}"

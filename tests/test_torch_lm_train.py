@@ -29,6 +29,7 @@ Tolerances, and why:
 """
 import dataclasses
 import logging
+import re
 
 import jax
 import jax.numpy as jnp
@@ -511,14 +512,46 @@ def test_train_cli_run_config_is_the_references_at_one_device():
     assert full.model.vocab_size == 49152 and full.scenario.vocab_size == 2048
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "1x2", "--resilience", "--ckpt-dir", "unused"], "--resilience .*item 21"),
-    (["--mesh", "4x2", "--resilience", "--ckpt-dir", "unused"], "--resilience .*item 21")])
-def test_train_cli_unported_flags_raise_and_name_their_item(flags, item):
-    """``--mesh DxM`` trains with M > 1 now; ``--resilience`` on such a mesh
-    is not ported yet and raises before any group is asked for."""
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["--reduced", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,refusal", [
+    (["--mesh", "1x2", "--resilience"], "--resilience .*item 21"),
+    (["--mesh", "1x2", "--resilience", "--strategy", "der_pp", "--der-top-k", "4"],
+     "--resilience .*item 21")])
+def test_train_cli_unported_flags_raise_and_name_their_item(flags, refusal, tmp_path):
+    """Item 21's restarts and tap strategies on a model axis through the CLI:
+    ``launch.train --mesh 1x2 --resilience`` (plain rehearsal, and DER++
+    storing the whole vocabulary's top-4 from the vocab-sharded logits) runs
+    to its end on two gloo ranks, both reporting the same finite losses and
+    each keeping its restart checkpoints under ``rank_0_<model>``.
+    Named for the refusal it asserted before this path ran; ``refusal`` is
+    the pattern of that refusal's message, which no rank logs now."""
+    import json
+    import os
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import multiproc
+
+    src = r"""
+import json, torch
+torch.set_num_threads(1)
+from repro_torch.launch import train
+res = train.main(%r)
+print(json.dumps({"losses": res.losses, "restarts": res.restarts}))
+""" % (_cli_args(["--device", "cpu", "--tasks", "1", "--steps-per-task", "3",
+                  "--ckpt-dir", str(tmp_path / "ck"), "--resilience-checkpoint-every", "1"]
+                 + flags),)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    outs = multiproc.launch_workers(src, 2, timeout=300, pythonpath=path,
+                                    extra_env={"OMP_NUM_THREADS": "1"},
+                                    rendezvous_dir=str(tmp_path))
+    for o in outs:
+        assert o.returncode == 0, o.stderr[-4000:]
+        assert not re.search(refusal, o.stderr)
+    a, b = (json.loads(o.stdout.strip().splitlines()[-1]) for o in outs)
+    assert a == b and a["restarts"] == 0 and len(a["losses"]) == 3
+    assert np.isfinite(a["losses"]).all()
+    for model in range(2):
+        steps = CheckpointManager(str(tmp_path / "ck" / f"rank_0_{model}" / "resilient"))
+        assert steps.list_steps() == [1, 2, 3]  # the newest three kept
 
 
 @pytest.mark.parametrize("flags", [["--exchange", "full"], ["--exchange", "local"],

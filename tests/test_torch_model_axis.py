@@ -2,12 +2,16 @@
 reference's ``repro.parallel.sharding.param_spec`` on every leaf of every
 registered arch (full configs, built on ``torch.device("meta")``), the
 shard-aware init (each rank's model is exactly the unsharded model's
-slices), the head plans, the converter's shards, and the options that still
-refuse a model axis over 1, naming ROADMAP Queue 1 item 21.
-
-The collectives run in ``tests/test_torch_model_axis_ranks.py`` (gloo
-ranks). A ``ModelParallel`` here has no group: init and slicing issue no
+slices, the encoder-decoder's included), the head plans, the converter's
+shards, and the elastic reshard of tensor-parallel carries between D x M
+meshes. A ``ModelParallel`` here has no group: init and slicing issue no
 collective.
+
+One module-scoped spawn (``row_of_two``: a JAX subprocess on a (1, 2)
+fake-device mesh, then two gloo ranks) holds the tap strategies through
+``build_train_step`` against JAX's, the shards' top-k merge, and Whisper
+served on a 1 x 2 mesh. The rest of the collectives run in
+``tests/test_torch_model_axis_ranks.py``.
 """
 from __future__ import annotations
 
@@ -190,27 +194,186 @@ def test_converter_keeps_this_ranks_shards_of_the_jax_tree():
     assert model.layers[0].moe.wi.shape[0] == cfg.num_experts // 2  # expert-parallel
 
 
-def test_encdec_on_a_model_axis_raises_naming_item_21():
-    from repro_torch.models import StackCtx, build_model
+@pytest.mark.parametrize("m", [2, 4])
+def test_encdec_on_a_model_axis_raises_naming_item_21(m):
+    """Item 21's encoder-decoder on a model axis: each rank's ``EncDec`` is
+    exactly the unsharded model's slices under the rule table (the
+    encoder's and decoder's self-attention, the cross-attention and the
+    MLPs; the reduced vocabulary of 512 by rows), the converter's shards of
+    a JAX tree are the same, and at M = 4 the reduced 2 KV heads keep the
+    cross K/V projections replicated. Whisper-tiny's published vocabulary
+    (51865) does not divide 2, so its embedding and head stay whole; its 6
+    heads do not divide 4, so its attention is replicated there. Named for
+    the refusal it asserted before this path ran."""
+    from repro.configs import get_reduced as jax_reduced
+    from repro_torch.convert import encdec_named_from_tree, encdec_params_from_jax
 
     cfg = configs.get_reduced("whisper-tiny")
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        model.init(torch.Generator().manual_seed(0), 16, "cpu", ModelParallel(None, 2, 0))
-    params = model.init(torch.Generator().manual_seed(0), 16, "cpu")
-    batch = {"frames": torch.zeros(1, 4, cfg.d_model), "tokens": torch.zeros(1, 4).long()}
-    with pytest.raises(NotImplementedError, match="item 21"):
-        model.forward(params, batch, StackCtx(cfg=cfg, mp=ModelParallel(None, 2, 0)))
+    full = dict(tf.init_encdec(torch.Generator().manual_seed(0), cfg, 16, "cpu")
+                .named_parameters())
+    jtree = jax.tree_util.tree_map(
+        np.asarray, jax_build(jax_reduced("whisper-tiny")).init(jax.random.PRNGKey(0), 16))
+    jfull = encdec_named_from_tree(jtree)
+    for i in range(m):
+        mp = ModelParallel(None, m, i)
+        model = tf.init_encdec(torch.Generator().manual_seed(0), cfg, 16, "cpu", mp)
+        conv = dict(encdec_params_from_jax(jtree, cfg, "cpu", mp).named_parameters())
+        for name, p in model.named_parameters():
+            spec = param_spec(name, tuple(full[name].shape), cfg, m)
+            np.testing.assert_array_equal(p.detach().numpy(),
+                                          shard_param(full[name].detach(), spec, mp).numpy())
+            np.testing.assert_array_equal(conv[name].detach().numpy(),
+                                          shard_param(jfull[name], spec, mp), err_msg=name)
+            assert (name in model.tp_sharded) == ("model" in spec), name
+    assert {"embed", "lm_head", "dec_layers.0.cross.wq", "dec_layers.0.cross.wo",
+            "enc_layers.0.attn.wq", "enc_layers.0.mlp.wi"} <= model.tp_sharded
+    assert ("dec_layers.0.cross.wk" in model.tp_sharded) == (m == 2)
+    whisper = configs.get_config("whisper-tiny")
+    assert param_spec("embed", (whisper.vocab_size, whisper.d_model), whisper, 2) == (None, None)
+    assert attention_plan(whisper, 2) is not None and attention_plan(whisper, 4) is None
 
 
-def test_elastic_reshard_of_sharded_carries_raises_naming_item_21():
+# ---------------------------------------------------------------------------
+# Elastic reshard of tensor-parallel carries, in one process
+# ---------------------------------------------------------------------------
+
+RESHARD_CFG = dataclasses.replace(configs.get_reduced("smollm-135m"), vocab_size=64,
+                                  num_layers=2)
+
+
+def _tp_carries(d, m, zero1, seed=0):
+    """The D x M ranks' carries (mesh order) of one run: each rank's shards
+    of one model, AdamW moments cut from whole random ones (the rank's
+    ZeRO-1 slice under ``zero1``), a buffer and pending slot a data rank,
+    the same on its row. Returns ``(carries, whole params, whole moments,
+    data-rank buffers)``."""
+    from repro_torch.buffer.state import BufferState
+    from repro_torch.optim.optimizers import OptState
+    from repro_torch.parallel import Zero1
+    from repro_torch.strategy.step import PipelinedRehearsalCarry, TrainCarry
+
+    cfg = RESHARD_CFG
+    whole = {k: p.detach() for k, p in tf.Decoder(torch.Generator().manual_seed(seed), cfg,
+                                                  16).named_parameters()}
+    g = torch.Generator().manual_seed(seed + 1)
+    moments = [{k: torch.randn(t.shape, generator=g) for k, t in whole.items()}
+               for _ in range(2)]
+    buffers, pipes = [], []
+    for w in range(d):
+        counts = torch.randint(0, 5, (2,), generator=g, dtype=torch.int32)
+        buffers.append(BufferState(
+            {"tokens": torch.randint(0, 64, (2, 4, 8), generator=g, dtype=torch.int32),
+             "logits": torch.randn(2, 4, 8, 64, generator=g)},
+            counts, counts + torch.randint(0, 3, (2,), generator=g, dtype=torch.int32)))
+        pipes.append(PipelinedRehearsalCarry(
+            {"tokens": torch.randint(0, 64, (3, 8), generator=g, dtype=torch.int32)},
+            torch.rand(3, generator=g) > 0.5, 11 + w))
+    carries = []
+    for w in range(d):
+        for j in range(m):
+            mp = ModelParallel(None, m, j) if m > 1 else None
+            model = tf.Decoder(torch.Generator().manual_seed(seed), cfg, 16, mp)
+            cut = Zero1(None, d, w) if zero1 and d > 1 else None
+
+            def local(t, k, model=model, mp=mp, cut=cut):
+                spec = model.layout_specs[k]
+                if k in model.tp_sharded:
+                    t = shard_param(t, spec, mp)
+                dim = None if cut is None else cut.dim(tuple(t.shape), spec)
+                return (t if dim is None else cut.shard(t, dim)).clone()
+
+            opt = OptState(5, *({k: local(t, k) for k, t in mom.items()} for mom in moments))
+            buf = BufferState({k: v.clone() for k, v in buffers[w].data.items()},
+                              buffers[w].counts.clone(), buffers[w].seen.clone())
+            carries.append(TrainCarry(model, opt, buf, pipes[w]))
+    return carries, whole, moments, buffers
+
+
+def _joined(carries, d, m, zero1):
+    """The whole parameters and moments the D x M carries hold."""
+    from repro_torch.runtime.elastic import _whole_moments, whole_params
+
+    rows = [carries[w * m:(w + 1) * m] for w in range(d)]
+    return whole_params([c.params for c in rows[0]]), _whole_moments(rows, zero1 and d > 1)
+
+
+@pytest.mark.parametrize("zero1", [False, True], ids=["whole", "zero1"])
+@pytest.mark.parametrize("target", [(1, 2), (2, 1), (1, 1), (1, 4)],
+                         ids=lambda t: f"to{t[0]}x{t[1]}")
+def test_elastic_reshard_of_sharded_carries_raises_naming_item_21(target, zero1):
+    """Item 21's elastic reshard: ``reshard_carry`` takes a 2 x 2 run's
+    tensor-parallel carries to ``target`` and back. The whole parameters and
+    AdamW moments are bit for bit before and after each way; each new
+    rank's tensors have the shapes its own init (``Decoder`` at M', the
+    optimizer's ZeRO-1 init at D') allocates; the buffers are what the M = 1
+    reshard of the data ranks' buffers gives, the same on the M' ranks of a
+    row; and back at 2 x 2 every rank's carry is the original's. At M' = 4
+    the reduced model's 2 KV heads do not split: ``wk``/``wv`` come back
+    replicated, as the head-granular rule has them. Named for the refusal
+    it asserted before this path ran."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import Zero1
     from repro_torch.runtime.elastic import reshard_carry
-    from repro_torch.strategy.step import TrainCarry
 
-    cfg = configs.get_reduced("smollm-135m")
-    model = tf.Decoder(torch.Generator().manual_seed(0), cfg, 16, ModelParallel(None, 2, 0))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        reshard_carry([TrainCarry(model, None, None, None, None)], 2)
+    d2, m2 = target
+    two, whole, moments, buffers = _tp_carries(2, 2, zero1)
+    new = reshard_carry(two, d2, zero1=zero1, model_size=2, new_model_size=m2)
+    assert len(new) == d2 * m2
+    params, moms = _joined(new, d2, m2, zero1)
+    for k, t in whole.items():
+        assert torch.equal(params[k], t), k
+        for got, want in zip(moms, moments):
+            assert torch.equal(got[k], want[k]), k
+    flat = reshard_carry([c._replace(params=None, opt=None) for c in two[::2]], d2)
+    for w in range(d2):
+        for i in range(m2):
+            c = new[w * m2 + i]
+            mp = ModelParallel(None, m2, i) if m2 > 1 else None
+            fresh = tf.Decoder(torch.Generator().manual_seed(3), RESHARD_CFG, 16, mp)
+            assert c.params.tp_sharded == fresh.tp_sharded
+            assert c.params.layout_specs == fresh.layout_specs
+            init_opt, _ = make_optimizer(TrainConfig(optimizer="adamw"), mp=mp,
+                                         zero1=Zero1(None, d2, w) if zero1 and d2 > 1 else None)
+            want_opt = init_opt(dict(fresh.named_parameters()), fresh.layout_specs)
+            for k, p in fresh.named_parameters():
+                assert c.params.get_parameter(k).shape == p.shape, k
+                assert c.opt.mu[k].shape == want_opt.mu[k].shape, k
+            for k, t in flat[w].buffer.data.items():
+                assert torch.equal(c.buffer.data[k], t), k
+            assert torch.equal(c.buffer.counts, flat[w].buffer.counts)
+            assert torch.equal(c.pipe.reps["tokens"], flat[w].pipe.reps["tokens"])
+    back = reshard_carry(new, 2, zero1=zero1, model_size=m2, new_model_size=2)
+    for got, want in zip(back, two):
+        for k, p in want.params.named_parameters():
+            assert torch.equal(got.params.get_parameter(k), p), k
+        for which in ("mu", "nu"):
+            for k, t in getattr(want.opt, which).items():
+                assert torch.equal(getattr(got.opt, which)[k], t), (which, k)
+    # the same buffers re-dealt at M = 1 and here
+    for w in range(2):
+        assert torch.equal(back[2 * w].buffer.data["logits"], back[2 * w + 1].buffer.data["logits"])
+
+
+def test_scale_carry_and_a_row_that_disagrees():
+    """``scale_carry`` takes a model axis too (2 x 2 -> 2 x 1, zero1), as
+    ``reshard_carry`` does; a row whose ranks hold different buffers is not
+    one run's and raises, as do shards passed without their model axis."""
+    from repro_torch.runtime import scale_carry
+    from repro_torch.runtime.elastic import reshard_carry
+
+    two, *_ = _tp_carries(2, 2, True)
+    got, seconds = scale_carry(two, 2, zero1=True, model_size=2, new_model_size=1)
+    want = reshard_carry(two, 2, zero1=True, model_size=2, new_model_size=1)
+    assert seconds >= 0.0 and len(got) == 2
+    for a, b in zip(got, want):
+        for k, t in b.opt.mu.items():
+            assert torch.equal(a.opt.mu[k], t), k
+    two[1].buffer.counts[0] += 1
+    with pytest.raises(ValueError, match="model rank 1"):
+        reshard_carry(two, 1, model_size=2)
+    with pytest.raises(ValueError, match="model_size"):
+        reshard_carry(two[:1], 1)
 
 
 def test_production_meshes_need_their_process_group():
@@ -221,37 +384,297 @@ def test_production_meshes_need_their_process_group():
             make_production_mesh(multi_pod)
 
 
-def test_serve_refuses_the_encdec_on_a_model_axis():
+# ---------------------------------------------------------------------------
+# A row of two gloo ranks: the tap strategies against JAX, Whisper served
+# ---------------------------------------------------------------------------
+
+V, TS, TB, STEPS = 128, 16, 4, 2
+# name -> (strategy, top_k, sequence_parallel): DER and DER++ with dense and
+# top-k records, and grasp_embed's embeddings, also under sequence
+# parallelism (the hidden state gathered before its mean)
+TAPS = {"der": ("der", 0, False), "der_topk": ("der", 8, False),
+        "der_pp": ("der_pp", 0, False), "der_pp_topk": ("der_pp", 8, False),
+        "grasp_embed": ("grasp_embed", 0, False), "grasp_embed_sp": ("grasp_embed", 0, True)}
+
+_TAP_RUN = """
+rcfg = RehearsalConfig(num_buckets=2, slots_per_bucket=4, num_representatives=3,
+                       num_candidates=6, mode="async", label_field="labels")
+def tap_run(cfg, strategy, top_k, sp, **kw):
+    return RunConfig(
+        model=cfg, train=TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=5,
+                                     linear_scaling=False, compute_dtype="float32",
+                                     sequence_parallel=sp),
+        rehearsal=rcfg, strategy=StrategyConfig(alpha=0.5, beta=0.5, top_k=top_k),
+        scenario=ScenarioConfig(name="class_incremental", modality="tokens",
+                                strategy=strategy, num_tasks=2, batch_size=B, vocab_size=V,
+                                seq_len=S, auto_defaults=False), **kw)
+"""
+
+TAP_JAX_SIDE = """
+import dataclasses, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.buffer import state as jstate
+from repro.configs import get_reduced
+from repro.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig, ShapeConfig,
+                                StrategyConfig, TrainConfig)
+from repro.data import TaskTokenStream, TokenStreamConfig
+from repro.launch.mesh import make_mesh
+from repro.launch.steps import build_train_step
+from repro.scenario.trainer import materialize_state
+from repro.utils.compat import set_mesh
+from repro_torch import configs as tconfigs
+from repro_torch.convert import lm_named_from_tree
+
+V, S, B, STEPS, TAPS = {V}, {S}, {B}, {STEPS}, {TAPS}
+{TAP_RUN}
+stream = TaskTokenStream(TokenStreamConfig(num_tasks=2, vocab_size=V, seq_len=S, seed=0))
+mesh = make_mesh((1, 2), ("data", "model"))
+cfg = dataclasses.replace(get_reduced("smollm-135m"), vocab_size=V, num_layers=2)
+tcfg = dataclasses.replace(tconfigs.get_reduced("smollm-135m"), vocab_size=V, num_layers=2)
+out = {{}}
+for case, (strategy, top_k, sp) in TAPS.items():
+    run = tap_run(cfg, strategy, top_k, sp, shape=ShapeConfig("parity", S, B, "train"))
+    with set_mesh(mesh):
+        built = build_train_step(run, mesh, exchange="full", buffer_budget_bytes=None,
+                                 donate=False)
+        key = jax.random.PRNGKey(0)
+        params, opt, buf, reps, valid = materialize_state(built, run, mesh, key)
+        if case == "der":
+            out.update({{f"params0/{{k}}": v for k, v in lm_named_from_tree(
+                jax.tree_util.tree_map(np.asarray, params), tcfg).items()}})
+        issue_key = key
+        for s in range(STEPS):
+            batch = stream.batch(s % 2, B, s)
+            buf0 = jax.tree_util.tree_map(lambda x: x[0], buf)
+            k_up, k_samp = jax.random.split(jax.random.fold_in(issue_key, 0))
+            flat, _, _, _, counts, seen = jstate.local_update_rows(
+                buf0, jnp.asarray(batch["task"]), k_up, 6)
+            k_draw, k_pick = jax.random.split(k_samp)
+            samp, sv = jstate.local_sample_rows(buf0._replace(counts=counts), k_draw, 1)
+            scores = jax.random.uniform(k_pick, (1,)) + jnp.where(sv[None, 0], 0.0, 1e3)
+            take = jnp.argsort(scores)[:3]
+            for name, a in (("flat", flat), ("counts", counts), ("seen", seen),
+                            ("samp", samp), ("sv", sv), ("take", take)):
+                out[f"{{case}}/s{{s}}/rows/{{name}}"] = np.asarray(a)
+            out.update({{f"s{{s}}/batch/{{k}}": v for k, v in batch.items()}})
+            params, opt, buf, reps, valid, m = built.fn(
+                params, opt, buf, reps, valid, {{k: jnp.asarray(v) for k, v in batch.items()}},
+                issue_key)
+            issue_key = jax.random.fold_in(key, s)
+            out[f"{{case}}/s{{s}}/loss"] = np.asarray(m["loss"])
+            for k, v in buf.data.items():
+                out[f"{{case}}/s{{s}}/buffer/{{k}}"] = np.asarray(v)[0]
+            for k, v in reps.items():
+                out[f"{{case}}/s{{s}}/reps/{{k}}"] = np.asarray(v)[0]
+            out[f"{{case}}/s{{s}}/valid"] = np.asarray(valid)[0]
+np.savez(sys.argv[1], **out)
+"""
+
+ROW_SIDE = """
+import dataclasses, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, world, rendezvous, ref_path, out_path = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                               sys.argv[4], sys.argv[5])
+dist.init_process_group("gloo", init_method=f"file://{{rendezvous}}", rank=rank,
+                        world_size=world)
+from repro_torch import configs
+from repro_torch.buffer.state import UpdateSampleRows
+from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
+                                      StrategyConfig, TrainConfig)
+from repro_torch.convert import load_named
+from repro_torch.core.distributed import ExchangeRows
+from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import build_train_step
+from repro_torch.parallel import model_parallel, param_spec, shard_param
+from repro_torch.parallel.tensor import gather_vocab, vocab_topk
+from repro_torch.scenario import TokenClassIncremental
+from repro_torch.scenario.trainer import materialize_state
+
+V, S, B, STEPS, TAPS = {V}, {S}, {B}, {STEPS}, {TAPS}
+{TAP_RUN}
+ref = np.load(ref_path)
+mesh = make_mesh((1, 2), ("data", "model"))
+mp = model_parallel(mesh)
+cfg = dataclasses.replace(configs.get_reduced("smollm-135m"), vocab_size=V, num_layers=2)
+full = {{k[len("params0/"):]: ref[k] for k in ref.files if k.startswith("params0/")}}
+out = {{}}
+for case, (strategy, top_k, sp) in TAPS.items():
+    run = tap_run(cfg, strategy, top_k, sp)
+    built = build_train_step(run, mesh, scenario=TokenClassIncremental(run.scenario),
+                             exchange="full", buffer_budget_bytes=None, device="cpu")
+    params, opt, buf, reps, valid = materialize_state(built, run, mesh, 0)
+    load_named(params, {{k: shard_param(v, param_spec(k, v.shape, cfg, 2), mp)
+                        for k, v in full.items()}})
+    for s in range(STEPS):
+        p = f"{{case}}/s{{s}}/rows/"
+        rows = ExchangeRows(
+            UpdateSampleRows(*(torch.from_numpy(np.array(ref[p + n]))
+                               for n in ("flat", "counts", "seen", "samp", "sv"))),
+            torch.from_numpy(np.array(ref[p + "take"])).long())
+        batch = {{k: ref[f"s{{s}}/batch/{{k}}"] for k in ("tokens", "labels", "task")}}
+        params, opt, buf, reps, valid, m = built.fn(params, opt, buf, reps, valid, batch, 0,
+                                                    rows=rows)
+        out[f"{{case}}/s{{s}}/loss"] = float(m["loss"])
+        out.update({{f"{{case}}/s{{s}}/buffer/{{k}}": v.numpy().copy()
+                    for k, v in buf.data.items()}})
+        out.update({{f"{{case}}/s{{s}}/reps/{{k}}": v.numpy().copy() for k, v in reps.items()}})
+        out[f"{{case}}/s{{s}}/valid"] = valid.numpy().copy()
+    out[f"{{case}}/aux_fields"] = np.array(sorted(built.meta["aux_fields"]))
+
+# the shards' top-k merge against the whole vocabulary's: random rows (no
+# ties), then rows whose equal values straddle the shards
+g = torch.Generator().manual_seed(7)
+whole = torch.randn(5, 3, 40, generator=g)
+# each shard a permutation of the same 20 values: distinct within a shard,
+# every value on both
+tied = torch.cat([0.5 * torch.argsort(torch.rand(15, 20, generator=g)).float().reshape(5, 3, 20)
+                  for _ in range(2)], dim=-1)
+for name, x in (("random", whole), ("tied", tied)):
+    for k in (1, 7, 20, 33):
+        mine = x[..., rank * 20:(rank + 1) * 20]
+        vals, idx = vocab_topk(mine, k, mp)
+        out[f"topk/{{name}}/{{k}}/vals"] = vals.numpy()
+        out[f"topk/{{name}}/{{k}}/idx"] = idx.numpy()
+    out[f"topk/{{name}}/x"] = x.numpy()
+    out[f"topk/{{name}}/gathered"] = gather_vocab(x[..., rank * 20:(rank + 1) * 20], mp).numpy()
+
+# Whisper reduced served on the row: the serve CLI's tokens
+res = serve.main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--mesh", "1x2",
+                  "--batch", "2", "--prompt-len", "6", "--gen-len", "5"])
+out["whisper/tokens"] = res.tokens.numpy()
+np.savez(out_path, **out)
+import gc
+gc.collect()
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def row_of_two(tmp_path_factory):
+    """JAX's ``build_train_step`` of every tap case on a (1, 2) fake-device
+    mesh (a subprocess), then two gloo ranks of a 1 x 2 mesh running the
+    port's on the JAX step's weights, rows and picks (the ``rows`` seam),
+    the shards' top-k merge and ``serve --arch whisper-tiny --mesh 1x2``.
+    Returns ``(JAX ref, [rank outputs])``."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    tmp = tmp_path_factory.mktemp("row_of_two")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(repo, "src")
+    fmt = dict(V=V, S=TS, B=TB, STEPS=STEPS, TAPS=TAPS, TAP_RUN=_TAP_RUN)
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    ref_path = tmp / "taps_ref.npz"
+    jp = subprocess.run([sys.executable, "-c", textwrap.dedent(TAP_JAX_SIDE.format(**fmt)),
+                         str(ref_path)], env=env, capture_output=True, text=True,
+                        timeout=600)
+    assert jp.returncode == 0, jp.stderr[-4000:]
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
+    code = textwrap.dedent(ROW_SIDE.format(**fmt))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), "2", str(tmp / "rdv"),
+                               str(ref_path), str(tmp / f"row_{r}.npz")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("worker timed out")
+        assert p.returncode == 0, err[-4000:]
+    return np.load(ref_path), [np.load(tmp / f"row_{r}.npz") for r in range(2)]
+
+
+def _close(got, want, rtol, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= rtol * scale, f"{what}: max err {err:.3e} > {rtol} x {scale:.3e}"
+
+
+@pytest.mark.parametrize("case", list(TAPS))
+def test_tap_strategies_refuse_a_model_axis_naming_item_21(case, row_of_two):
+    """Item 21's tap strategies on a model axis of 2: each case through
+    ``build_train_step`` on two gloo ranks (the logits vocab-sharded) against
+    JAX's at 1 x 2 on the same weights and rows. The records hold the whole
+    vocabulary's logits (dense [S, V], or the top-8 pairs with global
+    indices), as the reference's do: every integer leaf (tokens, labels,
+    task, ``logit_idx``) of the buffer and the pending slot equal to
+    JAX's (grasp_embed also under ``sequence_parallel``, its embedding the
+    whole sequence's), every float leaf (logits, values, embeddings) within 1e-5 of its
+    largest entry, and both ranks' records the same bits. The loss within
+    1e-5 (relative). Named for the refusal it asserted before this path
+    ran."""
+    ref, ranks = row_of_two
+    strategy, top_k, _ = TAPS[case]
+    want_fields = {"der": ["logit_idx", "logit_vals"] if top_k else ["logits"],
+                   "grasp_embed": ["embed"]}[strategy.replace("_pp", "")]
+    for got in ranks:
+        assert sorted(got[f"{case}/aux_fields"].tolist()) == want_fields
+    for s in range(STEPS):
+        want_loss = float(ref[f"{case}/s{s}/loss"])
+        for r, got in enumerate(ranks):
+            assert abs(float(got[f"{case}/s{s}/loss"]) - want_loss) <= 1e-5 * abs(want_loss), (
+                s, r, float(got[f"{case}/s{s}/loss"]), want_loss)
+            np.testing.assert_array_equal(got[f"{case}/s{s}/valid"], ref[f"{case}/s{s}/valid"])
+            for part in ("buffer", "reps"):
+                names = [f.split("/")[-1] for f in ref.files
+                         if f.startswith(f"{case}/s{s}/{part}/")]
+                assert set(want_fields) <= set(names)
+                for name in names:
+                    a, b = got[f"{case}/s{s}/{part}/{name}"], ref[f"{case}/s{s}/{part}/{name}"]
+                    np.testing.assert_array_equal(a, ranks[0][f"{case}/s{s}/{part}/{name}"])
+                    if np.issubdtype(b.dtype, np.floating):
+                        _close(a, b, 1e-5, f"{case} s{s} {part}/{name}")
+                    else:
+                        np.testing.assert_array_equal(a, b, err_msg=f"{case} {part}/{name}")
+
+
+@pytest.mark.parametrize("k", [1, 7, 20, 33])
+def test_vocab_topk_merges_the_shards_into_the_whole_vocabularys(k, row_of_two):
+    """The shards' top-k merged over the row: on rows without ties, bit for
+    bit ``torch.topk`` of the gathered logits (the set and the value order);
+    on rows whose equal values straddle the shards (each value once on
+    each), the reference's ``lax.top_k`` (equal values to the lowest
+    index). Ties inside one shard follow that shard's ``torch.topk``, whose
+    order among equal values torch does not define on the CPU. ``gather_vocab`` gives
+    the whole row bit for bit."""
+    import jax.numpy as jnp
+
+    _, ranks = row_of_two
+    for got in ranks:
+        for name in ("random", "tied"):
+            x = got[f"topk/{name}/x"]
+            np.testing.assert_array_equal(got[f"topk/{name}/gathered"], x)
+            vals, idx = got[f"topk/{name}/{k}/vals"], got[f"topk/{name}/{k}/idx"]
+            np.testing.assert_array_equal(np.take_along_axis(x, idx, -1), vals)
+            if name == "random":
+                tv, ti = torch.topk(torch.from_numpy(x), k)
+                np.testing.assert_array_equal(vals, tv.numpy())
+                np.testing.assert_array_equal(idx, ti.numpy())
+            else:
+                jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+                np.testing.assert_array_equal(vals, np.asarray(jv))
+                np.testing.assert_array_equal(idx, np.asarray(ji))
+
+
+def test_serve_refuses_the_encdec_on_a_model_axis(row_of_two):
+    """Item 21's encoder-decoder served on a model axis: ``serve --arch
+    whisper-tiny --reduced --mesh 1x2`` on two gloo ranks gives the 1 x 1
+    run's token ids on both. Named for the refusal it asserted before this
+    path ran."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="item 21"):
-        serve.main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--mesh", "1x2"])
-
-
-def test_tap_strategies_refuse_a_model_axis_naming_item_21():
-    from repro_torch.configs.base import (RehearsalConfig, RunConfig, ScenarioConfig,
-                                          TrainConfig)
-    from repro_torch.launch.steps import build_train_step
-
-    class _RowOfTwo:
-        """A one-worker mesh whose model axis is 2 (rank 0), no group."""
-
-        device_type, mesh_dim_names = "cpu", ("data", "model")
-
-        def size(self, mesh_dim=None):
-            return (1, 2)[mesh_dim]
-
-        def get_group(self, mesh_dim=None):
-            return None
-
-        def get_coordinate(self):
-            return [0, 0]
-
-    cfg = dataclasses.replace(configs.get_reduced("smollm-135m"), vocab_size=64, num_layers=1)
-    run = RunConfig(model=cfg, train=TrainConfig(optimizer="adamw", compute_dtype="float32"),
-                    rehearsal=RehearsalConfig(num_buckets=2, mode="async"),
-                    scenario=ScenarioConfig(modality="tokens", strategy="der_pp", num_tasks=2,
-                                            batch_size=2, vocab_size=64, seq_len=8,
-                                            auto_defaults=False))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        build_train_step(run, _RowOfTwo(), device="cpu")
+    want = serve.main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "6", "--gen-len", "5"]).tokens.numpy()
+    for got in row_of_two[1]:
+        np.testing.assert_array_equal(got["whisper/tokens"], want)

@@ -6,8 +6,10 @@ temporary directory), against the JAX package on the same weights.
     KV projection is replicated and each rank keeps its one KV head),
     SmolLM with 6 heads and 3 KV (heads that do not divide 4: attention
     replicated), Mamba2-370M, Gemma-2B (MQA), Mixtral-8x7B (expert-parallel)
-    and with 3 experts (hidden-sharded), Jamba-v0.1 and Qwen2-VL-72B
-    (patch-stub embeddings, M-RoPE positions). Each rank's logits, gathered
+    and with 3 experts (hidden-sharded), Jamba-v0.1, Qwen2-VL-72B
+    (patch-stub embeddings, M-RoPE positions) and Whisper-tiny (the
+    encoder-decoder: its encoder, decoder and cross-attention sharded by
+    heads, at M = 4 its 2 KV heads replicated). Each rank's logits, gathered
     over its model row, are within 1e-4 of the largest |logit| of the JAX
     reference's unsharded forward. Routing is pinned to the rank's own
     unsharded forward (``repro_torch.testdata.routing``), as in every
@@ -39,8 +41,9 @@ CASES = {"smollm": ("smollm-135m", {}), "smollm_6h": ("smollm-135m", dict(num_he
                                                                           num_kv_heads=3)),
          "mamba2": ("mamba2-370m", {}), "gemma": ("gemma-2b", {}),
          "mixtral_ep": ("mixtral-8x7b", {}), "mixtral_tp": ("mixtral-8x7b", dict(num_experts=3)),
-         "jamba": ("jamba-v0.1-52b", {}), "qwen2_vl": ("qwen2-vl-72b", {})}
-DECODE = ("smollm", "mamba2", "gemma", "mixtral_ep")
+         "jamba": ("jamba-v0.1-52b", {}), "qwen2_vl": ("qwen2-vl-72b", {}),
+         "whisper": ("whisper-tiny", {})}
+DECODE = ("smollm", "mamba2", "gemma", "mixtral_ep", "whisper")
 B, S, PROMPT, GEN = 2, 16, 8, 8
 FORWARD_SIZES = (2, 4)
 
@@ -386,6 +389,8 @@ def test_tensor_parallel_forward_matches_the_jax_reference(case, m, runs):
         sharded = set(got[case + "/sharded"].tolist())
         # the blocks whose heads / experts split over M run sharded, the rest whole
         layer0 = "layers.0.attn.wq" if cfg.layer_kind(0) == "attn" else "layers.0.ssm.w_x"
+        if cfg.family == "encdec":
+            layer0 = "dec_layers.0.cross.wq"
         split = (attention_plan(cfg, m) is not None if cfg.layer_kind(0) == "attn"
                  else ssm_sharded(cfg, m))
         assert (layer0 in sharded) == split, (layer0, sorted(sharded))

@@ -27,7 +27,7 @@ from repro_torch.optim import make_optimizer
 
 # (name, JAX config, port config, image size) -- reduced() and narrow
 # bottleneck stacks whose second stage starts with a stride-2 block, on even
-# (pads (0, 1)) and odd (pads (1, 1)) inputs
+# (pads (0, 1)) and odd (pads (1, 1)) inputs; ghost blocks on both
 CONFIGS = {
     "reduced": (jcfgs.reduced(num_classes=12), tcfgs.reduced(num_classes=12), 32),
     "bottleneck_even": (
@@ -37,6 +37,15 @@ CONFIGS = {
     "bottleneck_odd": (
         jcfgs.CNNConfig("b", "resnet50", num_classes=10, width=4, stage_blocks=(2, 1)),
         tcfgs.CNNConfig("b", "resnet50", num_classes=10, width=4, stage_blocks=(2, 1)),
+        15),
+    # ghost blocks: an identity block, then a stride-2 projection block
+    "ghost_even": (
+        jcfgs.CNNConfig("g", "ghostnet", num_classes=10, width=4, stage_blocks=(1, 2)),
+        tcfgs.CNNConfig("g", "ghostnet", num_classes=10, width=4, stage_blocks=(1, 2)),
+        16),
+    "ghost_odd": (
+        jcfgs.CNNConfig("g", "ghostnet", num_classes=10, width=4, stage_blocks=(1, 2)),
+        tcfgs.CNNConfig("g", "ghostnet", num_classes=10, width=4, stage_blocks=(1, 2)),
         15),
 }
 
@@ -69,7 +78,7 @@ def test_logits_match_jax(name):
     _close(out["embed"].numpy(), want["embed"])
 
 
-@pytest.mark.parametrize("name", ["reduced", "bottleneck_even"])
+@pytest.mark.parametrize("name", ["reduced", "bottleneck_even", "ghost_even", "ghost_odd"])
 def test_one_sgd_step_matches_jax(name):
     jcfg, tcfg, params, model, images, labels = _setup(name, batch=4, seed=1)
     labels[1] = -1  # a masked row, as an invalid representative carries

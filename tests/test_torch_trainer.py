@@ -76,23 +76,60 @@ def test_constructors_default_to_the_card(name):
         make()
 
 
-class _TwoModelRanks:
-    """A mesh with a model axis of 2 (tensor parallelism)."""
+@pytest.mark.parametrize("kwargs,refusal", [(dict(mesh=(1, 2), resilience=ResilienceConfig(
+    checkpoint_every=1)), "item 21")])
+def test_unported_options_raise(kwargs, refusal, tmp_path):
+    """Item 21's restarts on a model axis: ``ContinualTrainer(mesh=1x2,
+    resilience=...)`` builds and fits on two gloo ranks (one model row),
+    model rank 1 failing once before step 1: both ranks restart once and
+    report the same finite losses. Named for the refusal it asserted before this path ran; ``refusal`` is
+    that refusal's message, which no rank logs now."""
+    import json
+    import os
 
-    device_type, mesh_dim_names = "cpu", ("data", "model")
+    from repro_torch.runtime import multiproc
 
-    def size(self, mesh_dim=None):
-        return (1, 2)[mesh_dim]
+    src = r"""
+import json, dataclasses, torch
+torch.set_num_threads(1)
+from repro_torch.runtime import multiproc
+multiproc.init_from_env("gloo")
+import torch.distributed as dist
+from repro_torch import configs
+from repro_torch.configs.base import RehearsalConfig, ResilienceConfig, RunConfig, ScenarioConfig
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.runtime import InjectedFailure
+from repro_torch.scenario import ContinualTrainer
 
-
-@pytest.mark.parametrize("kwargs,item", [(dict(mesh=_TwoModelRanks(), ckpt_dir="unused",
-                                               resilience=ResilienceConfig()), "item 21")])
-def test_unported_options_raise(kwargs, item):
-    """A model axis of 2 trains now; what it does not do yet raises naming
-    its item: the agreed restarts of ``resilience=``, which span the
-    data-parallel ranks only."""
-    with pytest.raises(NotImplementedError, match=item):
-        ContinualTrainer(RUN, device="cpu", **kwargs)
+cfg = dataclasses.replace(configs.get_reduced("smollm-135m"), vocab_size=64, num_layers=1)
+run = RunConfig(model=cfg, rehearsal=RehearsalConfig(num_buckets=2, label_field="labels"),
+                scenario=ScenarioConfig(name="class_incremental", modality="tokens",
+                                        num_tasks=1, steps_per_epoch=3, batch_size=2,
+                                        vocab_size=64, seq_len=8, auto_defaults=False))
+fired = []
+def hook(step):
+    if dist.get_rank() == 1 and step == 1 and not fired:
+        fired.append(step)
+        raise InjectedFailure("model rank 1")
+trainer = ContinualTrainer(run, device="cpu", mesh=make_mesh(%r, ("data", "model")),
+                           ckpt_dir=%r, resilience=ResilienceConfig(checkpoint_every=%d),
+                           overrides={"failure_hook": hook})
+res = trainer.fit()
+print(json.dumps({"losses": res.losses, "restarts": res.restarts}))
+del trainer
+dist.barrier()
+dist.destroy_process_group()
+""" % (tuple(kwargs["mesh"]), str(tmp_path / "ck"), kwargs["resilience"].checkpoint_every)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    outs = multiproc.launch_workers(src, 2, timeout=300, pythonpath=path,
+                                    extra_env={"OMP_NUM_THREADS": "1"},
+                                    rendezvous_dir=str(tmp_path))
+    for o in outs:
+        assert o.returncode == 0, o.stderr[-4000:]
+        assert refusal not in o.stderr
+    a, b = (json.loads(o.stdout.strip().splitlines()[-1]) for o in outs)
+    assert a == b and a["restarts"] == 1 and len(a["losses"]) == 3, a
+    assert np.isfinite(a["losses"]).all()
 
 
 def test_trainer_checkpoints_the_full_carry_per_task(tmp_path):
