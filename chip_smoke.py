@@ -204,10 +204,10 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      (after phase 21, TF32 off): flash attention at Qwen2-VL-72B's prefill
      (hd 128, H 64 over KV 8: 8 query heads a KV head, causal, S 2048), f32
      and bf16, against its plain version, timed beside it, SDPA and the
-     bound; Qwen2-VL-72B at its published width cut to 4 of 80 layers,
+     bound; Qwen2-VL-72B at its published width cut to 2 of 80 layers,
      weights drawn on the card: prefill of B 4 x S 2048 patch-stub
      embeddings at an image block's M-RoPE positions with the kernels
-     against the plain path in f32 and bf16 (phase 11's bounds, 4 flash
+     against the plain path in f32 and bf16 (phase 11's bounds, 2 flash
      launches a forward), ``DecodeEngine`` on token prompts against the
      teacher-forced forward, the serve CLI on the reduced config;
      Whisper-tiny whole (B 8, 1500 frames, 448 tokens): the kernel flag on,
@@ -283,6 +283,25 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      a step a rank, finite losses, the two ranks' buffers the same bits;
      (d) ``serve.main --arch whisper-tiny --mesh 1x2`` gives the 1x1 run's
      token ids.
+ 26. GPipe, the sequence-sharded decode cache and the dry run (after phase
+     20, TF32 off for its ranks): two processes over gloo on cuda:0, (a)
+     SmolLM-135M whole in bf16 cut into 2 stages of 15 layers
+     (``parallel.pipeline_apply`` through ``testdata.pipelined_forward``),
+     phase 11's prefill (B 4 x S 2048) in 4 micro-batches: the logits within
+     phase 11's bf16 bound of the f32 plain path, 60 flash launches a stage
+     (15 layers x 4 micro-batches: the idle ticks run nothing), the
+     pipelined forward's time beside the unpipelined one (gloo's host round
+     trip: the handoff goes through host copies); (b) the same arch served
+     through ``build_decode_step`` on a 1 x 2 row against 1 x 1 (batch 4,
+     prompt 32, gen 16, f32 compute): the cache's sequence split over the
+     row (3 KV heads do not divide 2), each rank's cache bytes half of 1 x
+     1's and the ids 1 x 1's with a bf16 cache; a float8_e4m3fn cache half
+     of bf16's bytes, its logits teacher-forced on the bf16 ids within 0.25
+     of the bf16 cache's largest |logit|; (c) the dry run
+     (``launch.dryrun.count_step``) of phase 11's bf16 prefill at 1 x 1:
+     its argument bytes equal the state's on the card, its counted peak
+     beside ``torch.cuda.max_memory_allocated``, the roofline's ideal time
+     beside the measured forward.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -2762,8 +2781,9 @@ def lm_train_phase(counters, qz, ops, ref):
 # rehearsal defaults: async reservoir, one bucket an anchor, 16 slots, r 7,
 # c 14) with the model at full width and the stream over min(V, 2048) ids.
 # The learner runs ONLINE_ROUNDS of the CLI's ONLINE_CLI_ROUNDS rounds, for
-# time (the CLI's own case keeps its 8, on the reduced LM).
-ONLINE_CLI_ROUNDS, ONLINE_ROUNDS, ONLINE_PHASES, ONLINE_FAIL_AT = 8, 4, 3, 3
+# time (the CLI's own case keeps its 8, on the reduced LM); the injected
+# failure comes at round ONLINE_FAIL_AT, after two rounds that trained.
+ONLINE_CLI_ROUNDS, ONLINE_ROUNDS, ONLINE_PHASES, ONLINE_FAIL_AT = 8, 3, 3, 2
 ONLINE_ARCHS = ("smollm-135m", "mamba2-370m")
 
 
@@ -4213,13 +4233,13 @@ def moe_phase(counters, fa, ssd, ref):
 # phase 22: the enc-dec and VLM stacks served, the MoE and hybrid stacks trained
 # ---------------------------------------------------------------------------
 
-# Qwen2-VL-72B at its published width cut to 4 of 80 layers (6.0 B parameters,
-# 24 GB f32: the whole model is 288 GB); Whisper-tiny whole, at its published
+# Qwen2-VL-72B at its published width cut to 2 of 80 layers (for time; the
+# whole model is 288 GB f32); Whisper-tiny whole, at its published
 # context of 1500 encoder frames and 448 decoder tokens; training cuts
 # Mixtral-8x7B to 1 layer at its published widths (1.71 B parameters,
 # about 28 B a parameter at AdamW's peak) and runs Jamba-v0.1 reduced (one full-width unit is 13.3 B parameters, 370 GB
 # under AdamW).
-VLM_ARCH, VLM_LAYERS, VLM_SEED = "qwen2-vl-72b", 4, 22
+VLM_ARCH, VLM_LAYERS, VLM_SEED = "qwen2-vl-72b", 2, 22
 WHISPER_B, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
 TRAIN_CUTS = {"mixtral-8x7b": 1, "jamba-v0.1-52b": 0}  # 0: reduced
 TRAIN_TASKS, TRAIN_STEPS = 2, 4
@@ -4279,7 +4299,7 @@ def vlm_kernel_shape(fa, ref):
 
 
 def vlm_path(counters, ssd):
-    """Qwen2-VL-72B at its published width, 4 layers: the prefill of B 4 x S
+    """Qwen2-VL-72B at its published width, 2 layers (VLM_LAYERS): the prefill of B 4 x S
     2048 patch-stub embeddings at the image block's M-RoPE positions
     (``repro_torch.testdata.family_batch``) with the kernels against the
     plain path, f32 and bf16 (phase 11's bounds, 4 flash launches a
@@ -4451,7 +4471,7 @@ def backward_bits(arch: str, seed: int = 23):
 
 
 def encdec_vlm_phase(counters, fa, ssd, ref):
-    """Phase 22: flash at the VLM's G = 8 shape; Qwen2-VL-72B (4 layers) and
+    """Phase 22: flash at the VLM's G = 8 shape; Qwen2-VL-72B (2 layers) and
     Whisper-tiny served; Mixtral-8x7B (1 layer) and Jamba (reduced) trained through the train CLI, each with its repeated backward
     held bit for bit. Returns (launches per forward by arch, the flash
     entry's update, the training runs' launches by name)."""
@@ -5388,10 +5408,364 @@ def ghost_and_model_axis_phase(counters, fused_runs: dict, cfg) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: GPipe, the sequence-sharded decode cache, the dry run
+# ---------------------------------------------------------------------------
+
+# (a) SmolLM-135M whole, bf16, in GP_STAGES stages of 15 layers over 2 gloo
+# ranks on cuda:0, phase 11's prefill (B PREFILL_B x S PREFILL_S) in
+# GP_MICRO micro-batches of one sequence; (b) the same arch served at 1 x 2
+# against 1 x 1 (serving's batch, prompt and generation: a cache of 48
+# slots, split over the row since its 3 KV heads do not divide 2), bf16 and
+# float8_e4m3fn caches, and bf16 compute; (c) the dry run of phase 11's bf16
+# prefill at 1 x 1.
+GP_ARCH, GP_STAGES, GP_MICRO, GP_SEED = "smollm-135m", 2, 4, 26
+# fp8 against bf16 cache storage, teacher-forced on the bf16 run's ids: the
+# logits within FP8_BOUND of the bf16 run's largest |logit| (e4m3 keeps 3
+# mantissa bits, bf16 7: each stored K/V moves by up to 2**-4 of itself; the
+# card read 0.081 of it, the same decode on the CPU 0.078: the bound is
+# about 1.85 times those)
+FP8_BOUND = 0.15
+# the fp8 cache at 1 x 2 against the fp8 cache at 1 x 1 (f32 compute, TF32
+# off, teacher-forced): the row's f32 sums move a K/V across an e4m3
+# rounding boundary now and then, a 2**-4 jump that the later layers carry
+# into more crossings; the card read 0.0168 of the largest |logit| (this
+# bound was set from that reading, about twice it)
+FP8_SPLIT = 0.035
+
+
+def _sc_decode(mesh, cfg, kv_dtype: str, prompts, feed=None, generate: bool = True,
+               compute: str = "float32", whole_cache: bool = False):
+    """Decode through ``build_decode_step`` on ``mesh`` (``compute`` dtype;
+    ``kv_dtype`` cache storage; weights drawn on the card from GP_SEED, this
+    rank's shards): the greedy ids (``generate``), each step's logits
+    teacher-forced on ``feed`` (gathered over the row), the rank's cache
+    bytes and its cache split. ``whole_cache`` builds the step with no
+    sequence split (every rank holds the whole cache, as before the split
+    existed): it tells a difference the split makes from one the
+    tensor-parallel MLP and head make, whose sums over the row round apart
+    from 1 x 1's single product."""
+    from repro_torch.configs.base import RunConfig, ScenarioConfig, TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.parallel.tensor import gather_vocab
+    from repro_torch.serving import DecodeEngine
+
+    b, p = prompts.shape
+    run = RunConfig(model=cfg, train=TrainConfig(compute_dtype=compute, kv_dtype=kv_dtype),
+                    scenario=ScenarioConfig(modality="tokens", batch_size=b, seq_len=p + GEN))
+    shards = steps.cache_shards
+    if whole_cache:
+        steps.cache_shards = lambda *a, **k: None
+    try:
+        built = steps.build_decode_step(run, mesh)
+    finally:
+        steps.cache_shards = shards
+    with torch.device("cuda"):
+        params = built.model.init(torch.Generator(device="cuda").manual_seed(GP_SEED), p + GEN,
+                                  device="cuda", mp=built.ctx.mp)
+    caches = built.model.init_cache(params, b, p + GEN, dtype=built.cache_dtype,
+                                    mp=built.ctx.mp, seq=built.ctx.kv_seq)
+    nbytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    t0 = time.perf_counter()
+    ids = DecodeEngine(built.model, built.ctx, cache_dtype=built.cache_dtype,
+                       step=built.fn).generate(params, prompts, GEN).tokens.cpu() \
+        if generate else None
+    logits = []
+    if feed is not None:
+        with torch.no_grad():
+            for t in range(feed.shape[1] - 1):
+                lg, caches = built.fn(params, caches, {"token": feed[:, t:t + 1]}, t)
+                if lg.shape[-1] != cfg.vocab_size:
+                    lg = gather_vocab(lg, built.ctx.mp)
+                logits.append(lg.float())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = {k: (v.size, list(v.axes)) for k, v in (built.ctx.kv_seq or {}).items() if v}
+    return {"ids": ids, "logits": torch.cat(logits, 1).cpu() if logits else None,
+            "cache_bytes": nbytes, "split": split, "wall": wall,
+            "dtype": str(caches[0]["k"].dtype)}
+
+
+def gpipe_rank(counters, cfg, pipe_mesh) -> dict:
+    """(a) on this rank: the pipelined bf16 prefill against the unpipelined
+    forward (kernels on) and the f32 plain path, its flash launches counted
+    from 0, both forwards' times."""
+    from repro_torch.models import StackCtx
+    from repro_torch.parallel.pipeline import host_staged
+    from repro_torch.testdata import pipelined_forward
+
+    model, params, _ = draw_on_card(cfg, PREFILL_S, GP_SEED)
+    toks = {"tokens": torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                                    generator=torch.Generator().manual_seed(2)).cuda()}
+    fast = StackCtx(cfg, use_kernel=True, compute_dtype=torch.bfloat16, remat="none")
+    with torch.no_grad():
+        want, _ = model.forward(params, toks, StackCtx(cfg, use_kernel=False, remat="none"))
+        plain16, _ = model.forward(params, toks, StackCtx(cfg, use_kernel=False,
+                                                          compute_dtype=torch.bfloat16,
+                                                          remat="none"))
+        whole, whole_seen, _ = _counted_forward(model, params, toks, fast, counters)
+
+        def piped():
+            return pipelined_forward(pipe_mesh, params, toks, cfg, fast, GP_MICRO)
+
+        got, seen, peak = _counted_call(piped, counters)
+        ms_pipe = _timed_call(piped) * 1e3
+        ms_whole = _timed_forward(model, params, toks, fast) * 1e3
+    scale = float(want.abs().max())
+    ref_err = abs_err(plain16.float(), want)
+    return {"err": abs_err(got.float(), want), "tol": 2 * ref_err + 1e-3 * scale,
+            "ref_err": ref_err, "gap_whole": abs_err(got.float(), whole.float()),
+            "launches": seen, "whole_launches": whole_seen, "ms_pipe": ms_pipe,
+            "ms_whole": ms_whole, "peak": peak, "scale": scale,
+            "host_staged": host_staged(pipe_mesh.get_group(0)),
+            "shape": list(got.shape), "dtype": str(got.dtype)}
+
+
+def gpipe_cache_rank(tmp: str):
+    """One rank of phase 26's two (``runtime.multiproc`` starts it): joins
+    the gloo group on cuda:0, runs (a) on a 2-stage ``pipe`` mesh and (b)'s
+    1 x 2 decodes, and writes its results to ``tmp/rank<i>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = multiproc.init_from_env("gloo")
+    cfg = get_config(GP_ARCH)
+    out = {"rank": rank,
+           "gpipe": gpipe_rank({"flash_attention": fa.flash_attention}, cfg,
+                               make_mesh((world,), ("pipe",), "cuda"))}
+    row = make_mesh((1, world), ("data", "model"), "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+    feed = torch.load(os.path.join(tmp, "feed.pt")).cuda()
+    out["bf16"] = _sc_decode(row, cfg, "bfloat16", prompts)
+    out["fp8"] = _sc_decode(row, cfg, "float8_e4m3fn", prompts, feed, generate=False)
+    out["bf16c"] = _sc_decode(row, cfg, "bfloat16", prompts, feed, generate=False,
+                              compute="bfloat16")
+    out["bf16c_whole"] = _sc_decode(row, cfg, "bfloat16", prompts, feed, generate=False,
+                                    compute="bfloat16", whole_cache=True)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    import gc
+
+    gc.collect()
+    dist.destroy_process_group()
+
+
+def dry_run_against_the_card(cfg) -> dict:
+    """(c) the dry run of phase 11's bf16 prefill at 1 x 1 (rank 0, nothing
+    allocated) against the same step on the card: the arguments' bytes
+    exactly, the peaks side by side, the roofline's ideal time beside the
+    measured forward."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.base import RunConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_prefill_step
+
+    if dist.is_initialized():
+        raise AssertionError("phase 26 (c) needs no process group: an earlier phase left one")
+    shape = ShapeConfig("phase11", PREFILL_S, PREFILL_B, "prefill")
+    t0 = time.perf_counter()
+    counts = dryrun.count_step(cfg, shape, (1, 1), ("data", "model"), compute_dtype="bfloat16")
+    t_dry = time.perf_counter() - t0
+    run = RunConfig(model=cfg, train=TrainConfig(compute_dtype="bfloat16"))
+    built = build_prefill_step(run, make_mesh((1, 1), ("data", "model"), "cuda"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = built.model.init(torch.Generator().manual_seed(GP_SEED), PREFILL_S, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                                     generator=torch.Generator().manual_seed(2),
+                                     dtype=torch.int32).cuda()}
+    real = {"params": sum(t.numel() * t.element_size() for t in params.state_dict().values()),
+            "batch": sum(t.numel() * t.element_size() for t in batch.values())}
+    logits = built.fn(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"(c) logits {tuple(logits.shape)} not finite")
+    del logits
+    ms = _timed_call(lambda: built.fn(params, batch)) * 1e3
+    compute_s, memory_s = roofline.ideal_seconds(cfg, "prefill", PREFILL_B * PREFILL_S,
+                                                 PREFILL_S, 1, 1, compute_dtype="bfloat16")
+    ideal_ms = max(compute_s, memory_s) * 1e3
+    rec = roofline.analyze(arch=GP_ARCH, shape="phase11", mesh_name="1x1", kind="prefill",
+                           chips=1, cost={"flops": counts["flops"],
+                                          "bytes accessed": counts["bytes"]},
+                           collectives=[roofline.Collective(*c) for c in counts["collectives"]],
+                           active_params=cfg.active_param_count(),
+                           tokens_per_step=PREFILL_B * PREFILL_S, compute_dtype="bfloat16")
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"arguments": counts["argument_bytes"], "real": real,
+            "dry_peak": counts["peak_bytes"], "card_peak": peak, "flops": counts["flops"],
+            "bytes": counts["bytes"], "ideal_ms": ideal_ms, "compute_ms": compute_s * 1e3,
+            "memory_ms": memory_s * 1e3, "ms": ms, "share": ideal_ms / ms,
+            "counted_compute_ms": rec.compute_s * 1e3, "counted_memory_ms": rec.memory_s * 1e3,
+            "dry_s": t_dry}
+
+
+def gpipe_cache_dryrun_phase(counters) -> dict:
+    """Phase 26. Returns the flash launches of each rank's pipelined prefill
+    (the kernels line's ``launches_gpipe``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import multiproc
+
+    cfg = get_config(GP_ARCH)
+    print(f"card: {gpu_name_and_power()}")
+    # (b) at 1 x 1 in this process, with TF32 off as on the ranks: the ids
+    # the row must give, the feed, and the logits the row's are held to
+    one = make_mesh((1, 1), ("data", "model"), "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, PROMPT),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        whole16 = _sc_decode(one, cfg, "bfloat16", prompts)
+        feed = torch.cat([prompts.cpu(), whole16["ids"]], 1)
+        whole16["logits"] = _sc_decode(one, cfg, "bfloat16", prompts, feed.cuda(),
+                                       generate=False)["logits"]
+        whole8 = _sc_decode(one, cfg, "float8_e4m3fn", prompts)
+        whole8["logits"] = _sc_decode(one, cfg, "float8_e4m3fn", prompts, feed.cuda(),
+                                      generate=False)["logits"]
+        whole16c = _sc_decode(one, cfg, "bfloat16", prompts, feed.cuda(), generate=False,
+                              compute="bfloat16")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    tmp = tempfile.mkdtemp(prefix="repro_phase26_")
+    try:
+        torch.save(feed, os.path.join(tmp, "feed.pt"))
+        t0 = time.perf_counter()
+        procs = multiproc.launch_workers(
+            f"import chip_smoke; chip_smoke.gpipe_cache_rank({tmp!r})", MA_RANKS,
+            pythonpath=ROOT + os.pathsep + os.path.join(ROOT, "src"), rendezvous_dir=tmp,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            print(p.stdout[-3000:], end="")
+        bad = [(i, p.returncode, p.stderr[-4000:]) for i, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise AssertionError(f"phase 26 ranks failed: {bad}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{i}.pt")) for i in range(MA_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{MA_RANKS} ranks in {wall:.1f} s ({GLOO})")
+    per_stage = cfg.num_layers // GP_STAGES
+    expect = per_stage * GP_MICRO  # idle ticks skipped: a stage runs each micro-batch once
+    launches, fails = {}, []
+
+    def argmax_steps(a, b):
+        return int((a.argmax(-1) != b.argmax(-1)).sum())
+
+    for r in ranks:
+        i, g = r["rank"], r["gpipe"]
+        launches[f"{GP_ARCH} GPipe stage {i}"] = g["launches"]["flash_attention"]
+        print(f"(a) rank {i}: {GP_ARCH} bf16 prefill B {PREFILL_B} x S {PREFILL_S} in "
+              f"{GP_STAGES} stages of {per_stage} layers, {GP_MICRO} micro-batches: logits "
+              f"{g['shape']} {g['dtype']}, max |GPipe - f32 plain| {g['err']:.3e} (phase 11's "
+              f"bound {g['tol']:.3e}: twice the bf16 plain path's {g['ref_err']:.3e} + 1e-3 x "
+              f"{g['scale']:.3f}); max |GPipe - unpipelined kernels| {g['gap_whole']:.3e}; "
+              f"flash launches {g['launches']['flash_attention']} (expected {expect}: "
+              f"{per_stage} layers x {GP_MICRO} micro-batches, idle ticks skipped; the "
+              f"unpipelined forward {g['whole_launches']['flash_attention']}); pipelined "
+              f"forward {g['ms_pipe']:.1f} ms against the unpipelined {g['ms_whole']:.1f} ms "
+              f"(host clock, synchronised: gloo's host round trip; the handoff "
+              f"{'through host copies' if g['host_staged'] else 'in device memory'}, "
+              f"{GLOO}); the call's peak {g['peak'] / 2**30:.3f} GiB")
+        if g["err"] > g["tol"] or not math.isfinite(g["err"]):
+            fails.append(f"(a) rank {i}: GPipe logits {g['err']:.3e} > {g['tol']:.3e}")
+        if g["launches"]["flash_attention"] != expect or \
+                g["whole_launches"]["flash_attention"] != cfg.num_layers:
+            fails.append(f"(a) rank {i}: flash launches {g['launches']}, "
+                         f"unpipelined {g['whole_launches']}")
+        if g["shape"] != [PREFILL_B, PREFILL_S, cfg.vocab_size]:
+            fails.append(f"(a) rank {i}: logits {g['shape']}")
+        for key, want in (("bf16", whole16), ("fp8", whole8)):
+            got = r[key]
+            print(f"(b) rank {i} {key} cache at 1 x {MA_RANKS} (f32 compute): cache "
+                  f"{got['dtype']} {got['cache_bytes']} bytes on the rank, 1 x 1's "
+                  f"{want['cache_bytes']}; split {got['split']}; "
+                  + (f"ids {got['ids'].tolist()} (1 x 1: {want['ids'].tolist()}); generate "
+                     f"{got['wall']:.2f} s ({GLOO}; 1 x 1 {want['wall']:.2f} s)"
+                     if got["ids"] is not None else
+                     f"teacher-forced on the bf16 ids in {got['wall']:.2f} s"))
+            if got["cache_bytes"] * MA_RANKS != want["cache_bytes"] or got["split"] != {
+                    "k": (MA_RANKS, ["model"])}:
+                fails.append(f"(b) rank {i} {key}: cache bytes {got['cache_bytes']} "
+                             f"against 1 x 1's {want['cache_bytes']}, split {got['split']}")
+        if not torch.equal(r["bf16"]["ids"], whole16["ids"]):
+            fails.append(f"(b) rank {i}: the bf16 ids differ from 1 x 1's")
+        scale = float(whole16["logits"].abs().max())
+        gap = abs_err(r["fp8"]["logits"], whole16["logits"])
+        split8 = abs_err(r["fp8"]["logits"], whole8["logits"])
+        print(f"(b) rank {i}: teacher-forced on the bf16 ids, max |fp8 cache at 1 x 2 - bf16 "
+              f"cache at 1 x 1| logits {gap:.3e} (bound {FP8_BOUND} x {scale:.3f}), max |fp8 "
+              f"cache at 1 x 2 - fp8 cache at 1 x 1| {split8:.3e} (bound {FP8_SPLIT} x "
+              f"{scale:.3f}); greedy ids at 1 x 1 with the fp8 cache {whole8['ids'].tolist()}, "
+              f"with bf16 {whole16['ids'].tolist()}")
+        if r["fp8"]["cache_bytes"] * 2 != r["bf16"]["cache_bytes"]:
+            fails.append(f"(b) rank {i}: fp8 cache {r['fp8']['cache_bytes']} bytes, "
+                         f"bf16 {r['bf16']['cache_bytes']}")
+        if not gap <= FP8_BOUND * scale:
+            fails.append(f"(b) rank {i}: fp8 logits {gap:.3e} from bf16's")
+        if not split8 <= FP8_SPLIT * scale:
+            fails.append(f"(b) rank {i}: fp8 logits at 1 x 2 {split8:.3e} from 1 x 1's")
+        # bf16 compute, the reference's decode cells' dtype: the split cache's
+        # combine at 1 x 2 held against the f32 1 x 1 logits within phase 11's
+        # bound, twice the bf16 1 x 1 path's error there; beside it the same
+        # decode with the whole cache on each rank, which tells the split's
+        # own rounding from the tensor-parallel sums'
+        c16, c16w = r["bf16c"], r["bf16c_whole"]
+        ref16 = abs_err(whole16c["logits"], whole16["logits"])
+        err16 = abs_err(c16["logits"], whole16["logits"])
+        tol16 = 2 * ref16 + 1e-3 * scale
+        print(f"(b) rank {i} bf16 compute, bf16 cache at 1 x {MA_RANKS}, split {c16['split']}, "
+              f"teacher-forced: max |1 x 2 - f32 1 x 1| logits {err16:.3e} (bound {tol16:.3e}: "
+              f"twice the bf16 1 x 1 path's {ref16:.3e} + 1e-3 x {scale:.3f}); max |split - "
+              f"whole cache at 1 x 2| {abs_err(c16['logits'], c16w['logits']):.3e}, max |whole "
+              f"cache at 1 x 2 - bf16 1 x 1| {abs_err(c16w['logits'], whole16c['logits']):.3e}; "
+              f"of {SERVE_B} x {c16['logits'].shape[1]} steps' argmax, split against bf16 1 x 1 "
+              f"{argmax_steps(c16['logits'], whole16c['logits'])} differ, whole cache against "
+              f"bf16 1 x 1 {argmax_steps(c16w['logits'], whole16c['logits'])}, split against "
+              f"whole {argmax_steps(c16['logits'], c16w['logits'])}")
+        if not err16 <= tol16 or c16["split"] != {"k": (MA_RANKS, ["model"])} or c16w["split"]:
+            fails.append(f"(b) rank {i}: bf16-compute logits at 1 x 2 {err16:.3e} > "
+                         f"{tol16:.3e}, splits {c16['split']} / {c16w['split']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    d = dry_run_against_the_card(cfg)
+    print(f"(c) dry run of phase 11's bf16 prefill at 1 x 1 ({d['dry_s']:.1f} s on the host, "
+          f"nothing allocated): arguments {d['arguments']} bytes; on the card {d['real']}; "
+          f"peak {d['dry_peak']} bytes counted (arguments + the most live temporaries, "
+          f"unfused), torch.cuda.max_memory_allocated {d['card_peak']} above the memory held "
+          f"before; {d['flops']:.4e} flops and {d['bytes']:.4e} bytes counted (their times at "
+          f"the card's peaks {d['counted_compute_ms']:.3f} and {d['counted_memory_ms']:.3f} "
+          f"ms); the roofline's ideal {d['ideal_ms']:.3f} ms (compute {d['compute_ms']:.3f}, "
+          f"memory {d['memory_ms']:.3f}) beside the measured forward {d['ms']:.3f} ms: share "
+          f"{d['share']:.4f} ({gpu_name_and_power()})")
+    if d["arguments"] != d["real"]:
+        raise AssertionError(f"(c) the dry run's arguments {d['arguments']} are not the card's "
+                             f"{d['real']}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-25), and print no result lines")
+                    help="run phases 1, 2 and these only (3-26), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -5539,6 +5913,10 @@ def main(argv=None):
     if run(20):
         phase("20 telemetry: obs on the main path, PhasePipeline, an agreed restart, serving")
         obs_launches = obs_phase(counters, cfg)
+
+    if run(26):
+        phase("26 GPipe on 2 gloo ranks; the sequence-sharded decode cache; the dry run")
+        gp_flash = gpipe_cache_dryrun_phase(counters)
     phase.end()
 
     if only:
@@ -5585,6 +5963,8 @@ def main(argv=None):
     launches.update(vlm_launches)
     flash_entry.update(vlm_flash)
     flash_entry.update(ma_flash)  # phase 23: the local heads of a rank, its launches
+    # phase 26: each GPipe stage's launches in one pipelined prefill
+    flash_entry["launches_gpipe"] = gp_flash
     ssd_entry.update(ma_scan)
     for target, name, arch, update in (
             (flash_entry, "flash_attention", "smollm-135m", moe_flash),

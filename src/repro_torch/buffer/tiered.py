@@ -34,8 +34,8 @@ then moves the bytes in this order on one stream:
      launch);
   3. the hot tier: push the candidates and draw the hot sample (one launch).
 On a mesh every rank holds its own store, its cold tier in pinned host
-memory on CUDA (``resolve_cold_placement``). Telemetry gauges
-(``tiered_obs``) are ROADMAP Queue 1 item 14.
+memory on CUDA (``resolve_cold_placement``). ``tiered_obs`` gives the
+store's telemetry gauges (``obs.metrics``).
 """
 from __future__ import annotations
 

@@ -22,9 +22,12 @@ from repro_torch.configs.base import (
     OnlineConfig,
     RehearsalConfig,
     RunConfig,
+    SHAPES,
     ScenarioConfig,
+    ShapeConfig,
     StrategyConfig,
     TrainConfig,
+    cell_applicable,
     reduce_model,
 )
 
@@ -49,5 +52,5 @@ def get_reduced(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "REGISTRY", "ModelConfig", "ObsConfig", "OnlineConfig", "RehearsalConfig",
-           "RunConfig", "ScenarioConfig", "StrategyConfig", "TrainConfig", "get_config",
-           "get_reduced", "reduce_model", "resnet50_cl"]
+           "RunConfig", "SHAPES", "ScenarioConfig", "ShapeConfig", "StrategyConfig", "TrainConfig", "get_config",
+           "get_reduced", "cell_applicable", "reduce_model", "resnet50_cl"]

@@ -171,6 +171,34 @@ def reduce_model(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned set; the dry run's cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is runnable; long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not model.subquadratic:
+        return False, "pure full-attention arch: long_500k skipped per spec (see DESIGN.md §5)"
+    return True, ""
+
+
 @dataclass(frozen=True)
 class RehearsalConfig:
     """The rehearsal buffer (notation of Table I of the paper)."""
@@ -289,6 +317,9 @@ class TrainConfig:
     grad_compress: str = "none"  # none | int8 (error-feedback quantized all-reduce)
     zero1: bool = False  # shard optimizer state over the data axis
     sequence_parallel: bool = False  # Megatron-SP: seq-shard the residual stream
+    param_dtype: str = "float32"  # float32 | bfloat16: the floating parameters' storage
+    attn_impl: str = "auto"  # auto | blocked | naive (models.attention.ATTN_IMPL)
+    kv_dtype: str = "bfloat16"  # attention decode-cache storage: bfloat16 | float8_e4m3fn
 
 
 @dataclass(frozen=True)

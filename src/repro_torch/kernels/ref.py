@@ -27,9 +27,24 @@ def rehearsal_update_sample_ref(buffer: torch.Tensor, cands: torch.Tensor,
     Returns ``(buffer, reps [S, L])``.
     """
     n_rows = buffer.shape[0]
-    for i, row in enumerate(cand_rows.tolist()):
-        if 0 <= row < n_rows:
-            buffer[row] = cands[i]
+    rows = cand_rows.long()
+    if rows.numel() == 0:
+        return buffer, buffer[samp_rows.long().clamp(0, n_rows - 1)]
+    ok = (rows >= 0) & (rows < n_rows)
+    rows = torch.where(ok, rows, 0)
+    order = torch.arange(rows.shape[0], device=rows.device)
+    # the last candidate of each row; every candidate of the row writes its
+    # value, a dropped one that of the first kept candidate (or row 0 its
+    # own): duplicate targets then carry equal values, and no value is read
+    # back to the host
+    win = torch.full((n_rows,), -1, dtype=torch.long, device=rows.device).scatter_reduce_(
+        0, rows, torch.where(ok, order, -1), "amax")
+    first = rows.index_select(0, torch.argmax(ok.to(torch.int8)).view(1))
+    spare = win.index_select(0, first).clamp(min=0)
+    target = torch.where(ok, rows, torch.where(ok.any(), first, 0))
+    vals = torch.where(ok.view((-1,) + (1,) * (cands.dim() - 1)), cands[win[rows].clamp(min=0)],
+                       torch.where(ok.any(), cands.index_select(0, spare), buffer[:1]))
+    buffer[target] = vals.to(buffer.dtype)
     reps = buffer[samp_rows.long().clamp(0, n_rows - 1)]
     return buffer, reps
 

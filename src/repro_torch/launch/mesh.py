@@ -7,6 +7,10 @@ sharding, so the data-parallel workers span pods, and the rehearsal
 exchange chooses whether to cross pods (``exchange='full'``) or stay inside
 one (``'pod_local'``: over the innermost ``data`` sub-group).
 
+A ``pipe`` axis carries the GPipe schedule of ``parallel.pipeline``: its
+ranks hold the stages of one layer stack, ``mesh.get_group("pipe")`` their
+group (``make_mesh((4,), ("pipe",))``, as the reference's test builds it).
+
 The ``model`` axis carries tensor parallelism (``parallel.tensor``): the M
 ranks of a row hold the shards of one model and the same rehearsal buffer.
 ``parallel.model_parallel(mesh)`` is their handle, ``parallel.dp_group``
@@ -59,16 +63,17 @@ def _device_type() -> str:
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = None):
-    """A mesh of ``shape`` over ``axes`` (``('data', 'model')`` or
-    ``('pod', 'data', 'model')``). ``device_type``: the default group's
+    """A mesh of ``shape`` over ``axes`` (``('data', 'model')``,
+    ``('pod', 'data', 'model')``, or with a ``pipe`` axis among them).
+    ``device_type``: the default group's
     (``cuda`` under NCCL, ``cpu`` under gloo), else ``cuda`` when a card is
     visible."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match axes {axes}")
-    unknown = set(axes) - {"pod", "data", "model"}
+    unknown = set(axes) - {"pod", "data", "model", "pipe"}
     if unknown or len(set(axes)) != len(axes):
-        raise ValueError(f"mesh axes must be distinct names of pod, data, model: {axes}")
+        raise ValueError(f"mesh axes must be distinct names of pod, data, model, pipe: {axes}")
     device_type = device_type or _device_type()
     n = 1
     for s in shape:

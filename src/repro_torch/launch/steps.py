@@ -58,7 +58,15 @@ the reference (``launch/steps.py:477-545``): each rank runs its slice of the
 batch on its shard of the model, the logits its shard of the vocabulary.
 The prefill reads ``TrainConfig.sequence_parallel`` as the reference's
 does; neither checkpoints activations, and decode never runs
-sequence-parallel.
+sequence-parallel. The decode step is built for ``run.scenario``'s global
+batch and cache length, as the reference's for ``run.shape``: its caches
+follow ``parallel.kv_seq_axes`` (the sequence split where the KV heads do
+not divide the model axis, ``StackCtx.kv_seq``) and store K/V in
+``TrainConfig.kv_dtype`` (``ServeStep.cache_dtype``).
+
+The three builders set the attention path (``models.attention.ATTN_IMPL``)
+from ``TrainConfig.attn_impl``, as the reference's do, and the train step
+stores the floating parameters in ``TrainConfig.param_dtype``.
 """
 from __future__ import annotations
 
@@ -130,6 +138,34 @@ def shard_host_batch(batch, mesh):
 
     rows = batch_slice(len(next(iter(batch.values()))), mesh)
     return {k: v[rows] for k, v in batch.items()}
+
+
+def set_attn_impl(tcfg) -> None:
+    """``models.attention.ATTN_IMPL['mode']`` from ``TrainConfig.attn_impl``
+    (the reference's step builders set it the same way)."""
+    from repro_torch.models.attention import ATTN_IMPL
+
+    if tcfg.attn_impl not in ("auto", "blocked", "naive"):
+        raise ValueError(f"attn_impl {tcfg.attn_impl!r}: expected auto | blocked | naive")
+    ATTN_IMPL["mode"] = tcfg.attn_impl
+
+
+def _stored_in(init_params_fn, param_dtype: str):
+    """``init_params_fn`` whose model keeps its floating parameters in
+    ``param_dtype`` (``TrainConfig.param_dtype``: bf16 storage halves the
+    gradient all-reduce; the optimizer's moments stay f32)."""
+    dtype = {"bfloat16": torch.bfloat16}.get(param_dtype)
+    if dtype is None:
+        raise ValueError(f"param_dtype {param_dtype!r}: expected float32 | bfloat16")
+
+    def init(key):
+        model = init_params_fn(key)
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        return model
+
+    return init
 
 
 def _sum_over(tensors: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
@@ -210,6 +246,10 @@ def build_train_step(
     label_field = label_field or rcfg.label_field
     task_field = task_field or rcfg.task_field
     problem = problem if problem is not None else scenario.build_problem(run, device, mp)
+    if tcfg.param_dtype != "float32":
+        problem = problem._replace(init_params_fn=_stored_in(problem.init_params_fn,
+                                                             tcfg.param_dtype))
+    set_attn_impl(tcfg)
     item_spec = dict(scenario.item_spec)
     r = rcfg.num_representatives
     tap = use_rehearsal and strat.needs_outputs
@@ -378,22 +418,35 @@ class ServeStep:
     """One rank's serving step. ``fn``: prefill ``fn(params, batch) ->
     logits`` (the rank's vocab shard on a model axis), or decode
     ``fn(params, caches, batch, index) -> (logits, caches)``, the step
-    ``serving.DecodeEngine(model, ctx, step=fn)`` drives; ``batch`` is this
-    rank's slice (``shard_host_batch``). ``model.init(gen, max_seq, device,
-    ctx.mp)`` draws this rank's shards of the weights,
-    ``model.init_cache(params, ..., mp=ctx.mp)`` its caches."""
+    ``serving.DecodeEngine(model, ctx, cache_dtype, step=fn)`` drives;
+    ``batch`` is this rank's slice (``shard_host_batch``; the whole batch
+    when it does not divide the data-parallel ranks). ``model.init(gen,
+    max_seq, device, ctx.mp)`` draws this rank's shards of the weights,
+    ``model.init_cache(params, ..., mp=ctx.mp, seq=ctx.kv_seq)`` its
+    caches, which store K/V in ``cache_dtype`` (``TrainConfig.kv_dtype``;
+    the decode step's)."""
 
     fn: Any
     model: Any
     ctx: Any
+    cache_dtype: Any = None
 
 
-def _serve_parts(run: RunConfig, mesh, use_kernel: bool, sequence_parallel: bool = False):
+# TrainConfig.kv_dtype's storage dtypes (the reference's two, and f32, which
+# the parity tests store so that they see the split and no rounding)
+KV_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+             "float32": torch.float32}
+
+
+def _serve_parts(run: RunConfig, mesh, use_kernel: bool, sequence_parallel: bool = False,
+                 kv_seq=None):
     from repro_torch.models import StackCtx, build_model
 
+    set_attn_impl(run.train)
     dtype = torch.bfloat16 if run.train.compute_dtype == "bfloat16" else torch.float32
     ctx = StackCtx(cfg=run.model, use_kernel=use_kernel, compute_dtype=dtype,
-                   mp=seq_parallel(model_parallel(mesh), sequence_parallel), remat="none")
+                   mp=seq_parallel(model_parallel(mesh), sequence_parallel), remat="none",
+                   kv_seq=kv_seq)
     return build_model(run.model), ctx
 
 
@@ -414,14 +467,37 @@ def build_prefill_step(run: RunConfig, mesh) -> ServeStep:
     return ServeStep(fn=prefill, model=model, ctx=ctx)
 
 
+def cache_shards(cfg, mesh, batch: int, seq_len: int):
+    """The attention caches' ``SeqShard`` by leaf for a global ``batch`` and
+    a context of ``seq_len`` (``StackCtx.kv_seq``), or None when every
+    cache is whole on this rank. Every rank calls it together."""
+    from repro_torch.parallel.sharding import kv_seq_shard
+
+    if not cfg.num_kv_heads:
+        return None
+    ring = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
+    shards = {"k": kv_seq_shard(cfg, mesh, batch, ring)}
+    if cfg.family == "encdec":
+        shards["cross_k"] = kv_seq_shard(cfg, mesh, batch, seq_len)
+    return shards if any(v is not None for v in shards.values()) else None
+
+
 def build_decode_step(run: RunConfig, mesh) -> ServeStep:
     """The reference's ``build_decode_step``: one token against the caches
-    (the rank's KV and SSM heads) on this rank's batch slice and model
-    shard, in ``run.train.compute_dtype``."""
-    model, ctx = _serve_parts(run, mesh, False)
+    on this rank's batch slice and model shard, in
+    ``run.train.compute_dtype``, for ``run.scenario``'s global batch and
+    context length. The caches hold the rank's KV and SSM heads, or where
+    ``parallel.kv_seq_axes`` splits an attention cache's sequence (KV % M
+    != 0; a batch that does not divide the data-parallel ranks), the rank's
+    slice of it: the step then attends flash-decode style
+    (``models.attention``). ``cache_dtype`` is ``run.train.kv_dtype``."""
+    if run.train.kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {run.train.kv_dtype!r}: expected one of {sorted(KV_DTYPES)}")
+    kv_seq = cache_shards(run.model, mesh, run.scenario.batch_size, run.scenario.seq_len)
+    model, ctx = _serve_parts(run, mesh, False, kv_seq=kv_seq)
 
     @torch.no_grad()
     def decode(params, caches, batch, index: int):
         return model.decode(params, batch, caches, index, ctx)
 
-    return ServeStep(fn=decode, model=model, ctx=ctx)
+    return ServeStep(fn=decode, model=model, ctx=ctx, cache_dtype=KV_DTYPES[run.train.kv_dtype])

@@ -15,12 +15,27 @@ On a model axis (``mp``) each rank runs its whole local query heads
 row-parallel before *g*. ``wk``/``wv`` are sharded with the query heads when
 KV % M == 0; otherwise they are replicated, and each rank keeps only the one
 KV head its query heads read (a weight read through *f*), so the local
-heads still group evenly for the kernel. The KV cache holds the local KV
-heads.
+heads still group evenly for the kernel.
+
+The decode cache (``make_kv_cache``) holds the rank's KV heads, or, where
+``parallel.kv_seq_axes`` splits its sequence (KV % M != 0, or a batch that
+does not divide the data-parallel ranks), every KV head at the rank's slice
+of the positions (a ``parallel.SeqShard``). ``attend_decode`` then runs
+flash-decode: the new token's K/V is written by the rank that owns its ring
+slot; each rank takes the maximum of its positions' scores, and the ranks
+combine over the shard's group with three ``all_reduce``s: the maximum,
+the softmax's denominator, and the weights (normalised and rounded to the
+compute dtype, as the whole softmax rounds them) times V, summed in f32.
+When the group spans the model row, every rank attends with every query
+head (its own gathered from the row) and keeps its heads' output for
+``wo``. The cache stores K/V in its own dtype (``TrainConfig.kv_dtype``:
+bf16 or ``float8_e4m3fn``); writes cast to it and reads cast to the
+compute dtype.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -200,46 +215,98 @@ def attend_full(params: Attention, x: torch.Tensor, cfg, angles=None, causal: bo
 
 
 def make_kv_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device=None,
-                  mp=None):
+                  mp=None, seq=None):
     """Preallocated cache. A sliding-window arch gets a ring buffer bounded by
     the window (a context of any length costs ``window`` slots). On a model
-    axis it holds the rank's KV heads."""
+    axis it holds the rank's KV heads; under ``seq`` (a ``SeqShard`` of the
+    ring) the rank's slice of the slots, with every KV head when the slots
+    split over the model row."""
     size = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
     plan = head_plan(cfg, mp)
-    shape = (batch, size, cfg.num_kv_heads if plan is None else plan.kv, cfg.head_dim)
+    kv = cfg.num_kv_heads if plan is None else plan.kv
+    if seq is not None:
+        _check_shard(seq, size)
+        size = size // seq.size
+        if seq.heads_gathered:  # KV % M != 0: every KV head, as the row splits the slots
+            kv = cfg.num_kv_heads
+    shape = (batch, size, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _check_shard(seq, size: int) -> None:
+    if seq.length != size or size % seq.size:
+        raise ValueError(f"the decode step splits caches of {seq.length} slots over "
+                         f"{seq.size} ranks; this cache has {size}: build the step for "
+                         f"its length (ScenarioConfig.seq_len)")
+
+
+def gather_heads(q: torch.Tensor, mp) -> torch.Tensor:
+    """The row's query heads [B, 1, H, hd] from each rank's [B, 1, H/M, hd]."""
+    parts = q.new_empty((mp.size * q.shape[0],) + tuple(q.shape[1:]))
+    dist.all_gather_into_tensor(parts, q.contiguous(), group=mp.group)
+    parts = parts.view((mp.size,) + tuple(q.shape))
+    return parts.permute(1, 2, 0, 3, 4).reshape(q.shape[:2] + (-1, q.shape[-1]))
+
+
+def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, visible, dtype,
+                    seq=None) -> torch.Tensor:
+    """Softmax attention of ``q`` [B,1,H,hd] (scaled) over the cache's
+    ``k``/``v`` [B,T,KV,hd] at the ``visible`` [T] slots, in ``dtype``.
+    Under ``seq`` the slots are the rank's and the result is combined over
+    its group (flash-decode), the same numbers up to the order of the sums."""
+    scores = _grouped_scores(q, k.to(q.dtype)).float()  # [B,KV,G,1,T]
+    if visible is not None:
+        scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+    if seq is None:
+        return _grouped_out(torch.softmax(scores, dim=-1).to(dtype), v.to(dtype))
+    top = scores.amax(dim=-1, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=seq.group)
+    p = torch.exp(scores - top)
+    den = p.sum(dim=-1, keepdim=True)
+    dist.all_reduce(den, op=dist.ReduceOp.SUM, group=seq.group)
+    out = _grouped_out((p / den).to(dtype).float(), v.to(dtype).float())
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=seq.group)
+    return out.to(dtype)
+
+
 def attend_decode(params: Attention, x: torch.Tensor, cache, index: int, cfg, angles=None,
-                  mp=None):
+                  mp=None, seq=None):
     """One-step decode. ``x`` [B, 1, d]; ``index`` the global position of the
     new token; the cache holds all previous tokens. Returns (out [B,1,d],
     cache). The cache's slot is written in place (the reference returns a
-    new cache), so the returned dict is the one passed in."""
+    new cache), so the returned dict is the one passed in. ``seq``: the
+    cache's ``SeqShard`` (None: whole)."""
     plan = head_plan(cfg, mp)
     if plan is not None:
         x = copy_to_model(x, mp)
-    q, k_new, v_new = qkv(params, x, cfg, plan=plan, mp=mp)
+    gathered = seq is not None and seq.heads_gathered and plan is not None
+    # a sequence split over the row: every KV head (replicated wk/wv, uncut)
+    q, k_new, v_new = qkv(params, x, cfg, plan=None if gathered else plan, mp=mp)
     if angles is not None:
         q = apply_rope(q, angles)
         k_new = apply_rope(k_new, angles)
-    size = cache["k"].shape[1]
-    slot = index % size  # ring position (== index when the cache is full-length)
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    k, v = cache["k"], cache["v"]
-
-    scores = _grouped_scores(q * cfg.head_dim ** -0.5, k.to(q.dtype)).float()  # [B,KV,G,1,T]
+    local = cache["k"].shape[1]
+    size, first = (local, 0) if seq is None else (seq.length, seq.index * local)
+    if seq is not None and local * seq.size != size:
+        raise ValueError(f"a cache slice of {local} slots is not 1/{seq.size} of the "
+                         f"{seq.length} slots the decode step splits")
+    slot = index % size - first  # ring position (== index when the cache is full-length)
+    if 0 <= slot < local:  # the rank that owns the slot writes it
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     # Ring slot t holds global position p(t) = index - ((index - t) mod size),
     # the most recent position congruent to t; it is visible iff p(t) >= 0.
     # Positions older than index - size + 1 were overwritten, which is the
     # window. With a full-length cache this reduces to t <= index.
-    t = torch.arange(size, device=x.device)
-    pos = index - torch.remainder(index - t, size)
-    scores = torch.where(pos >= 0, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _grouped_out(probs, v.to(x.dtype))
+    t = first + torch.arange(local, device=x.device)
+    visible = index - torch.remainder(index - t, size) >= 0
+    if gathered:
+        q = gather_heads(q, mp)
+    out = cache_attention(q * cfg.head_dim ** -0.5, cache["k"], cache["v"], visible, x.dtype,
+                          seq)
+    if gathered:
+        out = out[:, :, mp.index * plan.heads:(mp.index + 1) * plan.heads]
     return _out(params, out, x.dtype, plan, mp), cache
 
 

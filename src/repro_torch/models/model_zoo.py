@@ -10,7 +10,9 @@ decoders, and the encoder-decoder (Whisper):
   * ``loss(params, batch, ctx)``                 -> (scalar, metrics)
   * ``outputs(params, batch, ctx)``              -> {"logits", "embed", "aux"}
                                                     (``None`` for the enc-dec)
-  * ``init_cache(params, batch_size, seq_len)``  -> per-layer decode caches
+  * ``init_cache(params, batch_size, seq_len, dtype, mp=None, seq=None)``
+                                                 -> per-layer decode caches
+                                                    (``seq``: ``StackCtx.kv_seq``)
   * ``decode(params, batch, caches, index, ctx)``-> (logits, new_caches)
 
 A decoder's batch holds ``tokens`` [B, S] or ``embeddings`` [B, S, d], and
@@ -96,8 +98,10 @@ def _build_decoder(cfg) -> LM:
         embed = whole_in(hidden, ctx.mp).float().mean(dim=1)
         return {"logits": logits, "embed": embed, "aux": aux}
 
-    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
-        return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device, mp)
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None,
+                   seq=None):
+        return tf.init_decoder_cache(cfg, batch_size, seq_len, dtype, params.embed.device, mp,
+                                     seq)
 
     def decode(params, batch, caches, index: int, ctx):
         return tf.decode_step(params, batch, caches, index, cfg, ctx)
@@ -120,12 +124,13 @@ def _build_encdec(cfg) -> LM:
         ce = cross_entropy(logits, batch["labels"], tf.vocab_mp(cfg, ctx))
         return ce, {"ce": ce, "aux": aux}
 
-    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None):
+    def init_cache(params, batch_size: int, seq_len: int, dtype=torch.bfloat16, mp=None,
+                   seq=None):
         # The reference serves with zero cross-attention K/V: its init_cache
         # builds a zero encoder output and passes None, and the zeros stand
         # for a stubbed frame window of seq_len frames. Kept as it is.
         return tf.init_encdec_cache(params, cfg, batch_size, seq_len, enc_out=None, dtype=dtype,
-                                    mp=mp)
+                                    mp=mp, seq=seq)
 
     def decode(params, batch, caches, index: int, ctx):
         return tf.decode_step_encdec(params, batch, caches, index, cfg, ctx)

@@ -84,13 +84,17 @@ class StackCtx:
     ``sequence_parallel`` flag makes the residual stream sequence-parallel)
     and the activation checkpointing policy (``remat.REMAT_POLICIES``,
     ``dots`` by default as in the reference and ``TrainConfig.remat``; it
-    acts only while gradients are recorded)."""
+    acts only while gradients are recorded). ``kv_seq``: the decode caches'
+    ``parallel.SeqShard`` by leaf (``k``, ``cross_k``), or None."""
 
     cfg: Any
     use_kernel: bool = False
     compute_dtype: Any = torch.float32
     mp: Any = None
     remat: str = "dots"
+    # the decode caches' sequence splits, ``{"k": SeqShard, "cross_k":
+    # SeqShard}`` (``launch.steps.build_decode_step``; None: whole)
+    kv_seq: Any = None
 
     def __post_init__(self):
         check_remat(self.remat)
@@ -211,20 +215,26 @@ def apply_layer_decode(params: Layer, x: torch.Tensor, cache, index: int, i: int
     h = apply_norm(params.norm1, x)
     if hasattr(params, "attn"):
         h, new_cache = attn.attend_decode(params.attn, h, cache, index, cfg, angles=angles,
-                                          mp=ctx.mp)
+                                          mp=ctx.mp, seq=seq_of(ctx, "k"))
     else:
         h, new_cache = ssm_lib.apply_ssm_decode(params.ssm, h, cache, cfg, mp=ctx.mp)
     x, aux = _ffn(params, x + h, cfg, ctx.mp)
     return x, new_cache, aux
 
 
+def seq_of(ctx: StackCtx, leaf: str):
+    """The ``SeqShard`` of the caches' ``leaf`` under ``ctx`` (None: whole)."""
+    return None if ctx.kv_seq is None else ctx.kv_seq.get(leaf)
+
+
 def init_layer_cache(cfg, i: int, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device=None, mp=None):
+                     device=None, mp=None, seq=None):
     """``dtype`` is the attention K/V storage; the SSM conv history starts in
     bf16 and the SSM state is f32, as in the reference. On a model axis, the
     rank's heads."""
     if cfg.layer_kind(i) == "attn":
-        return attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp)
+        return attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp,
+                                  None if seq is None else seq.get("k"))
     return ssm_lib.make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device=device, mp=mp)
 
 
@@ -262,11 +272,19 @@ class Decoder(nn.Module):
         self.layout_specs = layout_specs(dict(self.named_parameters()), cfg, mp, specs)
 
 
+def _placed(model: nn.Module, device: torch.device) -> nn.Module:
+    """``model`` on ``device``; left as it is when it is there already (a
+    model of fake tensors, the dry run's, cannot be converted in place)."""
+    if all(p.device == device for p in model.parameters()):
+        return model
+    return model.to(device)
+
+
 def init_decoder(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> Decoder:
     """Random weights drawn from ``gen`` (a CPU generator, so the same seed
     gives the same model on every device), moved to ``device`` (``None``: the
     card); on a model axis (``mp``), this rank's shards of them."""
-    return Decoder(gen, cfg, max_seq, mp).to(resolve_device(device))
+    return _placed(Decoder(gen, cfg, max_seq, mp), resolve_device(device))
 
 
 def _angles_for(cfg, positions: torch.Tensor):
@@ -363,11 +381,12 @@ def forward_decoder(params: Decoder, batch, cfg, ctx: StackCtx, positions=None,
 
 
 def init_decoder_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-                       device=None, mp=None) -> List[Dict[str, torch.Tensor]]:
+                       device=None, mp=None, seq=None) -> List[Dict[str, torch.Tensor]]:
     """One cache per layer (the reference stacks them per unit); on a model
-    axis, the rank's heads."""
+    axis, the rank's heads; under ``seq`` (``StackCtx.kv_seq``) the rank's
+    slice of the attention caches' sequence."""
     device = resolve_device(device)
-    return [init_layer_cache(cfg, i, batch, seq_len, dtype, device, mp)
+    return [init_layer_cache(cfg, i, batch, seq_len, dtype, device, mp, seq)
             for i in range(cfg.num_layers)]
 
 
@@ -457,7 +476,7 @@ class EncDec(nn.Module):
 def init_encdec(gen: torch.Generator, cfg, max_seq: int, device=None, mp=None) -> EncDec:
     """Random weights drawn from ``gen``, moved to ``device`` (``None``: the
     card); on a model axis (``mp``), this rank's shards of them."""
-    return EncDec(gen, cfg, max_seq, mp).to(resolve_device(device))
+    return _placed(EncDec(gen, cfg, max_seq, mp), resolve_device(device))
 
 
 def _encdec_ctx(ctx: StackCtx) -> StackCtx:
@@ -518,23 +537,33 @@ def decode_train_encdec(params: EncDec, tokens: torch.Tensor, enc_out: torch.Ten
 
 
 def init_encdec_cache(params: EncDec, cfg, batch: int, seq_len: int, enc_out=None,
-                      dtype=torch.bfloat16, mp=None) -> List[Dict[str, torch.Tensor]]:
+                      dtype=torch.bfloat16, mp=None, seq=None) -> List[Dict[str, torch.Tensor]]:
     """Per decoder layer: the self-attention K/V (``k``, ``v``) and the
     cross-attention K/V of the encoder's states (``cross_k``, ``cross_v``),
     projected from ``enc_out`` [B, T, d] when given, else zeros of [B,
     seq_len, KV, hd]. On a model axis (``mp``) both hold the rank's KV
-    heads."""
+    heads; under ``seq`` (``StackCtx.kv_seq``) the rank's slice of a split
+    sequence, every KV head."""
     device = params.embed.device
     plan = attn.head_plan(cfg, mp)
-    kv_heads = cfg.num_kv_heads if plan is None else plan.kv
+    cross = None if seq is None else seq.get("cross_k")
+    whole = cross is not None and cross.heads_gathered
+    kv_heads = cfg.num_kv_heads if plan is None or whole else plan.kv
     caches = []
     for lp in params.dec_layers:
-        cache = attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp)
+        cache = attn.make_kv_cache(cfg, batch, seq_len, dtype, device, mp,
+                                   None if seq is None else seq.get("k"))
         if enc_out is not None:
-            _, ck, cv = attn.qkv(lp.cross, enc_out, cfg, plan=plan, mp=mp)
+            _, ck, cv = attn.qkv(lp.cross, enc_out, cfg, plan=None if whole else plan, mp=mp)
+            if cross is not None:
+                n = ck.shape[1] // cross.size
+                ck, cv = (t[:, cross.index * n:(cross.index + 1) * n] for t in (ck, cv))
             cache.update(cross_k=ck.to(dtype), cross_v=cv.to(dtype))
         else:
-            shape = (batch, seq_len, kv_heads, cfg.head_dim)
+            if cross is not None:
+                attn._check_shard(cross, seq_len)
+            n = seq_len if cross is None else seq_len // cross.size
+            shape = (batch, n, kv_heads, cfg.head_dim)
             cache.update(cross_k=torch.zeros(shape, dtype=dtype, device=device),
                          cross_v=torch.zeros(shape, dtype=dtype, device=device))
         caches.append(cache)
@@ -545,25 +574,32 @@ def decode_step_encdec(params: EncDec, batch, caches, index: int, cfg, ctx: Stac
     """One-token decode: ``batch["token"]`` [B, 1] at global position
     ``index``. The self-attention writes its slot of each cache in place;
     the cross-attention attends to every slot of ``cross_k``/``cross_v``
-    (all valid). On a model axis each rank runs its heads, the row-parallel
-    ``wo`` summed by *g*. Returns (logits [B, 1, V] or the rank's vocab
-    shard, caches)."""
+    (all valid; under ``ctx.kv_seq`` the rank's slots, combined over the
+    shard's group). On a model axis each rank runs its heads, the
+    row-parallel ``wo`` summed by *g*. Returns (logits [B, 1, V] or the
+    rank's vocab shard, caches)."""
     ctx = _encdec_ctx(ctx)
     mp = ctx.mp
     plan = attn.head_plan(cfg, mp)
+    cross = seq_of(ctx, "cross_k")
+    gathered = cross is not None and cross.heads_gathered and plan is not None
     x = embed_lookup(params.embed, batch["token"], vocab_mp(cfg, ctx)).to(ctx.compute_dtype)
     x = apply_learned_pos(params.dec_pos, x, offset=index)
     scale = cfg.head_dim ** -0.5
     for lp, cache in zip(params.dec_layers, caches):
-        h, _ = attn.attend_decode(lp.attn, apply_norm(lp.norm1, x), cache, index, cfg, mp=mp)
+        h, _ = attn.attend_decode(lp.attn, apply_norm(lp.norm1, x), cache, index, cfg, mp=mp,
+                                  seq=seq_of(ctx, "k"))
         x = x + h
         h = apply_norm(lp.norm_x, x)
         if plan is not None:
             h = copy_to_model(h, mp)
         q = (h @ lp.cross.wq.to(h.dtype)).reshape(h.shape[:2] + (-1, cfg.head_dim))
-        scores = attn._grouped_scores(q * scale, cache["cross_k"].to(q.dtype))
-        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        o = attn._grouped_out(probs, cache["cross_v"].to(x.dtype))
+        if gathered:
+            q = attn.gather_heads(q, mp)
+        o = attn.cache_attention(q * scale, cache["cross_k"], cache["cross_v"], None, x.dtype,
+                                 cross)
+        if gathered:
+            o = o[:, :, mp.index * plan.heads:(mp.index + 1) * plan.heads]
         x = x + attn._out(lp.cross, o, x.dtype, plan, mp)
         x = x + _encdec_mlp(lp, apply_norm(lp.norm2, x), cfg, mp)
     return _encdec_logits(params, x, cfg, ctx), caches

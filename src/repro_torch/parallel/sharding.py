@@ -45,11 +45,13 @@ reference's ``stacked_param_spec`` has no counterpart.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 import weakref
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -383,3 +385,106 @@ def shard_param(full, spec: tuple, mp):
             n = full.shape[dim] // mp.size
             return full[(slice(None),) * dim + (slice(mp.index * n, (mp.index + 1) * n),)]
     return full
+
+
+# ---------------------------------------------------------------------------
+# The decode caches
+# ---------------------------------------------------------------------------
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of ``mesh``, in its order."""
+    return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+
+
+def kv_seq_axes(cfg, axes: Dict[str, int], batch: int, length: int) -> Tuple[str, ...]:
+    """The mesh axes over which the reference's ``cache_shardings``
+    (``parallel/sharding.py:234``) splits the sequence of an attention
+    cache (``k``/``v``, ``cross_k``/``cross_v``) of ``length`` slots, a pure
+    function of the config, the mesh's axis sizes ``axes`` and the global
+    ``batch``; () when the sequence is whole.
+
+      * the KV heads over ``model`` when they divide M: the sequence whole;
+      * else the sequence over ``model`` when ``length`` divides M
+        (flash-decode: each rank attends to its positions, the softmax
+        statistics are combined over the group);
+      * when the batch does not divide the data-parallel ranks
+        (``long_500k``'s batch 1), the sequence over ``data`` too (data
+        major) where the length divides.
+
+    The rest of that rule lives where the caches are built: the batch over
+    the data-parallel ranks when it divides them, the SSM state's heads and
+    ``conv_x``'s ``d_in`` over ``model`` (``models.ssm.make_ssm_cache``)."""
+    m = axes.get("model", 1)
+    n_dp = axes.get("pod", 1) * axes.get("data", 1)
+    split = ("model",) if cfg.num_kv_heads % m and length % m == 0 else ()
+    over = axes.get("data", 0) * (m if split else 1)
+    if batch % n_dp and over and length % over == 0:
+        split = ("data",) + split
+    return split
+
+
+class SeqShard(NamedTuple):
+    """The split of an attention cache's sequence: ``length`` positions in
+    all, ``size`` slices of ``length / size``, this rank's slice ``index``,
+    over ``group`` (the ranks holding the other slices); ``axes`` the mesh
+    axes of the split (``('model',)``, ``('data',)`` or ``('data',
+    'model')``, data major). ``heads_gathered``: the group spans the model
+    row, whose ranks then attend with every query head."""
+
+    group: Any
+    size: int
+    index: int
+    length: int
+    axes: Tuple[str, ...]
+
+    @property
+    def heads_gathered(self) -> bool:
+        return "model" in self.axes
+
+
+# per mesh id: the group of (data, model) of this rank's pod, and of data
+_CACHE_GROUPS: Dict[Tuple[int, str], object] = {}
+
+
+def _cache_group(mesh, axes: Tuple[str, ...]):
+    """The group of the ranks that differ from this one only on ``axes``
+    (made on every rank, in the same order, the first time)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), ",".join(axes))
+    if key not in _CACHE_GROUPS:
+        names = tuple(mesh.mesh_dim_names)
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        size = math.prod(mesh.size(i) for i in keep)
+        grid = np.asarray(mesh.mesh.tolist()).transpose(rest + keep).reshape(-1, size)
+        me = dist.get_rank()
+        for ranks in grid.tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                _CACHE_GROUPS[key] = group
+        weakref.finalize(mesh, _CACHE_GROUPS.pop, key, None)
+    return _CACHE_GROUPS[key]
+
+
+def seq_split(cfg, axes: Dict[str, int], coord: Dict[str, int], batch: int,
+              length: int) -> Optional[SeqShard]:
+    """The ``SeqShard`` (without its group) of the rank at ``coord`` for an
+    attention cache of ``length`` slots under ``kv_seq_axes`` for a global
+    ``batch``; None when the sequence is whole."""
+    split = kv_seq_axes(cfg, axes, batch, length)
+    size, index = 1, 0
+    for a in split:
+        index = index * axes[a] + coord[a]
+        size *= axes[a]
+    return None if size == 1 else SeqShard(None, size, index, length, split)
+
+
+def kv_seq_shard(cfg, mesh, batch: int, length: int) -> Optional[SeqShard]:
+    """This rank's ``SeqShard`` of an attention cache on ``mesh``
+    (``seq_split`` with the group of the ranks holding the other slices).
+    Every rank of ``mesh`` calls it together (it may make a group)."""
+    shard = seq_split(cfg, mesh_axes(mesh), dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
+                      batch, length)
+    return None if shard is None else shard._replace(group=_cache_group(mesh, shard.axes))

@@ -8,7 +8,8 @@ reference's token ids. Neither phase runs a hand-written kernel: the decode
 step is one token against the cache. Each phase is a trace span
 (``prefill``, ``decode``; ``repro_torch.obs``) that ends when the card has
 finished the phase's work. On a model axis (``ctx.mp``) the caches hold the
-rank's heads and the greedy pick runs over vocab-sharded logits
+rank's heads (or its slice of the sequence, ``ctx.kv_seq``) and the greedy
+pick runs over vocab-sharded logits
 (``parallel.tensor.vocab_argmax``: argmax's lowest-index rule over the
 whole vocabulary), so every rank of the row emits the same ids.
 """
@@ -67,7 +68,7 @@ class DecodeEngine:
         max_len = prompt_len + gen_len
         device = prompts.device
         caches = self.model.init_cache(params, batch, max_len, dtype=self.cache_dtype,
-                                       mp=self.ctx.mp)
+                                       mp=self.ctx.mp, seq=self.ctx.kv_seq)
         decode, tracer = self._step, get_tracer()
         t0 = time.perf_counter()
         logits = None

@@ -15,6 +15,10 @@ to another expert, which moves its output by O(1).
 the encoder-decoder, ``embeddings`` and ``positions`` for the VLM (an image
 block laid out as Qwen2-VL lays one out, ``mrope_positions``), ``tokens``
 otherwise; ``labels`` for every family.
+
+``gpipe_decoder`` and ``pipelined_forward`` cut a dense decoder's layers into
+equal stages for ``parallel.pipeline_apply`` (GPipe), as the CPU tests and
+``chip_smoke.py`` run it.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import contextlib
 import math
 
 import numpy as np
+import torch
 
 HALFWAY_WIDTH = 757  # 252 half-way points x 3 + the row's max
 
@@ -139,3 +144,62 @@ def family_batch(cfg, b: int, s: int, seed: int = 0, frames: int = 0):
     else:
         batch["tokens"] = ids
     return batch
+
+
+class _Stage(torch.nn.Module):
+    """Layers ``[first, first + n)`` of a decoder, as one module whose
+    parameter names are the same on every stage (``layers.{j}.*``, j local)."""
+
+    def __init__(self, layers, first: int, ctx, angles):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(layers)
+        self.first, self.ctx, self.angles = first, ctx, angles
+
+    def forward(self, x):
+        from repro_torch.models.transformer import apply_layer
+
+        for j, layer in enumerate(self.layers):
+            x, _ = apply_layer(layer, x, self.first + j, self.ctx, angles=self.angles)
+        return x
+
+
+def gpipe_decoder(params, cfg, ctx, n_stages: int, stage: int, seq_len: int):
+    """A dense decoder's layer stack cut into ``n_stages`` stages of equal
+    depth for ``parallel.pipeline_apply``: ``(row, stage_fn)``, this rank's
+    row of the stacked stage parameters ([1, ...] a leaf, every stage's leaf
+    names alike) and the stage function, which runs its layers on a
+    micro-batch [b, S, d] of positions 0..S-1. The embedding, the final norm
+    and the head stay outside the pipeline (``pipelined_forward``)."""
+    from repro_torch.models.transformer import _angles_for
+
+    n = cfg.num_layers
+    if n % n_stages:
+        raise ValueError(f"{n} layers do not cut into {n_stages} stages of equal depth")
+    per = n // n_stages
+    device = params.embed.device
+    angles = _angles_for(cfg, torch.arange(seq_len, device=device)[None])
+    module = _Stage([params.layers[i] for i in range(stage * per, (stage + 1) * per)],
+                    stage * per, ctx, angles)
+    row = {k: v.detach()[None] for k, v in module.named_parameters()}
+
+    def stage_fn(p, x):
+        return torch.func.functional_call(module, p, (x,))
+
+    return row, stage_fn
+
+
+def pipelined_forward(mesh, params, batch, cfg, ctx, n_microbatches: int, pipe_axis="pipe"):
+    """A dense decoder's forward with its layers pipelined over ``mesh``'s
+    ``pipe_axis`` (``gpipe_decoder``): the logits [B, S, V] on every rank."""
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import embed_inputs, logits_from
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    names = tuple(mesh.mesh_dim_names)
+    dim = names.index(pipe_axis)
+    x = embed_inputs(params, batch, cfg, ctx)
+    row, stage_fn = gpipe_decoder(params, cfg, ctx, mesh.size(dim), mesh.get_coordinate()[dim],
+                                  x.shape[1])
+    y = pipeline_apply(mesh, stage_fn, row, x, n_microbatches=n_microbatches,
+                       pipe_axis=pipe_axis)
+    return logits_from(params, apply_norm(params.final_norm, y), cfg, ctx)

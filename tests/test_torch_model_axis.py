@@ -471,6 +471,107 @@ for case, (strategy, top_k, sp) in TAPS.items():
 np.savez(sys.argv[1], **out)
 """
 
+# The sequence-sharded decode cache at 1 x 2 (KV % 2 != 0): name -> (arch,
+# overrides of its reduced config, kv_dtype). kv3: 6 heads over 3 KV heads
+# (attention replicated, every rank attends with every head); kv1: Gemma's
+# MQA (each rank's 2 query heads; the row's heads gathered); ring: a
+# sliding window of 8 slots over 16 positions, one KV head. Their caches
+# store f32, so the comparison sees the split and nothing of a storage
+# rounding; fp8: kv3 with float8_e4m3fn storage on both sides.
+DECODE_CASES = {"kv3": ("smollm-135m", dict(num_heads=6, num_kv_heads=3), "float32"),
+                "kv1": ("gemma-2b", {}, "float32"),
+                "ring": ("h2o-danube-1.8b", dict(num_kv_heads=1, sliding_window=8), "float32"),
+                "fp8": ("smollm-135m", dict(num_heads=6, num_kv_heads=3), "float8_e4m3fn")}
+# the logits' bound, of the largest |logit|: f32 caches 1e-5; the fp8 cache
+# 1e-4 (K/V rounded to 3 mantissa bits: an f32 rounding difference between
+# the packages at a rounding boundary lands a value on the other side,
+# an O(1e-2) change that the bound would still catch)
+DECODE_TOL = {"float32": 1e-5, "float8_e4m3fn": 1e-4}
+DB, DP, DG = 2, 8, 8  # batch, prompt, generated tokens
+
+
+def _decode_refs(path):
+    """The reference's f32 decode of every ``DECODE_CASES`` case, token by
+    token (the prompt, then greedy): each step's logits, the ids, and the
+    weights as the JAX tree's leaves."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced as jax_reduced
+    from repro.models import StackCtx as JaxCtx
+    from repro.models import build_model as jax_build
+    from repro_torch.convert import _walk
+
+    out = {}
+    for case, (arch, over, kv_dtype) in DECODE_CASES.items():
+        cfg = dataclasses.replace(jax_reduced(arch), **over)
+        model = jax_build(cfg)
+        params = model.init(jax.random.PRNGKey(4), max_seq=DP + DG)
+        ctx = JaxCtx(cfg=cfg, compute_dtype=jnp.float32, remat="none", scan_layers=False)
+        prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (DB, DP)).astype(np.int32)
+        caches = model.init_cache(None, DB, DP + DG, dtype=jnp.dtype(kv_dtype))
+        step = jax.jit(lambda p, c, tok, i: model.decode(p, {"token": tok}, c, i, ctx))
+        feed, logits = list(prompts.T[:, :, None]), []
+        for t in range(DP + DG - 1):
+            lg, caches = step(params, caches, jnp.asarray(feed[t]), t)
+            logits.append(np.asarray(lg))
+            if t >= DP - 1:
+                feed.append(np.asarray(jnp.argmax(lg[:, -1], axis=-1))[:, None].astype(np.int32))
+        out[case + "/prompts"] = prompts
+        out[case + "/feed"] = np.concatenate(feed, axis=1)
+        out[case + "/logits"] = np.stack(logits)
+        out[case + "/tokens"] = np.concatenate(feed[DP:], axis=1)
+        out.update({f"{case}/tree/{k}": v for k, v in _walk(jax.tree_util.tree_map(
+            np.asarray, params))})
+    np.savez(path, **out)
+
+
+_DECODE_PART = """
+# the sequence-sharded decode cache on the row: each step's logits teacher-
+# forced on the reference's ids, then the engine's greedy ids, each rank's
+# cache bytes and the cache's shards
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.launch.steps import build_decode_step
+from repro_torch.serving import DecodeEngine
+
+dref = np.load(decode_ref_path)
+for case, (arch, over, kv_dtype) in DECODE_CASES.items():
+    cfg = dataclasses.replace(configs.get_reduced(arch), **over)
+    run = RunConfig(model=cfg, train=TrainConfig(compute_dtype="float32", kv_dtype=kv_dtype),
+                    scenario=ScenarioConfig(modality="tokens", batch_size=DB, seq_len=DP + DG))
+    built = build_decode_step(run, mesh)
+    tree = {}
+    for k in dref.files:
+        if k.startswith(case + "/tree/"):
+            node = tree
+            *path, leaf = k[len(case + "/tree/"):].split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = dref[k]
+    params = lm_params_from_jax(tree, cfg, device="cpu", mp=built.ctx.mp)
+    caches = built.model.init_cache(params, DB, DP + DG, dtype=built.cache_dtype,
+                                    mp=built.ctx.mp, seq=built.ctx.kv_seq)
+    out[case + "/cache_bytes"] = np.array(sum(t.numel() * t.element_size()
+                                              for c in caches for t in c.values()))
+    out[case + "/cache_shape"] = np.array(caches[0]["k"].shape)
+    out[case + "/cache_dtype"] = np.array(str(caches[0]["k"].dtype))
+    out[case + "/split"] = np.array(sorted((built.ctx.kv_seq or {}).keys()))
+    feed = torch.from_numpy(dref[case + "/feed"])
+    logits = []
+    for t in range(DP + DG - 1):
+        lg, caches = built.fn(params, caches, {"token": feed[:, t:t + 1]}, t)
+        if lg.shape[-1] != cfg.vocab_size:
+            lg = gather_vocab(lg, built.ctx.mp)
+        logits.append(lg.numpy())
+    out[case + "/logits"] = np.stack(logits)
+    res = DecodeEngine(built.model, built.ctx, cache_dtype=built.cache_dtype,
+                       step=built.fn).generate(params, torch.from_numpy(dref[case + "/prompts"]),
+                                               DG)
+    out[case + "/tokens"] = res.tokens.numpy()
+"""
+
+
 ROW_SIDE = """
 import dataclasses, sys
 import numpy as np
@@ -479,6 +580,7 @@ import torch.distributed as dist
 torch.set_num_threads(1)
 rank, world, rendezvous, ref_path, out_path = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                                sys.argv[4], sys.argv[5])
+decode_ref_path = sys.argv[6]
 dist.init_process_group("gloo", init_method=f"file://{{rendezvous}}", rank=rank,
                         world_size=world)
 from repro_torch import configs
@@ -496,6 +598,7 @@ from repro_torch.scenario import TokenClassIncremental
 from repro_torch.scenario.trainer import materialize_state
 
 V, S, B, STEPS, TAPS = {V}, {S}, {B}, {STEPS}, {TAPS}
+DECODE_CASES, DB, DP, DG = {DECODE_CASES}, {DB}, {DP}, {DG}
 {TAP_RUN}
 ref = np.load(ref_path)
 mesh = make_mesh((1, 2), ("data", "model"))
@@ -547,6 +650,7 @@ for name, x in (("random", whole), ("tied", tied)):
 res = serve.main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--mesh", "1x2",
                   "--batch", "2", "--prompt-len", "6", "--gen-len", "5"])
 out["whisper/tokens"] = res.tokens.numpy()
+{DECODE_PART}
 np.savez(out_path, **out)
 import gc
 gc.collect()
@@ -569,7 +673,8 @@ def row_of_two(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("row_of_two")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     src = os.path.join(repo, "src")
-    fmt = dict(V=V, S=TS, B=TB, STEPS=STEPS, TAPS=TAPS, TAP_RUN=_TAP_RUN)
+    fmt = dict(V=V, S=TS, B=TB, STEPS=STEPS, TAPS=TAPS, TAP_RUN=_TAP_RUN,
+               DECODE_PART=_DECODE_PART, DECODE_CASES=DECODE_CASES, DB=DB, DP=DP, DG=DG)
     env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
     ref_path = tmp / "taps_ref.npz"
@@ -577,10 +682,12 @@ def row_of_two(tmp_path_factory):
                          str(ref_path)], env=env, capture_output=True, text=True,
                         timeout=600)
     assert jp.returncode == 0, jp.stderr[-4000:]
+    decode_ref = tmp / "decode_ref.npz"
+    _decode_refs(decode_ref)
     env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="1")
     code = textwrap.dedent(ROW_SIDE.format(**fmt))
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), "2", str(tmp / "rdv"),
-                               str(ref_path), str(tmp / f"row_{r}.npz")], env=env,
+                               str(ref_path), str(tmp / f"row_{r}.npz"), str(decode_ref)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(2)]
     for p in procs:
@@ -591,7 +698,8 @@ def row_of_two(tmp_path_factory):
                 q.kill()
             pytest.fail("worker timed out")
         assert p.returncode == 0, err[-4000:]
-    return np.load(ref_path), [np.load(tmp / f"row_{r}.npz") for r in range(2)]
+    return (np.load(ref_path), [np.load(tmp / f"row_{r}.npz") for r in range(2)],
+            np.load(decode_ref))
 
 
 def _close(got, want, rtol, what=""):
@@ -614,7 +722,7 @@ def test_tap_strategies_refuse_a_model_axis_naming_item_21(case, row_of_two):
     largest entry, and both ranks' records the same bits. The loss within
     1e-5 (relative). Named for the refusal it asserted before this path
     ran."""
-    ref, ranks = row_of_two
+    ref, ranks, _ = row_of_two
     strategy, top_k, _ = TAPS[case]
     want_fields = {"der": ["logit_idx", "logit_vals"] if top_k else ["logits"],
                    "grasp_embed": ["embed"]}[strategy.replace("_pp", "")]
@@ -650,7 +758,7 @@ def test_vocab_topk_merges_the_shards_into_the_whole_vocabularys(k, row_of_two):
     the whole row bit for bit."""
     import jax.numpy as jnp
 
-    _, ranks = row_of_two
+    _, ranks, _ = row_of_two
     for got in ranks:
         for name in ("random", "tied"):
             x = got[f"topk/{name}/x"]
@@ -678,3 +786,169 @@ def test_serve_refuses_the_encdec_on_a_model_axis(row_of_two):
                        "--prompt-len", "6", "--gen-len", "5"]).tokens.numpy()
     for got in row_of_two[1]:
         np.testing.assert_array_equal(got["whisper/tokens"], want)
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_sequence_sharded_decode_matches_the_reference(case, row_of_two):
+    """Decode through ``build_decode_step`` on a 1 x 2 row whose KV heads do
+    not split (``parallel.kv_seq_axes``: the cache's sequence over
+    ``model``): each rank holds half of the slots and every KV head, the
+    new token is written by the slot's owner, and the partial softmaxes are
+    combined over the row (flash-decode). Teacher-forced on the reference's
+    ids, every step's logits are within ``DECODE_TOL`` of the largest
+    |logit| of the reference's f32 decode with the same ``kv_dtype``
+    storage, and ``DecodeEngine``'s greedy ids equal the reference's, on
+    both ranks. The ring case wraps its 8-slot window over 16 positions."""
+    arch, over, kv_dtype = DECODE_CASES[case]
+    cfg = dataclasses.replace(configs.get_reduced(arch), **over)
+    dref = row_of_two[2]
+    slots = cfg.sliding_window or DP + DG
+    for got in row_of_two[1]:
+        assert got[case + "/split"].tolist() == ["k"]
+        assert tuple(got[case + "/cache_shape"]) == (DB, slots // 2, cfg.num_kv_heads,
+                                                     cfg.head_dim)
+        assert str(got[case + "/cache_dtype"]) == f"torch.{kv_dtype}"
+        _close(got[case + "/logits"], dref[case + "/logits"], DECODE_TOL[kv_dtype],
+               f"{case} logits")
+        np.testing.assert_array_equal(got[case + "/tokens"], dref[case + "/tokens"])
+
+
+def test_each_rank_holds_half_of_the_cache_and_fp8_a_byte_a_value(row_of_two):
+    """Each rank's cache bytes: the kv3 case's are half of the whole f32
+    cache (4 layers of [2, 16, 3, 32] K and V), the fp8 cache's a quarter
+    of those (one byte a value)."""
+    whole = 4 * 2 * DB * (DP + DG) * 3 * 32 * 4
+    for got in row_of_two[1]:
+        assert int(got["kv3/cache_bytes"]) * 2 == whole
+        assert int(got["fp8/cache_bytes"]) * 8 == whole
+
+
+# ---------------------------------------------------------------------------
+# The decode caches' layout against the reference's cache_shardings
+# ---------------------------------------------------------------------------
+
+CACHE_MESHES = {"1x2": ((1, 2), ("data", "model")), "1x4": ((1, 4), ("data", "model")),
+                "16x16": ((16, 16), ("data", "model")),
+                "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+# (global batch, context): decode_32k's, its batch 1, and long_500k's
+CACHE_CELLS = ((128, 32768), (1, 32768), (1, 524288))
+
+CACHE_RULE_SIDE = """
+import functools, json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from repro.configs import ARCHS, get_config, SHAPES, cell_applicable
+from repro.models import build_model
+from repro.parallel.sharding import cache_shardings
+
+MESHES, CELLS = {MESHES}, {CELLS}
+out = {{}}
+for arch in ARCHS:
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    for b, length in CELLS:
+        if length > 32768 and not cfg.subquadratic:
+            continue
+        if cfg.family == "encdec":
+            params = jax.eval_shape(lambda k: model.init(k, length), jax.random.PRNGKey(0))
+            caches = jax.eval_shape(lambda p: model.init_cache(p, b, length), params)
+        else:
+            caches = jax.eval_shape(functools.partial(model.init_cache, None, b, length))
+        for name, (shape, axes) in MESHES.items():
+            n = int(np.prod(shape))
+            mesh = Mesh(np.array(jax.devices()[:n]).reshape(shape), axes)
+            sh = cache_shardings(caches, mesh, cfg, b)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(caches)[0]:
+                keys = [p.key for p in path]
+                s = jax.tree_util.tree_map(lambda x: x, sh)
+                for k in keys:
+                    s = s[k]
+                out[f"{{arch}}|{{b}}|{{length}}|{{name}}|{{'.'.join(keys)}}"] = list(
+                    s.shard_shape(leaf.shape))
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def cache_rule_ref(tmp_path_factory):
+    """The reference's per-device shapes of every cache leaf (``NamedSharding
+    .shard_shape`` of ``cache_shardings``), from a JAX subprocess with 512
+    fake devices (``jax.eval_shape``: nothing allocated)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    path = tmp_path_factory.mktemp("cache_rule") / "ref.json"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=512")
+    code = textwrap.dedent(CACHE_RULE_SIDE.format(MESHES=CACHE_MESHES, CELLS=CACHE_CELLS))
+    p = subprocess.run([sys.executable, "-c", code, str(path)], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-4000:]
+    return json.loads(path.read_text())
+
+
+def _port_caches(cfg, b, length, shape, axes):
+    """Rank 0's caches of ``cfg`` on a mesh of ``shape`` over ``axes`` for a
+    global batch ``b`` and context ``length``, built on the meta device:
+    the rank's batch slice (the whole batch when it does not divide the
+    data-parallel ranks), its model shard and its ``SeqShard``s."""
+    import types
+
+    from repro_torch.parallel import ModelParallel, seq_split
+
+    sizes = dict(zip(axes, shape))
+    coord = {a: 0 for a in axes}
+    m = sizes.get("model", 1)
+    mp = None if m == 1 else ModelParallel(None, m, 0)
+    n_dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    b_local = b // n_dp if b % n_dp == 0 else b
+    ring = min(cfg.sliding_window, length) if cfg.sliding_window else length
+    seq = {"k": seq_split(cfg, sizes, coord, b, ring)} if cfg.num_kv_heads else None
+    if cfg.family == "encdec":
+        seq["cross_k"] = seq_split(cfg, sizes, coord, b, length)
+        stub = types.SimpleNamespace(embed=torch.empty(0, device="meta"),
+                                     dec_layers=[None] * cfg.num_layers)
+        return tf.init_encdec_cache(stub, cfg, b_local, length, mp=mp, seq=seq)
+    return [tf.init_layer_cache(cfg, i, b_local, length, torch.bfloat16, torch.device("meta"),
+                                mp, seq) for i in range(cfg.num_layers)]
+
+
+@pytest.mark.parametrize("mesh", list(CACHE_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_layout_matches_the_references_cache_shardings(arch, mesh, cache_rule_ref):
+    """Every leaf of rank 0's decode caches (built by the port's
+    ``init_cache`` chain with the rule's ``SeqShard``s) has the shape of the
+    reference's per-device shard under ``cache_shardings``, for decode_32k's
+    batch, a batch of 1 and long_500k's (subquadratic archs): KV heads over
+    ``model`` when they divide M, else the sequence (and over ``data`` too
+    when the batch does not divide the data-parallel ranks), SSM heads and
+    ``conv_x`` over ``model``."""
+    from repro_torch.models.transformer import unit_period
+
+    cfg = configs.get_config(arch)
+    shape, axes = CACHE_MESHES[mesh]
+    checked = 0
+    for b, length in CACHE_CELLS:
+        if length > 32768 and not cfg.subquadratic:
+            continue
+        caches = _port_caches(cfg, b, length, shape, axes)
+        for key, want in cache_rule_ref.items():
+            a, kb, kl, km, path = key.split("|")
+            if (a, int(kb), int(kl), km) != (arch, b, length, mesh):
+                continue
+            parts = path.split(".")
+            if cfg.family == "encdec":  # [L, B, ...] a leaf
+                layers, leaf = range(cfg.num_layers), parts[0]
+            else:  # [U, B, ...] a unit's layer
+                j = int(parts[0][len("layer"):])
+                layers, leaf = range(j, cfg.num_layers, unit_period(cfg)), parts[1]
+            for i in layers:
+                got = tuple(caches[i][leaf].shape)
+                assert got == tuple(want[1:]), (arch, b, length, mesh, i, leaf, got, want)
+                checked += 1
+    assert checked
