@@ -302,6 +302,12 @@ Phases 8-12 are the language-model inference path, with TF32 off:
      its argument bytes equal the state's on the card, its counted peak
      beside ``torch.cuda.max_memory_allocated``, the roofline's ideal time
      beside the measured forward.
+ 27. the port's invariant lint (``python -m repro_torch.analysis.lint``)
+     over ``src/repro_torch``, this script and ``tests/test_torch_*.py``, in
+     a subprocess under this machine's Python and torch: it must exit 0 (no
+     finding, no unparsable file), and ``--list-rules`` must list the ten
+     rules; the files checked, the findings suppressed and the lint's
+     seconds are printed beside the card's name and power limit.
 Each phase prints the seconds it took.
 
 The second line from the end is a JSON object with one entry per kernel
@@ -5762,10 +5768,47 @@ def gpipe_cache_dryrun_phase(counters) -> dict:
     return launches
 
 
+LINT_RULES = ["RPL001", "RPL002", "RPL010", "RPL020", "RPL021", "RPL030", "RPL031",
+              "RPL032", "RPL040", "RPL041"]
+
+
+def lint_phase(card: str) -> None:
+    """Phase 27: the port's replint over the port's tree in a subprocess,
+    as a user runs it; any finding, unparsable file or missing rule fails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
+    tests = sorted(os.path.join("tests", n) for n in os.listdir(os.path.join(ROOT, "tests"))
+                   if n.startswith("test_torch_") and n.endswith(".py"))
+    cmd = [sys.executable, "-m", "repro_torch.analysis.lint"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd + ["src/repro_torch", "chip_smoke.py"] + tests + ["--json"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"replint exited {out.returncode}:\n{out.stdout[-6000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    report = json.loads(out.stdout)
+    listing = subprocess.run(cmd + ["--list-rules"], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=120)
+    codes = [line.split()[0] for line in listing.stdout.splitlines() if line.strip()]
+    if listing.returncode != 0 or codes != LINT_RULES:
+        raise AssertionError(f"replint --list-rules exited {listing.returncode} with "
+                             f"{codes}, not {LINT_RULES}: {listing.stderr[-2000:]}")
+    package = sum(n.endswith(".py") for _, _, names in os.walk(
+        os.path.join(ROOT, "src", "repro_torch")) for n in names)
+    if report["findings"] or report["errors"] or \
+            report["files_checked"] != package + 1 + len(tests):
+        raise AssertionError(f"replint's report: {report}")
+    print(f"replint (python {sys.version.split()[0]}, torch {torch.__version__}): "
+          f"{report['files_checked']} files checked ({len(tests)} test files), 0 findings, "
+          f"{report['suppressed']} suppressed, in {seconds:.2f} s; {len(codes)} rules "
+          f"listed ({card})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
-                    help="run phases 1, 2 and these only (3-26), and print no result lines")
+                    help="run phases 1, 2 and these only (3-27), and print no result lines")
     only = set(ap.parse_args(argv).only or ())
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; run it on an NVIDIA GPU")
@@ -5917,6 +5960,10 @@ def main(argv=None):
     if run(26):
         phase("26 GPipe on 2 gloo ranks; the sequence-sharded decode cache; the dry run")
         gp_flash = gpipe_cache_dryrun_phase(counters)
+
+    if run(27):
+        phase("27 the port's invariant lint on the card's machine")
+        lint_phase(card)
     phase.end()
 
     if only:

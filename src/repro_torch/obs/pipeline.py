@@ -29,6 +29,11 @@ rehearsal: the instrumented form of the step, not another backend.
 """
 from __future__ import annotations
 
+# This module is the *instrumented step pipeline*, not a gauge: it replays the
+# fused step's generator draw for draw (pinned in tests/test_torch_obs.py), so
+# the obs-code-must-not-consume-RNG rule does not apply to it.
+# replint: disable=RPL041
+
 from typing import Optional
 
 import torch

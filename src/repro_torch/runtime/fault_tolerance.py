@@ -208,7 +208,10 @@ class ResilientLoop:
                 try:
                     t0 = time.monotonic()
                     # step s's key derives from the root as the reference's
-                    # jax.random.fold_in(key, step) does; nothing else draws from it
+                    # jax.random.fold_in(key, step) does; nothing else draws from
+                    # it. The port's lint reads rng.fold_in as derivation and is
+                    # quiet here; the JAX package's lint, which lints this file
+                    # too, takes it for a call that consumes `key` in a loop
                     carry, metrics = fn(carry, batch, fold_in(key, step))  # replint: disable=RPL001
                     if self.step_timeout > 0.0:
                         _wait_for_card()

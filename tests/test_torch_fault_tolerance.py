@@ -339,7 +339,10 @@ def test_make_stale_step_leaves_buffer_and_pipe_untouched_and_matches_jax():
     assert float(tm["buffer_fill"]) == float(jm["buffer_fill"])
     _close(tout.params.w.detach().numpy(), np.asarray(jout.params["w"]))
     assert not torch.equal(tout.params.w, w_before)
-    assert tout.buffer is tc.buffer and tout.pipe is tc.pipe and tout.pipe.key == tc.pipe.key
+    # the old carry is read on purpose: the stale step must hand its buffer and
+    # pipe through as the very same objects
+    assert tout.buffer is tc.buffer and tout.pipe is tc.pipe  # replint: disable=RPL010
+    assert tout.pipe.key == tc.pipe.key  # replint: disable=RPL010
     for k, v in before.items():
         assert torch.equal(tout.buffer.data[k], v)
     assert torch.equal(tout.buffer.counts, counts)

@@ -411,7 +411,9 @@ def test_split_train_half_and_stale_step_gauges():
         _, _, m_half = train(carry.params, None, carry.pipe, batch)
         carry.params.w.data.copy_(w)
         _, m_stale = stale(carry, batch, 1)
-        carry.params.w.data.copy_(w)
+        # the model is shared by the old carry and the step's result: the
+        # weights are put back through the old carry on purpose
+        carry.params.w.data.copy_(w)  # replint: disable=RPL010
         got[name] = (m_half, m_stale)
     (half_off, stale_off), (half_on, stale_on) = got["off"], got["on"]
     assert torch.equal(half_off["loss"], half_on["loss"])
